@@ -1,0 +1,243 @@
+"""The production denoiser, channels-last (B, T, C) (port of
+``UNet1DUltimate`` in ``lm2a_tpu/models/unet1d.py``).
+
+FiLM timestep modulation, sparse cross-attention (last block of each down
+stage, every mid block, first block of each up stage), stride-2 conv
+downsampling, align-corners linear upsampling + conv3, GroupNorm + SiLU +
+1x1 output head. Module attribute names follow the flax names
+(``down_0_block_0.conv1``, ``mid_block_2.cross_attn.attn_motion.q_proj``).
+
+Every residual block runs its conv chain through
+``ops.resblock.fused_resblock_chain`` — the CUDA kernels on the card, their
+plain versions on the CPU — with the semantics of the JAX serving path
+(``fused_resblock=True``): FiLM vectors in the compute dtype outside the
+chain, attention blocks getting ``h`` (and ``xs`` when a skip exists) and
+adding ``xs`` after attention.
+
+``prepare(dtype)`` readies a loaded model for serving: kernel-layout chain
+weights and folded attention weights from the fp32 parameters, then the
+remaining Linear/Conv weights cast to the compute dtype (GroupNorm stays
+fp32, as flax computes it).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from lm2a_tpu_torch.models.attention import CrossAttentionFusion
+from lm2a_tpu_torch.models.embedding import TimestepEmbedding
+from lm2a_tpu_torch.ops.resblock import (
+    GN_EPS, ResblockWeights, fused_resblock_chain, gn_stats_plain,
+)
+
+
+def default_num_groups(channels: int) -> int:
+    """Largest of (8, 4, 2, 1) dividing ``channels``."""
+    for g in (8, 4, 2, 1):
+        if channels % g == 0:
+            return g
+    return 1
+
+
+class GroupNorm(nn.GroupNorm):
+    """GroupNorm over channels-last (B, T, C): fp32 statistics with fast
+    variance, eps 1e-5 (torch's default, kept by the JAX package), output in
+    the input dtype."""
+
+    def __init__(self, channels: int):
+        super().__init__(default_num_groups(channels), channels, eps=GN_EPS)
+
+    def forward(self, x):
+        b, t, c = x.shape
+        g = self.num_groups
+        mean, rstd = gn_stats_plain(x, g, self.eps)
+        y = (x.float().reshape(b, t, g, c // g) - mean[:, None, :, None]) * rstd[:, None, :, None]
+        return (y.reshape(b, t, c) * self.weight.float() + self.bias.float()).to(x.dtype)
+
+
+def conv_cl(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
+    """A Conv1d applied to a channels-last (B, T, C) tensor."""
+    dt = conv.weight.dtype
+    if conv.kernel_size == (1,) and conv.stride == (1,):
+        return F.linear(x.to(dt), conv.weight[:, :, 0], conv.bias)
+    return conv(x.to(dt).transpose(1, 2)).transpose(1, 2).contiguous()
+
+
+def upsample_linear_2x_align_corners(x: torch.Tensor) -> torch.Tensor:
+    """(B, T, C) -> (B, 2T, C) linear interpolation with align_corners=True:
+    output sample i sits at input position ``i (T-1) / (2T-1)``; the lerp
+    fraction is rounded to the activation dtype, as in the JAX package."""
+    t = x.shape[1]
+    out_t = 2 * t
+    pos = torch.arange(out_t, dtype=torch.float32, device=x.device) * ((t - 1) / (out_t - 1))
+    lo = torch.clamp(torch.floor(pos).long(), 0, t - 1)
+    hi = torch.clamp(lo + 1, 0, t - 1)
+    frac = (pos - lo.float()).to(x.dtype)[None, :, None]
+    return x[:, lo, :] * (1.0 - frac) + x[:, hi, :] * frac
+
+
+def _fix_time_len(h: torch.Tensor, target_t: int) -> torch.Tensor:
+    """Zero-pad or truncate the time axis to ``target_t``."""
+    t = h.shape[1]
+    if t == target_t:
+        return h
+    if t < target_t:
+        return F.pad(h, (0, 0, 0, target_t - t))
+    return h[:, :target_t, :]
+
+
+class FiLM(nn.Module):
+    """SiLU -> Linear(2C): per-channel (scale, shift), each (B, C)."""
+
+    def __init__(self, time_emb_dim: int, out_channels: int):
+        super().__init__()
+        self.to_scale_shift = nn.Linear(time_emb_dim, 2 * out_channels)
+
+    def forward(self, t_emb):
+        stats = self.to_scale_shift(F.silu(t_emb.to(self.to_scale_shift.weight.dtype)))
+        return stats.chunk(2, dim=-1)
+
+
+class ResBlockUltimate(nn.Module):
+    """GN-SiLU-conv3 -> FiLM -> GN-SiLU-conv3 -> [cross-attn] + skip.
+
+    ``uncond_rows`` marks the first N batch rows as CFG-unconditional
+    (identically zero conditions): their cross-attention output is a
+    per-channel constant, computed once at (1, 1) shapes and broadcast."""
+
+    def __init__(self, in_channels: int, out_channels: int, time_emb_dim: int,
+                 cond_dim: int = 128, use_attn: bool = False, num_heads: int = 4):
+        super().__init__()
+        self.in_channels, self.out_channels = in_channels, out_channels
+        self.use_attn = use_attn
+        self.gn1 = GroupNorm(in_channels)
+        self.conv1 = nn.Conv1d(in_channels, out_channels, 3, padding=1)
+        self.film = FiLM(time_emb_dim, out_channels)
+        self.gn2 = GroupNorm(out_channels)
+        self.conv2 = nn.Conv1d(out_channels, out_channels, 3, padding=1)
+        if use_attn:
+            self.cross_attn = CrossAttentionFusion(out_channels, cond_dim, num_heads)
+        if in_channels != out_channels:
+            self.skip = nn.Conv1d(in_channels, out_channels, 1)
+        self.chain: Optional[ResblockWeights] = None
+
+    @torch.no_grad()
+    def chain_weights(self, dtype: Optional[torch.dtype] = None) -> ResblockWeights:
+        """Kernel-layout weights: convs ``(Cout, 3*Cin)`` in ``dtype``, norm
+        parameters and biases fp32 (read from the current parameters)."""
+        dtype = dtype or self.conv1.weight.dtype
+
+        def conv(c):
+            co, ci, k = c.weight.shape
+            return c.weight.permute(0, 2, 1).reshape(co, k * ci).to(dtype).contiguous()
+
+        def vec(p):  # a copy: prepare() casts the module's own parameters later
+            return p.detach().float().clone()
+
+        skip = getattr(self, "skip", None)
+        return ResblockWeights(
+            vec(self.gn1.weight), vec(self.gn1.bias), conv(self.conv1), vec(self.conv1.bias),
+            vec(self.gn2.weight), vec(self.gn2.bias), conv(self.conv2), vec(self.conv2.bias),
+            skip.weight[:, :, 0].to(dtype, copy=True) if skip is not None else None,
+            vec(skip.bias) if skip is not None else None,
+            self.gn1.num_groups, self.gn2.num_groups,
+        )
+
+    def forward(self, x, t_emb, motion_f=None, text_f=None, uncond_rows: int = 0):
+        p = self.chain if self.chain is not None else self.chain_weights()
+        scale, shift = self.film(t_emb)
+        out = fused_resblock_chain(x, p, scale, shift, add_residual=not self.use_attn)
+        if not self.use_attn:
+            return out  # residual added in the kernel's epilogue
+        h, xs = out if p.skip_w is not None else (out, x.to(p.conv1_w.dtype))
+        if motion_f is not None and text_f is not None:
+            h = self._attention(h, motion_f, text_f, uncond_rows)
+        return xs + h
+
+    def _attention(self, h, motion_f, text_f, uncond_rows: int):
+        attn = self.cross_attn
+        if not uncond_rows:
+            return attn(h, motion_f, text_f)
+        bu, t_len, c = uncond_rows, h.shape[1], self.out_channels
+        const = attn(h.new_zeros((1, 1, c)), motion_f.new_zeros((1, 1, motion_f.shape[-1])),
+                     text_f.new_zeros((1, 1, text_f.shape[-1])))
+        h_cond = attn(h[bu:], motion_f[bu:], text_f[bu:])
+        return torch.cat([const.expand(bu, t_len, c), h_cond], dim=0)
+
+
+class UNet1DUltimate(nn.Module):
+    """Epsilon-prediction UNet over (B, T, in_dim) mels; output fp32."""
+
+    def __init__(self, in_dim: int = 80, base_dim: int = 256,
+                 dim_mults: Tuple[int, ...] = (1, 2, 4), cond_dim: int = 128,
+                 time_emb_dim: int = 256, num_res_blocks: int = 2, mid_blocks: int = 3,
+                 attn_heads: int = 8):
+        super().__init__()
+        self.num_res_blocks, self.mid_blocks = num_res_blocks, mid_blocks
+        self.dims = [base_dim * m for m in dim_mults]
+        self.time_embedding = TimestepEmbedding(time_emb_dim)
+        self.in_proj = nn.Conv1d(in_dim, base_dim, 1)
+
+        def block(cin, cout, use_attn):
+            return ResBlockUltimate(cin, cout, time_emb_dim, cond_dim, use_attn, attn_heads)
+
+        prev = base_dim
+        for i, dim in enumerate(self.dims):
+            for b in range(num_res_blocks):
+                self.add_module(f"down_{i}_block_{b}",
+                                block(prev, dim, b == num_res_blocks - 1))
+                prev = dim
+            self.add_module(f"down_{i}_downsample", nn.Conv1d(dim, dim, 4, stride=2, padding=1))
+        for b in range(mid_blocks):
+            self.add_module(f"mid_block_{b}", block(prev, prev, True))
+        for i, dim in enumerate(reversed(self.dims)):
+            self.add_module(f"up_{i}_upsample", nn.Conv1d(prev, dim, 3, padding=1))
+            for b in range(num_res_blocks):
+                # the first block takes the upsampled h concatenated with the skip
+                self.add_module(f"up_{i}_block_{b}", block(2 * dim if b == 0 else dim, dim, b == 0))
+            prev = dim
+        self.out_gn = GroupNorm(prev)
+        self.out_proj = nn.Conv1d(prev, in_dim, 1)
+
+    def resblocks(self):
+        return [m for m in self.modules() if isinstance(m, ResBlockUltimate)]
+
+    @torch.no_grad()
+    def prepare(self, dtype: torch.dtype) -> "UNet1DUltimate":
+        """Serving form: chain and folded attention weights from the fp32
+        parameters, then Linear/Conv weights cast to ``dtype``."""
+        for blk in self.resblocks():
+            blk.chain = blk.chain_weights(dtype)
+            if blk.use_attn:
+                blk.cross_attn.fold(dtype)
+        for m in self.modules():
+            if isinstance(m, (nn.Linear, nn.Conv1d)):
+                m.to(dtype)
+        return self
+
+    def forward(self, x, t, motion_f=None, text_f=None, uncond_rows: int = 0):
+        dt = self.in_proj.weight.dtype
+        t_emb = self.time_embedding(t)
+        h = conv_cl(self.in_proj, x.to(dt))
+
+        skips = []
+        for i in range(len(self.dims)):
+            for b in range(self.num_res_blocks):
+                h = getattr(self, f"down_{i}_block_{b}")(h, t_emb, motion_f, text_f, uncond_rows)
+            skips.append(h)
+            h = conv_cl(getattr(self, f"down_{i}_downsample"), h)
+        for b in range(self.mid_blocks):
+            h = getattr(self, f"mid_block_{b}")(h, t_emb, motion_f, text_f, uncond_rows)
+        for i in range(len(self.dims)):
+            h = upsample_linear_2x_align_corners(h)
+            h = conv_cl(getattr(self, f"up_{i}_upsample"), h)
+            skip = skips.pop()
+            h = torch.cat([_fix_time_len(h, skip.shape[1]), skip], dim=-1)
+            for b in range(self.num_res_blocks):
+                h = getattr(self, f"up_{i}_block_{b}")(h, t_emb, motion_f, text_f, uncond_rows)
+        h = F.silu(self.out_gn(h))
+        return conv_cl(self.out_proj, h).float()
