@@ -13,7 +13,8 @@ skipped:
 3. kernels against their plain PyTorch versions on the card, at every
    geometry the flagship path gives them: the resblock chain kernels
    (``gn_stats``, ``conv3_fused``) at the 15 FiLM resblocks of the flagship
-   UNet (2 rows, bf16), the snake sandwich at the 6 vocoder stages plus
+   UNet (bf16) at 4 rows (``cli sample`` of two clips under CFG) and at 2
+   rows (the one-clip protocol chain), the snake sandwich at the 6 vocoder stages plus
    ``activation_post`` (bf16); each with its time, its plain version's time,
    its bound and, where one PyTorch call computes the same function, that
    call's time;
@@ -24,9 +25,9 @@ skipped:
    and finiteness, counts checked against the expected launches;
 5. one protocol chain (B=1, T=516, CFG 2.1, DDPM with ``--ddpm_steps``
    steps) and one vocode, timed;
-6. references: one full-width UNet forward on the card against the same
-   checkpoint's forward on the host CPU (plain versions, same bf16 weights),
-   and the full-width vocoder on a short mel, card against host CPU, fp32.
+6. references: full-width UNet forwards on the card against the same
+   checkpoint's forwards on the host CPU (plain versions, same bf16 weights)
+   at 2 and 4 CFG rows, and the full-width vocoder on a short mel, card against host CPU, fp32.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``. Exits non-zero with no result
@@ -73,6 +74,10 @@ PEAK_BF16 = 989e12
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 MEL_T, MOTION_T = 516, 180
+# the main path samples N_CLIPS clips in one batch; CFG doubles the rows of
+# every forward. The protocol chain is one clip: 2 rows.
+N_CLIPS = 2
+MAIN_ROWS, PROTOCOL_ROWS = 2 * N_CLIPS, 2
 FLAGSHIP_PARAMS = 134_292_816
 # kernel vs plain, same inputs on the card. bf16 outputs: 1-2 bf16 ulps
 # (2^-8 relative each); the conv operands are the same bf16 values except
@@ -228,11 +233,19 @@ def conv_cost(a, cout, cin2, out_dtype, residual, split):
     return nbytes, 2.0 * b * t * cout * (3 * cin + cin2)
 
 
+def gn_stats_library(x, groups: int):
+    """One PyTorch reduction for the same statistics, plus the rsqrt on its
+    (B, G) result."""
+    b, t, c = x.shape
+    var, mean = torch.var_mean(x.float().view(b, t, groups, c // groups), dim=(1, 3),
+                               correction=0)
+    return mean, torch.rsqrt(var + rb.GN_EPS)
+
+
 def phase_resblock(timer, device, gen, rows: int):
     mc = ModelConfig()
     per = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, err=0.0,
                    ops=0.0, nbytes=0.0) for k in ("gn_stats", "conv3_fused")}
-    per["gn_stats"]["library_ms"] = None
     rows_out = []
     for name, t, cin, cout, has_skip, add_res in resblock_geometries(mc, MEL_T):
         w, x, (fs, fh) = random_chain(gen, rows, t, cin, cout, has_skip, device)
@@ -280,8 +293,10 @@ def phase_resblock(timer, device, gen, rows: int):
         g = {
             "gn1": timer.ms(lambda: rb.gn_stats(x, w.groups1)),
             "gn1_plain": timer.ms(lambda: rb.gn_stats_plain(x, w.groups1)),
+            "gn1_library": timer.ms(lambda: gn_stats_library(x, w.groups1)),
             "gn2": timer.ms(lambda: rb.gn_stats(f, w.groups2)),
             "gn2_plain": timer.ms(lambda: rb.gn_stats_plain(f, w.groups2)),
+            "gn2_library": timer.ms(lambda: gn_stats_library(f, w.groups2)),
             "conv1": timer.ms(lambda: rb.conv3_fused(*args1, **c1)),
             "conv1_plain": timer.ms(lambda: rb.conv3_fused_plain(*args1, **c1)),
             "conv1_library": timer.ms(lambda: F.conv1d(xc, cw1, b1, padding=1)),
@@ -303,6 +318,7 @@ def phase_resblock(timer, device, gen, rows: int):
         k = per["gn_stats"]
         k["ms"] += g["gn1"] + g["gn2"]
         k["plain_ms"] += g["gn1_plain"] + g["gn2_plain"]
+        k["library_ms"] += g["gn1_library"] + g["gn2_library"]
         k["bound_ms"] += g["gn_bound_ms"]
         k["err"] = max(k["err"], err_gn)
         k["ops"] += sum(gn_ops)
@@ -319,18 +335,20 @@ def phase_resblock(timer, device, gen, rows: int):
                  chain_err=chain_err, gn_err=err_gn, conv_err=err_conv,
                  conv_tflops=(cb1[1] + cb2[1]) / (g["conv1"] + g["conv2"]) / 1e9)
         rows_out.append(g)
-        log(f"[resblock] {name:14s} T={t:4d} {cin:4d}->{cout:4d} skip={int(has_skip)} "
-            f"res={int(add_res)} | err chain {chain_err:.2e} gn {err_gn:.2e} "
-            f"conv {err_conv:.2e} | ms gn {g['gn1'] + g['gn2']:.4f} (plain "
-            f"{g['gn1_plain'] + g['gn2_plain']:.4f}) conv {g['conv1'] + g['conv2']:.4f} "
+        log(f"[resblock] rows={rows} {name:14s} T={t:4d} {cin:4d}->{cout:4d} "
+            f"skip={int(has_skip)} res={int(add_res)} | err chain {chain_err:.2e} gn "
+            f"{err_gn:.2e} conv {err_conv:.2e} | ms gn {g['gn1'] + g['gn2']:.4f} (plain "
+            f"{g['gn1_plain'] + g['gn2_plain']:.4f}, var_mean "
+            f"{g['gn1_library'] + g['gn2_library']:.4f}) conv {g['conv1'] + g['conv2']:.4f} "
             f"(plain {g['conv1_plain'] + g['conv2_plain']:.4f}, F.conv1d "
             f"{g['conv1_library'] + g['conv2_library']:.4f}, bound "
             f"{g['conv_bound_ms']:.4f}) {g['conv_tflops']:.1f} TFLOP/s")
         if cin == 2 * cout == 2 * mc.base_dim * mc.dim_mults[-1]:
             # the geometry the TPU runs as the split pair _half1/_half2
             for half, (gn, cv) in (("half1", ("gn1", "conv1")), ("half2", ("gn2", "conv2"))):
-                log(f"[resblock]   {name} as {half}: gn_stats {g[gn]:.4f} ms (plain "
-                    f"{g[gn + '_plain']:.4f}, bound {g[gn + '_bound']:.4f}) + conv3_fused "
+                log(f"[resblock]   rows={rows} {name} as {half}: gn_stats {g[gn]:.4f} ms "
+                    f"(plain {g[gn + '_plain']:.4f}, var_mean {g[gn + '_library']:.4f}, "
+                    f"bound {g[gn + '_bound']:.4f}) + conv3_fused "
                     f"{g[cv]:.4f} ms (plain {g[cv + '_plain']:.4f}, F.conv1d "
                     f"{g[cv + '_library']:.4f}, bound {g[cv + '_bound']:.4f})")
     for k in ("gn_stats", "conv3_fused"):
@@ -517,7 +535,13 @@ def main(argv=None) -> int:
     # 3. kernels against their plain versions
     gen = torch.Generator().manual_seed(0)
     timer = Timer(dev)
-    per, report["resblock"] = phase_resblock(timer, dev, gen, rows=2)
+    # the kernels line times the main path's rows; errors count both row counts
+    per, report["resblock"] = phase_resblock(timer, dev, gen, rows=MAIN_ROWS)
+    per_protocol, report["resblock_protocol"] = phase_resblock(timer, dev, gen,
+                                                               rows=PROTOCOL_ROWS)
+    for k in per_protocol:
+        per[k]["err"] = max(per[k]["err"], per_protocol[k]["err"])
+    report["resblock_protocol_sums"] = per_protocol
     per["snake_sandwich"], report["sandwich"] = phase_sandwich(timer, dev, gen)
     del timer
 
@@ -530,7 +554,7 @@ def main(argv=None) -> int:
     with torch.device("meta"):
         n_params = param_count(build_denoiser(cfg.model))
     need(n_params == FLAGSHIP_PARAMS, f"denoiser has {n_params} params")
-    clips = write_clips(os.path.join(work, "clips"), 2, seed=1)
+    clips = write_clips(os.path.join(work, "clips"), N_CLIPS, seed=1)
     log(f"[slice] flagship checkpoint ({n_params} denoiser params, seeded) and "
         f"{len(clips)} clips written in {time.perf_counter() - t0:.1f} s")
     n_blocks = len(resblock_geometries(cfg.model, MEL_T))
@@ -557,7 +581,10 @@ def main(argv=None) -> int:
     times = {}
     # warm-up at the timed shapes: cuBLAS/cuDNN pick their kernels on first use
     generate_mel(models, motion, lyrics, MEL_T, guidance_weight=2.1, method="ddim", ddim_steps=2)
-    for label, kw in (("ddim50", dict(method="ddim", ddim_steps=50)),
+    # DDIM-2 is timed too: a chain's seconds less DDIM-2's, over its steps less
+    # 2, is the marginal time of a step without the per-call set-up
+    for label, kw in (("ddim2", dict(method="ddim", ddim_steps=2)),
+                      ("ddim50", dict(method="ddim", ddim_steps=50)),
                       (f"ddpm{args.ddpm_steps}", dict(method="ddpm",
                                                       steps=args.ddpm_steps))):
         _build.reset_launches()
@@ -570,9 +597,12 @@ def main(argv=None) -> int:
         n_fwd = kw.get("ddim_steps") or kw["steps"]
         need(_build.LAUNCHES["conv3_fused"] == 2 * n_blocks * n_fwd,
              f"{label}: {dict(_build.LAUNCHES)}")
-        log(f"[chain] {label}: B=1 T={MEL_T} CFG 2.1 bf16: {times[label]:.3f} s, "
+        marginal = ("" if label == "ddim2" else
+                    f", marginal {(times[label] - times['ddim2']) / (n_fwd - 2) * 1e3:.2f} "
+                    "ms per step")
+        log(f"[chain] {label}: B=1 T={MEL_T} CFG 2.1 bf16: {times[label]:.4f} s, "
             f"{MEL_T / times[label]:.1f} mel frames/s, "
-            f"{times[label] / n_fwd * 1e3:.2f} ms per step (2-row forward)")
+            f"{times[label] / n_fwd * 1e3:.2f} ms per step (2-row forward){marginal}")
     voc = Vocoder(device=dev, seed=0)
     voc.mel_to_wav(mel[0])
     torch.cuda.synchronize()
@@ -588,23 +618,27 @@ def main(argv=None) -> int:
 
     # 6. references on the host CPU
     rng = np.random.default_rng(5)
-    x = torch.as_tensor(rng.standard_normal((2, MEL_T, 80)).astype(np.float32))
-    t = torch.full((2,), 500, dtype=torch.long)
     cpu_models = load_models(ckpt, device="cpu")
-    outs = []
-    conds = [torch.as_tensor(rng.standard_normal((1, MEL_T, cfg.model.cond_dim)),
-                             dtype=torch.float32) for _ in range(2)]
-    conds = [torch.cat([torch.zeros_like(c), c]) for c in conds]  # row 0 unconditional
-    for m, d in ((models, dev), (cpu_models, torch.device("cpu"))):
-        mf, tf = (c.to(d, torch.bfloat16) for c in conds)
-        with torch.no_grad():
-            outs.append(m.denoiser(x.to(d), t.to(d), mf, tf, uncond_rows=1).float().cpu())
-    unet_err = rel_l2(outs[0], outs[1])
-    log(f"[reference] UNet forward, 2 CFG rows, T={MEL_T}, bf16: card kernels vs host "
-        f"plain: rel L2 {unet_err:.3e} (tolerance {UNET_REL_L2}), max abs "
-        f"{max_abs(outs[0], outs[1]):.3e}")
-    need(bool(torch.isfinite(outs[0]).all()) and unet_err <= UNET_REL_L2,
-         "UNet forward disagrees with the host reference")
+    unet_err = {}
+    for rows in (PROTOCOL_ROWS, MAIN_ROWS):
+        n = rows // 2  # clips; the first n rows are their unconditional halves
+        x = torch.as_tensor(rng.standard_normal((rows, MEL_T, 80)).astype(np.float32))
+        t = torch.as_tensor(np.tile(rng.integers(0, 1000, n), 2))  # same t per CFG pair
+        conds = [torch.as_tensor(rng.standard_normal((n, MEL_T, cfg.model.cond_dim)),
+                                 dtype=torch.float32) for _ in range(2)]
+        conds = [torch.cat([torch.zeros_like(c), c]) for c in conds]
+        outs = []
+        for m, d in ((models, dev), (cpu_models, torch.device("cpu"))):
+            mf, tf = (c.to(d, torch.bfloat16) for c in conds)
+            with torch.no_grad():
+                outs.append(m.denoiser(x.to(d), t.to(d), mf, tf, uncond_rows=n)
+                            .float().cpu())
+        err = unet_err[rows] = rel_l2(outs[0], outs[1])
+        log(f"[reference] UNet forward, {rows} CFG rows (uncond_rows={n}), T={MEL_T}, "
+            f"bf16: card kernels vs host plain: rel L2 {err:.3e} (tolerance "
+            f"{UNET_REL_L2}), max abs {max_abs(outs[0], outs[1]):.3e}")
+        need(bool(torch.isfinite(outs[0]).all()) and err <= UNET_REL_L2,
+             f"UNet forward at {rows} rows disagrees with the host reference")
     del cpu_models
     mel32 = rng.standard_normal((1, 80, 32)).astype(np.float32) + FALLBACK_MEL_MEAN
     wv = [Vocoder(device=d, seed=0, compute_dtype="float32").mel_to_wav(mel32)
@@ -625,9 +659,11 @@ def main(argv=None) -> int:
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
         })
-    log("[kernels] ms, plain_ms, bound_ms, library_ms: sums over one 2-row flagship UNet "
-        "forward (gn_stats, conv3_fused; library = F.conv1d of the same conv3) and over "
-        f"one {MEL_T}-frame vocode (snake_sandwich); launches from the main path")
+    log(f"[kernels] ms, plain_ms, bound_ms, library_ms: sums over one {MAIN_ROWS}-row "
+        "flagship UNet forward as cli sample runs it (gn_stats, library = torch.var_mean "
+        "+ rsqrt; conv3_fused, library = F.conv1d of the same conv3) and over one "
+        f"{MEL_T}-frame vocode (snake_sandwich); launches from the main path; max_abs_err "
+        f"over {MAIN_ROWS} and {PROTOCOL_ROWS} rows")
     report.update(device=smi, build_s=build_s, launches=launches, expected=expected,
                   sample_s=sample_s, towav_s=towav_s, times=times, unet_rel_l2=unet_err,
                   vocoder_max_abs=voc_err, kernels=kernels, tolerances=TOL,

@@ -23,7 +23,7 @@
 // channel. bf16 tensor-core MMA (wmma 16x16x16) accumulates in fp32; the
 // epilogue adds the bias and FiLM (conv 1) or skip bias and residual (conv 2).
 //
-// Bound on the H100: at the flagship widths (2 rows, T 64..516, C 256..2048)
+// Bound on the H100: at the flagship widths (2-4 rows, T 64..516, C 256..2048)
 // each conv does 0.2-3.3 GFLOP against a few MB of traffic, so it is bound by
 // tensor-core operations; gn_stats is bound by bytes. This first version
 // uses wmma with a register prefetch of the next K tile (global loads overlap
@@ -341,16 +341,13 @@ extern "C" int lm2a_conv3_fused(
   p.cin2 = cin2;
   p.groups = groups;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a_is_f32) {
-    if (out_is_f32)
-      launch_conv<float, float>(p, s);
-    else
-      launch_conv<float, bf16>(p, s);
-  } else {
-    if (out_is_f32)
-      launch_conv<bf16, float>(p, s);
-    else
-      launch_conv<bf16, bf16>(p, s);
-  }
+  // the chain's two convs: bf16 block input -> fp32 intermediate (conv 1),
+  // fp32 intermediate -> bf16 block output (conv 2)
+  if (!a_is_f32 && out_is_f32)
+    launch_conv<bf16, float>(p, s);
+  else if (a_is_f32 && !out_is_f32)
+    launch_conv<float, bf16>(p, s);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -196,7 +196,10 @@ def conv3_fused(a, mean, rstd, gamma, beta, w, bias, *, film=None, skip=None,
     for s, name in ((mean, "mean"), (rstd, "rstd")):
         _need(s.dtype == torch.float32 and s.is_contiguous()
               and tuple(s.shape) == (b, groups), f"conv3_fused: {name} must be fp32 (B, G)")
-    _need(out_dtype in (torch.bfloat16, torch.float32), "conv3_fused: out dtype")
+    _need((a.dtype, out_dtype) in ((torch.bfloat16, torch.float32),
+                                   (torch.float32, torch.bfloat16)),
+          "conv3_fused: the CUDA path takes bf16 -> fp32 (conv 1) or fp32 -> bf16 "
+          f"(conv 2), got {a.dtype} -> {out_dtype}")
     fs = fh = x2 = w2 = b2 = res = None
     cin2 = 0
     if film is not None:

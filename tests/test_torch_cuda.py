@@ -9,7 +9,7 @@ skips without one. On a machine with a card:
 tests do not use.) ``chip_smoke.py`` holds the kernels at the flagship
 geometries; these take the edges it does not reach: ragged and short time
 tiles, T below the sandwich's halo, fp32 sandwich inputs, every epilogue of
-``conv3_fused``, the wrappers' refusals and their launch counts.
+``conv3_fused`` the chain uses, the wrappers' refusals and their launch counts.
 
 Tolerances are those of ``chip_smoke.py``: 1e-2 absolute + relative on bf16
 outputs (one bf16 ulp, where the kernel's and torch's SiLU round an operand
@@ -47,6 +47,7 @@ def _close(got, want, tol):
         torch.testing.assert_close(g.float(), w.float(), **tol)
 
 
+@pytest.mark.parametrize("rows", [2, 4])  # one clip or two, each doubled by CFG
 @pytest.mark.parametrize("t", [1, 37, 64, 65, 300])
 @pytest.mark.parametrize("cin,cout,add_residual", [
     (128, 128, True),    # identity residual in the conv-2 epilogue
@@ -54,9 +55,9 @@ def _close(got, want, tol):
     (256, 128, True),    # 1x1 skip GEMM summed in the epilogue
     (256, 128, False),   # attention block with skip: (h, xs)
 ])
-def test_chain_matches_plain(dev, t, cin, cout, add_residual):
+def test_chain_matches_plain(dev, rows, t, cin, cout, add_residual):
     gen = torch.Generator().manual_seed(t + cin + cout)
-    w, x, (fs, fh) = chip_smoke.random_chain(gen, 2, t, cin, cout, cin != cout, dev)
+    w, x, (fs, fh) = chip_smoke.random_chain(gen, rows, t, cin, cout, cin != cout, dev)
     _build.reset_launches()
     got = rb.fused_resblock_chain(x, w, fs, fh, add_residual=add_residual)
     torch.cuda.synchronize()
@@ -79,7 +80,7 @@ def test_conv3_each_epilogue(dev, t):
     w, x, film = chip_smoke.random_chain(gen, 2, t, 256, 128, True, dev)
     m1, r1 = rb.gn_stats(x, w.groups1)
     args1 = (x, m1, r1, w.gn1_scale, w.gn1_bias, w.conv1_w, w.conv1_b)
-    for kw in (dict(film=film), dict(), dict(out_dtype=torch.bfloat16)):
+    for kw in (dict(film=film), dict()):
         _close(rb.conv3_fused(*args1, **kw), rb.conv3_fused_plain(*args1, **kw),
                TOL["conv3_fused"])
     f = rb.conv3_fused(*args1, film=film)
@@ -106,6 +107,8 @@ def test_conv3_refuses_what_it_cannot_take(dev):
         rb.conv3_fused(x[:, ::2], *args, w.conv1_w, w.conv1_b)
     with pytest.raises(ValueError, match="bias"):
         rb.conv3_fused(x, *args, w.conv1_w, w.conv1_b.cpu())
+    with pytest.raises(ValueError, match="bf16 -> fp32"):  # only the chain's two pairs
+        rb.conv3_fused(x, *args, w.conv1_w, w.conv1_b, out_dtype=torch.bfloat16)
     assert not _build.LAUNCHES
 
 
