@@ -18,16 +18,34 @@ skipped:
    ``activation_post`` (bf16); each with its time, its plain version's time,
    its bound and, where one PyTorch call computes the same function, that
    call's time;
+   3b. the resblock kernels at the long-form row counts and lengths: 16
+   rows at T=516 (8 windows of ``generate_long`` under CFG) and 2 rows at
+   T=12920 (``generate_single_pass`` at 150 s);
+   3c. the attention kernel at every geometry of the fused route: the 9
+   cross-attention sites at 6 s (S=516) with 1, 2 and 16 conditioned rows,
+   the CFG constant at T=S=1, and the 150 s single pass (S=T=12920); timed
+   against its plain version, its bound and ``F.scaled_dot_product_attention``;
 4. the slice: a flagship checkpoint (random weights from a seed, JAX layout)
    and two synthetic 6 s clips, then ``cli sample`` (DDIM-50, CFG 2.1, bf16)
    and ``cli towav`` (full BIGVGAN_22KHZ_80BAND width) with the launch
    counters reset just before and read just after; outputs checked for shape
    and finiteness, counts checked against the expected launches;
+   4b. ``cli serve`` (DDIM-50, CFG 2.1, ``--warmup_t 516``) answering ping,
+   one clip, a list of two, one clip with ``wav``, a request without
+   ``npz`` and quit: replies in order, files, launch counts after warm-up;
+   4c. the 6 s fused route: ``cli sample`` of a checkpoint whose config sets
+   ``fused_attention``, its attention launches counted, and its 4-row UNet
+   forward on the card against the host;
 5. one protocol chain (B=1, T=516, CFG 2.1, DDPM with ``--ddpm_steps``
    steps) and one vocode, timed;
+   5b. long form, timed: ``generate_single_pass`` at 150 s (12920 frames,
+   the fused route taken by itself, DDIM-10) and ``generate_long`` at 60 s
+   (12 windows of 516 frames, 8 per chain, DDIM-10);
 6. references: full-width UNet forwards on the card against the same
    checkpoint's forwards on the host CPU (plain versions, same bf16 weights)
-   at 2 and 4 CFG rows, and the full-width vocoder on a short mel, card against host CPU, fp32.
+   at 2 and 4 CFG rows, and the full-width vocoder on a short mel, card against host CPU, fp32;
+   6b. one full-width UNet forward at T=12920 on the fused route against the
+   same forward through ``attention_core_plain`` on the card.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``. Exits non-zero with no result
@@ -37,6 +55,9 @@ when CUDA is not available. Per-geometry numbers go to ``--out``.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
+import io
 import json
 import os
 import shutil
@@ -50,19 +71,23 @@ import torch
 import torch.nn.functional as F
 
 from lm2a_tpu_torch.checkpoint import save_checkpoint
+from lm2a_tpu_torch.cli import __main__ as cli_main
 from lm2a_tpu_torch.cli import sample as cli_sample
 from lm2a_tpu_torch.cli import towav as cli_towav
 from lm2a_tpu_torch.convert import torch_params_to_jax
 from lm2a_tpu_torch.core.config import LM2AConfig, ModelConfig
 from lm2a_tpu_torch.data.schema import Sample, save_sample
+from lm2a_tpu_torch.inference.longform import generate_long, generate_single_pass
 from lm2a_tpu_torch.inference.sample import (
     FALLBACK_MEL_MEAN, FALLBACK_MEL_STD, generate_mel, load_models,
 )
+from lm2a_tpu_torch.models import attention as model_attention
 from lm2a_tpu_torch.models.factory import (
     build_cond_projection, build_denoiser, param_count, random_init_,
 )
 from lm2a_tpu_torch.models.unet1d import default_num_groups
 from lm2a_tpu_torch.ops import _build
+from lm2a_tpu_torch.ops import attention as att
 from lm2a_tpu_torch.ops import resblock as rb
 from lm2a_tpu_torch.vocoder import sandwich as sw
 from lm2a_tpu_torch.vocoder.bigvgan import BIGVGAN_22KHZ_80BAND
@@ -78,6 +103,12 @@ MEL_T, MOTION_T = 516, 180
 # every forward. The protocol chain is one clip: 2 rows.
 N_CLIPS = 2
 MAIN_ROWS, PROTOCOL_ROWS = 2 * N_CLIPS, 2
+# long form: windowed generation batches 8 windows of 516 frames per chain
+# (16 rows under CFG); the single pass runs 150 s, 12920 frames, above the
+# fused-route threshold (FUSED_ATTENTION_MIN_T = 12288)
+WINDOW_ROWS = 16
+LONG_T = 12920
+LONG_SECONDS = LONG_T * 256 / 22050
 FLAGSHIP_PARAMS = 134_292_816
 # kernel vs plain, same inputs on the card. bf16 outputs: 1-2 bf16 ulps
 # (2^-8 relative each); the conv operands are the same bf16 values except
@@ -89,6 +120,10 @@ TOL = {
     "conv3_fused": dict(atol=1e-2, rtol=1e-2),
     "chain": dict(atol=3e-2, rtol=3e-2),
     "snake_sandwich": dict(atol=1e-2, rtol=1e-2),
+    # bf16 output: two ulps relative; absolute: p is rounded to bf16 against
+    # the running max in the kernel and the global max in the plain version,
+    # up to 2^-9 of each summand p*v
+    "attention": dict(atol=2e-3, rtol=1e-2),
 }
 # end-to-end references, relative L2 error: the UNet in bf16 on both sides
 # (15 blocks of bf16 roundings in another order), the vocoder in fp32 on both
@@ -102,6 +137,8 @@ KERNELS = {
                         replaces="lm2a_tpu/ops/pallas_resblock.py:155"),
     "snake_sandwich": dict(route="cuda", source="lm2a_tpu_torch/csrc/sandwich.cu",
                            replaces="lm2a_tpu/vocoder/pallas_sandwich.py:51"),
+    "attention": dict(route="cuda", source="lm2a_tpu_torch/csrc/attention.cu",
+                      replaces="lm2a_tpu/ops/pallas_attention.py:55 and :98"),
 }
 
 
@@ -242,12 +279,12 @@ def gn_stats_library(x, groups: int):
     return mean, torch.rsqrt(var + rb.GN_EPS)
 
 
-def phase_resblock(timer, device, gen, rows: int):
+def phase_resblock(timer, device, gen, rows: int, mel_t: int = MEL_T):
     mc = ModelConfig()
     per = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, err=0.0,
                    ops=0.0, nbytes=0.0) for k in ("gn_stats", "conv3_fused")}
     rows_out = []
-    for name, t, cin, cout, has_skip, add_res in resblock_geometries(mc, MEL_T):
+    for name, t, cin, cout, has_skip, add_res in resblock_geometries(mc, mel_t):
         w, x, (fs, fh) = random_chain(gen, rows, t, cin, cout, has_skip, device)
         got = rb.fused_resblock_chain(x, w, fs, fh, add_residual=add_res)
         want = rb.resblock_chain_plain(x, w, fs, fh, add_residual=add_res)
@@ -357,6 +394,77 @@ def phase_resblock(timer, device, gen, rows: int):
     return per, rows_out
 
 
+def attention_sites(mc: ModelConfig, mel_t: int):
+    """(name, T, C) of the cross-attention sites of ``UNet1DUltimate`` at
+    mel length ``mel_t``; the keys are always the ``mel_t`` condition frames."""
+    return [(name, t, cout) for name, t, _, cout, _, add_res in resblock_geometries(mc, mel_t)
+            if not add_res]
+
+
+def phase_attention(timer, device, gen):
+    """The attention kernel against its plain version and SDPA at every
+    geometry of the fused route. Returns per-forward sums keyed by route
+    (``6s_b2``, two clips' conditioned rows, is the main path's 4-row
+    forward) and per-geometry rows."""
+    mc = ModelConfig()
+    heads = mc.attn_heads
+    cache, rows_out = {}, []
+
+    def one(b, t, s, c):
+        key = (b, t, s, c)
+        if key in cache:
+            return cache[key]
+        hd = c // heads
+
+        def make(n):  # heads split off channels-last projections, as the model does
+            return (torch.randn((b, n, c), generator=gen).to(device, torch.bfloat16)
+                    .view(b, n, heads, hd).transpose(1, 2))
+
+        q, k, v = make(t), make(s), make(s)
+        err = check_close(f"attention B={b} T={t} S={s} hd={hd}", att.attention_core(q, k, v),
+                          att.attention_core_plain(q, k, v), TOL["attention"])
+        g = dict(B=b, T=t, S=s, hd=hd, err=err,
+                 replaces=("_attention_kernel" if s <= att.STREAMING_S_THRESHOLD
+                           else "_flash_kernel"),
+                 ms=timer.ms(lambda: att.attention_core(q, k, v)),
+                 plain_ms=timer.ms(lambda: att.attention_core_plain(q, k, v)),
+                 library_ms=timer.ms(lambda: F.scaled_dot_product_attention(q, k, v)))
+        # q, k, v read once and the output written once, bf16
+        g["nbytes"] = 2.0 * b * heads * hd * (2 * t + 2 * s)
+        g["ops"] = 4.0 * b * heads * t * s * hd
+        g["bound_ms"], g["bound_by"] = bound_ms(g["nbytes"], g["ops"], PEAK_BF16)
+        g["tflops"] = g["ops"] / g["ms"] / 1e9
+        log(f"[attention] B={b:2d} T={t:5d} S={s:5d} hd={hd:3d} ({g['replaces']}) | err "
+            f"{err:.2e} | ms {g['ms']:.4f} (plain {g['plain_ms']:.4f}, SDPA "
+            f"{g['library_ms']:.4f}, bound {g['bound_ms']:.4f} {g['bound_by']}) "
+            f"{g['tflops']:.1f} TFLOP/s")
+        rows_out.append(g)
+        del q, k, v
+        cache[key] = g
+        return g
+
+    sums = {}
+    # route -> conditioned rows (the CFG doubles each), mel length
+    for route, b, mel_t in (("6s_b1", 1, MEL_T), ("6s_b2", N_CLIPS, MEL_T),
+                            ("6s_b16", WINDOW_ROWS, MEL_T), ("150s_b1", 1, LONG_T)):
+        k = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, ops=0.0, nbytes=0.0,
+                 err=0.0, launches=0)
+        # per site and branch: the conditioned rows, then the CFG constant at T=S=1
+        for _, t, c in attention_sites(mc, mel_t):
+            for g in (one(b, t, mel_t, c), one(1, 1, 1, c)):
+                for f in ("ms", "plain_ms", "bound_ms", "library_ms", "ops", "nbytes"):
+                    k[f] += 2 * g[f]
+                k["err"] = max(k["err"], g["err"])
+                k["launches"] += 2
+        k["bound_by"] = ("operations" if k["ops"] / PEAK_BF16 > k["nbytes"] / PEAK_BYTES
+                         else "bytes")
+        sums[route] = k
+        log(f"[attention] one {route} forward ({k['launches']} launches): ms {k['ms']:.4f} "
+            f"(plain {k['plain_ms']:.4f}, SDPA {k['library_ms']:.4f}, bound "
+            f"{k['bound_ms']:.4f} {k['bound_by']})")
+    return sums, rows_out
+
+
 def phase_sandwich(timer, device, gen):
     vcfg = BIGVGAN_22KHZ_80BAND
     k = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None, err=0.0,
@@ -454,6 +562,183 @@ def check_outputs(gens, wavs, n_clips: int, mel_t: int, hop: int):
         need(n == hop * mel_t, f"{w}: wav of {n} samples, expected {hop * mel_t}")
 
 
+def check_mels(paths, mel_t: int):
+    for g in paths:
+        mel = np.load(g)["mel"]
+        need(mel.shape == (80, mel_t) and np.isfinite(mel).all(),
+             f"{g}: mel {mel.shape} not finite (80, {mel_t})")
+
+
+def run_serve(ckpt: str, clips, out_dir: str, device: str, ddim_steps: int,
+              guidance: float = 2.1, warmup_t: int = MEL_T):
+    """``python -m lm2a_tpu_torch.cli serve`` (the dispatcher, in this
+    process) answering ping, one clip, a list of two, one clip with ``wav``,
+    a request without ``npz`` and quit. The launch counters are reset when
+    the server starts reading requests, after its warm-up chain. Returns the
+    replies and the launches."""
+    reqs = [{"cmd": "ping", "id": "ping"},
+            {"npz": clips[0], "id": "one"},
+            {"npz": list(clips[:2]), "id": "two"},
+            {"npz": clips[1], "id": "wav", "wav": True},
+            {"id": "bad"},
+            {"cmd": "quit", "id": "quit"}]
+
+    class Requests:
+        def __iter__(self):
+            _build.reset_launches()
+            return iter([json.dumps(r) + "\n" for r in reqs])
+
+    argv = ["lm2a_tpu_torch.cli", "serve", "--ckpt", ckpt, "--method", "ddim",
+            "--ddim_steps", str(ddim_steps), "--guidance", str(guidance),
+            "--warmup_t", str(warmup_t), "--out_dir", out_dir, "--device", device]
+    out = io.StringIO()
+    saved = sys.argv, sys.stdin
+    sys.argv, sys.stdin = argv, Requests()
+    try:
+        with contextlib.redirect_stdout(out):
+            cli_main.main()
+    finally:
+        sys.argv, sys.stdin = saved
+    return [json.loads(line) for line in out.getvalue().splitlines()], dict(_build.LAUNCHES)
+
+
+def check_serve(replies, mel_t: int, hop: int):
+    need([r.get("id") for r in replies] == ["ping", "one", "two", "wav", "bad", "quit"],
+         f"serve replies out of order: {replies}")
+    need([r["ok"] for r in replies] == [True, True, True, True, False, True],
+         f"serve ok flags: {replies}")
+    one, two, wav = replies[1:4]
+    need(isinstance(two["out"], list) and len(two["out"]) == 2, f"list reply {two}")
+    check_mels([one["out"], *two["out"], wav["out"]], mel_t)
+    with wave.open(wav["wav"]) as f:
+        need(f.getnframes() == hop * mel_t, f"{wav['wav']}: {f.getnframes()} samples")
+
+
+# ---------------------------------------------------------------- references
+
+def unet_inputs(rng, rows: int, mel_t: int, cond_dim: int):
+    """CFG rows: the first half unconditional (zero conditions), the same t
+    for each pair."""
+    n = rows // 2
+    x = torch.as_tensor(rng.standard_normal((rows, mel_t, 80)).astype(np.float32))
+    t = torch.as_tensor(np.tile(rng.integers(0, 1000, n), 2))
+    conds = [torch.as_tensor(rng.standard_normal((n, mel_t, cond_dim)), dtype=torch.float32)
+             for _ in range(2)]
+    return x, t, [torch.cat([torch.zeros_like(c), c]) for c in conds], n
+
+
+@torch.no_grad()
+def unet_forward(denoiser, inputs, device) -> torch.Tensor:
+    x, t, conds, n = inputs
+    mf, tf = (c.to(device, torch.bfloat16) for c in conds)
+    return denoiser(x.to(device), t.to(device), mf, tf, uncond_rows=n).float().cpu()
+
+
+def unet_card_vs_host(models, cpu_models, rng, rows: int, label: str) -> float:
+    inputs = unet_inputs(rng, rows, MEL_T, models.cfg.model.cond_dim)
+    card = unet_forward(models.denoiser, inputs, models.device)
+    host = unet_forward(cpu_models.denoiser, inputs, torch.device("cpu"))
+    err = rel_l2(card, host)
+    log(f"[reference] UNet forward{label}, {rows} CFG rows (uncond_rows={rows // 2}), "
+        f"T={MEL_T}, bf16: card kernels vs host plain: rel L2 {err:.3e} (tolerance "
+        f"{UNET_REL_L2}), max abs {max_abs(card, host):.3e}")
+    need(bool(torch.isfinite(card).all()) and err <= UNET_REL_L2,
+         f"UNet forward{label} at {rows} rows disagrees with the host reference")
+    return err
+
+
+def unet_kernel_vs_plain_core(models, rng, mel_t: int) -> float:
+    """One 2-row forward on the fused route, through the attention kernel and
+    then through ``attention_core_plain``, both on the card."""
+    fused = models.denoiser.with_fused_attention()
+    inputs = unet_inputs(rng, 2, mel_t, models.cfg.model.cond_dim)
+    kernel = unet_forward(fused, inputs, models.device)
+    model_attention.attention_core = att.attention_core_plain
+    try:
+        plain = unet_forward(fused, inputs, models.device)
+    finally:
+        model_attention.attention_core = att.attention_core
+    err = rel_l2(kernel, plain)
+    log(f"[reference] UNet forward, fused route, 2 CFG rows, T={mel_t}, bf16: attention "
+        f"kernel vs attention_core_plain, both on the card: rel L2 {err:.3e} (tolerance "
+        f"{UNET_REL_L2}), max abs {max_abs(kernel, plain):.3e}")
+    need(bool(torch.isfinite(kernel).all()) and err <= UNET_REL_L2,
+         f"UNet forward at T={mel_t}: the attention kernel disagrees with the plain core")
+    return err
+
+
+# ---------------------------------------------------------------- phase 5b
+
+def run_long_form(models, rng, ddim_steps: int, n_blocks: int):
+    """``generate_single_pass`` at 150 s and ``generate_long`` at 60 s (CFG
+    2.1, DDIM), each after an untimed DDIM-1 call at the same shapes; the
+    launches of the timed calls are checked."""
+    kw = dict(guidance_weight=2.1, method="ddim", seed=0)
+    long_motion = rng.standard_normal((int(LONG_SECONDS * 30) + 1, 234)).astype(np.float32)
+    long_lyrics = rng.standard_normal((long_motion.shape[0], 768)).astype(np.float32)
+    win_motion = rng.standard_normal((60 * 30, 234)).astype(np.float32)
+    win_lyrics = [rng.standard_normal(768).astype(np.float32) for _ in range(12)]
+    runs = {
+        "single_pass_150s": (lambda n: generate_single_pass(
+            models, long_motion, long_lyrics, LONG_SECONDS, ddim_steps=n, **kw), LONG_T,
+            # per step: 9 sites x 2 branches x (conditioned row + CFG constant)
+            {"attention": 36 * ddim_steps, "gn_stats": 2 * n_blocks * ddim_steps,
+             "conv3_fused": 2 * n_blocks * ddim_steps}),
+        "windowed_60s": (lambda n: generate_long(
+            models, win_motion, win_lyrics, 60.0, batch_size=8, ddim_steps=n, **kw), 5168,
+            # two chains: 8 windows, then 4
+            {"gn_stats": 4 * n_blocks * ddim_steps, "conv3_fused": 4 * n_blocks * ddim_steps}),
+    }
+    out = {}
+    for label, (fn, mel_t, expected) in runs.items():
+        fn(1)
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mel = fn(ddim_steps)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        need(mel.shape == (80, mel_t) and np.isfinite(mel).all(),
+             f"{label}: mel {mel.shape} not finite (80, {mel_t})")
+        log(f"[longform] {label}: DDIM-{ddim_steps}, CFG 2.1, bf16, (80, {mel_t}) mel in "
+            f"{secs:.4f} s = {mel_t / secs:.1f} mel frames/s; launches {launches}")
+        need(launches == expected, f"{label}: launches {launches} != expected {expected}")
+        out[label] = dict(seconds=secs, mel_t=mel_t, frames_per_s=mel_t / secs,
+                          launches=launches)
+    return out
+
+
+@torch.no_grad()
+def route_break_even(models, rng, lengths=(516, 2048, 4096, 8192, LONG_T), reps: int = 3):
+    """One 2-row UNet forward (CFG, ``uncond_rows=1``) on the default route
+    (folded, plain attention core) and on the fused route at each length,
+    CUDA events, mean of ``reps`` after one warm-up each."""
+    fused = models.denoiser.with_fused_attention()
+    out = []
+    for t in lengths:
+        inputs = unet_inputs(rng, 2, t, models.cfg.model.cond_dim)
+        x, tt, conds, n = inputs
+        x, tt = x.to(models.device), tt.to(models.device)
+        mf, tf = (c.to(models.device, torch.bfloat16) for c in conds)
+        row = dict(T=t)
+        for name, den in (("default_ms", models.denoiser), ("fused_ms", fused)):
+            den(x, tt, mf, tf, uncond_rows=n)
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(reps):
+                den(x, tt, mf, tf, uncond_rows=n)
+            b.record()
+            b.synchronize()
+            row[name] = a.elapsed_time(b) / reps
+        log(f"[route] 2-row UNet forward, T={t:5d}: default route {row['default_ms']:.3f} ms, "
+            f"fused route {row['fused_ms']:.3f} ms ({row['default_ms'] / row['fused_ms']:.2f}x)")
+        out.append(row)
+        del x, tt, mf, tf
+        torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------- where the time goes
 
 def profile_chain(models, motion, lyrics, steps: int):
@@ -535,14 +820,21 @@ def main(argv=None) -> int:
     # 3. kernels against their plain versions
     gen = torch.Generator().manual_seed(0)
     timer = Timer(dev)
-    # the kernels line times the main path's rows; errors count both row counts
+    # the kernels line times the main path's rows; errors count every row count
     per, report["resblock"] = phase_resblock(timer, dev, gen, rows=MAIN_ROWS)
-    per_protocol, report["resblock_protocol"] = phase_resblock(timer, dev, gen,
-                                                               rows=PROTOCOL_ROWS)
-    for k in per_protocol:
-        per[k]["err"] = max(per[k]["err"], per_protocol[k]["err"])
-    report["resblock_protocol_sums"] = per_protocol
+    for label, rows, mel_t in (("protocol", PROTOCOL_ROWS, MEL_T),
+                               ("windowed", WINDOW_ROWS, MEL_T),  # 3b
+                               ("single_pass", PROTOCOL_ROWS, LONG_T)):
+        other, report[f"resblock_{label}"] = phase_resblock(timer, dev, gen, rows, mel_t)
+        for k in other:
+            per[k]["err"] = max(per[k]["err"], other[k]["err"])
+        report[f"resblock_{label}_sums"] = other
     per["snake_sandwich"], report["sandwich"] = phase_sandwich(timer, dev, gen)
+    # 3c
+    attn_sums, report["attention"] = phase_attention(timer, dev, gen)
+    report["attention_sums"] = attn_sums
+    per["attention"] = dict(attn_sums["6s_b2"],
+                            err=max(k["err"] for k in attn_sums.values()))
     del timer
 
     # 4. the slice through the CLIs
@@ -558,6 +850,7 @@ def main(argv=None) -> int:
     log(f"[slice] flagship checkpoint ({n_params} denoiser params, seeded) and "
         f"{len(clips)} clips written in {time.perf_counter() - t0:.1f} s")
     n_blocks = len(resblock_geometries(cfg.model, MEL_T))
+    n_sites = len(attention_sites(cfg.model, MEL_T))
     n_sandwich = sum(u for *_, u in sandwich_geometries(BIGVGAN_22KHZ_80BAND, MEL_T))
     ddim_steps = 50
     _build.reset_launches()
@@ -573,6 +866,54 @@ def main(argv=None) -> int:
         f"{sample_s:.2f} s; cli towav ({len(clips)} clips, BIGVGAN_22KHZ_80BAND) "
         f"{towav_s:.2f} s; launches {launches} expected {expected}")
     need(launches == expected, f"launch counts {launches} != expected {expected}")
+
+    # 4b. cli serve: three sampled chains (one clip, a list of two, one with wav)
+    t0 = time.perf_counter()
+    replies, serve_launches = run_serve(ckpt, clips, os.path.join(work, "serve"), "cuda",
+                                        ddim_steps)
+    serve_s = time.perf_counter() - t0
+    check_serve(replies, MEL_T, BIGVGAN_22KHZ_80BAND.hop)
+    serve_expected = {"gn_stats": 3 * 2 * n_blocks * ddim_steps,
+                      "conv3_fused": 3 * 2 * n_blocks * ddim_steps,
+                      "snake_sandwich": n_sandwich}
+    log(f"[serve] cli serve (DDIM-{ddim_steps}, CFG 2.1, warm-up T={MEL_T}) {serve_s:.2f} s "
+        "in all; seconds per request: " + ", ".join(
+            f"{r['id']} {r['seconds']}" for r in replies if "seconds" in r)
+        + f"; replies in order, ok {[r['ok'] for r in replies]}; launches after the "
+        f"warm-up {serve_launches} expected {serve_expected}")
+    need(serve_launches == serve_expected,
+         f"serve launch counts {serve_launches} != expected {serve_expected}")
+
+    # 4c. the 6 s fused route: a checkpoint whose config sets fused_attention
+    fused_cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                                   fused_attention=True))
+    fused_ckpt = write_checkpoint(os.path.join(work, "ckpt_fused"), fused_cfg, seed=0)
+    fused_out = os.path.join(work, "out_fused")
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    cli_sample.main(["--all", "--npz_dir", os.path.dirname(clips[0]), "--ckpt", fused_ckpt,
+                     "--out_dir", fused_out, "--method", "ddim", "--ddim_steps",
+                     str(ddim_steps), "--guidance", "2.1", "--seed", "0", "--device", "cuda"])
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    fused_launches = dict(_build.LAUNCHES)
+    check_mels([os.path.join(fused_out, f) for f in sorted(os.listdir(fused_out))
+                if f.endswith("_gen.npz")], MEL_T)
+    # per step: every site, both branches, the conditioned rows and the CFG constant
+    fused_expected = {"gn_stats": 2 * n_blocks * ddim_steps,
+                      "conv3_fused": 2 * n_blocks * ddim_steps,
+                      "attention": 4 * n_sites * ddim_steps}
+    log(f"[fused] cli sample, fused_attention checkpoint (DDIM-{ddim_steps}, CFG 2.1, "
+        f"{len(clips)} clips) {fused_s:.2f} s; launches {fused_launches} expected "
+        f"{fused_expected}")
+    need(fused_launches == fused_expected,
+         f"fused-route launch counts {fused_launches} != expected {fused_expected}")
+    launches["attention"] = fused_launches["attention"]
+    rng = np.random.default_rng(5)
+    fused_models = load_models(fused_ckpt, device=dev)
+    unet_err = {"fused_4": unet_card_vs_host(fused_models, load_models(fused_ckpt, device="cpu"),
+                                             rng, MAIN_ROWS, " on the fused route")}
+    del fused_models
 
     # 5. protocol chain and one vocode, timed
     models = load_models(ckpt, device=dev)
@@ -613,32 +954,18 @@ def main(argv=None) -> int:
     need(wav.shape == (1, 256 * MEL_T) and np.isfinite(wav).all(), "vocode: bad wav")
     log(f"[vocode] {MEL_T} frames -> {wav.shape[1]} samples, BIGVGAN_22KHZ_80BAND bf16: "
         f"{times['vocode']:.3f} s")
+    del voc
 
     report["profile"] = profile_chain(models, motion, lyrics, steps=10)
 
+    # 5b. long form, timed, and the length where the fused route starts to win
+    report["longform"] = run_long_form(models, rng, ddim_steps=10, n_blocks=n_blocks)
+    report["route_break_even"] = route_break_even(models, rng)
+
     # 6. references on the host CPU
-    rng = np.random.default_rng(5)
     cpu_models = load_models(ckpt, device="cpu")
-    unet_err = {}
     for rows in (PROTOCOL_ROWS, MAIN_ROWS):
-        n = rows // 2  # clips; the first n rows are their unconditional halves
-        x = torch.as_tensor(rng.standard_normal((rows, MEL_T, 80)).astype(np.float32))
-        t = torch.as_tensor(np.tile(rng.integers(0, 1000, n), 2))  # same t per CFG pair
-        conds = [torch.as_tensor(rng.standard_normal((n, MEL_T, cfg.model.cond_dim)),
-                                 dtype=torch.float32) for _ in range(2)]
-        conds = [torch.cat([torch.zeros_like(c), c]) for c in conds]
-        outs = []
-        for m, d in ((models, dev), (cpu_models, torch.device("cpu"))):
-            mf, tf = (c.to(d, torch.bfloat16) for c in conds)
-            with torch.no_grad():
-                outs.append(m.denoiser(x.to(d), t.to(d), mf, tf, uncond_rows=n)
-                            .float().cpu())
-        err = unet_err[rows] = rel_l2(outs[0], outs[1])
-        log(f"[reference] UNet forward, {rows} CFG rows (uncond_rows={n}), T={MEL_T}, "
-            f"bf16: card kernels vs host plain: rel L2 {err:.3e} (tolerance "
-            f"{UNET_REL_L2}), max abs {max_abs(outs[0], outs[1]):.3e}")
-        need(bool(torch.isfinite(outs[0]).all()) and err <= UNET_REL_L2,
-             f"UNet forward at {rows} rows disagrees with the host reference")
+        unet_err[rows] = unet_card_vs_host(models, cpu_models, rng, rows, "")
     del cpu_models
     mel32 = rng.standard_normal((1, 80, 32)).astype(np.float32) + FALLBACK_MEL_MEAN
     wv = [Vocoder(device=d, seed=0, compute_dtype="float32").mel_to_wav(mel32)
@@ -647,6 +974,8 @@ def main(argv=None) -> int:
     log(f"[reference] vocoder, 32 frames, full width, fp32: card vs host max abs "
         f"{voc_err:.3e} (tolerance {VOCODER_MAX_ABS})")
     need(voc_err <= VOCODER_MAX_ABS, "vocoder disagrees with the host reference")
+    # 6b. the long-form forward, attention kernel against the plain core
+    unet_err["fused_long"] = unet_kernel_vs_plain_core(models, rng, LONG_T)
 
     shutil.rmtree(work, ignore_errors=True)
     kernels = []
@@ -661,10 +990,14 @@ def main(argv=None) -> int:
         })
     log(f"[kernels] ms, plain_ms, bound_ms, library_ms: sums over one {MAIN_ROWS}-row "
         "flagship UNet forward as cli sample runs it (gn_stats, library = torch.var_mean "
-        "+ rsqrt; conv3_fused, library = F.conv1d of the same conv3) and over one "
-        f"{MEL_T}-frame vocode (snake_sandwich); launches from the main path; max_abs_err "
-        f"over {MAIN_ROWS} and {PROTOCOL_ROWS} rows")
+        "+ rsqrt; conv3_fused, library = F.conv1d of the same conv3; attention on the "
+        "fused route, library = F.scaled_dot_product_attention) and over one "
+        f"{MEL_T}-frame vocode (snake_sandwich); launches from cli sample and towav "
+        "(attention: cli sample of the fused_attention checkpoint); max_abs_err over "
+        "every geometry checked")
     report.update(device=smi, build_s=build_s, launches=launches, expected=expected,
+                  serve=dict(replies=replies, launches=serve_launches, seconds=serve_s),
+                  fused=dict(launches=fused_launches, seconds=fused_s),
                   sample_s=sample_s, towav_s=towav_s, times=times, unet_rel_l2=unet_err,
                   vocoder_max_abs=voc_err, kernels=kernels, tolerances=TOL,
                   total_s=time.perf_counter() - t_start)

@@ -1,15 +1,17 @@
 """CLI dispatcher: ``python -m lm2a_tpu_torch.cli <command> [args]``.
 
   sample   checkpoint + npz conditions -> generated mel npz
+  serve    persistent JSON-line sampling server (stdin -> stdout)
   towav    mel npz -> wav (BigVGAN)
 
-Both take ``--device`` (default ``cuda``).
+All take ``--device`` (default ``cuda``).
 """
 
 import sys
 
 COMMANDS = {
     "sample": "lm2a_tpu_torch.cli.sample",
+    "serve": "lm2a_tpu_torch.cli.serve",
     "towav": "lm2a_tpu_torch.cli.towav",
 }
 

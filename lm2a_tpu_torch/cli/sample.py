@@ -14,7 +14,7 @@ def build_parser(p=None):
     p.add_argument("--index", type=int, default=0, help="index into --npz_dir")
     p.add_argument("--npz_dir", default=None)
     p.add_argument("--ckpt", required=True,
-                   help="checkpoint dir")
+                   help="checkpoint dir OR reference torch .pt file")
     p.add_argument("--out_dir", required=True)
     p.add_argument("--guidance", type=float, default=None,
                    help="CFG weight; 1.0 disables guidance "

@@ -1,9 +1,9 @@
 """CLI: vocode mel npz files to wav.
 
 The flags of ``python -m lm2a_tpu.cli towav`` plus ``--device`` and
-``--seed``. Without ``--weights`` the generator is a seeded random init
-(smoke mode: shapes and the pipeline only); loading NVIDIA BigVGAN weights
-is not ported yet.
+``--seed``. ``--weights`` is an NVIDIA BigVGAN generator checkpoint of the
+``--preset`` geometry; without it the generator is a seeded random init
+(smoke mode: shapes and the pipeline only).
 """
 
 import argparse
@@ -16,7 +16,7 @@ def build_parser(p=None):
     p.add_argument("--npz_dir", default=None, help="batch: vocode every npz here")
     p.add_argument("--out", default=None, help="output wav (single mode)")
     p.add_argument("--weights", default=None,
-                   help="NVIDIA BigVGAN torch checkpoint (.pt); not ported yet")
+                   help="NVIDIA BigVGAN torch checkpoint (.pt)")
     p.add_argument("--preset", default="bigvgan_22khz_80band",
                    choices=["bigvgan_22khz_80band", "bigvgan_base_22khz_80band",
                             "bigvgan_v2_24khz_100band", "bigvgan_v2_44khz_128band",

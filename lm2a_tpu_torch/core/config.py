@@ -2,9 +2,12 @@
 
 A jax-free copy of ``lm2a_tpu/core/config.py``: the same fields, defaults and
 JSON form, so ``meta.json["config"]`` written by the JAX trainer round-trips
-through ``config_from_dict``/``config_to_dict`` here unchanged. Fields that
-select JAX-only code paths (``fused_attention``, ``fused_resblock``, ...) are
-kept so the dict survives the round trip; the PyTorch port ignores them.
+through ``config_from_dict``/``config_to_dict`` here unchanged.
+``fused_attention`` is honoured: it routes the denoiser's attention cores
+through the attention kernel, unfolded, as in the JAX package. The other
+switches of JAX code paths (``folded_attention``, ``fused_resblock``, ...)
+are kept so the dict survives the round trip; the port ignores them (it
+always folds off the fused route and always runs the resblock kernels).
 """
 
 from __future__ import annotations
@@ -56,8 +59,9 @@ class ModelConfig:
     dropout: float = 0.1
     motion_dim: int = 78 * 3  # pose(72)+Th(3)+Rh(3), x3 for [pos, vel, acc]
     text_dim: int = 768  # RoBERTa-base hidden size
-    # JAX-only switches, kept for the checkpoint round trip:
+    # the attention kernel's route (honoured by the port)
     fused_attention: bool = False
+    # JAX-only switches, kept for the checkpoint round trip:
     folded_attention: bool = False
     fused_resblock: bool = False
     fused_resblock_grad: bool = False

@@ -7,10 +7,12 @@ fallback constants -> interp-resample conditions to the mel length -> DDPM or
 DDIM chain with optional CFG -> de-normalise -> ``<base>_gen.npz`` (mel +
 conditions + projected conditions), same schema as the JAX package.
 
-Reads this framework's checkpoint directories; reference ``.pt`` files are
-not ported yet. Noise comes from a ``torch.Generator`` seeded per call, with
-the JAX package's per-chunk seed offsets, so runs are reproducible per
-device but do not reproduce JAX's random streams.
+Reads this framework's checkpoint directories and reference ``torch.save``
+files (``utils/torch_convert.py``). The denoiser takes the attention route
+the checkpoint's config names (``fused_attention``). Noise comes from a
+``torch.Generator`` seeded per call, with the JAX package's per-chunk seed
+offsets, so runs are reproducible per device but do not reproduce JAX's
+random streams.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from lm2a_tpu_torch.diffusion.gaussian import ddim_sample, ddpm_sample
 from lm2a_tpu_torch.diffusion.schedule import make_schedule
 from lm2a_tpu_torch.models.factory import build_cond_projection, build_denoiser
 from lm2a_tpu_torch.ops.resample import match_len
+from lm2a_tpu_torch.utils.torch_convert import load_torch_checkpoint
 
 # Documented fallback stats (reference sample.py:47-48), used only when the
 # checkpoint carries none.
@@ -60,43 +63,63 @@ class LoadedModels:
 
 def load_models(ckpt_path: str, cfg: Optional[LM2AConfig] = None, prefer_ema: bool = True,
                 compute_dtype: str = "bfloat16", device: DeviceLike = None) -> LoadedModels:
-    """Load a checkpoint directory written by either package.
+    """Load a checkpoint directory written by either package, or a
+    reference ``torch.save`` file (then ``cfg`` defaults to ``LM2AConfig()``,
+    the reference's production geometry, as in the JAX package).
 
     The denoiser is readied for serving (``UNet1DUltimate.prepare``): on the
     card every residual block runs the CUDA chain kernels, which take bf16
     (the default compute dtype, as on the TPU)."""
     dev = resolve_device(device)
-    if not os.path.isdir(ckpt_path):
-        raise NotImplementedError(
-            f"{ckpt_path}: reference torch .pt checkpoints are not ported yet; "
-            "pass a checkpoint directory")
-    meta = load_metadata(ckpt_path)
-    cfg = config_from_dict(meta["config"]) if cfg is None else cfg
+    mean, std = FALLBACK_MEL_MEAN, FALLBACK_MEL_STD
+    timesteps = guidance_weight = distilled_steps = folded_guidance = None
+    std_calibration = None
+    if os.path.isdir(ckpt_path):
+        meta = load_metadata(ckpt_path)
+        cfg = config_from_dict(meta["config"]) if cfg is None else cfg
+        unet_flat, proj_flat = read_params(ckpt_path, prefer_ema)
+        unet_sd, proj_sd = jax_params_to_torch(unet_flat), jax_params_to_torch(proj_flat)
+        mean = float(meta.get("dataset_mean", mean))
+        std = float(meta.get("dataset_std", std))
+        if meta.get("distilled_steps"):
+            distilled_steps = int(meta["distilled_steps"])
+            folded_guidance = float(meta.get("folded_guidance") or 0.0) or None
+            guidance_weight = 1.0  # the fold is baked into the student's eps
+        if meta.get("std_calibration"):
+            std_calibration = float(meta["std_calibration"])
+    else:  # reference torch .pt file
+        cfg = LM2AConfig() if cfg is None else cfg
+        unet_sd, proj_sd, meta = load_torch_checkpoint(ckpt_path, prefer_ema)
+        if meta.get("dataset_mean") is not None:
+            mean, std = float(meta["dataset_mean"]), float(meta["dataset_std"])
+        if meta.get("timesteps") is not None:
+            timesteps = int(meta["timesteps"])
+        if meta.get("guidance_weight") is not None:
+            guidance_weight = float(meta["guidance_weight"])
     dt = dtype_from_str(compute_dtype)
-    unet_flat, proj_flat = read_params(ckpt_path, prefer_ema)
 
     denoiser = build_denoiser(cfg.model)
-    denoiser.load_state_dict(jax_params_to_torch(unet_flat))
+    _load_strict(denoiser, unet_sd, ckpt_path)
     denoiser.to(dev).eval().requires_grad_(False).prepare(dt)
     cond_proj = build_cond_projection(cfg.model)
-    cond_proj.load_state_dict(jax_params_to_torch(proj_flat))
+    _load_strict(cond_proj, proj_sd, ckpt_path)
     cond_proj.to(dev, dt).eval().requires_grad_(False)
-
-    guidance_weight = distilled_steps = folded_guidance = None
-    if meta.get("distilled_steps"):
-        distilled_steps = int(meta["distilled_steps"])
-        folded_guidance = float(meta.get("folded_guidance") or 0.0) or None
-        guidance_weight = 1.0  # the fold is baked into the student's eps
     return LoadedModels(
         cfg=cfg, denoiser=denoiser, cond_proj=cond_proj,
-        dataset_mean=float(meta.get("dataset_mean", FALLBACK_MEL_MEAN)),
-        dataset_std=float(meta.get("dataset_std", FALLBACK_MEL_STD)),
-        timesteps=cfg.diffusion.timesteps, device=dev,
+        dataset_mean=mean, dataset_std=std,
+        timesteps=timesteps or cfg.diffusion.timesteps, device=dev,
         guidance_weight=guidance_weight, distilled_steps=distilled_steps,
-        folded_guidance=folded_guidance,
-        std_calibration=(float(meta["std_calibration"])
-                         if meta.get("std_calibration") else None),
+        folded_guidance=folded_guidance, std_calibration=std_calibration,
     )
+
+
+def _load_strict(module: torch.nn.Module, sd: dict, path: str) -> None:
+    """Every parameter of ``module`` must come from the checkpoint; keys the
+    module does not have are ignored, as the JAX converters ignore them."""
+    missing, _ = module.load_state_dict(sd, strict=False)
+    if missing:
+        raise KeyError(f"{path}: no weights for {missing[:8]}"
+                       f"{' ...' if len(missing) > 8 else ''}")
 
 
 def _resolve_run_params(models: LoadedModels, steps, guidance_weight):

@@ -10,8 +10,12 @@ path (same parameters, same math up to float reassociation): one merged
 ``C -> 2C`` Q projection, both branches' cores in one batched product, and
 the per-branch out_proj + concat + fuse_proj collapsed into one matmul whose
 weight products are computed once, in fp32, when the models are loaded.
-The attention core itself is plain matmul + fp32 softmax: no TPU kernel
-backs it on the 6 s serving path.
+
+``fused=True`` (``ModelConfig.fused_attention``) routes every attention core
+through ``ops.attention.attention_core``, the CUDA kernel on the card (the
+port of the JAX package's Pallas attention kernels), and, as in the JAX
+package, keeps the unfolded form: ``fold`` is skipped on that route.
+Without it the core is plain matmul + fp32 softmax.
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from lm2a_tpu_torch.ops.attention import attention_core
+
 
 def _inv_scale(hd: int, like: torch.Tensor) -> torch.Tensor:
     # sqrt(hd) in the activation dtype, as jnp.sqrt(asarray(hd, q.dtype))
@@ -27,13 +33,14 @@ def _inv_scale(hd: int, like: torch.Tensor) -> torch.Tensor:
 
 
 class MultiheadAttention(nn.Module):
-    """Batched multi-head attention over (B, T, E) with (B, S, E) keys."""
+    """Batched multi-head attention over (B, T, E) with (B, S, E) keys.
+    ``fused`` runs the core through ``attention_core``."""
 
-    def __init__(self, embed_dim: int, num_heads: int):
+    def __init__(self, embed_dim: int, num_heads: int, fused: bool = False):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} not divisible by heads {num_heads}")
-        self.embed_dim, self.num_heads = embed_dim, num_heads
+        self.embed_dim, self.num_heads, self.fused = embed_dim, num_heads, fused
         self.q_proj = nn.Linear(embed_dim, embed_dim)
         self.k_proj = nn.Linear(embed_dim, embed_dim)
         self.v_proj = nn.Linear(embed_dim, embed_dim)
@@ -49,9 +56,13 @@ class MultiheadAttention(nn.Module):
         q = q.reshape(q.shape[:-1] + (h, hd))
         k = k.reshape(k.shape[:-1] + (h, hd))
         v = v.reshape(v.shape[:-1] + (h, hd))
-        scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / _inv_scale(hd, q)
-        probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
-        out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+        if self.fused:  # (B, H, T, hd) views in and out: no transposes copy
+            out = attention_core(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2)).transpose(1, 2)
+        else:
+            scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / _inv_scale(hd, q)
+            probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+            out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
         return self.out_proj(out.reshape(out.shape[0], -1, e))
 
 
@@ -60,15 +71,26 @@ class CrossAttentionFusion(nn.Module):
     (B, S, cond_dim): each branch projects its condition to C, cross-attends,
     and the concatenated results are fused by a Linear(2C -> C)."""
 
-    def __init__(self, mel_dim: int, cond_dim: int = 128, num_heads: int = 4):
+    def __init__(self, mel_dim: int, cond_dim: int = 128, num_heads: int = 4,
+                 fused: bool = False):
         super().__init__()
         self.mel_dim, self.num_heads = mel_dim, num_heads
         self.motion_kv_proj = nn.Linear(cond_dim, mel_dim)
         self.text_kv_proj = nn.Linear(cond_dim, mel_dim)
-        self.attn_motion = MultiheadAttention(mel_dim, num_heads)
-        self.attn_text = MultiheadAttention(mel_dim, num_heads)
+        self.attn_motion = MultiheadAttention(mel_dim, num_heads, fused)
+        self.attn_text = MultiheadAttention(mel_dim, num_heads, fused)
         self.fuse_proj = nn.Linear(2 * mel_dim, mel_dim)
         self.folded = None  # dict of folded weights once fold() ran
+
+    @property
+    def fused(self) -> bool:
+        return self.attn_motion.fused
+
+    def set_fused(self, fused: bool) -> None:
+        """Select the attention route; the fused one runs unfolded."""
+        self.attn_motion.fused = self.attn_text.fused = fused
+        if fused:
+            self.folded = None
 
     @torch.no_grad()
     def fold(self, dtype: torch.dtype) -> None:
@@ -110,7 +132,7 @@ class CrossAttentionFusion(nn.Module):
         return F.linear(core, f["w_out"], f["b_out"])
 
     def forward(self, mel_hidden, motion_f, text_f):
-        if self.folded is not None:
+        if self.folded is not None and not self.fused:
             return self._forward_folded(mel_hidden, motion_f, text_f)
         dt = self.motion_kv_proj.weight.dtype
         motion_kv = self.motion_kv_proj(motion_f.to(dt))

@@ -20,7 +20,7 @@ def build_denoiser(cfg: ModelConfig) -> UNet1DUltimate:
             in_dim=cfg.in_dim, base_dim=cfg.base_dim, dim_mults=tuple(cfg.dim_mults),
             cond_dim=cfg.cond_dim, time_emb_dim=cfg.time_emb_dim,
             num_res_blocks=cfg.num_res_blocks, mid_blocks=cfg.mid_blocks,
-            attn_heads=cfg.attn_heads,
+            attn_heads=cfg.attn_heads, fused_attention=cfg.fused_attention,
         )
     if cfg.arch == "v1":
         raise NotImplementedError("arch='v1' (UNet1D) is not ported yet")

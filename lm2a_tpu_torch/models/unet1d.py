@@ -17,11 +17,14 @@ adding ``xs`` after attention.
 ``prepare(dtype)`` readies a loaded model for serving: kernel-layout chain
 weights and folded attention weights from the fp32 parameters, then the
 remaining Linear/Conv weights cast to the compute dtype (GroupNorm stays
-fp32, as flax computes it).
+fp32, as flax computes it). With ``fused_attention`` every attention core,
+the CFG constant's at T=S=1 included, runs through the attention kernel's
+wrapper and nothing is folded, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Optional, Tuple
 
 import torch
@@ -110,7 +113,8 @@ class ResBlockUltimate(nn.Module):
     per-channel constant, computed once at (1, 1) shapes and broadcast."""
 
     def __init__(self, in_channels: int, out_channels: int, time_emb_dim: int,
-                 cond_dim: int = 128, use_attn: bool = False, num_heads: int = 4):
+                 cond_dim: int = 128, use_attn: bool = False, num_heads: int = 4,
+                 fused_attention: bool = False):
         super().__init__()
         self.in_channels, self.out_channels = in_channels, out_channels
         self.use_attn = use_attn
@@ -120,7 +124,8 @@ class ResBlockUltimate(nn.Module):
         self.gn2 = GroupNorm(out_channels)
         self.conv2 = nn.Conv1d(out_channels, out_channels, 3, padding=1)
         if use_attn:
-            self.cross_attn = CrossAttentionFusion(out_channels, cond_dim, num_heads)
+            self.cross_attn = CrossAttentionFusion(out_channels, cond_dim, num_heads,
+                                                   fused_attention)
         if in_channels != out_channels:
             self.skip = nn.Conv1d(in_channels, out_channels, 1)
         self.chain: Optional[ResblockWeights] = None
@@ -175,15 +180,17 @@ class UNet1DUltimate(nn.Module):
     def __init__(self, in_dim: int = 80, base_dim: int = 256,
                  dim_mults: Tuple[int, ...] = (1, 2, 4), cond_dim: int = 128,
                  time_emb_dim: int = 256, num_res_blocks: int = 2, mid_blocks: int = 3,
-                 attn_heads: int = 8):
+                 attn_heads: int = 8, fused_attention: bool = False):
         super().__init__()
         self.num_res_blocks, self.mid_blocks = num_res_blocks, mid_blocks
+        self.fused_attention = fused_attention
         self.dims = [base_dim * m for m in dim_mults]
         self.time_embedding = TimestepEmbedding(time_emb_dim)
         self.in_proj = nn.Conv1d(in_dim, base_dim, 1)
 
         def block(cin, cout, use_attn):
-            return ResBlockUltimate(cin, cout, time_emb_dim, cond_dim, use_attn, attn_heads)
+            return ResBlockUltimate(cin, cout, time_emb_dim, cond_dim, use_attn, attn_heads,
+                                    fused_attention)
 
         prev = base_dim
         for i, dim in enumerate(self.dims):
@@ -208,16 +215,37 @@ class UNet1DUltimate(nn.Module):
 
     @torch.no_grad()
     def prepare(self, dtype: torch.dtype) -> "UNet1DUltimate":
-        """Serving form: chain and folded attention weights from the fp32
-        parameters, then Linear/Conv weights cast to ``dtype``."""
+        """Serving form: chain and (off the fused route) folded attention
+        weights from the fp32 parameters, then Linear/Conv weights cast to
+        ``dtype``."""
         for blk in self.resblocks():
             blk.chain = blk.chain_weights(dtype)
-            if blk.use_attn:
+            if blk.use_attn and not self.fused_attention:
                 blk.cross_attn.fold(dtype)
         for m in self.modules():
             if isinstance(m, (nn.Linear, nn.Conv1d)):
                 m.to(dtype)
         return self
+
+    def with_fused_attention(self) -> "UNet1DUltimate":
+        """This model on the fused attention route: a copy of the module tree
+        whose parameters, buffers and kernel-layout weights are this model's
+        own tensors (no second copy of the weights); this model is left as
+        it is."""
+
+        def tree(m: nn.Module) -> nn.Module:
+            new = copy.copy(m)
+            new._parameters = dict(m._parameters)
+            new._buffers = dict(m._buffers)
+            new._modules = {k: tree(c) for k, c in m._modules.items()}
+            return new
+
+        new = tree(self)
+        new.fused_attention = True
+        for m in new.modules():
+            if isinstance(m, CrossAttentionFusion):
+                m.set_fused(True)
+        return new
 
     def forward(self, x, t, motion_f=None, text_f=None, uncond_rows: int = 0):
         dt = self.in_proj.weight.dtype

@@ -1,0 +1,117 @@
+"""Fused attention core: the CUDA kernel's wrapper and plain version.
+
+``softmax(q k^T / sqrt(hd)) v`` over ``(B, H, T, hd)`` queries and
+``(B, H, S, hd)`` keys and values, the port of ``attention_core`` in
+``lm2a_tpu/ops/pallas_attention.py``. The JAX package has two TPU kernels
+for it, ``_attention_kernel`` (S <= ``STREAMING_S_THRESHOLD``, all of S in
+one block) and ``_flash_kernel`` (online softmax over S tiles); one CUDA
+kernel (``csrc/attention.cu``) covers both.
+
+Numerics, kept by the kernel and ``attention_core_plain`` alike: scores in
+fp32 divided by sqrt(hd) in fp32, ``p = exp(s - max)`` in fp32 and rounded to
+the input dtype for the P.V product, the denominator summed over the
+unrounded ``p``, the output divided once and rounded to the input dtype.
+``_attention_kernel`` normalises before rounding ``p``; the two differ by
+about one bf16 ulp of ``p``.
+
+``attention_core`` launches the kernel for CUDA tensors (bf16, hd in
+``HEAD_DIMS``) and runs the plain version for CPU tensors. Its backward
+recomputes through the plain version, as the JAX custom VJP recomputes
+through ``attention_core_reference``. The inputs may be strided views: the
+kernel reads them through their strides, and the output comes back as a
+``(B, H, T, hd)`` view of a ``(B, T, H, hd)`` tensor, so a caller holding
+channels-last projections needs no transposes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from lm2a_tpu_torch.ops import _build
+
+# The JAX package's switch from _attention_kernel to _flash_kernel (S above
+# it streams). One CUDA kernel covers both; chip_smoke.py uses it to say
+# which TPU kernel a geometry replaces.
+STREAMING_S_THRESHOLD = 1024
+# Long-form generation takes the fused route above this many mel frames,
+# as the JAX package does (its break-even on the TPU, kept for parity).
+FUSED_ATTENTION_MIN_T = 12288
+HEAD_DIMS = (8, 16, 32, 64, 128)
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_build.declare("attention", "lm2a_attention", [_P] * 4 + [_I] * 5 + [_L] * 12 + [_P])
+
+
+def attention_core_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The kernel's arithmetic in PyTorch, on any device; (B, H, T, hd) out."""
+    hd = q.shape[-1]
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    # in place: at long form the (B, H, T, S) fp32 scores are gigabytes. The
+    # max is a constant shift (softmax does not depend on it), so it is
+    # detached and the gradient stays exact.
+    s.div_(torch.sqrt(torch.tensor(float(hd), device=q.device)))
+    s.sub_(s.detach().amax(dim=-1, keepdim=True)).exp_()
+    denom = s.sum(dim=-1, keepdim=True)
+    out = torch.matmul(s.to(v.dtype).float(), v.float()) / denom
+    return out.to(q.dtype)
+
+
+def _check(q, k, v):
+    b, h, t, hd = q.shape
+    s = k.shape[2]
+
+    def need(cond, msg):
+        if not cond:
+            raise ValueError(f"attention_core: {msg}")
+
+    need(q.dtype == k.dtype == v.dtype == torch.bfloat16,
+         f"the CUDA kernel takes bf16 q, k, v, got {q.dtype}, {k.dtype}, {v.dtype}")
+    need(hd in HEAD_DIMS, f"head dim {hd} not in {HEAD_DIMS}")
+    need(tuple(k.shape) == tuple(v.shape) == (b, h, s, hd),
+         f"k, v must be (B, H, S, hd) = ({b}, {h}, S, {hd}), got {tuple(k.shape)}, "
+         f"{tuple(v.shape)}")
+    need(t >= 1 and s >= 1, f"empty T or S ({t}, {s})")
+    for x, name in ((q, "q"), (k, "k"), (v, "v")):
+        st = x.stride()
+        need(x.device == q.device, f"{name} on {x.device}, q on {q.device}")
+        need(st[3] == 1 and st[0] % 8 == st[1] % 8 == st[2] % 8 == x.data_ptr() % 16 == 0,
+             f"{name} needs hd contiguous and 16-byte aligned rows, strides {st}")
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return attention_core_plain(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention_core: unsupported device {q.device}")
+    _check(q, k, v)
+    b, h, t, hd = q.shape
+    s = k.shape[2]
+    out = torch.empty((b, t, h, hd), device=q.device, dtype=q.dtype).transpose(1, 2)
+    _build.launch("attention", "lm2a_attention", "attention",
+                  _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
+                  b, h, t, s, hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                  *out.stride()[:3], _build.stream_ptr(q.device))
+    return out
+
+
+class _AttentionCore(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return _forward(q, k, v)
+
+    @staticmethod
+    def backward(ctx, grad):
+        with torch.enable_grad():
+            inputs = [x.detach().requires_grad_() for x in ctx.saved_tensors]
+            out = attention_core_plain(*inputs)
+        return torch.autograd.grad(out, inputs, grad)
+
+
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Fused attention over (B, H, T, hd) q and (B, H, S, hd) k, v."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _AttentionCore.apply(q, k, v)
+    return _forward(q, k, v)  # serving: no autograd node to build

@@ -1,9 +1,9 @@
 """Mel-to-waveform driving: one generator, npz files in, wav files out.
 
-The port of ``lm2a_tpu/vocoder/vocode.py``. Without a weights file the
+The port of ``lm2a_tpu/vocoder/vocode.py``. ``weights_path`` is an NVIDIA
+BigVGAN generator checkpoint (``vocoder/convert.py``); without one the
 generator is initialised from a seeded ``torch.Generator`` ("smoke" mode:
-shapes and the pipeline, not audio quality); loading NVIDIA's published
-BigVGAN weights is not ported yet.
+shapes and the pipeline, not audio quality).
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from lm2a_tpu_torch.data.schema import normalize_mel_layout
 from lm2a_tpu_torch.models.factory import random_init_
 from lm2a_tpu_torch.utils.audio import write_wav
 from lm2a_tpu_torch.vocoder.bigvgan import BIGVGAN_22KHZ_80BAND, BigVGANGenerator, VocoderConfig
+from lm2a_tpu_torch.vocoder.convert import load_bigvgan_torch
 
 
 def cast_convs_(model: nn.Module, dtype: torch.dtype) -> nn.Module:
@@ -44,13 +45,12 @@ class Vocoder:
         self.device = resolve_device(device)
         self.model = BigVGANGenerator(cfg)
         if weights_path:
-            raise NotImplementedError(
-                "loading NVIDIA BigVGAN weights is not ported yet; run without "
-                "--weights for the seeded random-init generator")
-        # stderr: stdout may carry a protocol stream
-        print("vocoder: no weights file given; using random init "
-              "(smoke mode)", file=sys.stderr)
-        random_init_(self.model, seed)
+            self.model.load_state_dict(load_bigvgan_torch(weights_path, cfg))
+        else:
+            # stderr: stdout may carry a protocol stream
+            print("vocoder: no weights file given; using random init "
+                  "(smoke mode)", file=sys.stderr)
+            random_init_(self.model, seed)
         self.model.eval().requires_grad_(False)
         cast_convs_(self.model.to(self.device), dtype_from_str(compute_dtype))
 

@@ -3,6 +3,7 @@ JAX parameter tree into a port module, and a tiny checkpoint config."""
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from lm2a_tpu.core.config import DiffusionConfig, LM2AConfig, ModelConfig, TrainConfig
@@ -32,3 +33,14 @@ def rand(rng, *shape, scale=1.0):
 
 def max_err(a, b) -> float:
     return float(np.max(np.abs(np.asarray(a, np.float32) - np.asarray(b, np.float32))))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Tiny tensors, six test workers on one machine: one intra-op thread
+    each keeps the workers from oversubscribing the cores. Import into a
+    test module to apply it there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -9,12 +9,17 @@ skips without one. On a machine with a card:
 tests do not use.) ``chip_smoke.py`` holds the kernels at the flagship
 geometries; these take the edges it does not reach: ragged and short time
 tiles, T below the sandwich's halo, fp32 sandwich inputs, every epilogue of
-``conv3_fused`` the chain uses, the wrappers' refusals and their launch counts.
+``conv3_fused`` the chain uses, the attention kernel at every head dim it
+takes, T = S = 1, S around the JAX package's streaming threshold, ragged T
+and S, strided views and batches up to 16, the wrappers' refusals and their
+launch counts.
 
 Tolerances are those of ``chip_smoke.py``: 1e-2 absolute + relative on bf16
 outputs (one bf16 ulp, where the kernel's and torch's SiLU round an operand
 to neighbouring bf16 values), 3e-2 on a whole chain; GroupNorm statistics
-1e-4 / 1e-3; the fp32 sandwich 1e-5 (fp32 sums in another order).
+1e-4 / 1e-3; the fp32 sandwich 1e-5 (fp32 sums in another order); the
+attention kernel ``chip_smoke.TOL["attention"]`` (bf16 output: two ulps, and
+the p rounding of the running max against the global one).
 """
 
 import pytest
@@ -22,6 +27,7 @@ import torch
 
 import chip_smoke
 from lm2a_tpu_torch.ops import _build
+from lm2a_tpu_torch.ops import attention as att
 from lm2a_tpu_torch.ops import resblock as rb
 from lm2a_tpu_torch.vocoder import sandwich as sw
 
@@ -131,3 +137,55 @@ def test_sandwich_matches_plain(dev, t, layout, dtype):
     assert got.stride() == x.stride()
     tol = TOL["snake_sandwich" if dtype == torch.bfloat16 else "snake_sandwich_f32"]
     _close(got, sw.snake_sandwich_plain(x, alpha, beta), tol)
+
+
+def _attn_inputs(dev, b, h, t, s, hd, seed, layout="projections"):
+    """bf16 q (B, H, T, hd) and k, v (B, H, S, hd); "projections" gives the
+    strided views the model passes (heads split off channels-last (B, T, E))."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def make(n):
+        if layout == "projections":
+            return (torch.randn((b, n, h * hd), generator=gen).to(dev, torch.bfloat16)
+                    .view(b, n, h, hd).transpose(1, 2))
+        return torch.randn((b, h, n, hd), generator=gen).to(dev, torch.bfloat16)
+
+    return make(t), make(s), make(s)
+
+
+@pytest.mark.parametrize("hd", att.HEAD_DIMS)
+@pytest.mark.parametrize("t,s", [(1, 1), (64, 64), (129, 516), (37, 300)])
+def test_attention_matches_plain(dev, hd, t, s):
+    q, k, v = _attn_inputs(dev, 2, 4, t, s, hd, seed=hd + t + s)
+    _build.reset_launches()
+    got = att.attention_core(q, k, v)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {"attention": 1}
+    assert got.shape == q.shape and got.transpose(1, 2).is_contiguous()
+    _close(got, att.attention_core_plain(q, k, v), TOL["attention"])
+
+
+@pytest.mark.parametrize("s", [1023, 1024, 1025])
+def test_attention_around_the_streaming_threshold(dev, s):
+    q, k, v = _attn_inputs(dev, 1, 8, 200, s, 32, seed=s)
+    _close(att.attention_core(q, k, v), att.attention_core_plain(q, k, v), TOL["attention"])
+
+
+@pytest.mark.parametrize("b,t,s,hd", [(16, 516, 516, 32), (16, 64, 516, 128), (3, 1615, 2000, 64)])
+@pytest.mark.parametrize("layout", ["projections", "contiguous"])
+def test_attention_batches_and_layouts(dev, b, t, s, hd, layout):
+    q, k, v = _attn_inputs(dev, b, 8, t, s, hd, seed=b + t, layout=layout)
+    _close(att.attention_core(q, k, v), att.attention_core_plain(q, k, v), TOL["attention"])
+
+
+def test_attention_refuses_what_it_cannot_take(dev):
+    q, k, v = _attn_inputs(dev, 1, 2, 16, 16, 32, seed=0)
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="bf16"):
+        att.attention_core(q.float(), k.float(), v.float())
+    q48, k48, v48 = _attn_inputs(dev, 1, 2, 16, 16, 48, seed=0)
+    with pytest.raises(ValueError, match="head dim 48"):
+        att.attention_core(q48, k48, v48)
+    with pytest.raises(ValueError, match="hd contiguous"):  # hd at stride 2
+        att.attention_core(torch.cat([q, q], dim=-1)[..., ::2], k, v)
+    assert not _build.LAUNCHES

@@ -7,7 +7,8 @@
 - ``chip_smoke.py``'s flagship geometry tables against the models themselves;
 - guards: the package and ``chip_smoke.py`` import with jax blocked, no
   source imports ``lm2a_tpu``, entry points refuse to run without a card
-  unless asked for the CPU, and ``chip_smoke.py`` fails without one.
+  unless asked for the CPU (``cli serve`` included), and ``chip_smoke.py``
+  fails without one.
 """
 
 import ast
@@ -156,10 +157,13 @@ def test_entry_points_refuse_without_a_card(work, monkeypatch, tmp_path):
     _, ckpt, clips = work
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from lm2a_tpu_torch.cli import sample as cli_sample
+    from lm2a_tpu_torch.cli import serve as cli_serve
     from lm2a_tpu_torch.cli import towav as cli_towav
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         load_models(ckpt)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_serve.main(["--ckpt", ckpt])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Vocoder()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
