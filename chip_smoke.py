@@ -25,6 +25,15 @@ skipped:
    cross-attention sites at 6 s (S=516) with 1, 2 and 16 conditioned rows,
    the CFG constant at T=S=1, and the 150 s single pass (S=T=12920); timed
    against its plain version, its bound and ``F.scaled_dot_product_attention``;
+   3d. the training kernels: the resblock backward (``conv3_dgrad``,
+   ``conv3_wgrad``, ``gn_bwd``) at all 15 flagship block geometries at B=16
+   (not only the 7 the training gate routes), every gradient against the
+   plain versions, timed against them, their bounds and one cuDNN call each
+   (``aten.convolution_backward``, ``aten.native_group_norm_backward``), and
+   each block's whole backward against the autograd backward of the same
+   chain built from ``F.group_norm``/``F.conv1d``; ``adan_ema`` over the
+   full flagship parameter tree for 3 steps (the step-0 freeze included),
+   fp32 and bf16 state, against its plain version;
 4. the slice: a flagship checkpoint (random weights from a seed, JAX layout)
    and two synthetic 6 s clips, then ``cli sample`` (DDIM-50, CFG 2.1, bf16)
    and ``cli towav`` (full BIGVGAN_22KHZ_80BAND width) with the launch
@@ -36,6 +45,16 @@ skipped:
    4c. the 6 s fused route: ``cli sample`` of a checkpoint whose config sets
    ``fused_attention``, its attention launches counted, and its 4-row UNet
    forward on the card against the host;
+   4d. ``cli pack`` of 64 synthetic 6 s clips, then ``cli train`` at flagship
+   width (B=16, T=516, ``--fused_resblock_grad --opt_backend pallas``) for 6
+   steps with a save every 4, then ``--resume`` for 2 more: checkpoint
+   names, epochs and steps, finite losses, the launches of every kernel per
+   step exactly; then ms per step, clips/s and peak memory of both routes
+   and a profiled window of the kernel route;
+   4e. the route comparison: from the resumed checkpoint, one step on the
+   kernel route and one on the plain route (``--opt_backend xla``, no
+   ``--fused_resblock_grad``) with the same batch and generator: loss,
+   every gradient leaf, parameters and EMA;
 5. one protocol chain (B=1, T=516, CFG 2.1, DDPM with ``--ddpm_steps``
    steps) and one vocode, timed;
    5b. long form, timed: ``generate_single_pass`` at 150 s (12920 frames,
@@ -87,8 +106,10 @@ from lm2a_tpu_torch.models.factory import (
 )
 from lm2a_tpu_torch.models.unet1d import default_num_groups
 from lm2a_tpu_torch.ops import _build
+from lm2a_tpu_torch.ops import adan as adan_op
 from lm2a_tpu_torch.ops import attention as att
 from lm2a_tpu_torch.ops import resblock as rb
+from lm2a_tpu_torch.ops import resblock_grad as rg
 from lm2a_tpu_torch.vocoder import sandwich as sw
 from lm2a_tpu_torch.vocoder.bigvgan import BIGVGAN_22KHZ_80BAND
 from lm2a_tpu_torch.vocoder.vocode import Vocoder
@@ -125,6 +146,24 @@ TOL = {
     # up to 2^-9 of each summand p*v
     "attention": dict(atol=2e-3, rtol=1e-2),
 }
+# the backward kernels against their plain versions on the same inputs, as
+# relative L2 errors. conv3_dgrad: fp32 out of the same bf16 products summed
+# in another order. conv3_wgrad: its prologue's SiLU (y / (1 + exp(-y))) and
+# torch's (y * sigmoid(y)) round some bf16 operands to neighbouring values
+# (2^-8 each). gn_bwd: a bf16 output whose fp32 value differs in the last
+# bits (group sums in another order), so a few elements round the other way;
+# its fp32 tile sums 1e-5. A whole block's gradients (each of the 11 or 13),
+# kernels against plain versions: the flips above compounded through the
+# chain. adan_ema: the same fp32 expressions, no FMA contraction: bit for bit
+# up to one fp32 ulp.
+TOL_REL_L2 = {
+    "conv3_dgrad": 1e-5,
+    "conv3_wgrad": 2e-3,
+    "gn_bwd": 4e-3,
+    "gn_bwd_partials": 1e-5,
+    "resblock_bwd": 1e-2,
+}
+TOL["adan_ema"] = dict(atol=0.0, rtol=2e-7)
 # end-to-end references, relative L2 error: the UNet in bf16 on both sides
 # (15 blocks of bf16 roundings in another order), the vocoder in fp32 on both
 UNET_REL_L2 = 2e-2
@@ -139,7 +178,30 @@ KERNELS = {
                            replaces="lm2a_tpu/vocoder/pallas_sandwich.py:51"),
     "attention": dict(route="cuda", source="lm2a_tpu_torch/csrc/attention.cu",
                       replaces="lm2a_tpu/ops/pallas_attention.py:55 and :98"),
+    "conv3_dgrad": dict(route="cuda", source="lm2a_tpu_torch/csrc/resblock_bwd.cu",
+                        replaces="lm2a_tpu/ops/pallas_resblock.py:568"),
+    "conv3_wgrad": dict(route="cuda", source="lm2a_tpu_torch/csrc/resblock_bwd.cu",
+                        replaces="lm2a_tpu/ops/pallas_resblock.py:568"),
+    "gn_bwd": dict(route="cuda", source="lm2a_tpu_torch/csrc/resblock_bwd.cu",
+                   replaces="lm2a_tpu/ops/pallas_resblock.py:568"),
+    "adan_ema": dict(route="cuda", source="lm2a_tpu_torch/csrc/adan.cu",
+                     replaces="lm2a_tpu/ops/pallas_opt.py:103 (calls :173, :197)"),
 }
+TRAIN_B, TRAIN_CLIPS = 16, 64
+# 4e, kernel route against plain route on the card (bf16 compute on both; the
+# routes round to bf16 at different places: GroupNorm and SiLU in fp32 inside
+# the kernels, in bf16 between cuDNN ops on the plain route): the loss; each
+# gradient leaf relative L2, with a floor of 1e-4 of the whole gradient's norm
+# for leaves whose true gradient is zero (the attention key biases); the whole
+# gradient; the whole model's step (new minus old parameters) and the EMA's
+# change (new minus old EMA, so an EMA left behind reads 1), relative L2.
+# One step from the resumed checkpoint per generator seed. The step read
+# 2.6e-3 at seed 1234 (H100); the EMA's change is set by fp32 rounding of an
+# EMA that moves by ~1e-3 of |p - ema| a step (5.6e-3 to 8.8e-3 at the tiny
+# width on the CPU, tests/test_torch_train_cli.py).
+ROUTE_TOL = dict(loss_rel=1e-2, leaf_rel_l2=5e-2, leaf_floor=1e-4, grad_rel_l2=2e-2,
+                 step_rel_l2=1e-2, ema_change_rel_l2=3e-2)
+ROUTE_SEEDS = (1234, 1235, 1236)
 
 
 class SmokeFailure(RuntimeError):
@@ -502,6 +564,281 @@ def phase_sandwich(timer, device, gen):
     return k, rows_out
 
 
+# ---------------------------------------------------------------- phase 3d
+
+def rel_l2_dev(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.float(), b.float()
+    n = float(b.norm())
+    return float((a - b).norm()) / n if n > 0 else float(a.norm())
+
+
+def check_rel(name: str, got, want, tol: float) -> float:
+    need(got.shape == want.shape and got.dtype == want.dtype,
+         f"{name}: {got.shape} {got.dtype} against {want.shape} {want.dtype}")
+    need(bool(torch.isfinite(got.float()).all()), f"{name}: not finite")
+    err = rel_l2_dev(got, want)
+    need(err <= tol, f"{name}: kernel disagrees with its plain version (relative L2 "
+                     f"{err:.3e}, tolerance {tol})")
+    return err
+
+
+def bwd_costs(b, t, cin, cout, skip, f_bytes=4):
+    """Bytes (each input read once, each output written once) and operations
+    of each backward kernel of one block, per kernel name: lists of calls.
+
+    The convs' operations are the GEMM's multiply-adds, at the bf16 tensor
+    peak. Their fp32 GroupNorm + SiLU prologue or epilogue (about 16
+    operations per activation element, once each) runs on other units and
+    at the fp32 peak takes at most 16 * 989 / (67 * 6 * C) of the GEMM's time
+    (15% at C = 256), so the bound is the GEMM's and it is left out."""
+    nt = rg.n_tiles(t)
+    bt = b * t
+    dg = [  # conv 2 (pre f fp32), conv 1 (pre x bf16)
+        (bt * cout * 2 + cout * 3 * cout * 2 + bt * cout * f_bytes + bt * cout * 4
+         + 2 * b * nt * cout * 4, 2.0 * bt * cout * 3 * cout),
+        (bt * cout * 2 + cout * 3 * cin * 2 + bt * cin * 2 + bt * cin * 4 + 2 * b * nt * cin * 4,
+         2.0 * bt * cin * 3 * cout)]
+    wg = [(bt * cout * f_bytes + bt * cout * 2 + 3 * cout * cout * 4 + cout * 4,
+           2.0 * 3 * cout * cout * bt),
+          (bt * cin * 2 + bt * cout * 2 + 3 * cin * cout * 4, 2.0 * 3 * cin * cout * bt)]
+    gn = [(bt * cout * (4 + f_bytes + 2 + 4) + 5 * b * nt * cout * 4, 12.0 * bt * cout),
+          (bt * cin * (4 + 2 + 2) + 2 * b * nt * cin * 4, 10.0 * bt * cin)]
+    if skip:
+        dg.append((bt * cout * 2 + cin * cout * 2 + bt * cin * 4, 2.0 * bt * cin * cout))
+        wg.append((bt * cin * 2 + bt * cout * 2 + cin * cout * 4 + cout * 4,
+                   2.0 * cin * cout * bt))
+        gn[1] = (gn[1][0] + bt * cin * 4, gn[1][1] + bt * cin)
+    return {"conv3_dgrad": dg, "conv3_wgrad": wg, "gn_bwd": gn}
+
+
+def library_chain(x, w, fs, fh, has_skip):
+    """The same block chain from F.group_norm / F.conv1d (cuDNN), channels
+    first, bf16, under autograd: (outputs, inputs to differentiate)."""
+    cout, cin = w.conv1_w.shape[0], x.shape[-1]
+    xc = x.transpose(1, 2).contiguous().requires_grad_()
+    w1 = w.conv1_w.view(cout, 3, cin).transpose(1, 2).contiguous().requires_grad_()
+    w2 = w.conv2_w.view(cout, 3, cout).transpose(1, 2).contiguous().requires_grad_()
+    vecs = [v.clone().requires_grad_() for v in (w.gn1_scale, w.gn1_bias, w.gn2_scale, w.gn2_bias)]
+    b1, b2 = (v.to(torch.bfloat16).requires_grad_() for v in (w.conv1_b, w.conv2_b))
+    h = F.silu(F.group_norm(xc, w.groups1, vecs[0].to(torch.bfloat16), vecs[1].to(torch.bfloat16)))
+    h = F.conv1d(h, w1, b1, padding=1)
+    h = h * (1 + fs.to(torch.bfloat16)[:, :, None]) + fh.to(torch.bfloat16)[:, :, None]
+    h = F.silu(F.group_norm(h, w.groups2, vecs[2].to(torch.bfloat16), vecs[3].to(torch.bfloat16)))
+    h = F.conv1d(h, w2, b2, padding=1)
+    ins = [xc, w1, w2, b1, b2, *vecs]
+    outs = [h]
+    if has_skip:
+        sw = w.skip_w[:, :, None].contiguous().requires_grad_()
+        outs.append(F.conv1d(xc, sw, None))
+        ins.append(sw)
+    return outs, ins
+
+
+def phase_backward(timer, device, gen, rows: int = TRAIN_B, mel_t: int = MEL_T):
+    """3d: the resblock backward kernels against their plain versions at all
+    15 flagship block geometries; sums for the kernels line over the blocks
+    the training gate routes (one train step's backward)."""
+    mc = ModelConfig()
+    names = ("conv3_dgrad", "conv3_wgrad", "gn_bwd")
+    per = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, err=0.0, ops=0.0,
+                   nbytes=0.0) for k in names}
+    plain = rg.PLAIN
+    rows_out = []
+    for name, t, cin, cout, has_skip, _ in resblock_geometries(mc, mel_t):
+        gated = rg.resblock_train_fits(t, cin, cout, has_skip, 2)
+        w, x, (fs, fh) = random_chain(gen, rows, t, cin, cout, has_skip, device)
+        fwd_args = (x, fs, fh, w.gn1_scale, w.gn1_bias, w.conv1_w, w.conv1_b, w.gn2_scale,
+                    w.gn2_bias, w.conv2_w, w.conv2_b, w.skip_w, w.skip_b, w.groups1, w.groups2)
+        h, xs, saved = rg.chain_forward(*fwd_args)
+        hp, xsp, savedp = rg.chain_forward(*fwd_args, k=plain)
+        _, f, z1, mean1, rstd1, mean2, rstd2, sc = saved
+        # the training forward against its plain version: conv 1's f and z1
+        # (before FiLM: the FiLM-scale gradient reads it) as conv3_fused's
+        # outputs; the statistics and outputs downstream of f at the chain's
+        fwd = [("mean1", mean1, savedp[3], TOL["gn_stats"]),
+               ("rstd1", rstd1, savedp[4], TOL["gn_stats"]),
+               ("f", f, savedp[1], TOL["conv3_fused"]), ("z1", z1, savedp[2], TOL["conv3_fused"]),
+               ("mean2", mean2, savedp[5], TOL["chain"]), ("rstd2", rstd2, savedp[6], TOL["chain"]),
+               ("h", h, hp, TOL["chain"])] + ([("xs", xs, xsp, TOL["chain"])] if has_skip else [])
+        fwd_err = {lbl: check_close(f"{name} train forward {lbl}", a, b, tol)
+                   for lbl, a, b, tol in fwd}
+        del h, xs, hp, xsp, savedp
+        gh = torch.randn((rows, t, cout), generator=gen).to(device, torch.bfloat16)
+        gx = torch.randn((rows, t, cout), generator=gen).to(device, torch.bfloat16) if has_skip else None
+        a1 = dict(mean=mean1, rstd=rstd1, gamma=w.gn1_scale, beta=w.gn1_bias)
+        a2 = dict(mean=mean2, rstd=rstd2, gamma=w.gn2_scale, beta=w.gn2_bias)
+        d_y2, p2 = rg.conv3_dgrad_plain(gh, w.conv2_w, taps=3, pre=f, **a2)
+        d_z1, _ = rg.gn_bwd_plain(d_y2, f, mean2, rstd2, w.gn2_scale, p2, film_scale=sc, z1=z1,
+                                  out_dtype=torch.bfloat16)
+        d_y1, p1 = rg.conv3_dgrad_plain(d_z1, w.conv1_w, taps=3, pre=x, **a1)
+        extra = rg.conv3_dgrad_plain(gx, w.skip_w, taps=1)[0] if has_skip else None
+        calls = {  # kernel name -> [(label, fn(kernel ns) -> outputs, tolerance keys)]
+            "conv3_dgrad": [
+                ("conv2", lambda k: k.dgrad(gh, w.conv2_w, taps=3, pre=f, **a2)),
+                ("conv1", lambda k: k.dgrad(d_z1, w.conv1_w, taps=3, pre=x, **a1))]
+            + ([("skip", lambda k: k.dgrad(gx, w.skip_w, taps=1))] if has_skip else []),
+            "conv3_wgrad": [
+                ("conv2", lambda k: k.wgrad(f, gh, taps=3, bias=True, **a2)),
+                ("conv1", lambda k: k.wgrad(x, d_z1, taps=3, **a1))]
+            + ([("skip", lambda k: k.wgrad(x, gx, taps=1, bias=True))] if has_skip else []),
+            "gn_bwd": [
+                ("gn2", lambda k: k.gn_bwd(d_y2, f, mean2, rstd2, w.gn2_scale, p2, film_scale=sc,
+                                           z1=z1, out_dtype=torch.bfloat16)),
+                ("gn1", lambda k: k.gn_bwd(d_y1, x, mean1, rstd1, w.gn1_scale, p1, extra=extra,
+                                           out_dtype=torch.bfloat16))],
+        }
+        # one cuDNN / ATen call for the same function, channels first
+        cf = lambda v: v.transpose(1, 2).contiguous()  # noqa: E731
+        w1c = w.conv1_w.view(cout, 3, cin).transpose(1, 2).contiguous()
+        w2c = w.conv2_w.view(cout, 3, cout).transpose(1, 2).contiguous()
+        s2c = F.silu(F.group_norm(cf(f), w.groups2, w.gn2_scale, w.gn2_bias)).to(torch.bfloat16)
+        s1c = F.silu(F.group_norm(cf(x).float(), w.groups1, w.gn1_scale, w.gn1_bias)).to(
+            torch.bfloat16)
+        ghc, dz1c, xc, fc, dy1c, dy2c = cf(gh), cf(d_z1), cf(x), cf(f), cf(d_y1), cf(d_y2)
+        xcf = xc.float()
+        gxc = cf(gx) if has_skip else None
+        swc = w.skip_w[:, :, None].contiguous() if has_skip else None
+        conv_bwd = torch.ops.aten.convolution_backward
+
+        def cb(go, inp, wt, pad, mask):
+            return conv_bwd(go, inp, wt, [wt.shape[0]], [1], [pad], [1], False, [0], 1, mask)
+
+        library = {
+            "conv3_dgrad": [lambda: cb(ghc, s2c, w2c, 1, [True, False, False]),
+                            lambda: cb(dz1c, s1c, w1c, 1, [True, False, False])]
+            + ([lambda: cb(gxc, xc, swc, 0, [True, False, False])] if has_skip else []),
+            "conv3_wgrad": [lambda: cb(ghc, s2c, w2c, 1, [False, True, True]),
+                            lambda: cb(dz1c, s1c, w1c, 1, [False, True, True])]
+            + ([lambda: cb(gxc, xc, swc, 0, [False, True, True])] if has_skip else []),
+            "gn_bwd": [
+                lambda: torch.ops.aten.native_group_norm_backward(
+                    dy2c, fc, mean2, rstd2, w.gn2_scale, rows, cout, t, w.groups2,
+                    [True, True, True]),
+                lambda: torch.ops.aten.native_group_norm_backward(
+                    dy1c, xcf, mean1, rstd1, w.gn1_scale, rows, cin, t, w.groups1,
+                    [True, True, True])],
+        }
+        costs = bwd_costs(rows, t, cin, cout, has_skip)
+        g = dict(name=name, T=t, cin=cin, cout=cout, skip=has_skip, gated=gated,
+                 forward_err=fwd_err)
+        for kname in names:
+            err = rel = 0.0
+            for label, call in calls[kname]:
+                tol = TOL_REL_L2[kname]
+                outs_k, outs_p = call(rg.KERNELS), call(plain)
+                for i, (a, b) in enumerate(zip(outs_k, outs_p)):
+                    if b is None:
+                        continue
+                    part = kname == "gn_bwd" and i == 1
+                    rel = max(rel, check_rel(f"{name} {kname} {label}[{i}]", a, b,
+                                             TOL_REL_L2["gn_bwd_partials"] if part else tol))
+                    err = max(err, max_abs(a, b))
+            ms = sum(timer.ms(lambda c=c: c(rg.KERNELS)) for _, c in calls[kname])
+            plain_ms = sum(timer.ms(lambda c=c: c(plain)) for _, c in calls[kname])
+            lib_ms = sum(timer.ms(fn) for fn in library[kname])
+            nb = sum(c[0] for c in costs[kname])
+            ops = sum(c[1] for c in costs[kname])
+            bnd = bound_ms(nb, ops, PEAK_FP32 if kname == "gn_bwd" else PEAK_BF16)[0]
+            g[kname] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd, err=err,
+                            rel_l2=rel, nbytes=nb, ops=ops, launches=len(calls[kname]))
+            k = per[kname]
+            k["err"] = max(k["err"], err)
+            k["rel_l2"] = max(k.get("rel_l2", 0.0), rel)
+            if gated:
+                for fld, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                               ("bound_ms", bnd), ("ops", ops), ("nbytes", nb)):
+                    k[fld] += v
+        # the whole block backward: kernels against plain, and against cuDNN autograd
+        args = (saved, w.gn1_scale, w.gn1_bias, w.conv1_w, w.gn2_scale, w.gn2_bias, w.conv2_w,
+                w.skip_w, gh, gx)
+        got, want = rg.chain_backward(*args), rg.chain_backward(*args, k=plain)
+        g["chain_err"] = max(check_rel(f"{name} block backward {n}", got[n], want[n],
+                                       TOL_REL_L2["resblock_bwd"]) for n in want)
+        outs, ins = library_chain(x, w, fs, fh, has_skip)
+        grads_out = [gh.transpose(1, 2)] + ([gx.transpose(1, 2)] if has_skip else [])
+        g["chain_ms"] = timer.ms(lambda: rg.chain_backward(*args))
+        g["chain_library_ms"] = timer.ms(lambda: torch.autograd.grad(
+            outs, ins, grads_out, retain_graph=True))
+        del outs, ins
+        rows_out.append(g)
+        log(f"[backward] B={rows} {name:14s} T={t:4d} {cin:4d}->{cout:4d} skip={int(has_skip)} "
+            f"gated={int(gated)} | forward max abs f {fwd_err['f']:.2e} z1 {fwd_err['z1']:.2e} "
+            f"h {fwd_err['h']:.2e} | rel L2 dgrad {g['conv3_dgrad']['rel_l2']:.2e} wgrad "
+            f"{g['conv3_wgrad']['rel_l2']:.2e} gn_bwd {g['gn_bwd']['rel_l2']:.2e} block "
+            f"{g['chain_err']:.2e} | ms dgrad "
+            f"{g['conv3_dgrad']['ms']:.4f} (plain {g['conv3_dgrad']['plain_ms']:.4f}, cuDNN "
+            f"{g['conv3_dgrad']['library_ms']:.4f}, bound {g['conv3_dgrad']['bound_ms']:.4f}) wgrad "
+            f"{g['conv3_wgrad']['ms']:.4f} (plain {g['conv3_wgrad']['plain_ms']:.4f}, cuDNN "
+            f"{g['conv3_wgrad']['library_ms']:.4f}, bound {g['conv3_wgrad']['bound_ms']:.4f}) gn_bwd "
+            f"{g['gn_bwd']['ms']:.4f} (plain {g['gn_bwd']['plain_ms']:.4f}, ATen "
+            f"{g['gn_bwd']['library_ms']:.4f}, bound {g['gn_bwd']['bound_ms']:.4f}) | block "
+            f"{g['chain_ms']:.4f} against cuDNN autograd {g['chain_library_ms']:.4f}")
+    for kname in names:
+        k = per[kname]
+        peak = PEAK_FP32 if kname == "gn_bwd" else PEAK_BF16
+        k["bound_by"] = "operations" if k["ops"] / peak > k["nbytes"] / PEAK_BYTES else "bytes"
+    return per, rows_out
+
+
+def flagship_leaves(device, state_dtype, seed):
+    """(g, p, ema, m, v, n, prev_grad) for every parameter of the flagship
+    denoiser and condition projection, random from ``seed``."""
+    cfg = LM2AConfig()
+    with torch.device("meta"):
+        shapes = [p.shape for m in (build_denoiser(cfg.model), build_cond_projection(cfg.model))
+                  for p in m.parameters()]
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def r(shape, scale, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
+
+    return [(r(s, 1e-3), r(s, 0.05), r(s, 0.05), r(s, 1e-4, state_dtype), r(s, 1e-5, state_dtype),
+             r(s, 1e-4, state_dtype).abs() * 1e-3, r(s, 1e-3, state_dtype)) for s in shapes]
+
+
+def phase_adan(timer, device):
+    """3d: adan_ema over the full flagship tree, 3 steps from step 0, fp32
+    and bf16 state, against its plain version; times at fp32 state (the
+    main path's) and bf16."""
+    out = {}
+    hp = dict(betas=(0.02, 0.08, 0.01), eps=1e-8)
+    for name, sdt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        got = flagship_leaves(device, sdt, seed=11)
+        want = [tuple(t.clone() for t in leaf) for leaf in got]
+        n = sum(leaf[1].numel() for leaf in got)
+        launcher = adan_op.AdanEma(grad_clip=1.0)
+        err = 0.0
+        for step in range(3):
+            gnorm = adan_op.global_norm([leaf[0] for leaf in got])
+            scal = adan_op.step_scalars(step, gnorm, 2e-4, betas=hp["betas"], weight_decay=1e-4,
+                                        ema_decay=0.999, device=device)
+            launcher(got, scal)
+            for leaf in want:
+                adan_op.adan_ema_plain(leaf, scal, clip=1.0, **hp)
+            for a, b in zip(got, want):
+                for x, y in zip(a[1:], b[1:]):
+                    ok = torch.allclose(x.float(), y.float(), **TOL["adan_ema"])
+                    e = max_abs(x, y)
+                    need(ok, f"adan_ema ({name} state, step {step}): kernel disagrees with its "
+                             f"plain version (max abs err {e:.3e}, tolerance {TOL['adan_ema']})")
+                    err = max(err, e)
+        ms = timer.ms(lambda: launcher(got, scal))
+        plain_ms = timer.ms(lambda: [adan_op.adan_ema_plain(leaf, scal, clip=1.0, **hp)
+                                     for leaf in want])
+        se = 4 if sdt == torch.float32 else 2
+        nbytes = n * (4 + 2 * 4 * 2 + 4 * 2 * se)  # g read; p, ema, 4 states read + written
+        ops = 30.0 * n
+        bnd, by = bound_ms(nbytes, ops, PEAK_FP32)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by, err=err,
+                         library_ms=None, numel=n, leaves=len(got), nbytes=nbytes)
+        log(f"[adan] {len(got)} leaves, {n} elements, {name} state, 3 steps from step 0 | err "
+            f"{err:.2e} | ms {ms:.4f} (plain {plain_ms:.4f}, bound {bnd:.4f} {by}, "
+            f"{nbytes / ms / 1e6:.0f} GB/s)")
+        del got, want
+        torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------- phase 4
 
 def write_checkpoint(ckpt_dir: str, cfg: LM2AConfig, seed: int) -> str:
@@ -612,6 +949,265 @@ def check_serve(replies, mel_t: int, hop: int):
     check_mels([one["out"], *two["out"], wav["out"]], mel_t)
     with wave.open(wav["wav"]) as f:
         need(f.getnframes() == hop * mel_t, f"{wav['wav']}: {f.getnframes()} samples")
+
+
+# ---------------------------------------------------------------- phase 4d, 4e
+
+TRAIN_ARGS = ["--batch_size", str(TRAIN_B), "--fused_resblock_grad", "--opt_backend", "pallas",
+              "--no_tensorboard", "--log_interval", "1", "--seed", "0"]
+
+
+def run_cli(argv) -> None:
+    """``python -m lm2a_tpu_torch.cli <argv>``, through the dispatcher, in this process."""
+    saved = sys.argv
+    sys.argv = ["lm2a_tpu_torch.cli", *argv]
+    try:
+        cli_main.main()
+    finally:
+        sys.argv = saved
+
+
+def train_launches_per_step(mc: ModelConfig):
+    """Kernel launches of one ``cli train`` step on the kernel route: the
+    blocks the training gate routes run 4 forward launches each and 6
+    backward (8 with a 1x1 skip); one adan_ema launch updates every leaf."""
+    gated = [skip for _, t, cin, cout, skip, _ in resblock_geometries(mc, MEL_T)
+             if rg.resblock_train_fits(t, cin, cout, skip, 2)]
+    n, ns = len(gated), sum(gated)
+    return {"gn_stats": 2 * n, "conv3_fused": 2 * n, "conv3_dgrad": 2 * n + ns,
+            "conv3_wgrad": 2 * n + ns, "gn_bwd": 2 * n, "adan_ema": 1}, n
+
+
+def npz_steps(path: str):
+    with np.load(os.path.join(path, "state.npz")) as z:
+        return int(z[".step"]), int(z[".opt_state.step"])
+
+
+def run_train(work: str, mc: ModelConfig):
+    """4d: ``cli pack`` then ``cli train`` (6 steps, a save every 4) and
+    ``--resume`` (2 more), launch counters reset just before each run."""
+    from lm2a_tpu_torch.training.checkpoint import list_checkpoints, load_metadata
+
+    clip_dir, pack, save = (os.path.join(work, d) for d in ("train_clips", "pack", "run"))
+    t0 = time.perf_counter()
+    write_clips(clip_dir, TRAIN_CLIPS, seed=7)
+    run_cli(["pack", "--npz_dir", clip_dir, "--out_dir", pack])
+    prep_s = time.perf_counter() - t0
+    per_step, n_gated = train_launches_per_step(mc)
+    out = dict(prep_s=prep_s, launches_per_step=per_step, gated_blocks=n_gated)
+    for label, extra, steps, ckpts in (
+            ("train", ["--max_steps", "6", "--save_interval", "4"], 6, [5, 6]),
+            ("resume", ["--max_steps", "8", "--save_interval", "4", "--resume"], 2, [5, 6, 8])):
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_cli(["train", "--npz_dir", pack, "--save_dir", save, *TRAIN_ARGS, *extra])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        expected = {k: v * steps for k, v in per_step.items()}
+        found = list_checkpoints(save)
+        log(f"[train] cli {label}: {steps} steps, B={TRAIN_B}, T={MEL_T}, flagship, bf16, "
+            f"--fused_resblock_grad --opt_backend pallas: {secs:.2f} s with set-up and saves; "
+            f"checkpoints {found}; launches {launches} expected {expected}")
+        need(launches == expected, f"cli {label}: launches {launches} != expected {expected}")
+        need(found == ckpts, f"cli {label}: checkpoints {found} != {ckpts}")
+        for step in ckpts:
+            path = os.path.join(save, f"ckpt_step_{step}")
+            meta = load_metadata(path)
+            need(meta["epoch"] == 1 and meta["step"] == step and npz_steps(path) == (step, step),
+                 f"{path}: epoch {meta['epoch']}, steps {npz_steps(path)}")
+        out[label] = dict(seconds=secs, launches=launches, checkpoints=found)
+    with open(os.path.join(save, "train_log.csv")) as f:
+        rows = [r.split(",") for r in f.read().splitlines()[1:]]
+    losses = {int(r[1]): float(r[2]) for r in rows if r[4] == ""}
+    need(sorted(losses) == list(range(8)) and all(np.isfinite(v) for v in losses.values()),
+         f"train losses {losses}")
+    log(f"[train] losses by step {losses}")
+    out.update(losses=losses, pack=pack, ckpt=os.path.join(save, "ckpt_step_8"))
+    return out
+
+
+def route_states(ckpt: str, device):
+    """Kernel-route and plain-route train states restored from ``ckpt``,
+    their train steps, and the dataset statistics."""
+    from lm2a_tpu_torch.core.config import config_from_dict
+    from lm2a_tpu_torch.diffusion.schedule import make_schedule
+    from lm2a_tpu_torch.training.checkpoint import load_metadata, restore_checkpoint
+    from lm2a_tpu_torch.training.train_step import init_train_state, make_train_step
+
+    meta = load_metadata(ckpt)
+    kcfg = config_from_dict(meta["config"])
+    need(kcfg.model.fused_resblock_grad and kcfg.train.opt_backend == "pallas",
+         f"{ckpt}: not a kernel-route run")
+    pcfg = dataclasses.replace(
+        kcfg, model=dataclasses.replace(kcfg.model, fused_resblock_grad=False),
+        train=dataclasses.replace(kcfg.train, opt_backend="xla"))
+    out = {}
+    for route, cfg in (("kernel", kcfg), ("plain", pcfg)):
+        state = init_train_state(cfg, 0, device)
+        restore_checkpoint(ckpt, state)
+        step = make_train_step(make_schedule(cfg.diffusion, device=device), cfg,
+                               dataset_mean=meta["dataset_mean"], dataset_std=meta["dataset_std"])
+        out[route] = (state, step)
+    return out
+
+
+def train_batch(pack: str, device):
+    from lm2a_tpu_torch.data.dataset import PackedDataset
+
+    ds = PackedDataset(pack)
+    return {k: torch.from_numpy(v).to(device) for k, v in ds.gather(np.arange(TRAIN_B)).items()}
+
+
+def snapshot(state):
+    """The train state's step counters and tensors, cloned on the device."""
+    from lm2a_tpu_torch.training.adan import STATE_KEYS
+
+    return dict(step=state.step, opt_step=state.opt.step,
+                params={k: p.detach().clone() for k, p in state.params().items()},
+                ema={k: e.clone() for k, e in state.ema.items()},
+                opt={n: {k: v.clone() for k, v in getattr(state.opt, n).items()}
+                     for n in STATE_KEYS})
+
+
+@torch.no_grad()
+def restore(state, snap) -> None:
+    """Put ``snap`` back in place (the optimizer kernel keeps its pointers)."""
+    state.step, state.opt.step = snap["step"], snap["opt_step"]
+    for k, p in state.params().items():
+        p.copy_(snap["params"][k])
+    for k, e in state.ema.items():
+        e.copy_(snap["ema"][k])
+    for n, leaves in snap["opt"].items():
+        for k, v in getattr(state.opt, n).items():
+            v.copy_(leaves[k])
+
+
+def route_comparison(routes, batch, device, seeds=ROUTE_SEEDS, tol=ROUTE_TOL):
+    """4e: one step on each route from the same state, batch and generator,
+    once per generator seed (each from the state the routes hold on entry)."""
+    snaps = {route: snapshot(state) for route, (state, _) in routes.items()}
+    out = []
+    for seed in seeds:
+        res = {}
+        for route, (state, step) in routes.items():
+            restore(state, snaps[route])
+            loss = step(state, batch, generator=torch.Generator(device=device).manual_seed(seed))
+            res[route] = dict(loss=float(loss),
+                              grads={k: p.grad.detach().clone()
+                                     for k, p in state.params().items()},
+                              params={k: p.detach().clone() for k, p in state.params().items()},
+                              ema={k: e.clone() for k, e in state.ema.items()})
+        k, p = res["kernel"], res["plain"]
+        before, ema_before = snaps["plain"]["params"], snaps["plain"]["ema"]
+        loss_rel = abs(k["loss"] - p["loss"]) / abs(p["loss"])
+        gsum = float(torch.sqrt(sum(g.float().square().sum() for g in p["grads"].values())))
+        worst, num, den = (0.0, ""), 0.0, 0.0
+        sums = dict(step=[0.0, 0.0], ema=[0.0, 0.0])  # |kernel - plain|^2, |plain|^2
+        for name, gp in p["grads"].items():
+            gk = k["grads"][name]
+            d = float((gk.float() - gp.float()).norm())
+            n = float(gp.float().norm())
+            need(d <= tol["leaf_rel_l2"] * n + tol["leaf_floor"] * gsum,
+                 f"route comparison, seed {seed}: gradient {name} relative L2 "
+                 f"{d / max(n, 1e-30):.3e} (|diff| {d:.3e}, |grad| {n:.3e}, whole gradient "
+                 f"{gsum:.3e})")
+            worst = max(worst, (d / max(n, 1e-30) if n > tol["leaf_floor"] * gsum else 0.0,
+                                name))
+            num, den = num + d * d, den + n * n
+            # the parameters' step and the EMA's change, new minus old
+            for key, new, old in (("step", "params", before), ("ema", "ema", ema_before)):
+                dk, dp = k[new][name] - old[name], p[new][name] - old[name]
+                sums[key][0] += float((dk - dp).square().sum())
+                sums[key][1] += float(dp.square().sum())
+        grad_rel = (num / den) ** 0.5
+        step_rel, ema_rel = ((a / b) ** 0.5 for a, b in (sums["step"], sums["ema"]))
+        log(f"[route] seed {seed}: one step from the resumed checkpoint, kernel route against "
+            f"plain route on the card: loss {k['loss']:.6f} against {p['loss']:.6f} (relative "
+            f"{loss_rel:.2e}, tolerance {tol['loss_rel']}); gradient relative L2 "
+            f"{grad_rel:.3e} (tolerance {tol['grad_rel_l2']}), worst leaf {worst[0]:.3e} "
+            f"({worst[1]}; tolerance {tol['leaf_rel_l2']}); step relative L2 {step_rel:.3e} "
+            f"(tolerance {tol['step_rel_l2']}); EMA change relative L2 {ema_rel:.3e} "
+            f"(tolerance {tol['ema_change_rel_l2']})")
+        need(loss_rel <= tol["loss_rel"] and grad_rel <= tol["grad_rel_l2"]
+             and step_rel <= tol["step_rel_l2"] and ema_rel <= tol["ema_change_rel_l2"],
+             f"the kernel route and the plain route disagree (seed {seed})")
+        out.append(dict(seed=seed, loss=(k["loss"], p["loss"]), loss_rel=loss_rel,
+                        grad_rel_l2=grad_rel, worst_leaf=worst, step_rel_l2=step_rel,
+                        ema_change_rel_l2=ema_rel))
+        del res, k, p
+    return out
+
+
+def time_routes(routes, batch, device, steps: int = 3, rounds: int = 2):
+    """ms per step of each route, in turns (kernel, plain, kernel, plain),
+    after a warm-up step each; peak memory per route."""
+    times = {r: [] for r in routes}
+    peak = {}
+    n = 0
+    for r, (state, step) in routes.items():
+        torch.cuda.reset_peak_memory_stats()
+        step(state, batch, generator=torch.Generator(device=device).manual_seed(n))
+        torch.cuda.synchronize()
+        peak[r] = torch.cuda.max_memory_allocated()
+        n += 1
+    for _ in range(rounds):
+        for r, (state, step) in routes.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step(state, batch, generator=torch.Generator(device=device).manual_seed(n))
+                n += 1
+            torch.cuda.synchronize()
+            times[r].append((time.perf_counter() - t0) / steps * 1e3)
+    out = {}
+    for r in routes:
+        ms = float(np.mean(times[r]))
+        out[r] = dict(ms_per_step=ms, rounds=times[r], clips_per_s=TRAIN_B / ms * 1e3,
+                      peak_gib=peak[r] / 2 ** 30)
+        log(f"[train] {r} route: {ms:.2f} ms per step (rounds {[round(v, 2) for v in times[r]]}), "
+            f"{TRAIN_B / ms * 1e3:.1f} clips/s, peak memory {peak[r] / 2 ** 30:.2f} GiB "
+            f"(B={TRAIN_B}, T={MEL_T}, flagship, bf16 compute, fp32 master weights)")
+    return out
+
+
+def profile_train(state, step, batch, device, steps: int = 2):
+    """Device kernel time by name over ``steps`` kernel-route train steps
+    under torch.profiler, grouped, and the device's busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step(state, batch, generator=torch.Generator(device=device).manual_seed(99))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            step(state, batch, generator=torch.Generator(device=device).manual_seed(100 + i))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                  key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    groups = {"conv3_fused": 0.0, "gn_stats": 0.0, "conv3_dgrad": 0.0, "conv3_wgrad": 0.0,
+              "gn_bwd": 0.0, "adan_ema": 0.0, "gemm/conv (cuBLAS, cuDNN)": 0.0, "other": 0.0}
+    for name, ms, _ in rows:
+        key = next((g for g in list(groups)[:6] if g in name), None)
+        if key is None:
+            low = name.lower()
+            key = ("gemm/conv (cuBLAS, cuDNN)" if any(w in low for w in (
+                "gemm", "cutlass", "conv", "wgrad", "dgrad", "xmma", "sm90", "cudnn"))
+                else "other")
+        groups[key] += ms
+    log(f"[profile] {steps} train steps, kernel route, B={TRAIN_B}: wall {wall_ms:.2f} ms "
+        f"({wall_ms / steps:.2f} ms/step), device kernels {busy:.2f} ms, busy share "
+        f"{busy / wall_ms:.3f}; by group (ms per step): "
+        + ", ".join(f"{k} {v / steps:.2f}" for k, v in groups.items()))
+    for name, ms, n in rows[:12]:
+        log(f"[profile]   {ms / steps:9.3f} ms/step {n // steps:6d}x  {name[:90]}")
+    return dict(steps=steps, wall_ms=wall_ms, busy_ms=busy, groups=groups,
+                kernels=[dict(name=r[0], ms=r[1], count=r[2]) for r in rows[:40]])
 
 
 # ---------------------------------------------------------------- references
@@ -835,6 +1431,14 @@ def main(argv=None) -> int:
     report["attention_sums"] = attn_sums
     per["attention"] = dict(attn_sums["6s_b2"],
                             err=max(k["err"] for k in attn_sums.values()))
+    # 3d: the training kernels
+    per_bwd, report["backward"] = phase_backward(timer, dev, gen)
+    per.update(per_bwd)
+    per["conv3_fused"]["err"] = max([per["conv3_fused"]["err"]] + [
+        r["forward_err"][k] for r in report["backward"] for k in ("f", "z1")])
+    report["adan"] = phase_adan(timer, dev)
+    per["adan_ema"] = dict(report["adan"]["fp32"],
+                           err=max(v["err"] for v in report["adan"].values()))
     del timer
 
     # 4. the slice through the CLIs
@@ -915,6 +1519,20 @@ def main(argv=None) -> int:
                                              rng, MAIN_ROWS, " on the fused route")}
     del fused_models
 
+    # 4d. cli pack + cli train (6 steps, a save every 4) + --resume (2 steps)
+    train = run_train(os.path.join(work, "train"), cfg.model)
+    for k in ("conv3_dgrad", "conv3_wgrad", "gn_bwd", "adan_ema"):
+        launches[k] = train["train"]["launches"][k]
+    routes = route_states(train["ckpt"], dev)
+    batch = train_batch(train["pack"], dev)
+    report["route_comparison"] = route_comparison(routes, batch, dev)  # 4e
+    report["train_timing"] = time_routes(routes, batch, dev)
+    report["train_profile"] = profile_train(*routes["kernel"], batch, dev)
+    report["train"] = {k: v for k, v in train.items() if k not in ("pack", "ckpt")}
+    del routes, batch
+    torch.cuda.empty_cache()
+    shutil.rmtree(os.path.join(work, "train"), ignore_errors=True)
+
     # 5. protocol chain and one vocode, timed
     models = load_models(ckpt, device=dev)
     s = np.load(clips[0])
@@ -991,10 +1609,14 @@ def main(argv=None) -> int:
     log(f"[kernels] ms, plain_ms, bound_ms, library_ms: sums over one {MAIN_ROWS}-row "
         "flagship UNet forward as cli sample runs it (gn_stats, library = torch.var_mean "
         "+ rsqrt; conv3_fused, library = F.conv1d of the same conv3; attention on the "
-        "fused route, library = F.scaled_dot_product_attention) and over one "
-        f"{MEL_T}-frame vocode (snake_sandwich); launches from cli sample and towav "
-        "(attention: cli sample of the fused_attention checkpoint); max_abs_err over "
-        "every geometry checked")
+        "fused route, library = F.scaled_dot_product_attention), over one "
+        f"{MEL_T}-frame vocode (snake_sandwich), over one B={TRAIN_B} train step's backward "
+        "of the blocks the training gate routes (conv3_dgrad and conv3_wgrad, library = "
+        "aten.convolution_backward; gn_bwd, library = aten.native_group_norm_backward) and "
+        "over one update of the full flagship tree at fp32 state (adan_ema); launches from "
+        "cli sample and towav (attention: cli sample of the fused_attention checkpoint; the "
+        "training kernels: cli train's 6 steps); max_abs_err over every geometry checked "
+        "(the backward kernels' relative L2 errors are in the [backward] lines)")
     report.update(device=smi, build_s=build_s, launches=launches, expected=expected,
                   serve=dict(replies=replies, launches=serve_launches, seconds=serve_s),
                   fused=dict(launches=fused_launches, seconds=fused_s),

@@ -5,13 +5,16 @@ module tree and names, in plain PyTorch, and replaces each Pallas TPU kernel
 on the ported path with a CUDA kernel written for Hopper (``csrc/``):
 
 - ``core``       configs (jax-free copy) and device resolution
-- ``data``       npz sample schema
-- ``ops``        condition resampling, the fused resblock chain, kernel build
-- ``models``     CondProjection, cross-attention, UNet1DUltimate
-- ``diffusion``  beta schedule, DDPM/DDIM samplers with CFG
-- ``inference``  checkpoint -> mel sampling
+- ``data``       npz sample schema, datasets, packing, batching, prefetch
+- ``ops``        condition resampling, the fused resblock chain and its
+                 backward, attention, the fused Adan+EMA update, kernel build
+- ``models``     CondProjection, cross-attention, UNet1DUltimate (serving
+                 and training forms)
+- ``diffusion``  beta schedule, the training loss, DDPM/DDIM samplers with CFG
+- ``training``   Adan, train/eval steps, full-state checkpoints, the loop
+- ``inference``  checkpoint -> mel sampling, long form
 - ``vocoder``    BigVGAN generator with the fused snake sandwich
-- ``cli``        ``python -m lm2a_tpu_torch.cli sample|towav``
+- ``cli``        ``python -m lm2a_tpu_torch.cli pack|sample|serve|towav|train``
 - ``checkpoint`` / ``convert``  JAX checkpoint directories in and out
 
 Public functions keep the JAX layout, channels-last ``(B, T, C)``. Entry

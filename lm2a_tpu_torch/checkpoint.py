@@ -8,10 +8,11 @@ Layout (``lm2a_tpu/training/checkpoint.py``):
 Keys look like ``.ema_params['unet']['down_0_block_0']['conv1']['kernel']``.
 bf16 leaves are stored as their uint16 bit patterns. Reading returns the
 ``unet`` and ``cond_proj`` parameter trees as flat ``"a/b/kernel"`` dicts of
-float32 arrays, preferring the EMA weights. Writing produces the same layout
-with parameters only (``.step``, ``.params``, ``.ema_params``; no optimizer
-state): what this port's ``load_models`` reads. The JAX package's restore
-also wants the optimizer state, so it cannot resume training from it.
+float32 arrays, preferring the EMA weights. ``save_checkpoint`` here writes
+the same layout with parameters only (``.step``, ``.params``,
+``.ema_params``): enough for ``load_models`` and for serving, not for
+resuming. The trainer's full-state writer, which either package resumes
+(optimizer state included), is ``lm2a_tpu_torch.training.checkpoint``.
 """
 
 from __future__ import annotations

@@ -1,18 +1,22 @@
 """CLI dispatcher: ``python -m lm2a_tpu_torch.cli <command> [args]``.
 
+  pack     npz split -> memory-mapped training arrays
   sample   checkpoint + npz conditions -> generated mel npz
   serve    persistent JSON-line sampling server (stdin -> stdout)
   towav    mel npz -> wav (BigVGAN)
+  train    train the denoiser (checkpoints in the JAX package's layout)
 
-All take ``--device`` (default ``cuda``).
+All but ``pack`` take ``--device`` (default ``cuda``).
 """
 
 import sys
 
 COMMANDS = {
+    "pack": "lm2a_tpu_torch.cli.pack",
     "sample": "lm2a_tpu_torch.cli.sample",
     "serve": "lm2a_tpu_torch.cli.serve",
     "towav": "lm2a_tpu_torch.cli.towav",
+    "train": "lm2a_tpu_torch.cli.train",
 }
 
 

@@ -4,10 +4,13 @@ A jax-free copy of ``lm2a_tpu/core/config.py``: the same fields, defaults and
 JSON form, so ``meta.json["config"]`` written by the JAX trainer round-trips
 through ``config_from_dict``/``config_to_dict`` here unchanged.
 ``fused_attention`` is honoured: it routes the denoiser's attention cores
-through the attention kernel, unfolded, as in the JAX package. The other
-switches of JAX code paths (``folded_attention``, ``fused_resblock``, ...)
-are kept so the dict survives the round trip; the port ignores them (it
-always folds off the fused route and always runs the resblock kernels).
+through the attention kernel, unfolded, as in the JAX package; so are
+``fused_resblock_grad`` and ``dropout`` (the training form) and the train
+switch ``opt_backend`` ('pallas' selects the CUDA Adan+EMA kernel). The
+other switches of JAX code paths (``folded_attention``, ``fused_resblock``,
+``opt_big_backend``, ...) are kept so the dict survives the round trip; the
+port ignores them (it always folds off the fused route, always serves
+through the resblock kernels and updates every leaf in the one Adan launch).
 """
 
 from __future__ import annotations
@@ -61,10 +64,11 @@ class ModelConfig:
     text_dim: int = 768  # RoBERTa-base hidden size
     # the attention kernel's route (honoured by the port)
     fused_attention: bool = False
+    # training: the fused resblock chain with its CUDA backward (honoured)
+    fused_resblock_grad: bool = False
     # JAX-only switches, kept for the checkpoint round trip:
     folded_attention: bool = False
     fused_resblock: bool = False
-    fused_resblock_grad: bool = False
     remat: bool = False
 
 
@@ -103,7 +107,7 @@ class TrainConfig:
     rng_impl: str = "threefry"
     fused_opt: bool = True
     opt_backend: str = "xla"
-    opt_big_backend: str = "pallas"
+    opt_big_backend: str = "pallas"  # JAX-only, kept for the checkpoint round trip
     steps_per_call: int = 1
     keep_checkpoints: int = 0
     ckpt_fetch_workers: int = 0

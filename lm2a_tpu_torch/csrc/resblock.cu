@@ -110,6 +110,7 @@ struct ConvArgs {
   const bf16* res;     // (B, T, cout) identity residual or null
   void* out;           // (B, T, cout), bf16 or fp32
   bf16* out2;          // (B, T, cout) skip projection kept apart, or null
+  float* out_pre;      // (B, T, cout) conv + bias before FiLM (training), or null
   int B, T, cin, cout, cin2, groups;
 };
 
@@ -269,6 +270,7 @@ __global__ void __launch_bounds__(NTHREADS) conv3_fused_kernel(const ConvArgs p)
     const int gn = n0 + n;
     const size_t o = ((size_t)b * T + t) * cout + gn;
     float h = Cs[r * LDC + n] + p.bias[gn];
+    if (p.out_pre) p.out_pre[o] = h;  // z1, for the FiLM-scale gradient
     if (p.film_scale)
       h = h * (1.f + p.film_scale[b * cout + gn]) + p.film_shift[b * cout + gn];
     if (p.x2) {
@@ -317,7 +319,8 @@ extern "C" int lm2a_conv3_fused(
     const float* gamma, const float* beta, const void* w, const float* bias,
     const float* film_scale, const float* film_shift, const void* x2,
     const void* w2, const float* bias2, const void* res, void* out, int out_is_f32,
-    void* out2, int B, int T, int cin, int cout, int cin2, int groups, void* stream) {
+    void* out2, float* out_pre, int B, int T, int cin, int cout, int cin2, int groups,
+    void* stream) {
   ConvArgs p;
   p.a = a;
   p.mean = mean;
@@ -334,6 +337,7 @@ extern "C" int lm2a_conv3_fused(
   p.res = static_cast<const bf16*>(res);
   p.out = out;
   p.out2 = static_cast<bf16*>(out2);
+  p.out_pre = out_pre;
   p.B = B;
   p.T = T;
   p.cin = cin;

@@ -1,5 +1,5 @@
-"""Gaussian diffusion samplers with classifier-free guidance (port of
-``lm2a_tpu/diffusion/gaussian.py``).
+"""Gaussian diffusion: forward noising, the training loss, and the samplers
+with classifier-free guidance (port of ``lm2a_tpu/diffusion/gaussian.py``).
 
 The reverse chains are Python loops of eager forwards (CUDA graphs are later
 work). Both samplers take ``x_init`` and the DDPM sampler ``noise_seq`` so
@@ -22,6 +22,35 @@ ModelFn = Callable[..., torch.Tensor]
 
 def _bcast(coef: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return coef.reshape(coef.shape + (1,) * (like.ndim - coef.ndim))
+
+
+def q_sample(schedule: Schedule, x0: torch.Tensor, t: torch.Tensor,
+             noise: torch.Tensor) -> torch.Tensor:
+    """Forward process q(x_t | x_0) = sqrt(ab_t) x0 + sqrt(1-ab_t) eps."""
+    ab = schedule.alpha_bars[t]
+    return _bcast(torch.sqrt(ab), x0) * x0 + _bcast(torch.sqrt(1.0 - ab), x0) * noise
+
+
+def diffusion_loss(model_fn: ModelFn, schedule: Schedule, x0: torch.Tensor,
+                   motion_f: Optional[torch.Tensor], text_f: Optional[torch.Tensor],
+                   dataset_mean: float = 0.0, dataset_std: float = 1.0,
+                   t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Epsilon-prediction MSE with uniform timesteps, the fp32 mean of
+    ``(noise - pred)^2``. ``x0`` is z-normalised by the dataset statistics
+    inside the loss. ``t`` and ``noise`` are drawn from ``generator`` unless
+    given (the tests inject the JAX package's draws)."""
+    b = x0.shape[0]
+    if t is None:
+        t = torch.randint(0, schedule.timesteps, (b,), generator=generator,
+                          device=x0.device)
+    if noise is None:
+        noise = torch.randn(x0.shape, generator=generator, device=x0.device,
+                            dtype=x0.dtype)
+    x0n = (x0 - dataset_mean) / dataset_std
+    x_t = q_sample(schedule, x0n, t, noise)
+    pred = model_fn(x_t, t, motion_f, text_f)
+    return torch.mean((noise - pred.float()) ** 2)
 
 
 def p_sample_step(schedule: Schedule, x_t: torch.Tensor, t: torch.Tensor,

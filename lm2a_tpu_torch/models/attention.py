@@ -16,6 +16,10 @@ through ``ops.attention.attention_core``, the CUDA kernel on the card (the
 port of the JAX package's Pallas attention kernels), and, as in the JAX
 package, keeps the unfolded form: ``fold`` is skipped on that route.
 Without it the core is plain matmul + fp32 softmax.
+
+Passing ``dtype`` to ``forward`` is the training form: the fp32 parameters
+are cast to ``dtype`` at each use, nothing is folded, and the fused route's
+core is differentiable (``attention_core``'s backward is its plain version).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from lm2a_tpu_torch.models.embedding import dense
 from lm2a_tpu_torch.ops.attention import attention_core
 
 
@@ -46,13 +51,17 @@ class MultiheadAttention(nn.Module):
         self.v_proj = nn.Linear(embed_dim, embed_dim)
         self.out_proj = nn.Linear(embed_dim, embed_dim)
 
-    def forward(self, query, key, value):
+    def _proj(self, lin, x, dtype):
+        if dtype is None:
+            return lin(x.to(lin.weight.dtype))
+        return dense(lin, x, dtype)
+
+    def forward(self, query, key, value, dtype=None):
         e, h = self.embed_dim, self.num_heads
         hd = e // h
-        dt = self.q_proj.weight.dtype
-        q = self.q_proj(query.to(dt))
-        k = self.k_proj(key.to(dt))
-        v = self.v_proj(value.to(dt))
+        q = self._proj(self.q_proj, query, dtype)
+        k = self._proj(self.k_proj, key, dtype)
+        v = self._proj(self.v_proj, value, dtype)
         q = q.reshape(q.shape[:-1] + (h, hd))
         k = k.reshape(k.shape[:-1] + (h, hd))
         v = v.reshape(v.shape[:-1] + (h, hd))
@@ -63,7 +72,7 @@ class MultiheadAttention(nn.Module):
             scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / _inv_scale(hd, q)
             probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
             out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-        return self.out_proj(out.reshape(out.shape[0], -1, e))
+        return self._proj(self.out_proj, out.reshape(out.shape[0], -1, e), dtype)
 
 
 class CrossAttentionFusion(nn.Module):
@@ -131,7 +140,13 @@ class CrossAttentionFusion(nn.Module):
         core = torch.einsum("bnhqk,bknhd->bqnhd", probs, v).reshape(b, t, 2 * e)
         return F.linear(core, f["w_out"], f["b_out"])
 
-    def forward(self, mel_hidden, motion_f, text_f):
+    def forward(self, mel_hidden, motion_f, text_f, dtype=None):
+        if dtype is not None:  # training form
+            motion_kv = dense(self.motion_kv_proj, motion_f, dtype)
+            text_kv = dense(self.text_kv_proj, text_f, dtype)
+            a_m = self.attn_motion(mel_hidden, motion_kv, motion_kv, dtype)
+            a_t = self.attn_text(mel_hidden, text_kv, text_kv, dtype)
+            return dense(self.fuse_proj, torch.cat([a_m, a_t], dim=-1), dtype)
         if self.folded is not None and not self.fused:
             return self._forward_folded(mel_hidden, motion_f, text_f)
         dt = self.motion_kv_proj.weight.dtype

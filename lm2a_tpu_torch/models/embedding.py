@@ -7,7 +7,9 @@
 - ``CondProjection``: motion (234) -> cond_dim, lyrics (768) -> cond_dim.
 
 Parameters may be held in the compute dtype; inputs are cast to it, as flax
-``Dense(dtype=...)`` does.
+``Dense(dtype=...)`` does. The training form (``forward_train``) keeps the
+fp32 parameters as the master copy and casts them to the compute dtype at
+each use (``dense``), as flax modules with ``dtype=bf16`` do.
 """
 
 from __future__ import annotations
@@ -17,6 +19,11 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+
+def dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``lin`` in ``dtype``: input, weight and bias cast (differentiably)."""
+    return F.linear(x.to(dtype), lin.weight.to(dtype), lin.bias.to(dtype))
 
 
 def sinusoidal_time_embed(t: torch.Tensor, dim: int,
@@ -43,6 +50,9 @@ class TimestepEmbedding(nn.Module):
         dt = self.proj.weight.dtype
         return F.silu(self.proj(sinusoidal_time_embed(t, self.dim, dt)))
 
+    def forward_train(self, t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return F.silu(dense(self.proj, sinusoidal_time_embed(t, self.dim, dtype), dtype))
+
 
 class CondProjection(nn.Module):
     """Project raw motion / lyrics features to the conditioning width."""
@@ -55,3 +65,6 @@ class CondProjection(nn.Module):
     def forward(self, motion: torch.Tensor, lyrics: torch.Tensor):
         dt = self.motion_proj.weight.dtype
         return self.motion_proj(motion.to(dt)), self.text_proj(lyrics.to(dt))
+
+    def forward_train(self, motion: torch.Tensor, lyrics: torch.Tensor, dtype: torch.dtype):
+        return dense(self.motion_proj, motion, dtype), dense(self.text_proj, lyrics, dtype)

@@ -20,6 +20,16 @@ remaining Linear/Conv weights cast to the compute dtype (GroupNorm stays
 fp32, as flax computes it). With ``fused_attention`` every attention core,
 the CFG constant's at T=S=1 included, runs through the attention kernel's
 wrapper and nothing is folded, as in the JAX package.
+
+``forward_train`` is the training form, beside the serving form: the fp32
+parameters stay the master copy and are cast to the compute dtype at each
+use; GroupNorm keeps fp32 statistics; Dropout sits on ``h`` after conv2 and
+before attention and draws from an explicit generator; attention is never
+folded. Block routing follows the JAX package's: with
+``fused_resblock_grad`` a block whose geometry passes
+``ops.resblock_grad.resblock_train_fits`` runs the fused train chain (the
+forward kernels and the CUDA backward); every other block runs plain,
+differentiable PyTorch.
 """
 
 from __future__ import annotations
@@ -32,10 +42,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from lm2a_tpu_torch.models.attention import CrossAttentionFusion
-from lm2a_tpu_torch.models.embedding import TimestepEmbedding
+from lm2a_tpu_torch.models.embedding import TimestepEmbedding, dense
 from lm2a_tpu_torch.ops.resblock import (
     GN_EPS, ResblockWeights, fused_resblock_chain, gn_stats_plain,
 )
+from lm2a_tpu_torch.ops.resblock_grad import fused_resblock_train
 
 
 def default_num_groups(channels: int) -> int:
@@ -68,6 +79,27 @@ def conv_cl(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
     if conv.kernel_size == (1,) and conv.stride == (1,):
         return F.linear(x.to(dt), conv.weight[:, :, 0], conv.bias)
     return conv(x.to(dt).transpose(1, 2)).transpose(1, 2).contiguous()
+
+
+def conv_train(conv: nn.Conv1d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A Conv1d on a channels-last tensor in ``dtype``, its fp32 weight and
+    bias cast differentiably (flax ``nn.Conv(dtype=...)``)."""
+    w, b = conv.weight.to(dtype), conv.bias.to(dtype)
+    x = x.to(dtype)
+    if conv.kernel_size == (1,) and conv.stride == (1,):
+        return F.linear(x, w[:, :, 0], b)
+    return F.conv1d(x.transpose(1, 2), w, b, stride=conv.stride,
+                    padding=conv.padding).transpose(1, 2)
+
+
+def dropout(h: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability ``1 - rate`` and scale by
+    its inverse; ``generator=None`` is the deterministic (eval) form."""
+    if rate == 0.0 or generator is None:
+        return h
+    keep = 1.0 - rate
+    mask = torch.rand(h.shape, generator=generator, device=h.device) < keep
+    return torch.where(mask, h / keep, torch.zeros_like(h))
 
 
 def upsample_linear_2x_align_corners(x: torch.Tensor) -> torch.Tensor:
@@ -104,6 +136,9 @@ class FiLM(nn.Module):
         stats = self.to_scale_shift(F.silu(t_emb.to(self.to_scale_shift.weight.dtype)))
         return stats.chunk(2, dim=-1)
 
+    def forward_train(self, t_emb, dtype):
+        return dense(self.to_scale_shift, F.silu(t_emb.to(dtype)), dtype).chunk(2, dim=-1)
+
 
 class ResBlockUltimate(nn.Module):
     """GN-SiLU-conv3 -> FiLM -> GN-SiLU-conv3 -> [cross-attn] + skip.
@@ -114,10 +149,11 @@ class ResBlockUltimate(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, time_emb_dim: int,
                  cond_dim: int = 128, use_attn: bool = False, num_heads: int = 4,
-                 fused_attention: bool = False):
+                 fused_attention: bool = False, dropout: float = 0.1):
         super().__init__()
         self.in_channels, self.out_channels = in_channels, out_channels
         self.use_attn = use_attn
+        self.dropout = dropout
         self.gn1 = GroupNorm(in_channels)
         self.conv1 = nn.Conv1d(in_channels, out_channels, 3, padding=1)
         self.film = FiLM(time_emb_dim, out_channels)
@@ -163,6 +199,37 @@ class ResBlockUltimate(nn.Module):
             h = self._attention(h, motion_f, text_f, uncond_rows)
         return xs + h
 
+    def forward_train(self, x, t_emb, motion_f, text_f, dtype: torch.dtype,
+                      generator: Optional[torch.Generator], fused_grad: bool):
+        """Training form (see the module docstring); ``generator=None``
+        disables dropout."""
+        scale, shift = self.film.forward_train(t_emb, dtype)
+        skip = getattr(self, "skip", None)
+        attend = self.use_attn and motion_f is not None and text_f is not None
+        if fused_grad:
+            res = fused_resblock_train(
+                x.to(dtype), self.gn1.weight, self.gn1.bias, self.conv1.weight,
+                self.conv1.bias, scale, shift, self.gn2.weight, self.gn2.bias,
+                self.conv2.weight, self.conv2.bias,
+                skip.weight if skip is not None else None,
+                skip.bias if skip is not None else None,
+                groups1=self.gn1.num_groups, groups2=self.gn2.num_groups)
+            if res is not None:  # the geometry passes the fused-backward gate
+                h, xs = res if skip is not None else (res, x.to(dtype))
+                h = dropout(h, self.dropout, generator)
+                if attend:
+                    h = self.cross_attn(h, motion_f, text_f, dtype=dtype)
+                return xs + h
+        h = conv_train(self.conv1, F.silu(self.gn1(x)), dtype)
+        h = h * (1.0 + scale[:, None, :]) + shift[:, None, :]
+        h = conv_train(self.conv2, F.silu(self.gn2(h)), dtype)
+        h = dropout(h, self.dropout, generator)
+        if attend:
+            h = self.cross_attn(h, motion_f, text_f, dtype=dtype)
+        if skip is not None:
+            x = conv_train(skip, x, dtype)
+        return x + h
+
     def _attention(self, h, motion_f, text_f, uncond_rows: int):
         attn = self.cross_attn
         if not uncond_rows:
@@ -180,17 +247,19 @@ class UNet1DUltimate(nn.Module):
     def __init__(self, in_dim: int = 80, base_dim: int = 256,
                  dim_mults: Tuple[int, ...] = (1, 2, 4), cond_dim: int = 128,
                  time_emb_dim: int = 256, num_res_blocks: int = 2, mid_blocks: int = 3,
-                 attn_heads: int = 8, fused_attention: bool = False):
+                 attn_heads: int = 8, fused_attention: bool = False, dropout: float = 0.1,
+                 fused_resblock_grad: bool = False):
         super().__init__()
         self.num_res_blocks, self.mid_blocks = num_res_blocks, mid_blocks
         self.fused_attention = fused_attention
+        self.fused_resblock_grad = fused_resblock_grad
         self.dims = [base_dim * m for m in dim_mults]
         self.time_embedding = TimestepEmbedding(time_emb_dim)
         self.in_proj = nn.Conv1d(in_dim, base_dim, 1)
 
         def block(cin, cout, use_attn):
             return ResBlockUltimate(cin, cout, time_emb_dim, cond_dim, use_attn, attn_heads,
-                                    fused_attention)
+                                    fused_attention, dropout)
 
         prev = base_dim
         for i, dim in enumerate(self.dims):
@@ -269,3 +338,34 @@ class UNet1DUltimate(nn.Module):
                 h = getattr(self, f"up_{i}_block_{b}")(h, t_emb, motion_f, text_f, uncond_rows)
         h = F.silu(self.out_gn(h))
         return conv_cl(self.out_proj, h).float()
+
+    def forward_train(self, x, t, motion_f=None, text_f=None, *, dtype: torch.dtype,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Training form on the fp32 parameters, compute in ``dtype``;
+        ``generator`` draws the dropout masks (None: deterministic, the
+        eval step). Output fp32."""
+        fused = self.fused_resblock_grad
+        t_emb = self.time_embedding.forward_train(t, dtype)
+        h = conv_train(self.in_proj, x, dtype)
+
+        def block(name, h):
+            return getattr(self, name).forward_train(h, t_emb, motion_f, text_f, dtype,
+                                                     generator, fused)
+
+        skips = []
+        for i in range(len(self.dims)):
+            for b in range(self.num_res_blocks):
+                h = block(f"down_{i}_block_{b}", h)
+            skips.append(h)
+            h = conv_train(getattr(self, f"down_{i}_downsample"), h, dtype)
+        for b in range(self.mid_blocks):
+            h = block(f"mid_block_{b}", h)
+        for i in range(len(self.dims)):
+            h = upsample_linear_2x_align_corners(h)
+            h = conv_train(getattr(self, f"up_{i}_upsample"), h, dtype)
+            skip = skips.pop()
+            h = torch.cat([_fix_time_len(h, skip.shape[1]), skip], dim=-1)
+            for b in range(self.num_res_blocks):
+                h = block(f"up_{i}_block_{b}", h)
+        h = F.silu(self.out_gn(h))
+        return conv_train(self.out_proj, h, dtype).float()

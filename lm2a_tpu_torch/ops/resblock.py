@@ -39,7 +39,7 @@ _build.declare("resblock", "lm2a_gn_stats",
                [_P, _I, _P, _P, _I, _I, _I, _I, _F, _P])
 _build.declare("resblock", "lm2a_conv3_fused",
                [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                _P, _I, _I, _I, _I, _I, _I, _P])
+                _P, _P, _I, _I, _I, _I, _I, _I, _P])
 
 
 @dataclass
@@ -110,19 +110,32 @@ def _gn_silu(a, mean, rstd, gamma, beta):
 
 def conv3_fused_plain(a, mean, rstd, gamma, beta, w, bias, *, film=None,
                       skip=None, residual=None, split_skip=False,
-                      out_dtype=torch.float32):
+                      out_dtype=torch.float32, save_pre=False):
     """SAME conv3 over ``silu(groupnorm(a))`` with the kernel's epilogues.
 
     ``film=(scale, shift)`` (B, Cout) fp32; ``skip=(x, w2, b2)`` adds the
     1x1 projection ``x @ w2.T + b2``, returned apart as ``(h, xs)`` when
-    ``split_skip``; ``residual`` adds an identity input."""
+    ``split_skip``; ``residual`` adds an identity input. ``save_pre`` (the
+    training forward) also returns the fp32 conv + bias before FiLM,
+    ``(h, z1)``."""
     act = _gn_silu(a, mean, rstd, gamma, beta).to(w.dtype).float()
     ap = torch.nn.functional.pad(act, (0, 0, 1, 1))
     taps = torch.cat([ap[:, :-2], ap[:, 1:-1], ap[:, 2:]], dim=-1)  # (B, T, 3Cin)
     h = taps @ w.float().t() + bias
-    if film is not None:
-        scale, shift = film
-        h = h * (1.0 + scale[:, None, :]) + shift[:, None, :]
+    if save_pre:
+        return _film(h, film).to(out_dtype), h
+    return _epilogue(h, film, skip, residual, split_skip, out_dtype)
+
+
+def _film(h, film):
+    if film is None:
+        return h
+    scale, shift = film
+    return h * (1.0 + scale[:, None, :]) + shift[:, None, :]
+
+
+def _epilogue(h, film, skip, residual, split_skip, out_dtype):
+    h = _film(h, film)
     if skip is not None:
         x, w2, b2 = skip
         xs = x.to(w2.dtype).float() @ w2.float().t() + b2
@@ -171,12 +184,14 @@ def gn_stats(x: torch.Tensor, groups: int, eps: float = GN_EPS):
 
 
 def conv3_fused(a, mean, rstd, gamma, beta, w, bias, *, film=None, skip=None,
-                residual=None, split_skip=False, out_dtype=torch.float32):
+                residual=None, split_skip=False, out_dtype=torch.float32,
+                save_pre=False):
     """Kernel wrapper of ``conv3_fused_plain`` (same arguments)."""
     if not _is_cuda(a):
         return conv3_fused_plain(a, mean, rstd, gamma, beta, w, bias, film=film,
                                  skip=skip, residual=residual,
-                                 split_skip=split_skip, out_dtype=out_dtype)
+                                 split_skip=split_skip, out_dtype=out_dtype,
+                                 save_pre=save_pre)
     dev = a.device
     b, t, cin = a.shape
     cout = w.shape[0]
@@ -221,16 +236,21 @@ def conv3_fused(a, mean, rstd, gamma, beta, w, bias, *, film=None, skip=None,
         _need(res.dtype == torch.bfloat16 and res.is_contiguous()
               and tuple(res.shape) == (b, t, cout), "conv3_fused: residual (B, T, Cout) bf16")
     out = torch.empty((b, t, cout), device=dev, dtype=out_dtype)
+    _need(not save_pre or (skip is None and residual is None),
+          "conv3_fused: save_pre is the conv-1 mode (no skip, no residual)")
     out2 = (torch.empty((b, t, cout), device=dev, dtype=torch.bfloat16)
             if skip is not None and split_skip else None)
+    pre = torch.empty((b, t, cout), device=dev, dtype=torch.float32) if save_pre else None
     P = _build.ptr
     _build.launch(
         "resblock", "lm2a_conv3_fused", "conv3_fused",
         P(a), int(a.dtype == torch.float32), P(mean), P(rstd), P(gamma), P(beta),
         P(w), P(bias), P(fs), P(fh), P(x2), P(w2), P(b2), P(res),
-        P(out), int(out_dtype == torch.float32), P(out2),
+        P(out), int(out_dtype == torch.float32), P(out2), P(pre),
         b, t, cin, cout, cin2, groups, _build.stream_ptr(dev),
     )
+    if pre is not None:
+        return out, pre
     return (out, out2) if out2 is not None else out
 
 

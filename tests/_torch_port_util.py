@@ -44,3 +44,27 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def jax_state_arrays(state):
+    """A JAX TrainState as host arrays keyed by ``jax.tree_util.keystr``,
+    the checkpoint layout both packages write."""
+    flat, _ = jax.tree_util.tree_flatten_with_path(jax.device_get(state))
+    return {jax.tree_util.keystr(kp): np.array(leaf) for kp, leaf in flat}
+
+
+def port_train_state(port_cfg, jax_state, device="cpu"):
+    """A port TrainState holding the JAX state's parameters, EMA and Adan
+    state (built from ``port_cfg``, then overwritten leaf by leaf)."""
+    from lm2a_tpu_torch.training.checkpoint import load_state_arrays
+    from lm2a_tpu_torch.training.train_step import init_train_state
+
+    state = init_train_state(port_cfg, 0, device)
+    load_state_arrays(state, jax_state_arrays(jax_state))
+    return state
+
+
+def rel_l2(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    nb = np.linalg.norm(b)
+    return float(np.linalg.norm(a - b) / nb) if nb > 0 else float(np.linalg.norm(a))

@@ -11,15 +11,21 @@ geometries; these take the edges it does not reach: ragged and short time
 tiles, T below the sandwich's halo, fp32 sandwich inputs, every epilogue of
 ``conv3_fused`` the chain uses, the attention kernel at every head dim it
 takes, T = S = 1, S around the JAX package's streaming threshold, ragged T
-and S, strided views and batches up to 16, the wrappers' refusals and their
-launch counts.
+and S, strided views and batches up to 16; the resblock backward kernels at
+T of 1, 2, 3 and off the 64-frame tile, C/G = 16, the 2048-channel concat
+input, with and without the skip, one by one and as a whole block, and
+through the autograd Function; the Adan+EMA kernel on leaves of 1 and of
+odd sizes, fp32 and bf16 state, clipping on and off, a zero gradient with
+clipping on; the wrappers' refusals and their launch counts.
 
 Tolerances are those of ``chip_smoke.py``: 1e-2 absolute + relative on bf16
 outputs (one bf16 ulp, where the kernel's and torch's SiLU round an operand
 to neighbouring bf16 values), 3e-2 on a whole chain; GroupNorm statistics
 1e-4 / 1e-3; the fp32 sandwich 1e-5 (fp32 sums in another order); the
 attention kernel ``chip_smoke.TOL["attention"]`` (bf16 output: two ulps, and
-the p rounding of the running max against the global one).
+the p rounding of the running max against the global one); the training
+kernels ``chip_smoke.TOL_REL_L2`` (relative L2) and ``TOL["adan_ema"]``, each
+with its reason there.
 """
 
 import pytest
@@ -86,7 +92,8 @@ def test_conv3_each_epilogue(dev, t):
     w, x, film = chip_smoke.random_chain(gen, 2, t, 256, 128, True, dev)
     m1, r1 = rb.gn_stats(x, w.groups1)
     args1 = (x, m1, r1, w.gn1_scale, w.gn1_bias, w.conv1_w, w.conv1_b)
-    for kw in (dict(film=film), dict()):
+    # save_pre: the training forward's (f, z1), z1 the conv before FiLM
+    for kw in (dict(film=film), dict(), dict(film=film, save_pre=True), dict(save_pre=True)):
         _close(rb.conv3_fused(*args1, **kw), rb.conv3_fused_plain(*args1, **kw),
                TOL["conv3_fused"])
     f = rb.conv3_fused(*args1, film=film)
@@ -188,4 +195,189 @@ def test_attention_refuses_what_it_cannot_take(dev):
         att.attention_core(q48, k48, v48)
     with pytest.raises(ValueError, match="hd contiguous"):  # hd at stride 2
         att.attention_core(torch.cat([q, q], dim=-1)[..., ::2], k, v)
+    assert not _build.LAUNCHES
+
+
+# ---------------------------------------------------------------- training kernels
+
+def _rel_l2(got, want) -> float:
+    got, want = got.float(), want.float()
+    n = float(want.norm())
+    return float((got - want).norm()) / n if n > 0 else float(got.norm())
+
+
+def _bwd_inputs(dev, b, t, cin, cout, has_skip, seed):
+    """A block's saved forward (through the kernels) and its output gradients."""
+    from lm2a_tpu_torch.ops import resblock_grad as rg
+
+    gen = torch.Generator().manual_seed(seed)
+    w, x, (fs, fh) = chip_smoke.random_chain(gen, b, t, cin, cout, has_skip, dev)
+    h, xs, saved = rg.chain_forward(x, fs, fh, w.gn1_scale, w.gn1_bias, w.conv1_w, w.conv1_b,
+                                    w.gn2_scale, w.gn2_bias, w.conv2_w, w.conv2_b, w.skip_w,
+                                    w.skip_b, w.groups1, w.groups2)
+    gh = torch.randn(h.shape, generator=gen).to(dev, torch.bfloat16)
+    gx = torch.randn(h.shape, generator=gen).to(dev, torch.bfloat16) if has_skip else None
+    return w, saved, gh, gx
+
+
+BWD_GEOMETRIES = [  # (B, T, Cin, Cout, skip): ragged and short T, C/G = 16, 2048 in
+    (2, 1, 128, 128, False), (2, 2, 128, 128, False), (2, 3, 256, 128, True),
+    (3, 37, 128, 128, False), (2, 65, 256, 128, True), (2, 130, 128, 256, True),
+    (1, 5, 2048, 1024, True), (16, 64, 128, 128, False),
+]
+
+
+@pytest.mark.parametrize("b,t,cin,cout,has_skip", BWD_GEOMETRIES)
+def test_resblock_backward_matches_plain(dev, b, t, cin, cout, has_skip):
+    from lm2a_tpu_torch.ops import resblock_grad as rg
+
+    w, saved, gh, gx = _bwd_inputs(dev, b, t, cin, cout, has_skip, seed=t + cin)
+    args = (saved, w.gn1_scale, w.gn1_bias, w.conv1_w, w.gn2_scale, w.gn2_bias, w.conv2_w,
+            w.skip_w, gh, gx)
+    _build.reset_launches()
+    got = rg.chain_backward(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {"conv3_dgrad": 2 + has_skip, "conv3_wgrad": 2 + has_skip,
+                               "gn_bwd": 2}
+    want = rg.chain_backward(*args, k=rg.PLAIN)
+    assert set(got) == set(want)
+    for name in want:
+        assert got[name].dtype == want[name].dtype and got[name].shape == want[name].shape
+        assert torch.isfinite(got[name]).all(), name
+        assert _rel_l2(got[name], want[name]) <= chip_smoke.TOL_REL_L2["resblock_bwd"], name
+
+
+@pytest.mark.parametrize("b,t,cin,cout,has_skip", BWD_GEOMETRIES[:5])
+def test_backward_kernels_one_by_one(dev, b, t, cin, cout, has_skip):
+    """Each kernel against its plain version on the same inputs."""
+    from lm2a_tpu_torch.ops import resblock_grad as rg
+
+    w, saved, gh, gx = _bwd_inputs(dev, b, t, cin, cout, has_skip, seed=7 * t + cout)
+    x, f, z1, mean1, rstd1, mean2, rstd2, sc = saved
+    act2 = dict(mean=mean2, rstd=rstd2, gamma=w.gn2_scale, beta=w.gn2_bias)
+    calls = [
+        ("conv3_dgrad", lambda m: m(gh, w.conv2_w, taps=3, pre=f, **act2),
+         rg.conv3_dgrad, rg.conv3_dgrad_plain),
+        ("conv3_wgrad", lambda m: m(f, gh, taps=3, bias=True, **act2),
+         rg.conv3_wgrad, rg.conv3_wgrad_plain),
+    ]
+    if has_skip:
+        calls += [("conv3_dgrad", lambda m: m(gx, w.skip_w, taps=1), rg.conv3_dgrad,
+                   rg.conv3_dgrad_plain),
+                  ("conv3_wgrad", lambda m: m(x, gx, taps=1, bias=True), rg.conv3_wgrad,
+                   rg.conv3_wgrad_plain)]
+    for name, call, kernel, plain in calls:
+        for g, p in zip(call(kernel), call(plain)):
+            if p is not None:
+                assert _rel_l2(g, p) <= chip_smoke.TOL_REL_L2[name], name
+    d_y2, p2 = rg.conv3_dgrad_plain(gh, w.conv2_w, taps=3, pre=f, **act2)
+    for film in (True, False):
+        kw = dict(film_scale=sc, z1=z1, out_dtype=torch.bfloat16) if film else dict(
+            out_dtype=torch.bfloat16, extra=torch.randn_like(d_y2))
+        g, gp = rg.gn_bwd(d_y2, f, mean2, rstd2, w.gn2_scale, p2, **kw)
+        p, pp = rg.gn_bwd_plain(d_y2, f, mean2, rstd2, w.gn2_scale, p2, **kw)
+        assert g.dtype == torch.bfloat16 and _rel_l2(g, p) <= chip_smoke.TOL_REL_L2["gn_bwd"]
+        if film:
+            assert _rel_l2(gp, pp) <= chip_smoke.TOL_REL_L2["gn_bwd_partials"]
+
+
+def test_fused_train_chain_autograd(dev):
+    """Gradients through the autograd Function (fp32 master weights in,
+    fp32 weight gradients out) against the plain backward."""
+    from lm2a_tpu_torch.ops import resblock_grad as rg
+
+    gen = torch.Generator().manual_seed(3)
+    cin, cout, b, t = 128, 256, 2, 70
+    conv1 = torch.nn.Conv1d(cin, cout, 3, padding=1).to(dev)
+    conv2 = torch.nn.Conv1d(cout, cout, 3, padding=1).to(dev)
+    skip = torch.nn.Conv1d(cin, cout, 1).to(dev)
+    vecs = [torch.nn.Parameter(torch.randn(c, generator=gen).to(dev) * 0.1 + o)
+            for c, o in ((cin, 1.0), (cin, 0.0), (cout, 1.0), (cout, 0.0))]
+    x = torch.randn((b, t, cin), generator=gen).to(dev, torch.bfloat16).requires_grad_()
+    fs, fh = (torch.randn((b, cout), generator=gen).to(dev, torch.bfloat16).requires_grad_()
+              for _ in range(2))
+    h, xs = rg.fused_resblock_train(x, vecs[0], vecs[1], conv1.weight, conv1.bias, fs, fh,
+                                    vecs[2], vecs[3], conv2.weight, conv2.bias, skip.weight,
+                                    skip.bias, groups1=8, groups2=8)
+    (h.float().square().sum() + xs.float().sum()).backward()
+    assert conv1.weight.grad.dtype == torch.float32 and x.grad.dtype == torch.bfloat16
+    assert fs.grad.dtype == torch.bfloat16 and conv2.bias.grad.shape == (cout,)
+    for p in (conv1.weight, conv2.weight, skip.weight, x, fs, fh, *vecs):
+        assert torch.isfinite(p.grad.float()).all()
+
+
+ADAN_NUMELS = [1, 3, 4095, 4097, 70001, 3 * 256 * 256]
+
+
+@pytest.mark.parametrize("state_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("clip", [1.0, 0.0])
+def test_adan_ema_matches_plain(dev, state_dtype, clip):
+    from lm2a_tpu_torch.ops import adan
+
+    gen = torch.Generator().manual_seed(5)
+
+    def leaves():
+        out = []
+        for n in ADAN_NUMELS:
+            r = lambda: torch.randn(n, generator=gen)  # noqa: E731
+            out.append((r().to(dev) * 0.1, r().to(dev), r().to(dev), r().to(dev, state_dtype),
+                        (r() * 0.01).to(dev, state_dtype), r().abs().to(dev, state_dtype) * 1e-4,
+                        r().to(dev, state_dtype)))
+        return out
+
+    got = leaves()
+    want = [tuple(t.clone() for t in leaf) for leaf in got]
+    launcher = adan.AdanEma(grad_clip=clip)
+    for step in range(3):  # step 0: moments frozen
+        gnorm = adan.global_norm([leaf[0] for leaf in got])
+        scal = adan.step_scalars(step, gnorm, 2e-4, betas=launcher.betas, weight_decay=1e-4,
+                                 ema_decay=0.999, device=dev)
+        _build.reset_launches()
+        launcher(got, scal)
+        assert _build.LAUNCHES == {"adan_ema": 1}
+        for leaf in want:
+            adan.adan_ema_plain(leaf, scal.clone(), betas=launcher.betas, eps=launcher.eps,
+                                clip=clip)
+        torch.cuda.synchronize()
+        for g_leaf, w_leaf in zip(got, want):
+            for g, w in zip(g_leaf[1:], w_leaf[1:]):
+                torch.testing.assert_close(g.float(), w.float(), **chip_smoke.TOL["adan_ema"])
+
+
+def test_adan_ema_zero_gradient_with_clip(dev):
+    """gnorm = 0 with clipping on: nothing is divided by zero."""
+    from lm2a_tpu_torch.ops import adan
+
+    leaf = tuple(torch.zeros(37, device=dev) for _ in range(7))
+    ref = tuple(t.clone() for t in leaf)
+    launcher = adan.AdanEma(grad_clip=1.0)
+    for step in range(2):
+        scal = adan.step_scalars(step, adan.global_norm([leaf[0]]), 2e-4,
+                                 betas=launcher.betas, weight_decay=1e-4, ema_decay=0.999,
+                                 device=dev)
+        launcher([leaf], scal)
+        adan.adan_ema_plain(ref, scal, betas=launcher.betas, eps=launcher.eps, clip=1.0)
+    torch.cuda.synchronize()
+    for g, w in zip(leaf, ref):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, atol=0.0, rtol=0.0)
+
+
+def test_training_kernels_refuse_what_they_cannot_take(dev):
+    from lm2a_tpu_torch.ops import adan
+    from lm2a_tpu_torch.ops import resblock_grad as rg
+
+    g = torch.zeros((1, 8, 64), device=dev, dtype=torch.bfloat16)
+    w = torch.zeros((64, 3 * 64), device=dev, dtype=torch.bfloat16)
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="bf16"):
+        rg.conv3_dgrad(g.float(), w)
+    with pytest.raises(ValueError, match="Cout % 32"):
+        rg.conv3_dgrad(g[..., :48].contiguous(), w[:48])
+    with pytest.raises(ValueError, match="multiples of 64"):
+        rg.conv3_wgrad(g[..., :32].contiguous(), g)
+    leaf = tuple(torch.zeros(5, device=dev) for _ in range(7))
+    scal = torch.zeros(8, device=dev)
+    with pytest.raises(ValueError, match="fp32"):
+        adan.AdanEma()([(leaf[0].double(),) + leaf[1:]], scal)
     assert not _build.LAUNCHES
