@@ -9,7 +9,8 @@ skipped:
 1. device: the card's name and power limit (``nvidia-smi``), TF32 switches
    set off explicitly and printed;
 2. build: every ``lm2a_tpu_torch/csrc/*.cu`` compiled with ``nvcc`` (one
-   process per source, all at once);
+   process per source, all at once), each kernel function's ``-Xptxas -v``
+   registers, shared memory and spills logged;
 3. kernels against their plain PyTorch versions on the card, at every
    geometry the flagship path gives them: the resblock chain kernels
    (``gn_stats``, ``conv3_fused``) at the 15 FiLM resblocks of the flagship
@@ -17,7 +18,8 @@ skipped:
    rows (the one-clip protocol chain), the snake sandwich at the 6 vocoder stages plus
    ``activation_post`` (bf16); each with its time, its plain version's time,
    its bound and, where one PyTorch call computes the same function, that
-   call's time;
+   call's time; each ``conv3_fused`` launch run twice on the same inputs
+   for the same bits (its K split sums in a fixed rank order);
    3b. the resblock kernels at the long-form row counts and lengths: 16
    rows at T=516 (8 windows of ``generate_long`` under CFG) and 2 rows at
    T=12920 (``generate_single_pass`` at 150 s);
@@ -31,7 +33,8 @@ skipped:
    plain versions, timed against them, their bounds and one cuDNN call each
    (``aten.convolution_backward``, ``aten.native_group_norm_backward``), and
    each block's whole backward against the autograd backward of the same
-   chain built from ``F.group_norm``/``F.conv1d``; ``adan_ema`` over the
+   chain built from ``F.group_norm``/``F.conv1d``, ``conv3_wgrad`` run twice
+   on the same inputs for the same bits; ``adan_ema`` over the
    full flagship parameter tree for 3 steps (the step-0 freeze included),
    fp32 and bf16 state, against its plain version;
 4. the slice: a flagship checkpoint (random weights from a seed, JAX layout)
@@ -297,6 +300,17 @@ def check_close(name: str, got, want, tol) -> float:
     return err
 
 
+def check_same_bits(name: str, fn, first) -> None:
+    """A second launch on the same inputs gives the first one's bits: the
+    K-split kernels sum in a fixed rank order, never with atomics."""
+    again = fn()
+    first = first if isinstance(first, tuple) else (first,)
+    again = again if isinstance(again, tuple) else (again,)
+    for a, b in zip(first, again):
+        if a is not None:
+            need(torch.equal(a, b), f"{name}: two launches on the same inputs differ")
+
+
 # ---------------------------------------------------------------- phase 3
 
 def random_chain(gen, b, t, cin, cout, has_skip, device):
@@ -366,6 +380,7 @@ def phase_resblock(timer, device, gen, rows: int, mel_t: int = MEL_T):
         f = rb.conv3_fused(*args1, **c1)
         err_conv = check_close(f"{name} conv1", f, rb.conv3_fused_plain(*args1, **c1),
                                TOL["conv3_fused"])
+        check_same_bits(f"{name} conv1", lambda: rb.conv3_fused(*args1, **c1), f)
         m2, r2 = rb.gn_stats(f, w.groups2)
         pm2, pr2 = rb.gn_stats_plain(f, w.groups2)
         err_gn = max(err_gn, check_close(f"{name} gn2 mean", m2, pm2, TOL["gn_stats"]),
@@ -377,6 +392,7 @@ def phase_resblock(timer, device, gen, rows: int, mel_t: int = MEL_T):
             c2.update(residual=x)
         args2 = (f, m2, r2, w.gn2_scale, w.gn2_bias, w.conv2_w, w.conv2_b)
         o2 = rb.conv3_fused(*args2, **c2)
+        check_same_bits(f"{name} conv2", lambda: rb.conv3_fused(*args2, **c2), o2)
         p2 = rb.conv3_fused_plain(*args2, **c2)
         o2 = o2 if isinstance(o2, tuple) else (o2,)
         p2 = p2 if isinstance(p2, tuple) else (p2,)
@@ -453,6 +469,10 @@ def phase_resblock(timer, device, gen, rows: int, mel_t: int = MEL_T):
     for k in ("gn_stats", "conv3_fused"):
         per[k]["bound_by"] = ("operations" if per[k]["ops"] / (PEAK_BF16 if k == "conv3_fused"
                               else PEAK_FP32) > per[k]["nbytes"] / PEAK_BYTES else "bytes")
+    k = per["conv3_fused"]
+    log(f"[resblock] rows={rows} T={mel_t} sums over the 30 convs: conv3_fused {k['ms']:.4f} ms "
+        f"({k['ops'] / k['ms'] / 1e9:.1f} TFLOP/s, {k['bound_ms'] / k['ms']:.1%} of its bound "
+        f"{k['bound_ms']:.4f}), F.conv1d {k['library_ms']:.4f} ms, plain {k['plain_ms']:.4f} ms")
     return per, rows_out
 
 
@@ -726,6 +746,9 @@ def phase_backward(timer, device, gen, rows: int = TRAIN_B, mel_t: int = MEL_T):
             for label, call in calls[kname]:
                 tol = TOL_REL_L2[kname]
                 outs_k, outs_p = call(rg.KERNELS), call(plain)
+                if kname == "conv3_wgrad":
+                    check_same_bits(f"{name} {kname} {label}", lambda c=call: c(rg.KERNELS),
+                                    outs_k)
                 for i, (a, b) in enumerate(zip(outs_k, outs_p)):
                     if b is None:
                         continue
@@ -744,6 +767,8 @@ def phase_backward(timer, device, gen, rows: int = TRAIN_B, mel_t: int = MEL_T):
             k = per[kname]
             k["err"] = max(k["err"], err)
             k["rel_l2"] = max(k.get("rel_l2", 0.0), rel)
+            for fld, v in (("ms", ms), ("library_ms", lib_ms), ("bound_ms", bnd), ("ops", ops)):
+                k[f"all_{fld}"] = k.get(f"all_{fld}", 0.0) + v
             if gated:
                 for fld, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
                                ("bound_ms", bnd), ("ops", ops), ("nbytes", nb)):
@@ -777,6 +802,11 @@ def phase_backward(timer, device, gen, rows: int = TRAIN_B, mel_t: int = MEL_T):
         k = per[kname]
         peak = PEAK_FP32 if kname == "gn_bwd" else PEAK_BF16
         k["bound_by"] = "operations" if k["ops"] / peak > k["nbytes"] / PEAK_BYTES else "bytes"
+        log(f"[backward] B={rows} {kname} sums: the gated blocks {k['ms']:.4f} ms "
+            f"({k['ops'] / k['ms'] / 1e9:.1f} TFLOP/s, {k['bound_ms'] / k['ms']:.1%} of its bound "
+            f"{k['bound_ms']:.4f}; library {k['library_ms']:.4f}), all 15 blocks "
+            f"{k['all_ms']:.4f} ms ({k['all_ops'] / k['all_ms'] / 1e9:.1f} TFLOP/s, bound "
+            f"{k['all_bound_ms']:.4f}; library {k['all_library_ms']:.4f})")
     return per, rows_out
 
 
@@ -1375,6 +1405,28 @@ def nvidia_smi_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
+def ptxas_summary(log: str):
+    """(kernel function, its ``-Xptxas -v`` registers / shared memory line,
+    its spill line) for each entry function in an nvcc log, names demangled
+    where ``c++filt`` exists."""
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name, spill = line.split("'")[1], ""
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif name and "Used" in line:
+            out.append([name, line.split("Used", 1)[1].strip(), spill])
+            name = None
+    if out and shutil.which("c++filt"):
+        r = subprocess.run(["c++filt"], input="\n".join(o[0] for o in out),
+                           capture_output=True, text=True, timeout=60)
+        if r.returncode == 0:
+            for o, d in zip(out, r.stdout.splitlines()):
+                o[0] = d.replace("(anonymous namespace)::", "").split("(")[0]
+    return out
+
+
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     a, b = a.float().cpu(), b.float().cpu()
     return float((a - b).norm() / b.norm())
@@ -1412,6 +1464,9 @@ def main(argv=None) -> int:
             f.write(f"--- {name}.cu ---\n{text}\n")
     log(f"[build] {len(_build.build_log)} sources built in {build_s:.1f} s "
         f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
+    for src, text in _build.build_log.items():
+        for fn, used, spill in ptxas_summary(text):
+            log(f"[build] ptxas {src}.cu {fn}: Used {used} | {spill}")
 
     # 3. kernels against their plain versions
     gen = torch.Generator().manual_seed(0)

@@ -14,27 +14,46 @@
 //   gn_stats(f)
 //   conv3_fused(f;  GN2+SiLU, skip GEMM over x, residual) -> out (bf16)
 //
-// conv3_fused is an implicit GEMM, M = T rows of one batch row, N = Cout,
-// K = 3*Cin (the three SAME-conv taps) plus an optional second K segment for
-// the 1x1 skip over x. Its prologue applies GroupNorm + SiLU to each A tile
-// as it is loaded and rounds to bf16; rows outside [0, T) are zero, because
-// SAME padding comes after the activation. The weights are pre-arranged as
-// (Cout, 3*Cin) so that each B tile is one contiguous run per output
-// channel. bf16 tensor-core MMA (wmma 16x16x16) accumulates in fp32; the
-// epilogue adds the bias and FiLM (conv 1) or skip bias and residual (conv 2).
+// conv3_fused is an implicit GEMM over the flattened (B*T) time axis: M =
+// B*T frames, N = Cout, K = 3*Cin (the three SAME-conv taps) plus, for a
+// skip summed into the output, a second K segment over the block input.
+// Its prologue applies GroupNorm + SiLU and rounds to bf16; frames outside
+// [0, T) of their own batch row are zero, because SAME padding comes after
+// the activation. The weights are (Cout, 3*Cin), each B tile one contiguous
+// run per output channel. The epilogue adds the bias and FiLM (conv 1) or
+// the skip bias and residual (conv 2) in fp32.
 //
-// Bound on the H100: at the flagship widths (2-4 rows, T 64..516, C 256..2048)
-// each conv does 0.2-3.3 GFLOP against a few MB of traffic, so it is bound by
-// tensor-core operations; gn_stats is bound by bytes. This first version
-// uses wmma with a register prefetch of the next K tile (global loads overlap
-// the MMAs of the current one) and 64x64 output tiles; wgmma, TMA, and folding
-// the GN2 partial sums into the conv-1 epilogue are later work.
-
-#include <mma.h>
+// Bound on the H100 at the main path's shapes: 2-4 rows give M = 128-2064,
+// so the weights (0.4-12.6 MB a conv) are the traffic that counts, and at
+// M = 128 the conv does 128 FLOP per weight byte, below the card's ~295:
+// those convs are bound by weight bytes, the larger-M ones by tensor-core
+// operations. The first design (wmma 16x16x16, one tile in shared memory, 64x64
+// tiles on 32-96 blocks, GN+SiLU recomputed per tap and per N tile) ran at
+// 3-14 TFLOP/s there. This design:
+//  - wgmma.mma_async m64nNk16 (N = 64 or 128) from one or two consumer
+//    warpgroups, A in registers (ldmatrix from a padded window), B (the
+//    weights) in shared memory behind a 128-byte-swizzle descriptor, and a
+//    helper warpgroup that shares the copies and the activation;
+//  - a 3-stage ring filled by cp.async (each chunk's weights and raw input
+//    rows), two chunks in flight while the tensor cores run the third;
+//  - each chunk of 64 input channels activated once per block: a window of
+//    BM+2 frames, which the three taps read shifted by one frame (a lane's
+//    row address; the zero row where a tap leaves its batch row), the next
+//    chunk's window activated while this chunk's wgmmas run;
+//  - a grid planned in Python (ops/resblock.py conv3_plan: the candidate of
+//    least time under a cost model measured on the card), with a K split
+//    over the blocks of a thread-block cluster; the ranks' fp32 tiles are
+//    summed from distributed shared memory in rank order (the same bits
+//    every run, no atomics, no partial tensor in device memory). A
+//    kept-apart skip doubles N: its tiles are blocks of their own.
+// What bounds it now, measured: not the tensor cores (a chunk's 12 wgmmas
+// take a fraction of its ~3 us) but each block's serial chain per chunk of
+// copy issue, barrier, activation and wgmma, and the waves of a grid that
+// holds one block per SM (PERF.md).
+// gn_stats is one pass over its input and bound by bytes.
 
 #include "common.cuh"
-
-using namespace nvcuda;
+#include "sm90_gemm.cuh"
 
 namespace {
 
@@ -87,12 +106,8 @@ gn_stats_kernel(const In* __restrict__ x, float* __restrict__ mean,
 }
 
 // ------------------------------------------------------------- conv3_fused
-constexpr int BM = 64;   // output rows (time) per block
-constexpr int BN = 64;   // output channels per block
-constexpr int BK = 32;   // K per tile; Cin % BK == 0 keeps a tile inside one tap
-constexpr int LDS = BK + 8;  // bf16 smem row stride (multiple of 8, 80 bytes)
-constexpr int LDC = BN + 4;  // fp32 epilogue row stride
-constexpr int NTHREADS = 128;  // 4 warps, each a 32x32 quarter of the tile
+constexpr int NSTAGE = 3;    // weight ring depth (chunks in flight)
+constexpr int LDW = 72;      // bf16 row stride of the activation window (144 bytes)
 
 struct ConvArgs {
   const void* a;       // (B, T, cin), bf16 or fp32: the GN+SiLU input
@@ -114,178 +129,275 @@ struct ConvArgs {
   int B, T, cin, cout, cin2, groups;
 };
 
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragB;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
+// Block: MW consumer warpgroups, BM = 64*MW output rows of the flattened
+// (B*T) time axis by BN output channels; grid (M tiles, N tiles, K split),
+// the split being the cluster's z extent. With a kept-apart skip the N
+// axis is doubled: tiles at n0 >= cout run the 1x1 skip GEMM into out2.
+// K walks in chunks of 64 input channels. A chunk's weights (3 taps, or 1
+// for a skip chunk) and its BM+2 raw input rows come in by cp.async, NSTAGE
+// - 1 chunks ahead; each thread copies exactly the raw elements it later
+// activates, so its own wait suffices. All MW+1 warpgroups share the copies
+// and the activation; the first MW issue the wgmmas and hold the tile. (The
+// helper doubles the threads of the latency-bound copy and activation
+// work, which otherwise outlasts the chunk's tensor-core work.) A conv chunk activates the window of
+// BM+2 frames once (GN+SiLU, bf16) and feeds three taps (12 wgmma k16
+// steps); a skip chunk copies its rows and feeds one.
+template <typename In, typename Out, int MW, int BN>
+__global__ void __launch_bounds__(128 * (MW + 1)) conv3_fused_kernel(const ConvArgs p) {
+  constexpr int NT = 128 * (MW + 1), BM = 64 * MW;  // MW consumers and one helper
+  constexpr int ZROW = BM + 2;  // an all-zero window row: taps outside [0, T)
+  constexpr int TAP_BYTES = BN * 128, STAGE_BYTES = 3 * TAP_BYTES;
+  constexpr int WIN_BYTES = (BM + 3) * LDW * 2;
+  constexpr int RAW_LD = 64 * (int)sizeof(In) + 16;  // bytes a staged raw row
+  constexpr int RAW_BYTES = (BM + 2) * RAW_LD;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* ring = smem;
+  bf16* win = reinterpret_cast<bf16*>(smem + NSTAGE * STAGE_BYTES);
+  uint8_t* raw = smem + NSTAGE * STAGE_BYTES + 2 * WIN_BYTES;
 
-__device__ __forceinline__ void mma_tile(const bf16* As, const bf16* Bs,
-                                         FragC (&acc)[2][2], int wm, int wn) {
-#pragma unroll
-  for (int kk = 0; kk < BK; kk += 16) {
-    FragA fa[2];
-    FragB fb[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      wmma::load_matrix_sync(fa[i], As + (wm + 16 * i) * LDS + kk, LDS);
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::load_matrix_sync(fb[j], Bs + (wn + 16 * j) * LDS + kk, LDS);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-  }
-}
+  const int tid = threadIdx.x, wg = tid >> 7, tid_wg = tid & 127, lane = tid & 31;
+  const int T = p.T, cin = p.cin, cout = p.cout, M = p.B * T;
+  const int m0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  const bool skip_tile = p.out2 != nullptr && n0 >= cout;
+  const int wrow0 = skip_tile ? n0 - cout : n0;
+  const int nconv = skip_tile ? 0 : cin / 64;
+  const int nskip = skip_tile || (p.x2 != nullptr && p.out2 == nullptr) ? p.cin2 / 64 : 0;
+  const int nch = nconv + nskip;
+  const int S = gridDim.z, rank = blockIdx.z;
+  const int ch_beg = nch * rank / S, ch_end = nch * (rank + 1) / S;
+  const int L = ch_end - ch_beg;
+  const int cg = cin / p.groups;
+  const int g8 = tid & 7;  // this thread's 8 channels of every chunk
 
-// 16 fp32 values -> 16 bf16 (round to nearest even) at a 16-byte aligned dst
-__device__ __forceinline__ void store16(bf16* dst, const float* v) {
-  uint4 u[2];
-  uint32_t* w = reinterpret_cast<uint32_t*>(u);
+  // chunk j into ring stage s: weights, and the raw rows q = m0 - 1 + jr
+  auto load_chunk = [&](int j, int s) {
+    const uint32_t base = sm90::smem_u32(ring + s * STAGE_BYTES);
+    const uint32_t rbase = sm90::smem_u32(raw + s * RAW_BYTES);
+    if (j < nconv) {
+      for (int u = tid; u < 3 * BN * 8; u += NT) {
+        const int tap = u / (BN * 8), r = (u >> 3) % BN, c = u & 7;
+        const bf16* src = p.w + (size_t)(wrow0 + r) * 3 * cin + tap * cin + j * 64 + c * 8;
+        sm90::cp_async16(base + tap * TAP_BYTES + sm90::sw128_offset(r, c), src);
+      }
+      const In* a = static_cast<const In*>(p.a);
+      for (int jr = tid >> 3; jr < BM + 2; jr += NT / 8) {
+        const int q = m0 - 1 + jr;
+        const bool ok = q >= 0 && q < M;
+        const In* src = a + (ok ? (size_t)q * cin + j * 64 + g8 * 8 : 0);
+        const uint32_t dst = rbase + jr * RAW_LD + g8 * 8 * (int)sizeof(In);
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);  // .x low
-    w[j] = *reinterpret_cast<uint32_t*>(&h);
-  }
-  reinterpret_cast<uint4*>(dst)[0] = u[0];
-  reinterpret_cast<uint4*>(dst)[1] = u[1];
-}
-
-template <typename In, typename Out>
-__global__ void __launch_bounds__(NTHREADS) conv3_fused_kernel(const ConvArgs p) {
-  __shared__ __align__(128) bf16 As[BM * LDS];
-  __shared__ __align__(128) bf16 Bs[BN * LDS];
-  __shared__ __align__(128) float Cs[BM * LDC];
-  __shared__ __align__(128) float Cs2[BM * LDC];
-
-  const int t0 = blockIdx.x * BM, n0 = blockIdx.y * BN, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  // loader mapping: each thread fills 16 consecutive K of one A row and one B row
-  const int lr = tid >> 1, lk = (tid & 1) * 16;
-  const int T = p.T, cin = p.cin, cout = p.cout;
-  const int Ktot = 3 * cin, cg = cin / p.groups;
-  const In* a = static_cast<const In*>(p.a) + (size_t)b * T * cin;
-
-  FragC acc[2][2], acc2[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::fill_fragment(acc[i][j], 0.f);
-      wmma::fill_fragment(acc2[i][j], 0.f);
+        for (int h = 0; h < (int)sizeof(In) / 2; ++h)
+          sm90::cp_async16(dst + 16 * h, src + h * 16 / (int)sizeof(In), ok ? 16 : 0);
+      }
+    } else {
+      for (int u = tid; u < BN * 8; u += NT) {
+        const int r = u >> 3, c = u & 7;
+        const bf16* src = p.w2 + (size_t)(wrow0 + r) * p.cin2 + (j - nconv) * 64 + c * 8;
+        sm90::cp_async16(base + sm90::sw128_offset(r, c), src);
+      }
+      for (int jr = tid >> 3; jr < BM + 2; jr += NT / 8) {
+        const int q = m0 - 1 + jr;
+        const bool ok = q >= 0 && q < M;
+        const bf16* src = p.x2 + (ok ? (size_t)q * p.cin2 + (j - nconv) * 64 + g8 * 8 : 0);
+        sm90::cp_async16(rbase + jr * RAW_LD + g8 * 16, src, ok ? 16 : 0);
+      }
     }
-
-  // ---- segment 1: conv3 over GN+SiLU(a), register prefetch of the next tile
-  float ra[16];
-  uint4 rb[2];
-  bool ra_ok = false;
-  int ra_c0 = 0;
-  const int t_row = t0 + lr;
-  auto fetch = [&](int k0) {
-    const int tap = k0 / cin;
-    ra_c0 = k0 - tap * cin + lk;
-    const int src = t_row + tap - 1;
-    ra_ok = t_row < T && src >= 0 && src < T;
-    if (ra_ok) load16(a + (size_t)src * cin + ra_c0, ra);
-    const bf16* wp = p.w + (size_t)(n0 + lr) * Ktot + k0 + lk;
-    rb[0] = reinterpret_cast<const uint4*>(wp)[0];
-    rb[1] = reinterpret_cast<const uint4*>(wp)[1];
   };
-  auto commit = [&]() {
-    float v[16];
-    if (ra_ok) {
-      const int g = ra_c0 / cg;
-      const float m = p.mean[b * p.groups + g], rs = p.rstd[b * p.groups + g];
+
+  // this thread's window rows jr = tid/8 + it*NT/8 and their batch rows
+  // (-1 outside [0, M)), computed once: the chunks differ only in channels
+  constexpr int ITER = (BM + 2 + NT / 8 - 1) / (NT / 8);
+  int brow[ITER];
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const float y = (ra[j] - m) * rs * p.gamma[ra_c0 + j] + p.beta[ra_c0 + j];
-        v[j] = y / (1.f + expf(-y));  // SiLU
+  for (int it = 0; it < ITER; ++it) {
+    const int jr = (tid >> 3) + it * (NT / 8), q = m0 - 1 + jr;
+    brow[it] = (jr < BM + 2 && q >= 0 && q < M) ? q / T : -1;
+  }
+
+  // window rows jr = 0..BM+1 hold frames q = m0 - 1 + jr, from the staged
+  // raw rows of stage s (the elements this thread copied itself)
+  auto activate = [&](int j, int s, int buf) {
+    bf16* wb = win + buf * (WIN_BYTES / 2);
+    const uint8_t* rs_ = raw + s * RAW_BYTES;
+    if (j < nconv) {
+      const int c = j * 64 + g8 * 8, gi = c / cg;
+      float ga[8], be[8];
+#pragma unroll
+      for (int e = 0; e < 8; e += 4) {
+        *reinterpret_cast<float4*>(ga + e) = __ldg(reinterpret_cast<const float4*>(p.gamma + c + e));
+        *reinterpret_cast<float4*>(be + e) = __ldg(reinterpret_cast<const float4*>(p.beta + c + e));
+      }
+#pragma unroll
+      for (int it = 0; it < ITER; ++it) {
+        const int jr = (tid >> 3) + it * (NT / 8);
+        if (jr < BM + 2) {
+          uint4 o = make_uint4(0, 0, 0, 0);
+          if (brow[it] >= 0) {
+            float v[8];
+            load8(reinterpret_cast<const In*>(rs_ + jr * RAW_LD) + g8 * 8, v);
+            const int si = brow[it] * p.groups + gi;
+            const float mu = __ldg(p.mean + si), rstd = __ldg(p.rstd + si);
+            uint32_t* ow = reinterpret_cast<uint32_t*>(&o);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float y0 = (v[2 * e] - mu) * rstd * ga[2 * e] + be[2 * e];
+              const float y1 = (v[2 * e + 1] - mu) * rstd * ga[2 * e + 1] + be[2 * e + 1];
+              ow[e] = sm90::pack_bf16x2(sm90::silu_fast(y0), sm90::silu_fast(y1));
+            }
+          }
+          *reinterpret_cast<uint4*>(wb + jr * LDW + g8 * 8) = o;
+        }
       }
     } else {
 #pragma unroll
-      for (int j = 0; j < 16; ++j) v[j] = 0.f;
+      for (int it = 0; it < ITER; ++it) {
+        const int jr = (tid >> 3) + it * (NT / 8);
+        if (jr < BM + 2)
+          *reinterpret_cast<uint4*>(wb + jr * LDW + g8 * 8) =
+              *reinterpret_cast<const uint4*>(rs_ + jr * RAW_LD + g8 * 16);
+      }
     }
-    store16(As + lr * LDS + lk, v);
-    reinterpret_cast<uint4*>(Bs + lr * LDS + lk)[0] = rb[0];
-    reinterpret_cast<uint4*>(Bs + lr * LDS + lk)[1] = rb[1];
   };
 
-  fetch(0);
-  for (int k0 = 0; k0 < Ktot; k0 += BK) {
-    commit();
-    __syncthreads();
-    if (k0 + BK < Ktot) fetch(k0 + BK);
-    mma_tile(As, Bs, acc, wm, wn);
-    __syncthreads();
+  // this lane's ldmatrix row for each tap: window row r + tap, or the zero
+  // row where frame t + tap - 1 leaves [0, T) (never the neighbouring
+  // batch row) or the output row is past M
+  int arow[3];
+  {
+    const int r = wg * 64 + (tid_wg >> 5) * 16 + (lane & 15);
+    const int m = m0 + r, t = m % T;
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      arow[k] = (m < M && t + k - 1 >= 0 && t + k - 1 < T) ? r + k : ZROW;
+  }
+  const uint32_t acol = (lane >> 4) * 16;  // bytes: k 0-7 or 8-15 of a k16 step
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+
+  if (tid < 16) {  // the zero row of both windows
+    *reinterpret_cast<uint4*>(win + (tid >> 3) * (WIN_BYTES / 2) + ZROW * LDW + (tid & 7) * 8) =
+        make_uint4(0, 0, 0, 0);
+  }
+#pragma unroll
+  for (int s = 0; s < NSTAGE - 1; ++s) {
+    if (s < L) load_chunk(ch_beg + s, s);
+    sm90::cp_async_commit();
+  }
+  if (L > 0) {
+    sm90::cp_async_wait<NSTAGE - 2>();
+    activate(ch_beg, 0, 0);
   }
 
-  // ---- segment 2: the 1x1 skip GEMM over the block input, own accumulator
-  if (p.x2) {
-    const bf16* x2 = p.x2 + (size_t)b * T * p.cin2;
-    uint4 xa[2];
-    auto fetch2 = [&](int k0) {
-      if (t_row < T) {
-        const bf16* xp = x2 + (size_t)t_row * p.cin2 + k0 + lk;
-        xa[0] = reinterpret_cast<const uint4*>(xp)[0];
-        xa[1] = reinterpret_cast<const uint4*>(xp)[1];
+  // one tap: 4 k16 steps of A fragments (ldmatrix) and wgmma against tile
+  auto tap_mma = [&](uint32_t (&fr)[4][4], uint32_t wbase, int row, uint32_t tile) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      sm90::ldmatrix_x4(fr[kk], wbase + row * (LDW * 2) + acol + kk * 32);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      sm90::wgmma_rs<BN>(acc, fr[kk], sm90::desc_sw128(tile + kk * 32));
+    sm90::wgmma_commit();
+  };
+
+  // per chunk: one barrier; the next chunk's copies go out, this chunk's
+  // taps go to the tensor cores, and the next chunk's window is activated
+  // while they run
+  for (int i = 0; i < L; ++i) {
+    const int j = ch_beg + i, s = i % NSTAGE;
+    sm90::cp_async_wait<NSTAGE - 2>();  // this thread's copies of chunk j landed
+    sm90::fence_proxy_async();
+    __syncthreads();  // every thread's weights and window rows of chunk j are in
+    if (i + NSTAGE - 1 < L) load_chunk(j + NSTAGE - 1, (i + NSTAGE - 1) % NSTAGE);
+    sm90::cp_async_commit();
+    const uint32_t wbase = sm90::smem_u32(win + (i & 1) * (WIN_BYTES / 2));
+    const uint32_t stage = sm90::smem_u32(ring + s * STAGE_BYTES);
+    uint32_t fa[4][4], fb[4][4];
+    if (wg < MW) {
+      if (j < nconv) {
+        tap_mma(fa, wbase, arow[0], stage);
+        tap_mma(fb, wbase, arow[1], stage + TAP_BYTES);
       } else {
-        xa[0] = make_uint4(0, 0, 0, 0);
-        xa[1] = make_uint4(0, 0, 0, 0);
+        tap_mma(fa, wbase, arow[1], stage);
       }
-      const bf16* wp = p.w2 + (size_t)(n0 + lr) * p.cin2 + k0 + lk;
-      rb[0] = reinterpret_cast<const uint4*>(wp)[0];
-      rb[1] = reinterpret_cast<const uint4*>(wp)[1];
-    };
-    fetch2(0);
-    for (int k0 = 0; k0 < p.cin2; k0 += BK) {
-      reinterpret_cast<uint4*>(As + lr * LDS + lk)[0] = xa[0];
-      reinterpret_cast<uint4*>(As + lr * LDS + lk)[1] = xa[1];
-      reinterpret_cast<uint4*>(Bs + lr * LDS + lk)[0] = rb[0];
-      reinterpret_cast<uint4*>(Bs + lr * LDS + lk)[1] = rb[1];
-      __syncthreads();
-      if (k0 + BK < p.cin2) fetch2(k0 + BK);
-      mma_tile(As, Bs, acc2, wm, wn);
-      __syncthreads();
+    }
+    if (i + 1 < L) {
+      sm90::cp_async_wait<NSTAGE - 2>();  // chunk j + 1's raw rows (this thread's)
+      activate(j + 1, (i + 1) % NSTAGE, (i + 1) & 1);
+    }
+    if (wg < MW) {
+      if (j < nconv) {
+        sm90::wgmma_wait<1>();  // tap 0 done: its fragment registers are free
+        tap_mma(fa, wbase, arow[2], stage + 2 * TAP_BYTES);
+      }
+      sm90::wgmma_wait<0>();
     }
   }
+  sm90::cp_async_wait<0>();
 
-  // ---- epilogue
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(Cs + (wm + 16 * i) * LDC + wn + 16 * j, acc[i][j], LDC,
-                              wmma::mem_row_major);
-      if (p.x2)
-        wmma::store_matrix_sync(Cs2 + (wm + 16 * i) * LDC + wn + 16 * j, acc2[i][j],
-                                LDC, wmma::mem_row_major);
-    }
-  __syncthreads();
-
+  // the epilogue, two neighbouring output channels at a time
   Out* out = static_cast<Out*>(p.out);
-  for (int e = tid; e < BM * BN; e += NTHREADS) {
-    const int r = e / BN, n = e - r * BN;
-    const int t = t0 + r;
-    if (t >= T) break;  // rows only grow with e
-    const int gn = n0 + n;
-    const size_t o = ((size_t)b * T + t) * cout + gn;
-    float h = Cs[r * LDC + n] + p.bias[gn];
-    if (p.out_pre) p.out_pre[o] = h;  // z1, for the FiLM-scale gradient
-    if (p.film_scale)
-      h = h * (1.f + p.film_scale[b * cout + gn]) + p.film_shift[b * cout + gn];
-    if (p.x2) {
-      const float xs = Cs2[r * LDC + n] + p.bias2[gn];
-      if (p.out2) {
-        out[o] = from_f<Out>(h);
-        p.out2[o] = from_f<bf16>(xs);
-      } else {
-        out[o] = from_f<Out>(xs + h);
-      }
-    } else if (p.res) {
-      out[o] = from_f<Out>(to_f(p.res[o]) + h);
-    } else {
-      out[o] = from_f<Out>(h);
+  auto store2 = [&](int m, int n, float v0, float v1) {
+    if (skip_tile) {
+      const int nn = n - cout;
+      const float2 b2 = __ldg(reinterpret_cast<const float2*>(p.bias2 + nn));
+      sm90::store_pair(p.out2 + (size_t)m * cout + nn, v0 + b2.x, v1 + b2.y);
+      return;
     }
+    const size_t o = (size_t)m * cout + n;
+    const float2 bi = __ldg(reinterpret_cast<const float2*>(p.bias + n));
+    float h0 = v0 + bi.x, h1 = v1 + bi.y;
+    if (p.out_pre) sm90::store_pair(p.out_pre + o, h0, h1);  // z1, for the FiLM-scale gradient
+    if (p.film_scale) {
+      const int fo = (m / T) * cout + n;
+      const float2 fs = __ldg(reinterpret_cast<const float2*>(p.film_scale + fo));
+      const float2 fh = __ldg(reinterpret_cast<const float2*>(p.film_shift + fo));
+      h0 = h0 * (1.f + fs.x) + fh.x;
+      h1 = h1 * (1.f + fs.y) + fh.y;
+    }
+    if (p.x2 && !p.out2) {  // the skip GEMM summed into the same accumulator
+      const float2 b2 = __ldg(reinterpret_cast<const float2*>(p.bias2 + n));
+      h0 += b2.x;
+      h1 += b2.y;
+    } else if (p.res) {
+      const float2 r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p.res + o));
+      h0 += r.x;
+      h1 += r.y;
+    }
+    sm90::store_pair(out + o, h0, h1);
+  };
+
+  if (S == 1) {
+    if (wg == MW) return;  // the helper holds no tile
+    const int r0 = wg * 64 + (tid_wg >> 5) * 16 + ((tid_wg & 31) >> 2);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + r0 + 8 * h;
+      if (m < M) {
+#pragma unroll
+        for (int jj = 0; jj < BN / 8; ++jj)
+          store2(m, n0 + 8 * jj + (tid_wg & 3) * 2, acc[4 * jj + 2 * h], acc[4 * jj + 2 * h + 1]);
+      }
+    }
+  } else {
+    __syncthreads();  // every warpgroup's wgmma has left the ring
+    float* red = reinterpret_cast<float*>(smem);
+    if (wg < MW) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i)
+        red[(wg * 64 + sm90::acc_row(i, tid_wg)) * BN + sm90::acc_col(i, tid_wg)] = acc[i];
+    }
+    sm90::cluster_reduce(red, BM * BN, [&](int e, float4 v) {
+      const int m = m0 + e / BN, n = n0 + e % BN;
+      if (m < M) {
+        store2(m, n, v.x, v.y);
+        store2(m, n + 2, v.z, v.w);
+      }
+    });
   }
 }
 
@@ -296,10 +408,22 @@ void launch_gn(const void* x, float* mean, float* rstd, int B, int T, int C, int
                                                   rstd, T, C, G, eps);
 }
 
+template <typename In, typename Out, int MW, int BN>
+cudaError_t launch_conv(const ConvArgs& p, int mtiles, int ntiles, int splits, int smem,
+                        cudaStream_t s) {
+  static bool attr_set = false;
+  return sm90::launch_cluster(conv3_fused_kernel<In, Out, MW, BN>, attr_set,
+                              dim3(mtiles, ntiles, splits), 128 * (MW + 1), smem, splits, s, p);
+}
+
 template <typename In, typename Out>
-void launch_conv(const ConvArgs& p, cudaStream_t s) {
-  dim3 grid((p.T + BM - 1) / BM, p.cout / BN, p.B);
-  conv3_fused_kernel<In, Out><<<grid, NTHREADS, 0, s>>>(p);
+cudaError_t launch_conv_plan(const ConvArgs& p, int mw, int bn, int mtiles, int ntiles,
+                             int splits, int smem, cudaStream_t s) {
+  if (bn == 64 && mw == 1) return launch_conv<In, Out, 1, 64>(p, mtiles, ntiles, splits, smem, s);
+  if (bn == 64 && mw == 2) return launch_conv<In, Out, 2, 64>(p, mtiles, ntiles, splits, smem, s);
+  if (bn == 128 && mw == 1) return launch_conv<In, Out, 1, 128>(p, mtiles, ntiles, splits, smem, s);
+  if (bn == 128 && mw == 2) return launch_conv<In, Out, 2, 128>(p, mtiles, ntiles, splits, smem, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -320,7 +444,7 @@ extern "C" int lm2a_conv3_fused(
     const float* film_scale, const float* film_shift, const void* x2,
     const void* w2, const float* bias2, const void* res, void* out, int out_is_f32,
     void* out2, float* out_pre, int B, int T, int cin, int cout, int cin2, int groups,
-    void* stream) {
+    int mw, int bn, int mtiles, int ntiles, int splits, int smem, void* stream) {
   ConvArgs p;
   p.a = a;
   p.mean = mean;
@@ -347,11 +471,13 @@ extern "C" int lm2a_conv3_fused(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // the chain's two convs: bf16 block input -> fp32 intermediate (conv 1),
   // fp32 intermediate -> bf16 block output (conv 2)
+  cudaError_t e;
   if (!a_is_f32 && out_is_f32)
-    launch_conv<bf16, float>(p, s);
+    e = launch_conv_plan<bf16, float>(p, mw, bn, mtiles, ntiles, splits, smem, s);
   else if (a_is_f32 && !out_is_f32)
-    launch_conv<float, bf16>(p, s);
+    e = launch_conv_plan<float, bf16>(p, mw, bn, mtiles, ntiles, splits, smem, s);
   else
     return (int)cudaErrorInvalidValue;
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

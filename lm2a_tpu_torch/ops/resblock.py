@@ -22,8 +22,9 @@ arithmetic) for a CPU tensor, and raises for anything else.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,15 +32,118 @@ import torch
 from lm2a_tpu_torch.ops import _build
 
 GN_EPS = 1e-5
-# tile geometry of csrc/resblock.cu
-_BK, _BN = 32, 64
+# the H100 SXM and the launch limits the plans respect
+SMS = 132                # streaming multiprocessors
+CLUSTER_MAX = 8          # portable thread-block cluster size
+SMEM_MAX = 232_448       # dynamic shared memory a block may opt into
+# conv3_fused geometry (csrc/resblock.cu): K walks in chunks of 64 input
+# channels; a 3-stage weight ring; bf16 window rows 72 wide (144 bytes)
+CHUNK, _NSTAGE, _LDW = 64, 3, 72
+_ALIGN = 1024            # slack for aligning the swizzled tiles to 1024 bytes
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _build.declare("resblock", "lm2a_gn_stats",
                [_P, _I, _P, _P, _I, _I, _I, _I, _F, _P])
 _build.declare("resblock", "lm2a_conv3_fused",
                [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                _P, _P, _I, _I, _I, _I, _I, _I, _P])
+                _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P])
+
+
+def k_ranges(chunks: int, splits: int):
+    """The K chunks ``[beg, end)`` each rank of a split takes, as the kernels
+    compute them: ``chunks * rank // splits``."""
+    return [(chunks * r // splits, chunks * (r + 1) // splits) for r in range(splits)]
+
+
+# The launch plans pick the candidate of least modeled time. The model was
+# fitted to an H100's device times of both kernels at forced plans
+# (scripts/torch_conv_plan_sweep.py; PERF.md): a block costs about
+# BLOCK_US plus CHUNK_US[(mw, bn)] (WGRAD_CHUNK_US[mw]) per K chunk it
+# runs; one block runs on an SM at a time (every plan's shared memory or
+# registers exceed half an SM's); and a grid runs in waves of at most
+# WAVE_BLOCKS[splits] blocks, fewer than the 132 SMs where the K split's
+# clusters must each fit in one GPC. Clusters of 7 or 8 blocks placed
+# worse still (SPLIT_MAX).
+SPLIT_MAX = 6
+BLOCK_US = 6.0
+CHUNK_US = {(1, 64): 3.05, (2, 64): 3.4, (1, 128): 3.55}
+WGRAD_CHUNK_US = {1: 2.95, 2: 2.68}
+WAVE_BLOCKS = {1: SMS, 2: SMS, 3: 108, 4: 120, 5: 110, 6: 96}
+
+
+def modeled_us(blocks: int, splits: int, chunks_per_block: int, chunk_us: float) -> float:
+    return -(-blocks // WAVE_BLOCKS[splits]) * (BLOCK_US + chunks_per_block * chunk_us)
+
+
+@dataclass(frozen=True)
+class ConvPlan:
+    """Launch of one ``conv3_fused``: ``mw`` consumer warpgroups (64·mw output
+    rows of the flattened B·T axis) and one helper warpgroup, by ``bn``
+    output channels per block; grid ``(mtiles, ntiles, splits)`` with the K
+    split along z as one thread-block cluster; ``chunks`` the K chunks of
+    each N segment (the conv, and the kept-apart skip's N tiles after it);
+    ``smem`` dynamic shared bytes."""
+
+    mw: int
+    bn: int
+    mtiles: int
+    ntiles: int
+    splits: int
+    smem: int
+    chunks: Tuple[int, ...]
+
+    @property
+    def bm(self) -> int:
+        return 64 * self.mw
+
+    @property
+    def threads(self) -> int:  # the consumer warpgroups and one helper
+        return 128 * (self.mw + 1)
+
+    @property
+    def blocks(self) -> int:
+        return self.mtiles * self.ntiles * self.splits
+
+
+def _conv3_smem(mw: int, bn: int, splits: int, in_bytes: int) -> int:
+    bm = 64 * mw
+    body = (_NSTAGE * 3 * bn * 128                    # the weight ring
+            + 2 * (bm + 3) * _LDW * 2                 # two activated windows
+            + _NSTAGE * (bm + 2) * (64 * in_bytes + 16))  # the raw input ring
+    return _ALIGN + max(body, bm * bn * 4 if splits > 1 else 0)
+
+
+def conv3_candidates(rows: int, t: int, cin: int, cout: int, cin2: int = 0,
+                     split_skip: bool = False, in_bytes: int = 2):
+    """Every launch of ``conv3_fused`` for this conv that fits the card, as
+    (modeled microseconds, ConvPlan), in a fixed order."""
+    m = rows * t
+    ntot = 2 * cout if split_skip else cout
+    chunks = (cin // CHUNK, cin2 // CHUNK) if split_skip else (cin // CHUNK + cin2 // CHUNK,)
+    out = []
+    for (mw, bn), chunk_us in CHUNK_US.items():
+        if cout % bn:
+            continue
+        mtiles, ntiles = -(-m // (64 * mw)), ntot // bn
+        for splits in range(1, min(SPLIT_MAX, *chunks) + 1):
+            smem = _conv3_smem(mw, bn, splits, in_bytes)
+            if smem > SMEM_MAX:
+                continue
+            plan = ConvPlan(mw, bn, mtiles, ntiles, splits, smem, chunks)
+            out.append((modeled_us(plan.blocks, splits, -(-max(chunks) // splits), chunk_us),
+                        plan))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def conv3_plan(rows: int, t: int, cin: int, cout: int, cin2: int = 0,
+               split_skip: bool = False, in_bytes: int = 2) -> ConvPlan:
+    """Tile sizes, K split and shared memory of ``conv3_fused`` (pure; the
+    wrapper passes the result to the kernel): the candidate of least modeled
+    time (``conv3_candidates``), the first of equals. ``in_bytes``: the
+    GN+SiLU input's element size (4 for conv 2's fp32 intermediate)."""
+    return min(conv3_candidates(rows, t, cin, cout, cin2, split_skip, in_bytes),
+               key=lambda c: c[0])[1]
 
 
 @dataclass
@@ -202,10 +306,10 @@ def conv3_fused(a, mean, rstd, gamma, beta, w, bias, *, film=None, skip=None,
           and tuple(w.shape) == (cout, 3 * cin),
           "conv3_fused: the CUDA path takes bf16 weights (Cout, 3*Cin); "
           "load the models with compute_dtype='bfloat16'")
-    _need(cin % _BK == 0 and cout % _BN == 0,
-          f"conv3_fused: needs Cin % {_BK} == 0 and Cout % {_BN} == 0, "
+    _need(cin % CHUNK == 0 and cout % 64 == 0,
+          f"conv3_fused: needs Cin % {CHUNK} == 0 and Cout % 64 == 0, "
           f"got {cin}->{cout}")
-    _need((cin // groups) % 16 == 0, "conv3_fused: C/G must be a multiple of 16")
+    _need((cin // groups) % 8 == 0, "conv3_fused: C/G must be a multiple of 8")
     for v, n, name in ((gamma, cin, "gamma"), (beta, cin, "beta"), (bias, cout, "bias")):
         _check_vec(v, n, dev, name)
     for s, name in ((mean, "mean"), (rstd, "rstd")):
@@ -226,11 +330,13 @@ def conv3_fused(a, mean, rstd, gamma, beta, w, bias, *, film=None, skip=None,
         x2, w2, b2 = skip
         cin2 = x2.shape[-1]
         _need(x2.dtype == torch.bfloat16 and x2.is_contiguous()
-              and tuple(x2.shape) == (b, t, cin2) and cin2 % _BK == 0,
+              and tuple(x2.shape) == (b, t, cin2) and cin2 % CHUNK == 0,
               "conv3_fused: skip input must be contiguous bf16 (B, T, Cin2)")
         _need(w2.dtype == torch.bfloat16 and w2.is_contiguous()
               and tuple(w2.shape) == (cout, cin2), "conv3_fused: skip weight (Cout, Cin2) bf16")
         _check_vec(b2, cout, dev, "skip bias")
+        _need(split_skip or film is None,
+              "conv3_fused: a summed skip shares conv 2's accumulator, which takes no FiLM")
     elif residual is not None:
         res = residual
         _need(res.dtype == torch.bfloat16 and res.is_contiguous()
@@ -241,13 +347,15 @@ def conv3_fused(a, mean, rstd, gamma, beta, w, bias, *, film=None, skip=None,
     out2 = (torch.empty((b, t, cout), device=dev, dtype=torch.bfloat16)
             if skip is not None and split_skip else None)
     pre = torch.empty((b, t, cout), device=dev, dtype=torch.float32) if save_pre else None
+    plan = conv3_plan(b, t, cin, cout, cin2, out2 is not None, a.element_size())
     P = _build.ptr
     _build.launch(
         "resblock", "lm2a_conv3_fused", "conv3_fused",
         P(a), int(a.dtype == torch.float32), P(mean), P(rstd), P(gamma), P(beta),
         P(w), P(bias), P(fs), P(fh), P(x2), P(w2), P(b2), P(res),
         P(out), int(out_dtype == torch.float32), P(out2), P(pre),
-        b, t, cin, cout, cin2, groups, _build.stream_ptr(dev),
+        b, t, cin, cout, cin2, groups, plan.mw, plan.bn, plan.mtiles, plan.ntiles,
+        plan.splits, plan.smem, _build.stream_ptr(dev),
     )
     if pre is not None:
         return out, pre

@@ -15,18 +15,19 @@ backward (``csrc/resblock_bwd.cu``) is three kernels:
   with the SiLU backward of the GroupNorm+SiLU that fed it in the epilogue
   and per-(row, channel, 64-frame tile) partial sums of ``d_y`` and
   ``d_y * xhat``;
-- ``conv3_wgrad``: the weight gradient (split over B*T into slices of fp32
-  partials) with the bias gradient's column sums, its operand
-  ``silu(gn(.))`` formed in the prologue;
+- ``conv3_wgrad``: the weight gradient and the bias gradient's column sums,
+  its operand ``silu(gn(.))`` formed in the prologue; where the output tiles
+  are fewer than the SMs, K (B*T) is split over a thread-block cluster whose
+  fp32 tiles are summed in rank order inside the kernel (``wgrad_plan``);
 - ``gn_bwd``: GroupNorm's input gradient from those partials; for GN2 also
   ``d_z1 = d_f * (1 + scale)`` and tile sums of ``d_f``, ``d_f * z1`` and
   ``d_z1`` (the FiLM shift, FiLM scale and conv-1 bias gradients).
 
-Partials are summed here with ``torch.sum`` over a fixed axis, never with
-atomics, so the gradients are the same bits from run to run. Numerics are
-the JAX kernel's: bf16 conv operands (``silu(gn(.))``, ``g`` and ``d_z1``
-rounded to the compute dtype) with fp32 accumulation, GroupNorm and SiLU in
-fp32, weight gradients fp32.
+The channel partials are summed here with ``torch.sum`` over a fixed axis,
+never with atomics, so the gradients are the same bits from run to run.
+Numerics are the JAX kernel's: bf16 conv operands (``silu(gn(.))``, ``g``
+and ``d_z1`` rounded to the compute dtype) with fp32 accumulation,
+GroupNorm and SiLU in fp32, weight gradients fp32.
 
 Each kernel wrapper launches its CUDA kernel for a CUDA tensor, runs its
 plain PyTorch version (``*_plain``, the same arithmetic and the same partial
@@ -36,27 +37,37 @@ tiles) for a CPU tensor, and raises for anything else.
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 from types import SimpleNamespace
 
 import torch
 
 from lm2a_tpu_torch.ops import _build
 from lm2a_tpu_torch.ops.resblock import (
-    _check_vec, _is_cuda, _need, conv3_fused, conv3_fused_plain, gn_stats, gn_stats_plain,
+    _ALIGN, CHUNK, SPLIT_MAX, WGRAD_CHUNK_US, _check_vec, _is_cuda, _need, conv3_fused,
+    conv3_fused_plain, gn_stats, gn_stats_plain, modeled_us,
 )
+
+# conv3_wgrad's second level of K split: up to WGRAD_PARTS fp32 partials of
+# the whole gradient, summed by torch.sum after the launch; modeled as a
+# fixed PARTS_US plus PARTS_US_PER_MB per MB of partials (a read at about
+# two thirds of the card's bandwidth, the write inside the kernel)
+WGRAD_PARTS = 4
+PARTS_US, PARTS_US_PER_MB = 4.0, 0.5
 
 # The JAX kernel's gate: conv weights at the compute dtype plus their fp32
 # gradient accumulators plus ~8 live (T, C) fp32 rows within 15 MiB of VMEM.
 BWD_VMEM_BUDGET = 15 * 1024 * 1024
 TT = 64  # frames per partial-sum tile (the conv3_dgrad M tile)
-_BT, _BK = 64, 32  # CUDA tile: 64 output rows/columns, K tiles of 32
-TARGET_BLOCKS = 264  # conv3_wgrad splits K until about two waves of 132 SMs
+_BT, _BK = 64, 32  # conv3_dgrad's tile: 64 output rows/columns, K tiles of 32
+_WG_STAGES = 3  # conv3_wgrad's ring of 64-frame g tiles
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _build.declare("resblock_bwd", "lm2a_conv3_dgrad",
                [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P])
 _build.declare("resblock_bwd", "lm2a_conv3_wgrad",
-               [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P])
+               [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P])
 _build.declare("resblock_bwd", "lm2a_gn_bwd",
                [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P])
 
@@ -223,15 +234,65 @@ def conv3_dgrad(g, w, *, taps: int = 3, pre=None, mean=None, rstd=None, gamma=No
     return out, part
 
 
-def wgrad_splits(b: int, t: int, cin: int, cout: int, taps: int):
-    """(split_len, splits) of conv3_wgrad's K = B*T: about TARGET_BLOCKS
-    blocks, slices a multiple of the K tile."""
-    tiles = (taps * cin // _BT) * (cout // _BT)
-    bt = b * t
-    want = max(1, min(-(-TARGET_BLOCKS // tiles), -(-bt // _BK)))
-    split_len = -(-bt // want)
-    split_len = -(-split_len // _BK) * _BK
-    return split_len, -(-bt // split_len)
+@dataclass(frozen=True)
+class WgradPlan:
+    """Launch of one ``conv3_wgrad``: ``mw`` consumer warpgroups (64·mw
+    output channels of Cout) and one helper, by 64 input channels and all
+    taps per block; grid ``(ntiles, ctiles, splits * parts)``: the
+    ``chunks`` 64-frame K chunks of B·T split over ``splits * parts`` ranks,
+    summed in the kernel over each cluster of ``splits`` and, for ``parts``
+    above 1, over the parts' fp32 partials by ``torch.sum`` in a fixed
+    order; ``smem`` dynamic shared bytes."""
+
+    mw: int
+    ntiles: int
+    ctiles: int
+    splits: int
+    parts: int
+    smem: int
+    chunks: int
+
+    @property
+    def blocks(self) -> int:
+        return self.ntiles * self.ctiles * self.splits * self.parts
+
+
+def wgrad_candidates(b: int, t: int, cin: int, cout: int, taps: int, src_bytes: int = 2):
+    """Every launch of ``conv3_wgrad`` for this shape, as (modeled
+    microseconds, WgradPlan): ``mw`` consumer warpgroups (64·mw output
+    channels) and a helper, by 64 input channels and every tap, a block; the
+    K split over a cluster of 1 to SPLIT_MAX blocks, times 1 to WGRAD_PARTS
+    partials summed after the launch."""
+    chunks = -(-(b * t) // 64)
+    rows = 66 if taps == 3 else 64  # source frames a 64-frame chunk reads
+    out_mb = taps * cin * cout * 4 / 1e6
+    out = []
+    for mw, chunk_us in WGRAD_CHUNK_US.items():
+        if cout % (64 * mw):
+            continue
+        ntiles, ctiles = cout // (64 * mw), cin // CHUNK
+        body = (2 * taps * 64 * 128                         # two sets of tap tiles
+                + _WG_STAGES * 64 * (64 * mw + 8) * 2       # the g ring
+                + _WG_STAGES * rows * (64 * src_bytes + 16))  # the source ring
+        smem = _ALIGN + max(body, (taps * 64 + 1) * 64 * mw * 4)  # the fp32 tile, transposed
+        for parts in range(1, WGRAD_PARTS + 1):
+            for splits in range(1, min(SPLIT_MAX, chunks // parts) + 1):
+                plan = WgradPlan(mw, ntiles, ctiles, splits, parts, smem, chunks)
+                us = modeled_us(plan.blocks, splits, -(-chunks // (splits * parts)), chunk_us)
+                if parts > 1:  # the partials written, read back and summed
+                    us += PARTS_US + parts * out_mb * PARTS_US_PER_MB
+                out.append((us, plan))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def wgrad_plan(b: int, t: int, cin: int, cout: int, taps: int,
+               src_bytes: int = 2) -> WgradPlan:
+    """Tile, K split and shared memory of ``conv3_wgrad`` (pure; the wrapper
+    passes it to the kernel): the candidate of least modeled time
+    (``wgrad_candidates``), the first of equals. ``src_bytes``: the
+    activation source's element size (4 for conv 2's fp32 GroupNorm input)."""
+    return min(wgrad_candidates(b, t, cin, cout, taps, src_bytes), key=lambda c: c[0])[1]
 
 
 def conv3_wgrad(src, g, *, taps: int = 3, mean=None, rstd=None, gamma=None, beta=None,
@@ -255,15 +316,17 @@ def conv3_wgrad(src, g, *, taps: int = 3, mean=None, rstd=None, gamma=None, beta
               "conv3_wgrad: the raw operand must be contiguous bf16")
     else:
         groups = _check_act("conv3_wgrad", src, mean, rstd, gamma, beta)
-    split_len, splits = wgrad_splits(b, t, cin, cout, taps)
-    ws = torch.empty((splits, taps * cin, cout), device=dev, dtype=torch.float32)
-    wb = torch.empty((splits, cout), device=dev, dtype=torch.float32) if bias else None
+    plan = wgrad_plan(b, t, cin, cout, taps, src.element_size())
+    dw = torch.empty((plan.parts, taps * cin, cout), device=dev, dtype=torch.float32)
+    db = torch.empty((plan.parts, cout), device=dev, dtype=torch.float32) if bias else None
     P = _build.ptr
     _build.launch("resblock_bwd", "lm2a_conv3_wgrad", "conv3_wgrad",
                   P(src), int(src.dtype == torch.float32), P(mean), P(rstd), P(gamma),
-                  P(beta), P(g), P(ws), P(wb), b, t, cin, cout, taps, groups, split_len,
-                  splits, _build.stream_ptr(dev))
-    return ws.sum(0), (wb.sum(0) if bias else None)
+                  P(beta), P(g), P(dw), P(db), b, t, cin, cout, taps, groups, plan.mw,
+                  plan.splits, plan.parts, plan.smem, _build.stream_ptr(dev))
+    if plan.parts == 1:
+        return dw[0], (db[0] if bias else None)
+    return dw.sum(0), (db.sum(0) if bias else None)
 
 
 def gn_bwd(dy, pre, mean, rstd, gamma, part, *, extra=None, film_scale=None, z1=None,

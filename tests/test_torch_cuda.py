@@ -16,7 +16,13 @@ T of 1, 2, 3 and off the 64-frame tile, C/G = 16, the 2048-channel concat
 input, with and without the skip, one by one and as a whole block, and
 through the autograd Function; the Adan+EMA kernel on leaves of 1 and of
 odd sizes, fp32 and bf16 state, clipping on and off, a zero gradient with
-clipping on; the wrappers' refusals and their launch counts.
+clipping on; the wrappers' refusals and their launch counts. For the Hopper
+designs of ``conv3_fused`` and ``conv3_wgrad`` (wgmma, cp.async rings, K
+split over a thread-block cluster): every ``conv3_fused`` mode at 1, 2, 4
+and 16 rows with M tiles that straddle batch rows, K chunks that do not
+divide by the cluster split, ``conv3_wgrad`` with one and three taps, with
+and without the bias, raw and GN+SiLU operands, B*T off the 64-frame chunk,
+and both kernels giving the same bits on two launches.
 
 Tolerances are those of ``chip_smoke.py``: 1e-2 absolute + relative on bf16
 outputs (one bf16 ulp, where the kernel's and torch's SiLU round an operand
@@ -381,3 +387,156 @@ def test_training_kernels_refuse_what_they_cannot_take(dev):
     with pytest.raises(ValueError, match="fp32"):
         adan.AdanEma()([(leaf[0].double(),) + leaf[1:]], scal)
     assert not _build.LAUNCHES
+
+
+# ---------------------------------------------------------------- Hopper conv redesign
+
+def _conv_modes(gen, dev, rows, t, cin, cout):
+    """Every conv3_fused mode the chain and the training forward use, as
+    (label, kwargs for conv 1 or conv 2, which conv)."""
+    w, x, film = chip_smoke.random_chain(gen, rows, t, cin, cout, True, dev)
+    m1, r1 = rb.gn_stats(x, w.groups1)
+    args1 = (x, m1, r1, w.gn1_scale, w.gn1_bias, w.conv1_w, w.conv1_b)
+    f = rb.conv3_fused(*args1, film=film)
+    m2, r2 = rb.gn_stats(f, w.groups2)
+    args2 = (f, m2, r2, w.gn2_scale, w.gn2_bias, w.conv2_w, w.conv2_b)
+    res = torch.randn((rows, t, cout), generator=gen).to(dev, torch.bfloat16)
+    bf = torch.bfloat16
+    return [
+        ("film", args1, dict(film=film)), ("plain", args1, dict()),
+        ("save_pre film", args1, dict(film=film, save_pre=True)),
+        ("save_pre", args1, dict(save_pre=True)),
+        ("skip summed", args2, dict(skip=(x, w.skip_w, w.skip_b), out_dtype=bf)),
+        ("skip apart", args2, dict(skip=(x, w.skip_w, w.skip_b), split_skip=True, out_dtype=bf)),
+        ("residual", args2, dict(residual=res, out_dtype=bf)), ("none", args2, dict(out_dtype=bf)),
+    ]
+
+
+@pytest.mark.parametrize("rows", [1, 2, 4, 16])
+@pytest.mark.parametrize("t", [37, 129])
+def test_conv3_every_mode_at_main_path_rows(dev, rows, t):
+    """Each mode against its plain version, with M tiles that straddle batch
+    rows (T = 37, 129: rows fold into one flattened axis)."""
+    gen = torch.Generator().manual_seed(rows * t)
+    for label, args, kw in _conv_modes(gen, dev, rows, t, 256, 128):
+        _build.reset_launches()
+        got = rb.conv3_fused(*args, **kw)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES == {"conv3_fused": 1}, label
+        _close(got, rb.conv3_fused_plain(*args, **kw), TOL["conv3_fused"])
+
+
+@pytest.mark.parametrize("rows,t,cin,cout,cin2", [
+    (1, 64, 704, 64, 0),     # 11 K chunks over a split of 6
+    (2, 37, 320, 128, 192),  # 5 + 3 chunks, the skip summed in one accumulator
+    (3, 65, 192, 64, 0),     # M = 195 in one tile, taps at the three row edges
+    (8, 65, 128, 128, 0),    # 64-row M tiles that straddle batch rows
+    (1, 1, 128, 128, 128),   # T = 1: both outer taps read zeros
+])
+def test_conv3_split_k_and_row_edges(dev, rows, t, cin, cout, cin2):
+    gen = torch.Generator().manual_seed(cin + t)
+    w, x, film = chip_smoke.random_chain(gen, rows, t, cin, cout, bool(cin2), dev)
+    plan = rb.conv3_plan(rows, t, cin, cout)
+    if cin == 704:
+        assert plan.splits > 1 and (cin // 64) % plan.splits != 0
+    m1, r1 = rb.gn_stats(x, w.groups1)
+    args1 = (x, m1, r1, w.gn1_scale, w.gn1_bias, w.conv1_w, w.conv1_b)
+    _close(rb.conv3_fused(*args1, film=film), rb.conv3_fused_plain(*args1, film=film),
+           TOL["conv3_fused"])
+    if cin2:
+        f = rb.conv3_fused(*args1, film=film)
+        m2, r2 = rb.gn_stats(f, w.groups2)
+        args2 = (f, m2, r2, w.gn2_scale, w.gn2_bias, w.conv2_w, w.conv2_b)
+        xs = torch.randn((rows, t, cin2), generator=gen).to(dev, torch.bfloat16)
+        sw_ = (torch.randn((cout, cin2), generator=gen) * cin2 ** -0.5).to(dev, torch.bfloat16)
+        kw = dict(skip=(xs, sw_, w.conv2_b), out_dtype=torch.bfloat16)
+        _close(rb.conv3_fused(*args2, **kw), rb.conv3_fused_plain(*args2, **kw),
+               TOL["conv3_fused"])
+
+
+def test_conv3_refuses_film_with_a_summed_skip(dev):
+    gen = torch.Generator().manual_seed(1)
+    w, x, film = chip_smoke.random_chain(gen, 1, 8, 128, 128, True, dev)
+    m, r = rb.gn_stats(x, w.groups1)
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="FiLM"):
+        rb.conv3_fused(x, m, r, w.gn1_scale, w.gn1_bias, w.conv1_w, w.conv1_b, film=film,
+                       skip=(x, w.skip_w, w.skip_b))
+    assert not _build.LAUNCHES
+
+
+@pytest.mark.parametrize("b,t", [(3, 37), (2, 300), (16, 65), (1, 1)])
+@pytest.mark.parametrize("taps,bias,act", [(3, True, True), (3, False, True), (1, True, False),
+                                           (1, False, True), (3, True, False)])
+def test_wgrad_taps_bias_and_ragged_k(dev, b, t, taps, bias, act):
+    """B*T off the 64-frame K chunk (and K chunks across batch rows), the
+    split over a cluster, one and three taps, bias on and off, GN+SiLU or
+    raw operand, fp32 and bf16 GroupNorm inputs."""
+    from lm2a_tpu_torch.ops import resblock_grad as rg
+
+    gen = torch.Generator().manual_seed(b * t + taps)
+    cin, cout = 128, 64
+    for src_dtype in ((torch.float32, torch.bfloat16) if act else (torch.bfloat16,)):
+        src = torch.randn((b, t, cin), generator=gen).to(dev, src_dtype)
+        g = torch.randn((b, t, cout), generator=gen).to(dev, torch.bfloat16)
+        kw = dict(taps=taps, bias=bias)
+        if act:
+            mean, rstd = rb.gn_stats(src, 8)
+            kw.update(mean=mean, rstd=rstd,
+                      gamma=(1 + 0.1 * torch.randn(cin, generator=gen)).to(dev),
+                      beta=(0.1 * torch.randn(cin, generator=gen)).to(dev))
+        _build.reset_launches()
+        got = rg.conv3_wgrad(src, g, **kw)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES == {"conv3_wgrad": 1}
+        want = rg.conv3_wgrad_plain(src, g, **kw)
+        assert (got[1] is None) == (not bias)
+        for gg, ww in zip(got, want):
+            if ww is not None:
+                assert gg.shape == ww.shape and torch.isfinite(gg).all()
+                assert _rel_l2(gg, ww) <= chip_smoke.TOL_REL_L2["conv3_wgrad"]
+
+
+@pytest.mark.parametrize("rows,t,cin,cout", [(2, 64, 1024, 1024), (4, 129, 512, 256)])
+def test_conv3_and_wgrad_give_the_same_bits_twice(dev, rows, t, cin, cout):
+    """Split-K sums run in rank order: two launches on the same inputs agree
+    bit for bit."""
+    from lm2a_tpu_torch.ops import resblock_grad as rg
+
+    gen = torch.Generator().manual_seed(t)
+    w, x, film = chip_smoke.random_chain(gen, rows, t, cin, cout, False, dev)
+    m1, r1 = rb.gn_stats(x, w.groups1)
+    args1 = (x, m1, r1, w.gn1_scale, w.gn1_bias, w.conv1_w, w.conv1_b)
+    assert rb.conv3_plan(rows, t, cin, cout).splits > 1
+    f1, f2 = rb.conv3_fused(*args1, film=film), rb.conv3_fused(*args1, film=film)
+    assert torch.equal(f1, f2)
+    g = torch.randn((rows, t, cout), generator=gen).to(dev, torch.bfloat16)
+    kw = dict(taps=3, mean=m1, rstd=r1, gamma=w.gn1_scale, beta=w.gn1_bias, bias=True)
+    a, b = rg.conv3_wgrad(x, g, **kw), rg.conv3_wgrad(x, g, **kw)
+    wp = rg.wgrad_plan(rows, t, cin, cout, 3)
+    assert wp.splits * wp.parts > 1 or (cin // 64) * (cout // 64) >= rb.SMS
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("b,t,cin,cout,taps", [(16, 516, 256, 256, 3), (16, 258, 512, 256, 1)])
+def test_wgrad_partials_after_the_cluster_sum(dev, b, t, cin, cout, taps):
+    """K split over clusters and over partials summed after the launch: the
+    plain version's gradient, and the same bits on two launches."""
+    from lm2a_tpu_torch.ops import resblock_grad as rg
+
+    plan = rg.wgrad_plan(b, t, cin, cout, taps)
+    assert plan.parts > 1
+    gen = torch.Generator().manual_seed(t + taps)
+    src = torch.randn((b, t, cin), generator=gen).to(dev, torch.bfloat16)
+    g = torch.randn((b, t, cout), generator=gen).to(dev, torch.bfloat16)
+    mean, rstd = rb.gn_stats(src, 8)
+    kw = dict(taps=taps, mean=mean, rstd=rstd, gamma=(1 + 0.1 * torch.randn(cin, generator=gen)).to(dev),
+              beta=(0.1 * torch.randn(cin, generator=gen)).to(dev), bias=True)
+    _build.reset_launches()
+    got = rg.conv3_wgrad(src, g, **kw)
+    again = rg.conv3_wgrad(src, g, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {"conv3_wgrad": 2}
+    for gg, ww, aa in zip(got, rg.conv3_wgrad_plain(src, g, **kw), again):
+        assert _rel_l2(gg, ww) <= chip_smoke.TOL_REL_L2["conv3_wgrad"]
+        assert torch.equal(gg, aa)
