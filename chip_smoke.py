@@ -25,17 +25,20 @@ skipped:
    T=12920 (``generate_single_pass`` at 150 s);
    3c. the attention kernel at every geometry of the fused route: the 9
    cross-attention sites at 6 s (S=516) with 1, 2 and 16 conditioned rows,
-   the CFG constant at T=S=1, and the 150 s single pass (S=T=12920); timed
-   against its plain version, its bound and ``F.scaled_dot_product_attention``;
+   the CFG constant at T=S=1, and the 150 s single pass (S=T=12920), each
+   launched twice on the same inputs for the same bits (the split-KV combine
+   sums in rank order); timed against its plain version, its bound (with the
+   MUFU's exp2 floor beside it) and ``F.scaled_dot_product_attention``;
    3d. the training kernels: the resblock backward (``conv3_dgrad``,
    ``conv3_wgrad``, ``gn_bwd``) at all 15 flagship block geometries at B=16
    (not only the 7 the training gate routes), every gradient against the
    plain versions, timed against them, their bounds and one cuDNN call each
    (``aten.convolution_backward``, ``aten.native_group_norm_backward``), and
    each block's whole backward against the autograd backward of the same
-   chain built from ``F.group_norm``/``F.conv1d``, ``conv3_wgrad`` run twice
-   on the same inputs for the same bits; ``adan_ema`` over the
-   full flagship parameter tree for 3 steps (the step-0 freeze included),
+   chain built from ``F.group_norm``/``F.conv1d``, ``conv3_wgrad`` and
+   ``conv3_dgrad`` run twice on the same inputs for the same bits;
+   ``adan_ema`` over the full flagship parameter tree for 3 steps (the step-0
+   freeze included),
    fp32 and bf16 state, against its plain version;
 4. the slice: a flagship checkpoint (random weights from a seed, JAX layout)
    and two synthetic 6 s clips, then ``cli sample`` (DDIM-50, CFG 2.1, bf16)
@@ -122,6 +125,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16 = 989e12
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+# sm_90's MUFU: 16 exp2 a clock per SM (the attention softmax takes one per score)
+MUFU_PER_CLOCK = 16
 MEL_T, MOTION_T = 516, 180
 # the main path samples N_CLIPS clips in one batch; CFG doubles the rows of
 # every forward. The protocol chain is one clip: 2 rows.
@@ -261,7 +266,13 @@ def sandwich_geometries(vcfg, mel_t: int):
 class Timer:
     """Per-launch CUDA-event timing with the L2 cache flushed before each
     launch, as the real caller finds it (a forward reads ~270 MB of weights,
-    a vocode streams activations far larger than the 50 MB L2)."""
+    a vocode streams activations far larger than the 50 MB L2). After the
+    flush the card spins for SPIN_CYCLES (~1 ms) while the host enqueues the
+    start event and fn's launches, so the events time the device's work and
+    not the host's launch latency (tens of microseconds a wrapper call, more
+    than many of these kernels take)."""
+
+    SPIN_CYCLES = 2_000_000
 
     def __init__(self, device, reps: int = 10):
         self.reps = reps
@@ -273,6 +284,7 @@ class Timer:
         total = 0.0
         for _ in range(self.reps):
             self.flush.zero_()
+            torch.cuda._sleep(self.SPIN_CYCLES)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -483,14 +495,29 @@ def attention_sites(mc: ModelConfig, mel_t: int):
             if not add_res]
 
 
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock (``nvidia-smi``), in Hz."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True, timeout=60)
+    need(r.returncode == 0, f"nvidia-smi failed: {r.stderr.strip()}")
+    return float(r.stdout.strip().splitlines()[0]) * 1e6
+
+
 def phase_attention(timer, device, gen):
     """The attention kernel against its plain version and SDPA at every
-    geometry of the fused route. Returns per-forward sums keyed by route
-    (``6s_b2``, two clips' conditioned rows, is the main path's 4-row
-    forward) and per-geometry rows."""
+    geometry of the fused route, and two launches against each other for the
+    same bits (the split-KV combine sums in rank order). Returns per-forward
+    sums keyed by route (``6s_b2``, two clips' conditioned rows, is the main
+    path's 4-row forward) and per-geometry rows. Beside the bound (bytes or
+    tensor operations, ``bound_ms``) each line prints the exponential floor:
+    one exp2 per score on the MUFU at the card's maximum clock. An exp2 done
+    as an FMA polynomial bypasses the MUFU, so that floor is not a hard one
+    and ``bound_ms`` leaves it out."""
     mc = ModelConfig()
     heads = mc.attn_heads
     cache, rows_out = {}, []
+    clock = sm_clock_hz()
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
 
     def one(b, t, s, c):
         key = (b, t, s, c)
@@ -503,9 +530,12 @@ def phase_attention(timer, device, gen):
                     .view(b, n, heads, hd).transpose(1, 2))
 
         q, k, v = make(t), make(s), make(s)
-        err = check_close(f"attention B={b} T={t} S={s} hd={hd}", att.attention_core(q, k, v),
-                          att.attention_core_plain(q, k, v), TOL["attention"])
-        g = dict(B=b, T=t, S=s, hd=hd, err=err,
+        name = f"attention B={b} T={t} S={s} hd={hd}"
+        got = att.attention_core(q, k, v)
+        err = check_close(name, got, att.attention_core_plain(q, k, v), TOL["attention"])
+        check_same_bits(name, lambda: att.attention_core(q, k, v), got)
+        plan = att.attention_plan(b, heads, t, s, hd)
+        g = dict(B=b, T=t, S=s, hd=hd, err=err, bn=plan.bn, stages=plan.stages, split=plan.split,
                  replaces=("_attention_kernel" if s <= att.STREAMING_S_THRESHOLD
                            else "_flash_kernel"),
                  ms=timer.ms(lambda: att.attention_core(q, k, v)),
@@ -515,35 +545,61 @@ def phase_attention(timer, device, gen):
         g["nbytes"] = 2.0 * b * heads * hd * (2 * t + 2 * s)
         g["ops"] = 4.0 * b * heads * t * s * hd
         g["bound_ms"], g["bound_by"] = bound_ms(g["nbytes"], g["ops"], PEAK_BF16)
+        g["exps"] = float(b * heads * t * s)
+        g["exp_floor_ms"] = g["exps"] / (sms * MUFU_PER_CLOCK * clock) * 1e3
         g["tflops"] = g["ops"] / g["ms"] / 1e9
-        log(f"[attention] B={b:2d} T={t:5d} S={s:5d} hd={hd:3d} ({g['replaces']}) | err "
-            f"{err:.2e} | ms {g['ms']:.4f} (plain {g['plain_ms']:.4f}, SDPA "
-            f"{g['library_ms']:.4f}, bound {g['bound_ms']:.4f} {g['bound_by']}) "
-            f"{g['tflops']:.1f} TFLOP/s")
+        log(f"[attention] B={b:2d} T={t:5d} S={s:5d} hd={hd:3d} ({g['replaces']}; bn "
+            f"{plan.bn}, {plan.stages} stages, split {plan.split}) | err {err:.2e}, same bits "
+            f"twice | ms {g['ms']:.4f} (plain {g['plain_ms']:.4f}, SDPA "
+            f"{g['library_ms']:.4f}, bound {g['bound_ms']:.4f} {g['bound_by']}, exp2 floor "
+            f"{g['exp_floor_ms']:.4f} at {clock / 1e6:.0f} MHz) {g['tflops']:.1f} TFLOP/s")
         rows_out.append(g)
         del q, k, v
         cache[key] = g
         return g
 
+    # host time of one call (wrapper, plan lookup, three tensor-map encodes,
+    # launch), the smallest geometry so the card never holds the host back
+    q1 = torch.zeros((1, heads, 1, 32), device=device, dtype=torch.bfloat16)
+    att.attention_core(q1, q1, q1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        att.attention_core(q1, q1, q1)
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    log(f"[attention] host time per attention_core call (tensor maps encoded per call): "
+        f"{host_us:.1f} us")
+    rows_out.append(dict(host_us_per_call=host_us))
     sums = {}
     # route -> conditioned rows (the CFG doubles each), mel length
     for route, b, mel_t in (("6s_b1", 1, MEL_T), ("6s_b2", N_CLIPS, MEL_T),
                             ("6s_b16", WINDOW_ROWS, MEL_T), ("150s_b1", 1, LONG_T)):
         k = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, ops=0.0, nbytes=0.0,
-                 err=0.0, launches=0)
+                 exp_floor_ms=0.0, err=0.0, launches=0)
+        per_hd = {}
         # per site and branch: the conditioned rows, then the CFG constant at T=S=1
         for _, t, c in attention_sites(mc, mel_t):
             for g in (one(b, t, mel_t, c), one(1, 1, 1, c)):
-                for f in ("ms", "plain_ms", "bound_ms", "library_ms", "ops", "nbytes"):
+                h = per_hd.setdefault(g["hd"], dict.fromkeys(
+                    ("ms", "library_ms", "bound_ms", "exp_floor_ms", "ops"), 0.0))
+                for f in ("ms", "plain_ms", "bound_ms", "library_ms", "ops", "nbytes",
+                          "exp_floor_ms"):
                     k[f] += 2 * g[f]
+                    if f in h:
+                        h[f] += 2 * g[f]
                 k["err"] = max(k["err"], g["err"])
                 k["launches"] += 2
         k["bound_by"] = ("operations" if k["ops"] / PEAK_BF16 > k["nbytes"] / PEAK_BYTES
                          else "bytes")
+        k["per_hd"] = per_hd
         sums[route] = k
         log(f"[attention] one {route} forward ({k['launches']} launches): ms {k['ms']:.4f} "
             f"(plain {k['plain_ms']:.4f}, SDPA {k['library_ms']:.4f}, bound "
-            f"{k['bound_ms']:.4f} {k['bound_by']})")
+            f"{k['bound_ms']:.4f} {k['bound_by']}, exp2 floor {k['exp_floor_ms']:.4f}); by hd: "
+            + "; ".join(f"hd {hd} {h['ms']:.4f} ms, {h['ops'] / h['ms'] / 1e9:.1f} TFLOP/s "
+                        f"(SDPA {h['library_ms']:.4f}, bound {h['bound_ms']:.4f}, exp2 floor "
+                        f"{h['exp_floor_ms']:.4f})" for hd, h in sorted(per_hd.items())))
     return sums, rows_out
 
 
@@ -746,7 +802,7 @@ def phase_backward(timer, device, gen, rows: int = TRAIN_B, mel_t: int = MEL_T):
             for label, call in calls[kname]:
                 tol = TOL_REL_L2[kname]
                 outs_k, outs_p = call(rg.KERNELS), call(plain)
-                if kname == "conv3_wgrad":
+                if kname in ("conv3_wgrad", "conv3_dgrad"):
                     check_same_bits(f"{name} {kname} {label}", lambda c=call: c(rg.KERNELS),
                                     outs_k)
                 for i, (a, b) in enumerate(zip(outs_k, outs_p)):
@@ -1467,6 +1523,10 @@ def main(argv=None) -> int:
     for src, text in _build.build_log.items():
         for fn, used, spill in ptxas_summary(text):
             log(f"[build] ptxas {src}.cu {fn}: Used {used} | {spill}")
+        serialized = [line for line in text.splitlines() if "wgmma.mma_async instructions are serialized" in line]
+        if serialized:  # ptxas's C75xx notes: every wgmma of the function waits for the last
+            log(f"[build] ptxas {src}.cu: {len(serialized)} functions with serialized wgmma ("
+                + ", ".join(sorted({line.split("(C")[1][:4] for line in serialized})) + ")")
 
     # 3. kernels against their plain versions
     gen = torch.Generator().manual_seed(0)

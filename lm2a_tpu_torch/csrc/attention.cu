@@ -3,316 +3,535 @@
 // Replaces both Pallas TPU kernels of lm2a_tpu/ops/pallas_attention.py:
 // _attention_kernel (all of S in one VMEM block, S <= 1024) and _flash_kernel
 // (online softmax over S tiles, S > 1024). They compute one function; only
-// the TPU's VMEM budget split them. Here one flash-style forward covers both:
-// a block owns 64 query rows of one (batch, head), four warps of 16 rows
-// each; it streams K/V tiles of 64 keys through shared memory, keeps a
-// running max m, a running sum l and an fp32 accumulator per row in
-// registers, masks keys at or beyond S, and divides by l once at the end.
-// Nothing is padded in device memory: rows beyond T and keys beyond S are
-// loaded as zeros and masked.
+// the TPU's VMEM budget split them. Here one flash-style forward covers both.
 //
-// Arithmetic, as the JAX serving route (bf16 operands):
-//   scores accumulate in fp32 (bf16 tensor-core MMA) and are scaled by
-//   1/sqrt(hd) in fp32; exp(s - m_new) is fp32 and rounded to bf16 for the
-//   P.V product, as _flash_kernel does; l sums the unrounded fp32 p; the
-//   output is acc / l rounded to bf16. The running max starts at -inf and the
-//   correction exp(m_old - m_new) is 0 while m_old is -inf, so a masked key
-//   gives exp -> 0 and never NaN.
+// Arithmetic, as the JAX serving route (bf16 operands): scores accumulate in
+// fp32 (bf16 tensor cores); p = 2^(s * log2(e) / sqrt(hd) - m) in fp32 with m
+// the running row max, rounded to bf16 for the P.V product; l sums the
+// unrounded p; the output is O / l, one division at the end, rounded to bf16.
 //
 // Layout: q is read as (B, H, T, hd) through element strides, k and v as
-// (B, H, S, hd), hd contiguous. The port passes views of its channels-last
-// projections (B, T, h*hd), so no transposes precede or follow the kernel;
-// the output is written through strides as well (the wrapper allocates it
-// (B, T, h, hd)).
+// (B, H, S, hd), hd contiguous; the port passes views of its channels-last
+// projections, so no transposes precede or follow the kernel. The output is
+// written through strides (the wrapper allocates it (B, T, H, hd)).
 //
-// Bound on the H100: 4*T*S*hd operations per (batch, head) against
-// 2*(T + 2S + T)*hd bytes, so at long form (S = T = 12920) it is bound by
-// tensor-core operations; at 6 s the grids are small and launch latency
-// dominates. This version uses warp-level mma.sync m16n8k16 (bf16 -> fp32)
-// with the P fragments reused from the score accumulators in registers, K
-// and V fragments by ldmatrix (V transposed on the way), and K/V tiles
-// double-buffered with cp.async so the next tile's loads overlap this
-// tile's products; wgmma, TMA and a producer/consumer split are later work.
+// Bound on the H100: 4*T*S*hd tensor operations per (batch, head) against
+// 2*(2T + 2S)*hd bytes, so long form (S = T = 12920) is bound by operations;
+// besides, every score takes one exp2 on the MUFU (16 a clock per SM), which
+// at hd = 32 takes longer than the score's 128 tensor operations. The 6 s
+// geometries are small grids bound by latency. The design:
+//  - a block holds 128 query rows of one (batch, head): three warpgroups, a
+//    producer and two consumers of 64 rows each (setmaxnreg 40 / 232);
+//  - the producer's one thread streams K and V tiles of BN keys by TMA
+//    (cp.async.bulk.tensor over the strided 4-D view, 32-, 64- or 128-byte
+//    swizzle by hd) into a ring of `stages` stages, each K and each V tile
+//    completing on its own mbarrier; the consumers free a stage through a
+//    third mbarrier;
+//  - both products are wgmma.mma_async: S = Q K^T with Q the register A
+//    operand (ldmatrix once per block) and the K tile K-major behind a
+//    descriptor; O += P V with P the bf16 repack of the S accumulators (the
+//    m64nN accumulator layout is the k16 A fragment) and the V tile
+//    MN-major (tnspB = 1);
+//  - the consumers take turns at the tensor cores (named barriers, FA3's
+//    ping-pong): one issues S(j) and P.V(j-1) and hands over the turn, then
+//    runs the softmax of tile j while the other's products run;
+//  - only the last key tile, where S is ragged, is masked, on a path of its
+//    own;
+//  - where the grid is small (the 6 s geometries), the key tiles are split
+//    over the `split` blocks of a thread-block cluster; each keeps (m, l, O)
+//    of its keys, pushes each row's through distributed shared memory to
+//    the rank that owns the row, and the owner combines them in rank order
+//    (the same bits on every run, no atomics). The launch plan
+//    (ops/attention.py attention_plan) picks BN, stages and split.
+
+#include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap and the driver's enums; the entry point comes at run time
 
 #include "common.cuh"
+#include "sm90_gemm.cuh"
 
 namespace {
 
-constexpr int BM = 64;  // query rows per block: 16 per warp
-constexpr int BN = 64;  // keys per K/V tile
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = 32 * NWARPS;
+constexpr int BM = 128;        // query rows per block
+constexpr int NTHREADS = 384;  // the producer warpgroup and two consumers
+constexpr int MAX_STAGES = 8;
+constexpr int MAX_SPLIT = 8;  // a portable cluster
+constexpr int CMAX_ROWS = BM + MAX_SPLIT;  // split * ceil(BM / split) rows at most
+constexpr int BAR_TURN = 1;       // named barriers 1 and 2: the consumers' turns
+constexpr int BAR_CONSUMERS = 3;  // both consumers, before the split's combine
+constexpr int REGS_PRODUCER = 40, REGS_CONSUMER = 232;  // 40 + 2 * 232 = 3 * 168
 
 struct AttnArgs {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
   bf16* o;
   int T, S;
-  long long q_sb, q_sh, q_st;  // element strides; hd stride is 1
-  long long k_sb, k_sh, k_st;
-  long long v_sb, v_sh, v_st;
-  long long o_sb, o_sh, o_st;
+  long long o_sb, o_sh, o_st;  // element strides; hd stride is 1
+  int tiles;                   // key tiles of BN keys
+  int split;                   // cluster blocks along x that split the key tiles
+  int stages;                  // ring depth
+  int qperm[3], kperm[3], vperm[3];  // the tensor maps' order of (t, h, b)
 };
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// two fp32 -> one register of two bf16, the lower column in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 8x8 bf16 matrices from shared memory, one row address per lane (lanes
-// 8m..8m+7 give the rows of matrix m); .trans transposes each on the way
-__device__ __forceinline__ void ldsm_x2(uint32_t* r, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t* r, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-
-// 16 bytes global -> shared without a register round trip; zero-filled
-// when !valid (the source address must still be a valid one)
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_one() {  // all but the newest group landed
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-// rows row0 .. row0+63 of a (rows, HD) strided matrix into a [64][LD] bf16
-// tile; rows at or beyond n_valid (> row0) are zero. 16 bytes per thread
-// and step, asynchronous: the caller commits and waits.
-template <int HD, int LD>
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, long long stride,
-                                                int row0, int n_valid) {
-  constexpr int CH = HD / 8;
-  for (int i = threadIdx.x; i < 64 * CH; i += NTHREADS) {
-    const int r = i / CH, c = (i % CH) * 8;
-    const bool valid = row0 + r < n_valid;
-    cp_async16(dst + r * LD + c, src + (long long)(valid ? row0 + r : row0) * stride + c,
-               valid);
+template <int HD, int BN>
+struct Geo {
+  static constexpr int HDP = HD < 16 ? 16 : HD;                // contraction, padded to k16
+  static constexpr int ROWB = HDP * 2 > 128 ? 128 : HDP * 2;  // bytes a swizzled row
+  static constexpr int HALVES = HDP * 2 / ROWB;  // hd = 128: two boxes of 64 along hd
+  static constexpr int BOX = ROWB / 2;           // hd values a box row
+  static constexpr int Q_BYTES = BM * HDP * 2;
+  static constexpr int KV_BYTES = BN * HDP * 2;  // one K or one V tile
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  static constexpr int CO_LD = HDP + 4;  // fp32 row stride of the combine buffer
+  // the split's combine, reusing the ring: O, m and l of CMAX_ROWS rows,
+  // then each owned row's weights over the ranks and their sum
+  static constexpr int COMBINE_BYTES =
+      (CMAX_ROWS * CO_LD + 2 * CMAX_ROWS + (BM / 2) * (MAX_SPLIT + 1)) * 4;
+  // dynamic shared bytes: alignment slack, the Q tile, the ring or the combine
+  static constexpr int smem(int stages) {
+    return 1024 + Q_BYTES +
+           (stages * STAGE_BYTES > COMBINE_BYTES ? stages * STAGE_BYTES : COMBINE_BYTES);
   }
+};
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
-template <int HD>
-constexpr int smem_bytes() {
-  return 4 * BN * ((HD < 16 ? 16 : HD) + 8) * (int)sizeof(bf16);
+// one box of a 4-D map; c = (hd, row, h, b), placed in the map's order
+__device__ __forceinline__ int pick(int which, int row, int h, int b) {
+  return which == 0 ? row : which == 1 ? h : b;
+}
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map, uint64_t* bar,
+                                        const int (&perm)[3], int hdc, int row, int h, int b) {
+  sm90::tma_load_4d(dst, map, bar, hdc, pick(perm[0], row, h, b), pick(perm[1], row, h, b),
+                    pick(perm[2], row, h, b));
 }
 
-template <int HD>
-__global__ void __launch_bounds__(NTHREADS) attention_kernel(AttnArgs p) {
-  constexpr int HDP = HD < 16 ? 16 : HD;  // contraction of q k^T, padded to the MMA's k16
-  constexpr int LD = HDP + 8;             // bf16 row stride: conflict-free ldmatrix rows
-  constexpr int KSTEPS = HDP / 16;
-  constexpr int NT_S = BN / 8;  // score n-tiles per warp
-  constexpr int NT_O = HD / 8;  // output n-tiles per warp
-  // two stages of K and V tiles; the Q tile is staged in K stage 1 first
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* const kbuf = reinterpret_cast<bf16*>(smem_raw);
-  bf16* const vbuf = kbuf + 2 * BN * LD;
+// -inf where key >= S: a select, not a branch (the scores are wgmma
+// accumulators, which a divergent write would make ptxas serialize)
+__device__ __forceinline__ float mask_key(float s, int key, int S) {
+  float r;
+  asm("{\n.reg .pred p;\nsetp.ge.s32 p, %1, %2;\nselp.f32 %0, 0fFF800000, %3, p;\n}\n"
+      : "=f"(r)
+      : "r"(key), "r"(S), "f"(s));
+  return r;
+}
 
+template <int HD, int BN>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    attention_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap, const AttnArgs p) {
+  using G = Geo<HD, BN>;
+  constexpr int HDP = G::HDP, ROWB = G::ROWB;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* qs = smem;
+  uint8_t* ring = smem + G::Q_BYTES;  // stage s: K tile, then V tile
+  __shared__ uint64_t bars[1 + 3 * MAX_STAGES];
+  uint64_t* qbar = bars;
+  uint64_t* kfull = bars + 1;
+  uint64_t* vfull = kfull + MAX_STAGES;
+  uint64_t* empty = vfull + MAX_STAGES;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // the warpgroup, warp-uniform as ptxas can see (else it serializes wgmma)
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int split = p.split, stages = p.stages;
+  const int rank = (int)(blockIdx.x % split), mtile = (int)(blockIdx.x / split);
   const int h = blockIdx.y, b = blockIdx.z;
-  const int t0 = blockIdx.x * BM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int T = p.T, S = p.S;
-  const bf16* q = p.q + b * p.q_sb + h * p.q_sh;
-  const bf16* k = p.k + b * p.k_sb + h * p.k_sh;
-  const bf16* v = p.v + b * p.v_sb + h * p.v_sh;
+  const int t0 = mtile * BM;
+  const int j_beg = p.tiles * rank / split, n = p.tiles * (rank + 1) / split - j_beg;
 
-  if constexpr (HDP > HD) {  // zero pad columns, never overwritten by the tile loads
-    for (int i = threadIdx.x; i < 2 * BN * (HDP - HD); i += NTHREADS)
-      kbuf[(i / (HDP - HD)) * LD + HD + i % (HDP - HD)] = __float2bfloat16_rn(0.f);
+  if (tid == 0) {
+    sm90::mbar_init(qbar, 1);
+    for (int s = 0; s < stages; ++s) {
+      sm90::mbar_init(kfull + s, 1);
+      sm90::mbar_init(vfull + s, 1);
+      sm90::mbar_init(empty + s, 8);  // lane 0 of each consumer warp
+    }
+    sm90::mbar_fence_init();
   }
-  // K/V tile 0 into stage 0 while Q goes through stage 1 into registers
-  load_tile_async<HD, LD>(kbuf, k, p.k_st, 0, S);
-  load_tile_async<HD, LD>(vbuf, v, p.v_st, 0, S);
-  cp_async_commit();
-  load_tile_async<HD, LD>(kbuf + BN * LD, q, p.q_st, t0, T);
-  cp_async_commit();
-  asm volatile("cp.async.wait_group 0;\n" ::);
   __syncthreads();
-  uint32_t qa[KSTEPS][4];
+
+  if (wg == 0) {
+    // ------------------------------------------------------------ producer
+    sm90::regs_dec<REGS_PRODUCER>();
+    if (tid == 0) {
+      sm90::mbar_expect_tx(qbar, G::Q_BYTES);
+#pragma unroll
+      for (int hh = 0; hh < G::HALVES; ++hh)
+        tma_box(sm90::smem_u32(qs) + hh * BM * 128, &qmap, qbar, p.qperm, hh * G::BOX, t0, h, b);
+      for (int i = 0; i < n; ++i) {
+        const int s = i % stages;
+        if (i >= stages) sm90::mbar_wait(empty + s, ((i / stages) & 1) ^ 1);
+        const int key0 = (j_beg + i) * BN;
+        const uint32_t kt = sm90::smem_u32(ring + s * G::STAGE_BYTES);
+        sm90::mbar_expect_tx(kfull + s, G::KV_BYTES);
+#pragma unroll
+        for (int hh = 0; hh < G::HALVES; ++hh)
+          tma_box(kt + hh * BN * 128, &kmap, kfull + s, p.kperm, hh * G::BOX, key0, h, b);
+        sm90::mbar_expect_tx(vfull + s, G::KV_BYTES);
+#pragma unroll
+        for (int hh = 0; hh < G::HALVES; ++hh)
+          tma_box(kt + G::KV_BYTES + hh * BN * 128, &vmap, vfull + s, p.vperm, hh * G::BOX, key0,
+                  h, b);
+      }
+    }
+    if (split > 1) {  // the consumers' two cluster barriers of the combine
+      cluster_arrive();
+      cluster_wait();
+      cluster_arrive();
+      cluster_wait();
+    }
+    return;
+  }
+
+  // -------------------------------------------------------------- consumers
+  sm90::regs_inc<REGS_CONSUMER>();
+  const int cw = wg - 1;         // rows 64 * cw .. 64 * cw + 63 of the block
+  const int wrow = (warp & 3) * 16 + (lane >> 2);  // this thread's rows wrow, wrow + 8
+  const float scale = 1.4426950408889634f / sqrtf((float)HD);
+
+  // Q as the register A operand of every S product: ldmatrix from the
+  // swizzled tile, row lane & 15 of the warp's 16, k 0-7 or 8-15 by lane >> 4
+  uint32_t qa[HDP / 16][4];
+  sm90::mbar_wait(qbar, 0);
   {
-    const bf16* qw = kbuf + BN * LD + (warp * 16) * LD;
+    const int row = cw * 64 + (warp & 3) * 16 + (lane & 15);
 #pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-      const int c = 16 * kk + 2 * tq;
-      qa[kk][0] = ld32(qw + g * LD + c);
-      qa[kk][1] = ld32(qw + (g + 8) * LD + c);
-      qa[kk][2] = ld32(qw + g * LD + c + 8);
-      qa[kk][3] = ld32(qw + (g + 8) * LD + c + 8);
+    for (int kk = 0; kk < HDP / 16; ++kk) {
+      const int hh = kk / (ROWB / 32), chunk = (kk % (ROWB / 32)) * 2 + (lane >> 4);
+      sm90::ldmatrix_x4(qa[kk], sm90::smem_u32(qs) + hh * BM * 128 +
+                                    sm90::sw_offset<ROWB>(row, chunk));
     }
   }
-  __syncthreads();
 
-  // scores in the log2 domain: exp(s - m) == exp2(s*log2e - m*log2e)
-  const float scale_log2 = 1.4426950408889634f / sqrtf((float)HD);
-  float o[NT_O][4];
+  float o[HDP / 2];
 #pragma unroll
-  for (int n = 0; n < NT_O; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};  // rows g and g + 8 of the warp
-  float l[2] = {0.f, 0.f};              // this thread's columns; quad-summed at the end
-  // ldmatrix row addresses of this lane: matrix lane >> 3, row lane & 7
-  const int lm = lane >> 3, lr = lane & 7;
+  for (int e = 0; e < HDP / 2; ++e) o[e] = 0.f;
+  float sc[BN / 2];
+  uint32_t pa[BN / 16][4];  // P of the previous tile, the A fragments of P.V
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
 
-  const int n_tiles = (S + BN - 1) / BN;
-  for (int j = 0; j < n_tiles; ++j) {
-    if (j + 1 < n_tiles) {  // prefetch the next tile into the other stage
-      const int nxt = (j + 1) & 1;
-      load_tile_async<HD, LD>(kbuf + nxt * BN * LD, k, p.k_st, (j + 1) * BN, S);
-      load_tile_async<HD, LD>(vbuf + nxt * BN * LD, v, p.v_st, (j + 1) * BN, S);
+  // S = Q K^T of the K tile in stage s: k16 steps along hd
+  auto s_gemm = [&](int s) {
+    const uint32_t kt = sm90::smem_u32(ring + s * G::STAGE_BYTES);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HDP / 16; ++kk) {
+      const int hh = kk / (ROWB / 32), koff = (kk % (ROWB / 32)) * 32;
+      sm90::wgmma_rs<BN, 0>(sc, qa[kk], sm90::desc_kmajor<ROWB>(kt + hh * BN * 128 + koff),
+                            kk > 0);
     }
-    cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
-    const bf16* ks = kbuf + (j & 1) * BN * LD;
-    const bf16* vs = vbuf + (j & 1) * BN * LD;
-    const int s0 = j * BN;
-
-    float sc[NT_S][4];
+    sm90::wgmma_commit();
+  };
+  // O += P V of the V tile in stage s: k16 steps along its keys, V MN-major
+  auto pv = [&](int s) {
+    const uint32_t vt = sm90::smem_u32(ring + s * G::STAGE_BYTES + G::KV_BYTES);
+    sm90::wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < NT_S; ++nt) {
-      sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
-      // B fragments of q k^T: keys nt*8 + row, hd columns in 8-wide matrices
-      const bf16* kr = ks + (nt * 8 + lr) * LD;
-      if constexpr (KSTEPS == 1) {
-        uint32_t kb[2];
-        ldsm_x2(kb, kr + 8 * (lm & 1));
-        mma16816(sc[nt], qa[0], kb[0], kb[1]);
-      } else {
+    for (int kk = 0; kk < BN / 16; ++kk)
+      sm90::wgmma_rs<HDP, 1>(o, pa[kk], sm90::desc_mn<ROWB>(vt + kk * 16 * ROWB, BN * 128));
+    sm90::wgmma_commit();
+  };
+  // the online softmax of tile i, in place in sc (p, fp32); the rescale of
+  // l and O comes after the previous tile's P.V has finished
+  float corr[2];
+  auto softmax = [&](int i) {
+    const int key0 = (j_beg + i) * BN;
+    if (key0 + BN > p.S) {  // only the last tile can hold keys at or beyond S
 #pragma unroll
-        for (int kk = 0; kk < KSTEPS; kk += 2) {
-          uint32_t kb[4];
-          ldsm_x4(kb, kr + 16 * kk + 8 * lm);
-          mma16816(sc[nt], qa[kk], kb[0], kb[1]);
-          mma16816(sc[nt], qa[kk + 1], kb[2], kb[3]);
-        }
-      }
+      for (int e = 0; e < BN / 2; ++e)
+        sc[e] = mask_key(sc[e], key0 + 8 * (e >> 2) + 2 * (lane & 3) + (e & 1), p.S);
     }
-
-    float mx[2] = {m[0], m[1]};
+    float mx[2] = {m_run[0], m_run[1]}, base[2];
 #pragma unroll
-    for (int nt = 0; nt < NT_S; ++nt) {
+    for (int e = 0; e < BN / 2; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = s0 + nt * 8 + 2 * tq + (e & 1);
-        const float s = col < S ? sc[nt][e] * scale_log2 : -INFINITY;
-        sc[nt][e] = s;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s);
-      }
-    }
-    float base[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
+    for (int r = 0; r < 2; ++r) {  // a row's columns lie in the lanes of one quad
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float corr = m[r] == -INFINITY ? 0.f : exp2f(m[r] - mx[r]);
-      base[r] = mx[r] == -INFINITY ? 0.f : mx[r];
-      m[r] = mx[r];
-      l[r] *= corr;
-#pragma unroll
-      for (int n = 0; n < NT_O; ++n) {
-        o[n][2 * r] *= corr;
-        o[n][2 * r + 1] *= corr;
-      }
+      corr[r] = sm90::ex2((m_run[r] - mx[r]) * scale);  // 0 while m_run is -inf
+      base[r] = mx[r] * scale;
+      m_run[r] = mx[r];
     }
 #pragma unroll
-    for (int nt = 0; nt < NT_S; ++nt) {
+    for (int e = 0; e < BN / 2; ++e) sc[e] = sm90::ex2(fmaf(sc[e], scale, -base[(e >> 1) & 1]));
+  };
+  auto rescale_pack = [&]() {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pe = exp2f(sc[nt][e] - base[e >> 1]);
-        sc[nt][e] = pe;
-        l[e >> 1] += pe;
-      }
+    for (int r = 0; r < 2; ++r) {
+      float rs = 0.f;
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e)
+        if (((e >> 1) & 1) == r) rs += sc[e];
+      l_run[r] = l_run[r] * corr[r] + rs;
     }
-
-    // O += P V: the score accumulators of n-tiles 2kk, 2kk+1 are the A
-    // fragment of the k16 step kk; V fragments transposed by ldmatrix
+#pragma unroll
+    for (int e = 0; e < HDP / 2; ++e) o[e] *= corr[(e >> 1) & 1];
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(sc[2 * kk][0], sc[2 * kk][1]);
-      pa[1] = pack_bf16(sc[2 * kk][2], sc[2 * kk][3]);
-      pa[2] = pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
-      pa[3] = pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
-      // matrix lm: keys 16kk + 8*(lm & 1) + row, hd columns 8*(lm >> 1) on
-      const bf16* vr = vs + (16 * kk + 8 * (lm & 1) + lr) * LD + 8 * (lm >> 1);
-      if constexpr (NT_O == 1) {
-        uint32_t vb[2];
-        ldsm_x2_trans(vb, vr);
-        mma16816(o[0], pa, vb[0], vb[1]);
-      } else {
-#pragma unroll
-        for (int n = 0; n < NT_O; n += 2) {
-          uint32_t vb[4];
-          ldsm_x4_trans(vb, vr + 8 * n);
-          mma16816(o[n], pa, vb[0], vb[1]);
-          mma16816(o[n + 1], pa, vb[2], vb[3]);
-        }
-      }
+      pa[kk][0] = sm90::pack_bf16x2(sc[8 * kk + 0], sc[8 * kk + 1]);
+      pa[kk][1] = sm90::pack_bf16x2(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = sm90::pack_bf16x2(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = sm90::pack_bf16x2(sc[8 * kk + 6], sc[8 * kk + 7]);
     }
-    __syncthreads();  // this stage is refilled by the prefetch two tiles on
+  };
+  auto release = [&](int s) {  // this warp is done with stage s
+    if (lane == 0) sm90::mbar_arrive(empty + s);
+  };
+
+  // tile 0: its S alone
+  if (cw == 1) sm90::bar_arrive(BAR_TURN + 0, 256);  // consumer 0 goes first
+  sm90::mbar_wait(kfull, 0);
+  sm90::bar_sync(BAR_TURN + cw, 256);  // this consumer's turn at the tensor cores
+  s_gemm(0);
+  if (cw == 0 || n > 1) sm90::bar_arrive(BAR_TURN + 1 - cw, 256);  // the other's turn
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(sc);
+  softmax(0);
+  rescale_pack();
+  // tile i: S(i) and P.V(i - 1) go to the tensor cores together; the
+  // softmax of tile i runs while P.V(i - 1) (and the other consumer's
+  // products) run
+  for (int i = 1; i < n; ++i) {
+    const int s = i % stages, sp = (i - 1) % stages;
+    sm90::mbar_wait(kfull + s, (i / stages) & 1);
+    sm90::bar_sync(BAR_TURN + cw, 256);
+    s_gemm(s);
+    sm90::mbar_wait(vfull + sp, ((i - 1) / stages) & 1);
+    pv(sp);
+    if (cw == 0 || i + 1 < n) sm90::bar_arrive(BAR_TURN + 1 - cw, 256);
+    sm90::wgmma_wait<1>();  // S(i) done; P.V(i - 1) may still run
+    sm90::fence_regs(sc);
+    softmax(i);
+    sm90::wgmma_wait<0>();  // P.V(i - 1) done: O, P and stage i - 1 are free
+    sm90::fence_regs(o);
+    release(sp);
+    rescale_pack();
+  }
+  {  // the last tile's P.V
+    const int sp = (n - 1) % stages;
+    sm90::mbar_wait(vfull + sp, ((n - 1) / stages) & 1);
+    pv(sp);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(o);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
   }
 
+  if (split == 1) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-  bf16* out = p.o + b * p.o_sb + h * p.o_sh;
+    for (int r = 0; r < 2; ++r) {
+      const int row = t0 + cw * 64 + wrow + 8 * r;
+      if (row >= p.T) continue;
+      bf16* orow = p.o + b * p.o_sb + h * p.o_sh + (long long)row * p.o_st + 2 * (lane & 3);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = t0 + warp * 16 + g + 8 * r;
-    if (row >= T) continue;
-    bf16* orow = out + (long long)row * p.o_st + 2 * tq;
+      for (int nt = 0; nt < HDP / 8; ++nt)
+        if (8 * nt < HD)
+          *reinterpret_cast<uint32_t*>(orow + 8 * nt) =
+              sm90::pack_bf16x2(o[4 * nt + 2 * r] / l_run[r], o[4 * nt + 2 * r + 1] / l_run[r]);
+    }
+  } else {
+    // split over the cluster: rank r combines rows [r * rows_per, ...); each
+    // rank stores (m * scale, l, O) of every row into the buffer of the row's
+    // owner, in its own slot (remote stores only: nothing waits on a peer's
+    // shared memory), and each owner combines its rows over the slots in rank
+    // order from its own shared memory. The buffer is the ring, free once every
+    // rank's products are done.
+    const int rows_per = (BM + split - 1) / split;
+    float* co = reinterpret_cast<float*>(ring);  // [split * rows_per][CO_LD]
+    float* cm = co + CMAX_ROWS * G::CO_LD;       // [split * rows_per]
+    float* cl = cm + CMAX_ROWS;
+    float* wts = cl + CMAX_ROWS;                 // [rows_per][MAX_SPLIT]
+    float* lsum = wts + (BM / 2) * MAX_SPLIT;    // [rows_per]
+    namespace cg = cooperative_groups;
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster_arrive();
+    cluster_wait();  // every rank's ring is free
 #pragma unroll
-    for (int n = 0; n < NT_O; ++n)
-      *reinterpret_cast<uint32_t*>(orow + 8 * n) =
-          pack_bf16(o[n][2 * r] / l[r], o[n][2 * r + 1] / l[r]);
+    for (int r = 0; r < 2; ++r) {
+      const int row = cw * 64 + wrow + 8 * r, owner = row / rows_per;
+      const int slot = rank * rows_per + row - owner * rows_per;
+      float* dst = cluster.map_shared_rank(co, owner) + slot * G::CO_LD + 2 * (lane & 3);
+#pragma unroll
+      for (int nt = 0; nt < HDP / 8; ++nt)
+        *reinterpret_cast<float2*>(dst + 8 * nt) =
+            make_float2(o[4 * nt + 2 * r], o[4 * nt + 2 * r + 1]);
+      if ((lane & 3) == 0) {
+        cluster.map_shared_rank(cm, owner)[slot] = m_run[r] * scale;
+        cluster.map_shared_rank(cl, owner)[slot] = l_run[r];
+      }
+    }
+    cluster_arrive();
+    cluster_wait();  // every part of this rank's rows has arrived
+    const int r_beg = rank * rows_per, nr = min(rows_per, BM - r_beg);
+    const int tc = tid - 128;  // 0 .. 255
+    for (int li = tc; li < nr; li += 256) {  // each row: the ranks' weights 2^(m_q - max)
+      float mmax = -INFINITY;
+      for (int q = 0; q < split; ++q) mmax = fmaxf(mmax, cm[q * rows_per + li]);
+      float l = 0.f;
+      for (int q = 0; q < split; ++q) {
+        const float w = sm90::ex2(cm[q * rows_per + li] - mmax);
+        wts[li * MAX_SPLIT + q] = w;
+        l += w * cl[q * rows_per + li];
+      }
+      lsum[li] = l;
+    }
+    sm90::bar_sync(BAR_CONSUMERS, 256);
+    bf16* ob = p.o + b * p.o_sb + h * p.o_sh;
+    for (int e = tc; e < nr * (HDP / 4); e += 256) {
+      const int li = e / (HDP / 4), c = 4 * (e % (HDP / 4));
+      if (t0 + r_beg + li >= p.T || c >= HD) continue;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int q = 0; q < split; ++q) {  // rank order
+        const float w = wts[li * MAX_SPLIT + q];
+        const float4 v = *reinterpret_cast<const float4*>(co + (q * rows_per + li) * G::CO_LD + c);
+        acc.x += w * v.x;
+        acc.y += w * v.y;
+        acc.z += w * v.z;
+        acc.w += w * v.w;
+      }
+      const float l = lsum[li];
+      *reinterpret_cast<uint2*>(ob + (long long)(t0 + r_beg + li) * p.o_st + c) = make_uint2(
+          sm90::pack_bf16x2(acc.x / l, acc.y / l), sm90::pack_bf16x2(acc.z / l, acc.w / l));
+    }
   }
 }
 
+// ------------------------------------------------------------------ host
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_fn() {  // the driver's cuTensorMapEncodeTiled, without linking -lcuda
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                         cudaEnableDefault, &q) != cudaSuccess)
+      return nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &q) !=
+        cudaSuccess)
+      return nullptr;
+#endif
+    if (q != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// The strided (B, H, rows, hd) view as a 4-D map: hd innermost, then (rows,
+// h, b) by increasing stride (a dimension of extent 1 last), so every view
+// the wrapper admits (16-byte aligned rows) is described; perm gives the
+// map's order of (rows, h, b). Boxes of (box_hd, box_rows, 1, 1); hd beyond
+// the tensor (hd = 8 under a 16-wide box) and rows beyond `rows` read zeros.
+bool encode(CUtensorMap* map, int (&perm)[3], const void* base, int hd, int rows, int H, int B,
+            long long s_row, long long s_h, long long s_b, int box_hd, int box_rows, int rowb) {
+  EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return false;
+  const long long ext[3] = {rows, H, B};
+  long long st[3] = {s_row * 2, s_h * 2, s_b * 2};  // bytes
+  long long far = 16;
+  for (int d = 0; d < 3; ++d)
+    if (ext[d] > 1 && st[d] * ext[d] > far) far = st[d] * ext[d];
+  for (int d = 0; d < 3; ++d) {
+    perm[d] = d;
+    if (ext[d] == 1) st[d] = (far + 15) / 16 * 16;  // unused stride: past the rest
+  }
+  for (int i = 0; i < 3; ++i)  // by increasing stride (insertion sort)
+    for (int j = i; j > 0 && st[perm[j]] < st[perm[j - 1]]; --j) {
+      const int t = perm[j];
+      perm[j] = perm[j - 1];
+      perm[j - 1] = t;
+    }
+  cuuint64_t dims[4] = {(cuuint64_t)hd, 0, 0, 0};
+  cuuint64_t strides[3];
+  for (int d = 0; d < 3; ++d) {
+    dims[d + 1] = (cuuint64_t)ext[perm[d]];
+    strides[d] = (cuuint64_t)st[perm[d]];
+  }
+  cuuint32_t box[4] = {(cuuint32_t)box_hd, 1, 1, 1};
+  for (int d = 0; d < 3; ++d)
+    if (perm[d] == 0) box[d + 1] = (cuuint32_t)box_rows;
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle sw = rowb == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : rowb == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                             : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// host-side refusals, returned as negative codes (the wrapper names them)
+constexpr int ERR_TENSOR_MAP = -1;  // cuTensorMapEncodeTiled refused a view
+constexpr int ERR_REGISTERS = -2;   // the kernel's register budget cannot fund setmaxnreg
+constexpr int ERR_PLAN = -3;        // a launch plan the kernel does not take
+
+template <int HD, int BN>
+int launch(const void* q, const void* k, const void* v, AttnArgs& p, int B, int H,
+           const long long (&st)[9], int smem, cudaStream_t s) {
+  using G = Geo<HD, BN>;
+  // less shared memory than the ring (or the combine) takes would overrun it
+  if (smem != G::smem(p.stages)) return ERR_PLAN;
+  auto kern = attention_kernel<HD, BN>;
+  static int ready = 0;  // 1: attributes set; < 0: the refusal
+  if (ready == 0) {
+    cudaFuncAttributes fa;
+    cudaError_t e = cudaFuncGetAttributes(&fa, kern);
+    if (e != cudaSuccess) return (int)e;
+    // setmaxnreg moves registers between the warpgroups of the block's
+    // allocation: 128 * (40 + 2 * 232) needs 168 a thread at launch
+    if (fa.numRegs * NTHREADS < 128 * (REGS_PRODUCER + 2 * REGS_CONSUMER)) {
+      ready = ERR_REGISTERS;
+    } else {
+      e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               232448 - (int)fa.sharedSizeBytes);
+      if (e != cudaSuccess) return (int)e;
+      ready = 1;
+    }
+  }
+  if (ready < 0) return ready;
+  CUtensorMap qm, km, vm;
+  const int mtiles = (p.T + BM - 1) / BM;
+  if (!encode(&qm, p.qperm, q, HD, p.T, H, B, st[2], st[1], st[0], G::BOX, BM, G::ROWB) ||
+      !encode(&km, p.kperm, k, HD, p.S, H, B, st[5], st[4], st[3], G::BOX, BN, G::ROWB) ||
+      !encode(&vm, p.vperm, v, HD, p.S, H, B, st[8], st[7], st[6], G::BOX, BN, G::ROWB))
+    return ERR_TENSOR_MAP;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.split * mtiles, H, B);
+  cfg.blockDim = dim3(NTHREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kern, qm, km, vm, p);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 template <int HD>
-cudaError_t launch(const AttnArgs& p, int B, int H, cudaStream_t s) {
-  constexpr int bytes = smem_bytes<HD>();
-  static cudaError_t attr = cudaFuncSetAttribute(
-      attention_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (attr != cudaSuccess) return attr;
-  dim3 grid((p.T + BM - 1) / BM, H, B);
-  attention_kernel<HD><<<grid, NTHREADS, bytes, s>>>(p);
-  return cudaGetLastError();
+int launch_bn(const void* q, const void* k, const void* v, AttnArgs& p, int B, int H,
+              const long long (&st)[9], int bn, int smem, cudaStream_t s) {
+  if (bn == 64) return launch<HD, 64>(q, k, v, p, B, H, st, smem, s);
+  if (bn == 128) return launch<HD, 128>(q, k, v, p, B, H, st, smem, s);
+  return ERR_PLAN;
 }
 
 }  // namespace
@@ -321,34 +540,29 @@ extern "C" int lm2a_attention(const void* q, const void* k, const void* v, void*
                               int H, int T, int S, int hd, long long q_sb, long long q_sh,
                               long long q_st, long long k_sb, long long k_sh, long long k_st,
                               long long v_sb, long long v_sh, long long v_st, long long o_sb,
-                              long long o_sh, long long o_st, void* stream) {
+                              long long o_sh, long long o_st, int bn, int stages, int split,
+                              int smem, void* stream) {
+  if (T < 1 || S < 1) return (int)cudaErrorInvalidValue;
+  if (stages < 3 || stages > MAX_STAGES || split < 1 || split > MAX_SPLIT) return ERR_PLAN;
   AttnArgs p;
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
   p.o = static_cast<bf16*>(o);
   p.T = T;
   p.S = S;
-  p.q_sb = q_sb;
-  p.q_sh = q_sh;
-  p.q_st = q_st;
-  p.k_sb = k_sb;
-  p.k_sh = k_sh;
-  p.k_st = k_st;
-  p.v_sb = v_sb;
-  p.v_sh = v_sh;
-  p.v_st = v_st;
   p.o_sb = o_sb;
   p.o_sh = o_sh;
   p.o_st = o_st;
+  p.tiles = (S + bn - 1) / bn;
+  p.split = split;
+  p.stages = stages;
+  if (split > p.tiles) return ERR_PLAN;
+  const long long st[9] = {q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (T < 1 || S < 1) return (int)cudaErrorInvalidValue;
   switch (hd) {
-    case 8: return (int)launch<8>(p, B, H, s);
-    case 16: return (int)launch<16>(p, B, H, s);
-    case 32: return (int)launch<32>(p, B, H, s);
-    case 64: return (int)launch<64>(p, B, H, s);
-    case 128: return (int)launch<128>(p, B, H, s);
+    case 8: return launch_bn<8>(q, k, v, p, B, H, st, bn, smem, s);
+    case 16: return launch_bn<16>(q, k, v, p, B, H, st, bn, smem, s);
+    case 32: return launch_bn<32>(q, k, v, p, B, H, st, bn, smem, s);
+    case 64: return launch_bn<64>(q, k, v, p, B, H, st, bn, smem, s);
+    case 128: return launch_bn<128>(q, k, v, p, B, H, st, bn, smem, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -179,7 +179,7 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_fused_kernel(const ConvA
       for (int u = tid; u < 3 * BN * 8; u += NT) {
         const int tap = u / (BN * 8), r = (u >> 3) % BN, c = u & 7;
         const bf16* src = p.w + (size_t)(wrow0 + r) * 3 * cin + tap * cin + j * 64 + c * 8;
-        sm90::cp_async16(base + tap * TAP_BYTES + sm90::sw128_offset(r, c), src);
+        sm90::cp_async16(base + tap * TAP_BYTES + sm90::sw_offset<128>(r, c), src);
       }
       const In* a = static_cast<const In*>(p.a);
       for (int jr = tid >> 3; jr < BM + 2; jr += NT / 8) {
@@ -195,7 +195,7 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_fused_kernel(const ConvA
       for (int u = tid; u < BN * 8; u += NT) {
         const int r = u >> 3, c = u & 7;
         const bf16* src = p.w2 + (size_t)(wrow0 + r) * p.cin2 + (j - nconv) * 64 + c * 8;
-        sm90::cp_async16(base + sm90::sw128_offset(r, c), src);
+        sm90::cp_async16(base + sm90::sw_offset<128>(r, c), src);
       }
       for (int jr = tid >> 3; jr < BM + 2; jr += NT / 8) {
         const int q = m0 - 1 + jr;
@@ -300,7 +300,7 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_fused_kernel(const ConvA
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      sm90::wgmma_rs<BN>(acc, fr[kk], sm90::desc_sw128(tile + kk * 32));
+      sm90::wgmma_rs<BN>(acc, fr[kk], sm90::desc_kmajor<128>(tile + kk * 32));
     sm90::wgmma_commit();
   };
 

@@ -25,10 +25,17 @@
 // The wrapper (ops/resblock_grad.py) sums the partials (T tiles of a
 // channel sum) in a fixed order.
 //
-// conv3_dgrad is an implicit GEMM d_in[t] = sum_k g[t+1-k] W_k^T: M = T rows
-// of one batch row, N = Cin, K = taps*Cout, bf16 wmma 16x16x16 with fp32
-// accumulation and a register prefetch of the next K tile (the first design;
-// it shares conv3_wgrad's loaders but not yet its wgmma main loop).
+// conv3_dgrad, d_in[t] = sum_k g[t+1-k] W_k^T (the input-gradient part), is
+// conv3_fused's implicit GEMM with the taps reversed, the weights read
+// transposed and no activation prologue. At the training shapes its bound
+// over a step's 7 gated blocks is the bytes' (0.0966 ms: g, W, the
+// GroupNorm input and the fp32 d_y, against 0.4-1.6 GFLOP a call). It runs
+// on the main loop of conv3_fused: M = the flattened B*T rows, wgmma with g
+// in registers by ldmatrix from a cp.async ring, W behind a transposed
+// (tnspB) descriptor, a cluster K split, a launch plan from the measured
+// cost model (dgrad_plan). Measured per block (PERF.md), the fixed cost
+// (the first loads, the SiLU backward, the bucket sums) outweighs the main
+// loop at the gated shapes' 4-8 K chunks.
 //
 // conv3_wgrad, dW_k = sum_{b,t} act(a)[b,t+k-1]^T g[b,t] (the weight-gradient
 // part of _resblock_bwd_kernel), is an implicit GEMM whose K is the
@@ -52,42 +59,39 @@
 // chunk, not by the tensor cores.
 // gn_bwd is elementwise and bound by bytes.
 
-#include <mma.h>
+#include <type_traits>
 
 #include "common.cuh"
 #include "sm90_gemm.cuh"
 
-using namespace nvcuda;
-
 namespace {
 
-constexpr int BM = 64;   // output tile rows
-constexpr int BN = 64;   // output tile columns
-constexpr int BK = 32;   // K per tile
-constexpr int TT = 64;   // frames per partial-sum tile (= BM of conv3_dgrad)
-constexpr int NTHREADS = 128;
-constexpr int LDR = BK + 8;  // bf16 stride of a row-major (64 x 32) tile: 80 bytes
-constexpr int LDW = BN + 8;  // bf16 stride of a (32 x 64) tile: 144 bytes
-constexpr int LDC = BN + 4;  // fp32 epilogue stride
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragAr;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> FragAc;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-__device__ __forceinline__ void copy16(bf16* dst, const uint4* src) {
-  reinterpret_cast<uint4*>(dst)[0] = src[0];
-  reinterpret_cast<uint4*>(dst)[1] = src[1];
-}
-
-__device__ __forceinline__ void fill_zero(FragC (&acc)[2][2]) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-}
+constexpr int BN = 64;   // gn_bwd's channel tile
+constexpr int TT = 64;   // frames per partial-sum tile (bucket)
 
 // ------------------------------------------------------------ conv3_dgrad
+// d_in[m] = sum_k g[m+1-k] W_k^T over the flattened m = (b, t): M = B*T
+// rows (64*MW a block), N = Cin (BN a block), K = taps x Cout in chunks of
+// 64 output channels (the last one 32 wide when Cout % 64 == 32), all taps
+// of a chunk together. A chunk's weights (taps tiles of 64 K rows x BN
+// channels, MN-major: W's rows hold Cin contiguously, read with tnspB = 1
+// behind a 128-byte-swizzle descriptor, atoms of 64 channels 8 KB apart)
+// and its g window (frames m0 - 1 .. m0 + BM of the chunk's channels, raw
+// bf16) come in by cp.async into a 3-stage ring, two chunks ahead; tap k of
+// output row r reads window row r + 2 - k by ldmatrix, or the all-zero row
+// where frame t + 1 - k leaves [0, T) of its batch row. MW consumer
+// warpgroups issue the wgmmas; a helper warpgroup shares the copies. The K
+// split (a cluster along z, dgrad_plan) sums the ranks' fp32 tiles from
+// distributed shared memory in rank order, each rank a slice of the columns.
+// The epilogue goes through shared memory: d_y = d * SiLU'(GN(pre)) in fp32,
+// then per column the sums of d_y and d_y * xhat over each (b, t // 64)
+// bucket, rows in order. A tile may hold the end of a bucket that began in
+// the previous tile: the bucket's rows in the tile of its first row are its
+// head piece, the rest its tail piece (zero when there is none); each is
+// written by one block, and the wrapper adds head + tail.
+constexpr int DG_STAGES = 3;
+constexpr int DG_LDW = 72;  // bf16 row stride of a g window (144 bytes)
+
 struct DgradArgs {
   const bf16* g;       // (B, T, cout): gradient of the conv output
   const bf16* w;       // (cout, taps*cin): w[n, k*cin + c] = tap k
@@ -97,117 +101,232 @@ struct DgradArgs {
   const float* gamma;  // (cin,)
   const float* beta;
   float* out;          // (B, T, cin): d_y (act) or the raw product
-  float* part;         // (2, B, nT, cin): sums over each tile of d_y and d_y*xhat
-  int B, T, cin, cout, taps, groups, nT;
+  float* pieces;       // (2, 2, B, nT, cin): head and tail pieces of each bucket's sums
+  int B, T, cin, cout, groups, nT;
 };
 
-template <typename Pre>
-__global__ void __launch_bounds__(NTHREADS) conv3_dgrad_kernel(const DgradArgs p) {
-  __shared__ __align__(128) bf16 As[BM * LDR];
-  __shared__ __align__(128) bf16 Bs[BK * LDW];
-  __shared__ __align__(128) float Cs[BM * LDC];
-  __shared__ __align__(128) float Xs[BM * LDC];
+template <int TAPS, int MW, int BN_>
+struct DgradGeo {
+  static constexpr int BM = 64 * MW;
+  static constexpr int TAP_BYTES = 64 * BN_ * 2;  // 64 K rows x BN channels
+  static constexpr int WIN_BYTES = ((BM + 3) * DG_LDW * 2 + 1023) / 1024 * 1024;
+  static constexpr int STAGE_BYTES = TAPS * TAP_BYTES + WIN_BYTES;
+  static constexpr int LDR = BN_ + 4;  // fp32 stride of the epilogue tiles
+  static constexpr int RING = DG_STAGES * STAGE_BYTES, EPILOGUE = 2 * BM * LDR * 4;
+  // dynamic shared bytes: alignment slack, then the ring or the epilogue's tiles
+  static constexpr int SMEM = 1024 + (RING > EPILOGUE ? RING : EPILOGUE);
+};
 
-  const int t0 = blockIdx.x * BM, c0 = blockIdx.y * BN, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  const int T = p.T, cin = p.cin, cout = p.cout;
-  const int Ktot = p.taps * cout;
-  const bf16* g = p.g + (size_t)b * T * cout;
-  // A loader: 16 consecutive K of one frame; B loader: 16 channels of one K row
-  const int ar = tid >> 1, ak = (tid & 1) * 16;
-  const int br = tid >> 2, bc = (tid & 3) * 16;
+template <typename Pre, bool ACT, int TAPS, int MW, int BN_>
+__global__ void __launch_bounds__(128 * (MW + 1)) conv3_dgrad_kernel(const DgradArgs p) {
+  using D = DgradGeo<TAPS, MW, BN_>;
+  constexpr int NT = 128 * (MW + 1), BM = D::BM;
+  constexpr int ZROW = BM + 2;
+  constexpr int TAP_BYTES = D::TAP_BYTES, WIN_BYTES = D::WIN_BYTES;
+  constexpr int STAGE_BYTES = D::STAGE_BYTES, LDR = D::LDR;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
 
-  FragC acc[2][2];
-  fill_zero(acc);
-  uint4 ra[2], rb[2];
-  auto fetch = [&](int k0) {
-    {
-      const int kk = k0 + ak;
-      const int tap = kk / cout, n = kk - tap * cout;
-      const int src = t0 + ar + (p.taps == 3 ? 1 - tap : 0);
-      if (t0 + ar < T && src >= 0 && src < T) {
-        const uint4* q = reinterpret_cast<const uint4*>(g + (size_t)src * cout + n);
-        ra[0] = q[0];
-        ra[1] = q[1];
-      } else {
-        ra[0] = ra[1] = make_uint4(0, 0, 0, 0);
-      }
+  const int tid = threadIdx.x, tid_wg = tid & 127, lane = tid & 31;
+  // the warpgroup, warp-uniform as ptxas can see (else it serializes wgmma)
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int T = p.T, cin = p.cin, cout = p.cout, M = p.B * T;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN_;
+  const int nch = (cout + 63) / 64;
+  const int S = gridDim.z, rank = blockIdx.z;
+  const int ch_beg = nch * rank / S, ch_end = nch * (rank + 1) / S;
+  const int L = ch_end - ch_beg;
+
+  auto stage_ptr = [&](int s) { return smem + s * STAGE_BYTES; };
+  // chunk j into stage s: the taps' weight tiles, then the window
+  auto load_chunk = [&](int j, int s) {
+    const int clen = min(64, cout - 64 * j);
+    const uint32_t base = sm90::smem_u32(stage_ptr(s));
+    for (int u = tid; u < TAPS * 64 * (BN_ / 8); u += NT) {
+      const int tap = u / (64 * (BN_ / 8)), r = (u / (BN_ / 8)) & 63, cc = u % (BN_ / 8);
+      if (r >= clen) continue;
+      const bf16* src = p.w + (size_t)(64 * j + r) * TAPS * cin + tap * cin + n0 + cc * 8;
+      sm90::cp_async16(base + tap * TAP_BYTES + (cc >> 3) * (64 * 128) +
+                           sm90::sw_offset<128>(r, cc & 7), src);
     }
-    {
-      const int kk = k0 + br;
-      const int tap = kk / cout, n = kk - tap * cout;
-      const uint4* q = reinterpret_cast<const uint4*>(
-          p.w + (size_t)n * p.taps * cin + (size_t)tap * cin + c0 + bc);
-      rb[0] = q[0];
-      rb[1] = q[1];
+    const uint32_t wbase = base + TAPS * TAP_BYTES;
+    for (int u = tid; u < (BM + 2) * 8; u += NT) {
+      const int jr = u >> 3, c8 = u & 7, q = m0 - 1 + jr;
+      const bool ok = q >= 0 && q < M && 8 * c8 < clen;
+      const bf16* src = p.g + (ok ? (size_t)q * cout + 64 * j + c8 * 8 : 0);
+      sm90::cp_async16(wbase + jr * (DG_LDW * 2) + c8 * 16, src, ok ? 16 : 0);
     }
   };
 
-  fetch(0);
-  for (int k0 = 0; k0 < Ktot; k0 += BK) {
-    copy16(As + ar * LDR + ak, ra);
-    copy16(Bs + br * LDW + bc, rb);
-    __syncthreads();
-    if (k0 + BK < Ktot) fetch(k0 + BK);
+  // this lane's ldmatrix row for each tap: window row r + 2 - k (frame
+  // t + 1 - k), or the zero row where that frame leaves [0, T) of the
+  // row's batch row or the output row is past M
+  int arow[TAPS];
+  {
+    const int r = wg * 64 + (tid_wg >> 5) * 16 + (lane & 15);
+    const int m = m0 + r, t = m % T;
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      FragAr fa[2];
-      FragB fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(fa[i], As + (wm + 16 * i) * LDR + kk, LDR);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(fb[j], Bs + kk * LDW + wn + 16 * j, LDW);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+    for (int k = 0; k < TAPS; ++k) {
+      const int src_t = TAPS == 3 ? t + 1 - k : t;
+      arow[k] = (m < M && src_t >= 0 && src_t < T) ? r + (TAPS == 3 ? 2 - k : 1) : ZROW;
     }
-    __syncthreads();
+  }
+  const uint32_t acol = (lane >> 4) * 16;  // bytes: k 0-7 or 8-15 of a k16 step
+
+  float acc[BN_ / 2];
+#pragma unroll
+  for (int i = 0; i < BN_ / 2; ++i) acc[i] = 0.f;
+
+  if (tid < 8 * DG_STAGES) {  // the zero row of every stage's window
+    uint8_t* wz = stage_ptr(tid >> 3) + TAPS * TAP_BYTES + ZROW * (DG_LDW * 2) + (tid & 7) * 16;
+    *reinterpret_cast<uint4*>(wz) = make_uint4(0, 0, 0, 0);
+  }
+#pragma unroll
+  for (int s = 0; s < DG_STAGES - 1; ++s) {
+    if (s < L) load_chunk(ch_beg + s, s);
+    sm90::cp_async_commit();
   }
 
+  for (int i = 0; i < L; ++i) {
+    const int j = ch_beg + i, s = i % DG_STAGES;
+    sm90::cp_async_wait<DG_STAGES - 2>();  // this thread's copies of chunk j landed
+    sm90::fence_proxy_async();
+    __syncthreads();  // every thread's weights and window rows of chunk j are in
+    if (i + DG_STAGES - 1 < L) load_chunk(j + DG_STAGES - 1, (i + DG_STAGES - 1) % DG_STAGES);
+    sm90::cp_async_commit();
+    if (wg < MW) {
+      const uint32_t tiles = sm90::smem_u32(stage_ptr(s));
+      const uint32_t wbase = tiles + TAPS * TAP_BYTES;
+      // all taps of the chunk: NK k16 steps each (4, or 2 for a 32-wide last chunk)
+      auto chunk_mma = [&](auto nk) {
+        constexpr int NK = decltype(nk)::value;
+        uint32_t fr[TAPS][NK][4];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+        for (int k = 0; k < TAPS; ++k)
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm + 16 * i) * LDC + wn + 16 * j, acc[i][j], LDC,
-                              wmma::mem_row_major);
+          for (int kk = 0; kk < NK; ++kk)
+            sm90::ldmatrix_x4(fr[k][kk], wbase + arow[k] * (DG_LDW * 2) + acol + kk * 32);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < TAPS; ++k)
+#pragma unroll
+          for (int kk = 0; kk < NK; ++kk)
+            sm90::wgmma_rs<BN_, 1>(acc, fr[k][kk],
+                                   sm90::desc_mn<128>(tiles + k * TAP_BYTES + kk * 2048, 64 * 128));
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(acc);
+      };
+      if (cout - 64 * j >= 64)
+        chunk_mma(std::integral_constant<int, 4>());
+      else
+        chunk_mma(std::integral_constant<int, 2>());
+    }
+  }
+  sm90::cp_async_wait<0>();
+  __syncthreads();  // every warpgroup's wgmma has left the ring
+
+  // the fp32 tile [BM][LDR] (then d_y), and d_y * xhat [BM][LDR] after it
+  float* red = reinterpret_cast<float*>(smem);
+  float* xs = red + BM * LDR;
+  if (wg < MW) {
+#pragma unroll
+    for (int i = 0; i < BN_ / 2; ++i)
+      red[(wg * 64 + sm90::acc_row(i, tid_wg)) * LDR + sm90::acc_col(i, tid_wg)] = acc[i];
+  }
+  __shared__ int rowb[BM];  // each tile row's batch row
+  if (tid < BM) rowb[tid] = min(m0 + tid, M - 1) / T;
+  // this block's columns of the tile: all of them, or its slice of a split
+  int c_beg = 0, ncols = BN_;
+  if (S > 1) {
+    namespace cg = cooperative_groups;
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();  // every rank's tile written
+    c_beg = BN_ * rank / S;
+    ncols = BN_ * (rank + 1) / S - c_beg;
+    for (int e = tid; e < BM * ncols; e += NT) {
+      const int o = (e / ncols) * LDR + c_beg + e % ncols;
+      float v = 0.f;
+      for (int q = 0; q < S; ++q) v += cluster.map_shared_rank(red, q)[o];
+      red[o] = v;  // peers read only their own columns of this tile
+    }
+  }
   __syncthreads();
 
-  if (p.pre == nullptr) {  // raw product (the 1x1 skip's input gradient)
-    for (int e = tid; e < BM * BN; e += NTHREADS) {
-      const int r = e / BN, n = e - r * BN, t = t0 + r;
-      if (t >= T) break;
-      p.out[((size_t)b * T + t) * cin + c0 + n] = Cs[r * LDC + n];
+  // a thread takes one column of the tile (its GroupNorm group computed
+  // once) and every RSTEP-th row; each row's batch index comes from rowb,
+  // so no integer division is left per element. EU rows a thread at a time,
+  // their global loads issued together.
+  constexpr int RSTEP = NT / BN_, EU = 8;
+  const int nrow = min(BM, M - m0);
+  const int col = tid % BN_, gcc = n0 + col;
+  if (col >= c_beg && col < c_beg + ncols) {
+    if (!ACT) {
+      for (int r = tid / BN_; r < nrow; r += RSTEP)
+        p.out[(size_t)(m0 + r) * cin + gcc] = red[r * LDR + col];
+    } else {
+      const Pre* pre = static_cast<const Pre*>(p.pre);
+      const int gcol = gcc / (cin / p.groups);
+      const float ga = __ldg(p.gamma + gcc), be = __ldg(p.beta + gcc);
+      for (int r0 = tid / BN_; r0 < nrow; r0 += RSTEP * EU) {
+        float xv[EU], mu[EU], rs[EU];
+#pragma unroll
+        for (int u = 0; u < EU; ++u) {
+          const int r = min(r0 + u * RSTEP, nrow - 1), gi = rowb[r] * p.groups + gcol;
+          xv[u] = to_f(pre[(size_t)(m0 + r) * cin + gcc]);
+          mu[u] = __ldg(p.mean + gi);
+          rs[u] = __ldg(p.rstd + gi);
+        }
+#pragma unroll
+        for (int u = 0; u < EU; ++u) {
+          const int r = r0 + u * RSTEP;
+          if (r >= nrow) break;
+          const float xh = (xv[u] - mu[u]) * rs[u];
+          const float y = xh * ga + be;
+          // sigmoid by the MUFU exponential and a rounded reciprocal (~1e-7
+          // relative against torch.sigmoid, inside conv3_dgrad's 1e-5)
+          const float sig = __frcp_rn(1.f + __expf(-y));
+          const float dy = red[r * LDR + col] * (sig * (1.f + y * (1.f - sig)));
+          p.out[(size_t)(m0 + r) * cin + gcc] = dy;
+          red[r * LDR + col] = dy;
+          xs[r * LDR + col] = dy * xh;
+        }
+      }
     }
-    return;
   }
-
-  // SiLU backward through y = xhat * gamma + beta, xhat from the saved input
-  const Pre* pre = static_cast<const Pre*>(p.pre) + (size_t)b * T * cin;
-  const int cg = cin / p.groups;
-  for (int e = tid; e < BM * BN; e += NTHREADS) {
-    const int r = e / BN, n = e - r * BN, t = t0 + r, c = c0 + n;
-    float dy = 0.f, xh = 0.f;
-    if (t < T) {
-      const int gi = b * p.groups + c / cg;
-      xh = (to_f(pre[(size_t)t * cin + c]) - p.mean[gi]) * p.rstd[gi];
-      const float y = xh * p.gamma[c] + p.beta[c];
-      const float sig = 1.f / (1.f + expf(-y));
-      dy = Cs[r * LDC + n] * (sig * (1.f + y * (1.f - sig)));
-      p.out[((size_t)b * T + t) * cin + c] = dy;
+  if (ACT) {
+    __syncthreads();
+    // one column of one sum per thread, rows in order, a write at the end
+    // of each bucket's piece
+    const size_t plane = (size_t)p.B * p.nT * cin;
+    for (int u = tid; u < 2 * ncols; u += NT) {
+      const int which = u / ncols, c = c_beg + u % ncols, cc = n0 + c;
+      const float* src = which == 0 ? red : xs;
+      int b = m0 / T, t = m0 - b * T;
+      float s = 0.f;
+#pragma unroll 4
+      for (int r = 0; r < nrow; ++r) {
+        s += src[r * LDR + c];
+        if (r == nrow - 1 || (t + 1) % TT == 0 || t + 1 == T) {  // a piece ends
+          const int tt = t / TT;
+          const int bs = b * T + tt * TT, be = b * T + min(tt * TT + TT, T);  // the bucket
+          float* dst = p.pieces + (size_t)which * 2 * plane + ((size_t)b * p.nT + tt) * cin + cc;
+          if (bs >= m0) {  // its head: the tail is the next block's, or nothing
+            dst[0] = s;
+            if (be <= m0 + BM) dst[plane] = 0.f;
+          } else {
+            dst[plane] = s;
+          }
+          s = 0.f;
+        }
+        if (++t == T) {
+          t = 0;
+          ++b;
+        }
+      }
     }
-    Cs[r * LDC + n] = dy;
-    Xs[r * LDC + n] = dy * xh;
   }
-  __syncthreads();
-  // one column sum per thread, rows in order
-  const int n = tid & 63;
-  const float* src = tid < 64 ? Cs : Xs;
-  float s = 0.f;
-  for (int r = 0; r < BM; ++r) s += src[r * LDC + n];
-  const int which = tid < 64 ? 0 : 1;
-  p.part[(((size_t)which * p.B + b) * p.nT + blockIdx.x) * cin + c0 + n] = s;
+  if (S > 1) cooperative_groups::this_cluster().sync();  // peers may still read this tile
 }
 
 // ------------------------------------------------------------ conv3_wgrad
@@ -352,7 +471,7 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_wgrad_kernel(const Wgrad
         uint8_t* tile = tiles + k * 64 * 128;
 #pragma unroll
         for (int e = 0; e < 8; ++e)
-          *reinterpret_cast<bf16*>(tile + sm90::sw128_offset(cl + e, jc >> 3) + (jc & 7) * 2) =
+          *reinterpret_cast<bf16*>(tile + sm90::sw_offset<128>(cl + e, jc >> 3) + (jc & 7) * 2) =
               ok ? h[e] : zero;
       }
     }
@@ -406,7 +525,7 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_wgrad_kernel(const Wgrad
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        sm90::wgmma_rs<NW>(acc, fr[kk], sm90::desc_sw128(tiles + kk * 32));
+        sm90::wgmma_rs<NW>(acc, fr[kk], sm90::desc_kmajor<128>(tiles + kk * 32));
       sm90::wgmma_commit();
     }
     if (i + 1 < L) {
@@ -545,11 +664,44 @@ __global__ void __launch_bounds__(GN_THREADS) gn_bwd_kernel(const GnBwdArgs p) {
 
 }  // namespace
 
+namespace {
+
+constexpr int ERR_PLAN = -3;  // a launch plan the kernel does not take (ops/_build.py)
+
+// the plan's grid and shared memory must be this kernel's for the shape: a
+// smaller grid would leave output rows unwritten, smaller shared memory
+// would overrun the ring
+template <typename Pre, bool ACT, int TAPS, int MW, int BN_>
+int launch_dgrad(const DgradArgs& a, int mtiles, int ntiles, int splits, int smem,
+                 cudaStream_t s) {
+  using D = DgradGeo<TAPS, MW, BN_>;
+  if (a.cin % BN_ != 0 || mtiles != (a.B * a.T + D::BM - 1) / D::BM || ntiles != a.cin / BN_ ||
+      smem != D::SMEM || splits < 1 || splits > 8 || splits > (a.cout + 63) / 64)
+    return ERR_PLAN;
+  static bool attr_set = false;
+  return (int)sm90::launch_cluster(conv3_dgrad_kernel<Pre, ACT, TAPS, MW, BN_>, attr_set,
+                                   dim3(mtiles, ntiles, splits), 128 * (MW + 1), smem, splits,
+                                   s, a);
+}
+
+template <typename Pre, bool ACT, int TAPS>
+int launch_dgrad_plan(const DgradArgs& a, int mw, int bn, int mtiles, int ntiles, int splits,
+                      int smem, cudaStream_t s) {
+  if (mw == 1 && bn == 64) return launch_dgrad<Pre, ACT, TAPS, 1, 64>(a, mtiles, ntiles, splits, smem, s);
+  if (mw == 2 && bn == 64) return launch_dgrad<Pre, ACT, TAPS, 2, 64>(a, mtiles, ntiles, splits, smem, s);
+  if (mw == 1 && bn == 128) return launch_dgrad<Pre, ACT, TAPS, 1, 128>(a, mtiles, ntiles, splits, smem, s);
+  return ERR_PLAN;
+}
+
+}  // namespace
+
+// modes: 3 taps with the SiLU backward (pre bf16 or fp32), 1 tap raw
 extern "C" int lm2a_conv3_dgrad(const void* g, const void* w, const void* pre, int pre_is_f32,
                                 const float* mean, const float* rstd, const float* gamma,
-                                const float* beta, float* out, float* part, int B, int T,
-                                int cin, int cout, int taps, int groups, int nT,
-                                void* stream) {
+                                const float* beta, float* out, float* pieces, int B, int T,
+                                int cin, int cout, int taps, int groups, int nT, int mw, int bn,
+                                int mtiles, int ntiles, int splits, int smem, void* stream) {
+  if (B < 1 || T < 1 || nT != (T + TT - 1) / TT) return (int)cudaErrorInvalidValue;
   DgradArgs a;
   a.g = static_cast<const bf16*>(g);
   a.w = static_cast<const bf16*>(w);
@@ -559,20 +711,24 @@ extern "C" int lm2a_conv3_dgrad(const void* g, const void* w, const void* pre, i
   a.gamma = gamma;
   a.beta = beta;
   a.out = out;
-  a.part = part;
+  a.pieces = pieces;
   a.B = B;
   a.T = T;
   a.cin = cin;
   a.cout = cout;
-  a.taps = taps;
   a.groups = groups;
   a.nT = nT;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid((T + BM - 1) / BM, cin / BN, B);
-  if (pre_is_f32)
-    conv3_dgrad_kernel<float><<<grid, NTHREADS, 0, s>>>(a);
+  int e;
+  if (taps == 3 && pre != nullptr && pre_is_f32)
+    e = launch_dgrad_plan<float, true, 3>(a, mw, bn, mtiles, ntiles, splits, smem, s);
+  else if (taps == 3 && pre != nullptr)
+    e = launch_dgrad_plan<bf16, true, 3>(a, mw, bn, mtiles, ntiles, splits, smem, s);
+  else if (taps == 1 && pre == nullptr)
+    e = launch_dgrad_plan<bf16, false, 1>(a, mw, bn, mtiles, ntiles, splits, smem, s);
   else
-    conv3_dgrad_kernel<bf16><<<grid, NTHREADS, 0, s>>>(a);
+    return (int)cudaErrorInvalidValue;
+  if (e != 0) return e;
   return (int)cudaGetLastError();
 }
 

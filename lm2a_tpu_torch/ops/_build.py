@@ -119,13 +119,21 @@ def declare(lib_name: str, fn_name: str, argtypes: list) -> None:
     _argtypes[(lib_name, fn_name)] = argtypes
 
 
+# negative codes: refusals of the host side of a C entry, before any launch
+HOST_REFUSALS = {
+    -1: "cuTensorMapEncodeTiled refused a tensor map of these strides",
+    -2: "the kernel's registers at launch cannot fund its setmaxnreg budgets",
+    -3: "the kernel does not take this launch plan",
+}
+
+
 def launch(lib_name: str, fn_name: str, kernel: str, *args) -> None:
     """Call C entry ``fn_name`` and count the launch under ``kernel``."""
     fn = getattr(library(lib_name), fn_name)
     err = fn(*args)
     if err != 0:
-        raise RuntimeError(f"CUDA kernel {kernel} ({fn_name}) failed: "
-                           f"cudaError_t {err}")
+        why = HOST_REFUSALS.get(err, f"cudaError_t {err}")
+        raise RuntimeError(f"CUDA kernel {kernel} ({fn_name}) failed: {why}")
     LAUNCHES[kernel] += 1
 
 

@@ -14,7 +14,8 @@ backward (``csrc/resblock_bwd.cu``) is three kernels:
 - ``conv3_dgrad``: the input gradient of a SAME conv3 (or of the 1x1 skip),
   with the SiLU backward of the GroupNorm+SiLU that fed it in the epilogue
   and per-(row, channel, 64-frame tile) partial sums of ``d_y`` and
-  ``d_y * xhat``;
+  ``d_y * xhat``; its M tiles run over the flattened B·T rows, so a tile's
+  bucket sums come in two pieces that the wrapper adds (``dgrad_plan``);
 - ``conv3_wgrad``: the weight gradient and the bias gradient's column sums,
   its operand ``silu(gn(.))`` formed in the prologue; where the output tiles
   are fewer than the SMs, K (B*T) is split over a thread-block cluster whose
@@ -45,9 +46,11 @@ import torch
 
 from lm2a_tpu_torch.ops import _build
 from lm2a_tpu_torch.ops.resblock import (
-    _ALIGN, CHUNK, SPLIT_MAX, WGRAD_CHUNK_US, _check_vec, _is_cuda, _need, conv3_fused,
-    conv3_fused_plain, gn_stats, gn_stats_plain, modeled_us,
+    _ALIGN, CHUNK, SMEM_MAX, SPLIT_MAX, WAVE_BLOCKS, WGRAD_CHUNK_US, _check_vec,
+    _is_cuda, _need, conv3_fused, conv3_fused_plain, gn_stats, gn_stats_plain, modeled_us,
 )
+
+SMEM_SM, SMEM_RESERVED = 233_472, 1024  # an SM's shared memory; the system's share a block
 
 # conv3_wgrad's second level of K split: up to WGRAD_PARTS fp32 partials of
 # the whole gradient, summed by torch.sum after the launch; modeled as a
@@ -59,13 +62,29 @@ PARTS_US, PARTS_US_PER_MB = 4.0, 0.5
 # The JAX kernel's gate: conv weights at the compute dtype plus their fp32
 # gradient accumulators plus ~8 live (T, C) fp32 rows within 15 MiB of VMEM.
 BWD_VMEM_BUDGET = 15 * 1024 * 1024
-TT = 64  # frames per partial-sum tile (the conv3_dgrad M tile)
-_BT, _BK = 64, 32  # conv3_dgrad's tile: 64 output rows/columns, K tiles of 32
+TT = 64  # frames per partial-sum tile (bucket)
+_BT, _BK = 64, 32  # Cin in tiles of 64; Cout in K chunks of 64, the last one may be 32
 _WG_STAGES = 3  # conv3_wgrad's ring of 64-frame g tiles
+_DG_STAGES, _DG_LDW = 3, 72  # conv3_dgrad's ring; bf16 stride of its g windows
+
+# conv3_dgrad's cost model, in the manner of conv3_fused's (ops/resblock.py
+# modeled_us): a wave of blocks costs DGRAD_BLOCK_US, plus DGRAD_EPILOGUE_US
+# for the SiLU backward and bucket sums, plus DGRAD_CHUNK_US per 64-channel K
+# chunk of all three taps (DGRAD_TAP1 of that for the 1x1 skip's one tap),
+# all keyed by (mw, bn); a grid runs in waves of WAVE_BLOCKS[splits] *
+# DGRAD_PER_SM blocks, the blocks an SM holds at once by the kernel's
+# registers (ptxas) and shared memory. Fitted to
+# scripts/torch_conv_plan_sweep.py on an H100 (PERF.md).
+DGRAD_BLOCK_US = {(1, 64): 0.5, (2, 64): 0.5, (1, 128): 0.5}
+DGRAD_EPILOGUE_US = {(1, 64): 7.9, (2, 64): 10.2, (1, 128): 9.1}
+DGRAD_CHUNK_US = {(1, 64): 1.5, (2, 64): 1.56, (1, 128): 1.89}
+DGRAD_PER_SM = {(1, 64): 2, (2, 64): 1, (1, 128): 1}
+DGRAD_TAP1 = 0.75
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _build.declare("resblock_bwd", "lm2a_conv3_dgrad",
-               [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P])
+               [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                _I, _I, _I, _I, _I, _I, _P])
 _build.declare("resblock_bwd", "lm2a_conv3_wgrad",
                [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P])
 _build.declare("resblock_bwd", "lm2a_gn_bwd",
@@ -204,9 +223,74 @@ def _check_act(fn, src, mean, rstd, gamma, beta):
     return groups
 
 
+@dataclass(frozen=True)
+class DgradPlan:
+    """Launch of one ``conv3_dgrad``: ``mw`` consumer warpgroups (64·mw rows
+    of the flattened B·T axis) and one helper, by ``bn`` input channels per
+    block; grid ``(mtiles, ntiles, splits)`` with the ``chunks`` K chunks (64
+    output channels, all taps) split along z over one thread-block cluster;
+    ``smem`` dynamic shared bytes."""
+
+    mw: int
+    bn: int
+    mtiles: int
+    ntiles: int
+    splits: int
+    smem: int
+    chunks: int
+
+    @property
+    def bm(self) -> int:
+        return 64 * self.mw
+
+    @property
+    def blocks(self) -> int:
+        return self.mtiles * self.ntiles * self.splits
+
+
+def _dgrad_smem(mw: int, bn: int, taps: int) -> int:
+    bm = 64 * mw
+    window = -(-(bm + 3) * _DG_LDW * 2 // 1024) * 1024
+    ring = _DG_STAGES * (taps * 64 * bn * 2 + window)
+    return _ALIGN + max(ring, 2 * bm * (bn + 4) * 4)  # the epilogue's two fp32 tiles
+
+
+def dgrad_candidates(b: int, t: int, cin: int, cout: int, taps: int):
+    """Every launch of ``conv3_dgrad`` for this shape that fits the card, as
+    (modeled microseconds, DgradPlan), in a fixed order."""
+    m = b * t
+    chunks = -(-cout // 64)
+    out = []
+    for (mw, bn), chunk_us in DGRAD_CHUNK_US.items():
+        if cin % bn:
+            continue
+        smem = _dgrad_smem(mw, bn, taps)
+        if smem > SMEM_MAX:
+            continue
+        fixed = DGRAD_BLOCK_US[(mw, bn)] + (DGRAD_EPILOGUE_US[(mw, bn)] if taps == 3 else 0.0)
+        if taps == 1:
+            chunk_us *= DGRAD_TAP1
+        mtiles, ntiles = -(-m // (64 * mw)), cin // bn
+        per_sm = min(DGRAD_PER_SM[(mw, bn)], SMEM_SM // (smem + SMEM_RESERVED))
+        for splits in range(1, min(SPLIT_MAX, chunks) + 1):
+            plan = DgradPlan(mw, bn, mtiles, ntiles, splits, smem, chunks)
+            waves = -(-plan.blocks // (WAVE_BLOCKS[splits] * per_sm))
+            out.append((waves * (fixed + -(-chunks // splits) * chunk_us), plan))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def dgrad_plan(b: int, t: int, cin: int, cout: int, taps: int) -> DgradPlan:
+    """Tile, K split and shared memory of ``conv3_dgrad`` (pure; the wrapper
+    passes it to the kernel): the candidate of least modeled time
+    (``dgrad_candidates``), the first of equals."""
+    return min(dgrad_candidates(b, t, cin, cout, taps), key=lambda c: c[0])[1]
+
+
 def conv3_dgrad(g, w, *, taps: int = 3, pre=None, mean=None, rstd=None, gamma=None,
                 beta=None):
-    """Kernel wrapper of ``conv3_dgrad_plain`` (same arguments)."""
+    """Kernel wrapper of ``conv3_dgrad_plain`` (same arguments; the kernel
+    takes 3 taps with ``pre`` or 1 tap raw)."""
     if not _is_cuda(g):
         return conv3_dgrad_plain(g, w, taps=taps, pre=pre, mean=mean, rstd=rstd,
                                  gamma=gamma, beta=beta)
@@ -219,19 +303,25 @@ def conv3_dgrad(g, w, *, taps: int = 3, pre=None, mean=None, rstd=None, gamma=No
           and w.device == dev, "conv3_dgrad: w must be contiguous bf16 (Cout, taps*Cin)")
     _need(cout % _BK == 0 and cin % _BT == 0,
           f"conv3_dgrad: needs Cout % {_BK} == 0 and Cin % {_BT} == 0, got {cout}->{cin}")
+    _need((taps == 3) == (pre is not None),
+          "conv3_dgrad: the kernel takes 3 taps with pre (the SiLU backward) or 1 tap raw")
     nt = n_tiles(t)
     out = torch.empty((b, t, cin), device=dev, dtype=torch.float32)
-    part = groups = None
+    pieces = groups = None
     if pre is not None:
         _need(tuple(pre.shape) == (b, t, cin), "conv3_dgrad: pre must be (B, T, Cin)")
         groups = _check_act("conv3_dgrad", pre, mean, rstd, gamma, beta)
-        part = torch.empty((2, b, nt, cin), device=dev, dtype=torch.float32)
+        # each bucket's sums in two pieces: the rows in the block of its
+        # first row, and the rest (the next block's M tile)
+        pieces = torch.empty((2, 2, b, nt, cin), device=dev, dtype=torch.float32)
+    plan = dgrad_plan(b, t, cin, cout, taps)
     P = _build.ptr
     _build.launch("resblock_bwd", "lm2a_conv3_dgrad", "conv3_dgrad",
                   P(g), P(w), P(pre), int(pre is not None and pre.dtype == torch.float32),
-                  P(mean), P(rstd), P(gamma), P(beta), P(out), P(part),
-                  b, t, cin, cout, taps, groups or 1, nt, _build.stream_ptr(dev))
-    return out, part
+                  P(mean), P(rstd), P(gamma), P(beta), P(out), P(pieces),
+                  b, t, cin, cout, taps, groups or 1, nt, plan.mw, plan.bn, plan.mtiles,
+                  plan.ntiles, plan.splits, plan.smem, _build.stream_ptr(dev))
+    return out, (None if pieces is None else pieces[:, 0] + pieces[:, 1])
 
 
 @dataclass(frozen=True)

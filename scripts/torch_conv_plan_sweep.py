@@ -4,15 +4,17 @@
     python3 scripts/torch_conv_plan_sweep.py [--out chiprun_out/plan_sweep.json]
 
 For flagship geometries of ``conv3_fused`` (2, 4 and 16 rows, and 2 rows
-at T=12920) and of ``conv3_wgrad`` (B=16), this times each candidate of
-``conv3_candidates`` / ``wgrad_candidates`` with ``torch.profiler`` (the
-kernel's own device time, 10 launches; for the weight gradient with the
-sum of its partials after the launch) and prints it beside the cost
-model's estimate and the plan the model picks. The model's constants in
-``lm2a_tpu_torch/ops/resblock.py`` (``BLOCK_US``, ``CHUNK_US``,
-``WGRAD_CHUNK_US``, ``WAVE_BLOCKS``, ``SPLIT_MAX``; the partials' cost in
-``ops/resblock_grad.py``) were fitted to this
-output. Needs one NVIDIA GPU; it fails without one.
+at T=12920), of ``conv3_wgrad`` and of ``conv3_dgrad`` (B=16), this times
+each candidate of ``conv3_candidates`` / ``wgrad_candidates`` /
+``dgrad_candidates`` with ``torch.profiler`` (the kernel's own device time,
+10 launches; for the weight gradient with the sum of its partials after the
+launch) and prints it beside the cost model's estimate and the plan the
+model picks. The model's constants in ``lm2a_tpu_torch/ops/resblock.py``
+(``BLOCK_US``, ``CHUNK_US``, ``WGRAD_CHUNK_US``, ``WAVE_BLOCKS``,
+``SPLIT_MAX``; the partials' cost and ``DGRAD_CHUNK_US``, ``DGRAD_TAP1`` in
+``ops/resblock_grad.py``) were fitted to this output. ``--only dgrad``
+(or ``forward``, ``wgrad``) runs one part. Needs one NVIDIA GPU; it fails
+without one.
 """
 
 from __future__ import annotations
@@ -40,6 +42,12 @@ FORWARD = [(2, 516, 256, 256, False), (2, 516, 256, 256, True), (4, 516, 256, 25
 # (B, T, Cin, Cout): the weight gradients of the 15 blocks' shapes at B=16
 WGRAD = [(16, 516, 256, 256), (16, 258, 256, 512), (16, 258, 512, 512), (16, 516, 512, 256),
          (16, 129, 1024, 1024), (16, 64, 1024, 1024)]
+
+# (B, T, Cin, Cout, taps): the input gradients of the 7 gated blocks' shapes
+# and of two mid-depth ones at B=16
+DGRAD = [(16, 516, 256, 256, 3), (16, 516, 512, 256, 3), (16, 516, 512, 256, 1),
+         (16, 258, 512, 512, 3), (16, 258, 256, 512, 3), (16, 258, 256, 512, 1),
+         (16, 129, 1024, 1024, 3), (16, 64, 1024, 1024, 3)]
 
 
 def device_us(fn, key: str, reps: int = 10):
@@ -78,6 +86,7 @@ def forced(module, name: str, plan):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "plan_sweep.json"))
+    ap.add_argument("--only", choices=["forward", "wgrad", "dgrad"], default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("plan sweep: CUDA is not available", file=sys.stderr)
@@ -87,8 +96,9 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
-    report = {"device": smi, "forward": [], "wgrad": []}
-    for rows, t, cin, cout, f32 in FORWARD:
+    report = {"device": smi, "forward": [], "wgrad": [], "dgrad": []}
+    parts = [args.only] if args.only else ["forward", "wgrad", "dgrad"]
+    for rows, t, cin, cout, f32 in (FORWARD if "forward" in parts else []):
         w, x, film = chip_smoke.random_chain(gen, rows, t, cin, cout, False, dev)
         if f32:
             x = x.float()
@@ -112,7 +122,7 @@ def main(argv=None) -> int:
               f"(model {pick['model_us']:.1f}); fastest "
               + "; ".join(f"mw{r['mw']} bn{r['bn']} S{r['splits']} ({r['blocks']}) {fmt(r['us'])} "
                           f"[model {r['model_us']:.1f}]" for r in rows_out[:6]), flush=True)
-    for b, t, cin, cout in WGRAD:
+    for b, t, cin, cout in (WGRAD if "wgrad" in parts else []):
         w, x, film = chip_smoke.random_chain(gen, b, t, cin, cout, False, dev)
         mean, rstd = rb.gn_stats(x, w.groups1)
         g = torch.randn((b, t, cout), generator=gen).to(dev, torch.bfloat16)
@@ -132,6 +142,31 @@ def main(argv=None) -> int:
               f"S{pick['splits']}x{pick['parts']} {fmt(pick['us'])} us (model "
               f"{pick['model_us']:.1f}); fastest "
               + "; ".join(f"mw{r['mw']} S{r['splits']}x{r['parts']} ({r['blocks']}) "
+                          f"{fmt(r['us'])} [model {r['model_us']:.1f}]" for r in rows_out[:6]),
+              flush=True)
+    for b, t, cin, cout, taps in (DGRAD if "dgrad" in parts else []):
+        w, x, film = chip_smoke.random_chain(gen, b, t, cin, cin, False, dev)
+        g = torch.randn((b, t, cout), generator=gen).to(dev, torch.bfloat16)
+        wt = torch.randn((cout, taps * cin), generator=gen).to(dev, torch.bfloat16)
+        kw = dict(taps=taps)
+        if taps == 3:
+            mean, rstd = rb.gn_stats(x, w.groups1)
+            kw.update(pre=x, mean=mean, rstd=rstd, gamma=w.gn1_scale, beta=w.gn1_bias)
+        chosen = rg.dgrad_plan(b, t, cin, cout, taps)
+        rows_out = []
+        for model_us, plan in rg.dgrad_candidates(b, t, cin, cout, taps):
+            with forced(rg, "dgrad_plan", plan):
+                us = device_us(lambda: rg.conv3_dgrad(g, wt, **kw), "conv3_dgrad")
+            rows_out.append(dict(mw=plan.mw, bn=plan.bn, splits=plan.splits, blocks=plan.blocks,
+                                 model_us=model_us, us=us, chosen=plan == chosen))
+        rows_out.sort(key=lambda r: float("inf") if r["us"] is None else r["us"])
+        report["dgrad"].append(dict(B=b, T=t, cin=cin, cout=cout, taps=taps,
+                                    candidates=rows_out))
+        pick = next(r for r in rows_out if r["chosen"])
+        print(f"[sweep] conv3_dgrad B={b} T={t} {cout}->{cin} taps={taps}: chosen "
+              f"mw{pick['mw']} bn{pick['bn']} S{pick['splits']} {fmt(pick['us'])} us (model "
+              f"{pick['model_us']:.1f}); fastest "
+              + "; ".join(f"mw{r['mw']} bn{r['bn']} S{r['splits']} ({r['blocks']}) "
                           f"{fmt(r['us'])} [model {r['model_us']:.1f}]" for r in rows_out[:6]),
               flush=True)
     os.makedirs(os.path.dirname(args.out), exist_ok=True)

@@ -22,7 +22,13 @@ split over a thread-block cluster): every ``conv3_fused`` mode at 1, 2, 4
 and 16 rows with M tiles that straddle batch rows, K chunks that do not
 divide by the cluster split, ``conv3_wgrad`` with one and three taps, with
 and without the bias, raw and GN+SiLU operands, B*T off the 64-frame chunk,
-and both kernels giving the same bits on two launches.
+and both kernels giving the same bits on two launches. For the Hopper
+designs of the attention kernel (wgmma, a TMA-fed K/V ring, split-KV over a
+cluster) and of ``conv3_dgrad`` (the wgmma main loop over flattened rows):
+every head dim at ragged T and S under split and unsplit plans forced
+through the plan function, ``conv3_dgrad`` with 3 taps (pre bf16, fp32) and
+1 tap raw under every plan at T = 1, 37, 65, 300 with M tiles across batch
+rows, both giving the same bits on two launches, and their refusals.
 
 Tolerances are those of ``chip_smoke.py``: 1e-2 absolute + relative on bf16
 outputs (one bf16 ulp, where the kernel's and torch's SiLU round an operand
@@ -33,6 +39,8 @@ the p rounding of the running max against the global one); the training
 kernels ``chip_smoke.TOL_REL_L2`` (relative L2) and ``TOL["adan_ema"]``, each
 with its reason there.
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -540,3 +548,148 @@ def test_wgrad_partials_after_the_cluster_sum(dev, b, t, cin, cout, taps):
     for gg, ww, aa in zip(got, rg.conv3_wgrad_plain(src, g, **kw), again):
         assert _rel_l2(gg, ww) <= chip_smoke.TOL_REL_L2["conv3_wgrad"]
         assert torch.equal(gg, aa)
+
+
+# ---------------------------------------------------------------- Hopper attention and dgrad
+
+def _attn_plans(b, h, t, s, hd):
+    """No split and the largest split of each key tile width, and the plan's own."""
+    plans = {att.attention_plan(b, h, t, s, hd)}
+    for _, p in att.attention_candidates(b, h, t, s, hd):
+        if p.split in (1, min(rb.SPLIT_MAX, p.tiles)):
+            plans.add(p)
+    return sorted(plans, key=lambda p: (p.bn, p.split))
+
+
+@pytest.mark.parametrize("hd", att.HEAD_DIMS)
+@pytest.mark.parametrize("t,s", [(1, 37), (37, 1), (65, 129), (129, 1025), (300, 700)])
+def test_attention_every_plan_at_ragged_lengths(dev, monkeypatch, hd, t, s):
+    """Ragged T and S (the last key tile masked), split-KV and no-split plans
+    forced through the plan function, and the same bits from two launches."""
+    q, k, v = _attn_inputs(dev, 2, 3, t, s, hd, seed=3 * hd + t + s)
+    want = att.attention_core_plain(q, k, v)
+    plans = _attn_plans(2, 3, t, s, hd)
+    assert any(p.split > 1 for p in plans) == (s > 64)
+    for plan in plans:
+        monkeypatch.setattr(att, "attention_plan", lambda *a, plan=plan: plan)
+        _build.reset_launches()
+        got = att.attention_core(q, k, v)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES == {"attention": 1}
+        _close(got, want, TOL["attention"])
+        assert torch.equal(got, att.attention_core(q, k, v)), plan
+
+
+@pytest.mark.parametrize("b,t,s,hd", [(2, 516, 516, 32), (2, 64, 516, 128), (1, 12920, 1200, 32)])
+def test_attention_flagship_plans_give_the_same_bits_twice(dev, b, t, s, hd):
+    q, k, v = _attn_inputs(dev, b, 8, t, s, hd, seed=t + hd)
+    got = att.attention_core(q, k, v)
+    _close(got, att.attention_core_plain(q, k, v), TOL["attention"])
+    assert torch.equal(got, att.attention_core(q, k, v))
+
+
+def test_attention_refuses_a_plan_it_does_not_take(dev, monkeypatch):
+    q, k, v = _attn_inputs(dev, 1, 2, 16, 100, 32, seed=1)
+    plan = att.attention_plan(1, 2, 16, 100, 32)
+    _build.reset_launches()
+    for bad in (dataclasses.replace(plan, split=plan.tiles + 1),  # more ranks than key tiles
+                dataclasses.replace(plan, stages=2),
+                dataclasses.replace(plan, smem=plan.smem - 1024),  # less than the ring takes
+                dataclasses.replace(plan, stages=plan.stages + 1)):  # the ring past smem
+        monkeypatch.setattr(att, "attention_plan", lambda *a, bad=bad: bad)
+        with pytest.raises(RuntimeError, match="launch plan"):
+            att.attention_core(q, k, v)
+    assert not _build.LAUNCHES
+
+
+def _dgrad_case(dev, b, t, cin, cout, seed):
+    from lm2a_tpu_torch.ops import resblock_grad as rg
+
+    gen = torch.Generator().manual_seed(seed)
+    g = torch.randn((b, t, cout), generator=gen).to(dev, torch.bfloat16)
+    w3 = (torch.randn((cout, 3 * cin), generator=gen) * cout ** -0.5).to(dev, torch.bfloat16)
+    w1 = (torch.randn((cout, cin), generator=gen) * cout ** -0.5).to(dev, torch.bfloat16)
+    pre = torch.randn((b, t, cin), generator=gen).to(dev)
+    mean, rstd = rg.gn_stats(pre, 8)
+    act = dict(mean=mean, rstd=rstd, gamma=(torch.randn(cin, generator=gen) * 0.1 + 1).to(dev),
+               beta=(torch.randn(cin, generator=gen) * 0.1).to(dev))
+    return g, w3, w1, pre, act
+
+
+@pytest.mark.parametrize("b,t", [(3, 1), (2, 37), (3, 65), (2, 300), (16, 64)])
+@pytest.mark.parametrize("pre_dtype", [torch.bfloat16, torch.float32])
+def test_dgrad_every_plan_across_batch_rows(dev, monkeypatch, b, t, pre_dtype):
+    """3 taps with pre (bf16, fp32) and 1 tap raw under every plan shape and
+    split: M tiles across batch rows and 64-frame buckets, ragged T, the
+    bucket sums' head and tail pieces, and the same bits twice."""
+    from lm2a_tpu_torch.ops import resblock_grad as rg
+
+    cin, cout = 128, 192
+    g, w3, w1, pre, act = _dgrad_case(dev, b, t, cin, cout, seed=b * t)
+    pre = pre.to(pre_dtype)
+    tol = chip_smoke.TOL_REL_L2["conv3_dgrad"]
+    for taps, w, kw in ((3, w3, dict(pre=pre, **act)), (1, w1, {})):
+        want = rg.conv3_dgrad_plain(g, w, taps=taps, **kw)
+        for _, plan in rg.dgrad_candidates(b, t, cin, cout, taps):
+            monkeypatch.setattr(rg, "dgrad_plan", lambda *a, plan=plan: plan)
+            _build.reset_launches()
+            got = rg.conv3_dgrad(g, w, taps=taps, **kw)
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES == {"conv3_dgrad": 1}
+            for x, y in zip(got, want):
+                if y is None:
+                    assert x is None
+                    continue
+                assert x.dtype == y.dtype and x.shape == y.shape
+                assert _rel_l2(x, y) <= tol, (taps, plan)
+            again = rg.conv3_dgrad(g, w, taps=taps, **kw)
+            assert all(x is None or torch.equal(x, y) for x, y in zip(got, again)), plan
+
+
+@pytest.mark.parametrize("b,t,cin,cout", [(16, 516, 256, 256), (16, 258, 256, 512),
+                                          (4, 129, 1024, 96)])
+def test_dgrad_default_plan_at_training_shapes(dev, b, t, cin, cout):
+    """The plan's own launch at flagship training shapes (and a 32-wide last
+    K chunk), pre fp32 as conv 2 reads it."""
+    from lm2a_tpu_torch.ops import resblock_grad as rg
+
+    g, w3, _, pre, act = _dgrad_case(dev, b, t, cin, cout, seed=t)
+    got = rg.conv3_dgrad(g, w3, taps=3, pre=pre, **act)
+    want = rg.conv3_dgrad_plain(g, w3, taps=3, pre=pre, **act)
+    for x, y in zip(got, want):
+        assert _rel_l2(x, y) <= chip_smoke.TOL_REL_L2["conv3_dgrad"]
+    again = rg.conv3_dgrad(g, w3, taps=3, pre=pre, **act)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_dgrad_refuses_modes_it_does_not_take(dev):
+    from lm2a_tpu_torch.ops import resblock_grad as rg
+
+    g, w3, w1, pre, act = _dgrad_case(dev, 2, 16, 64, 64, seed=0)
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="3 taps with pre"):
+        rg.conv3_dgrad(g, w3, taps=3)
+    with pytest.raises(ValueError, match="3 taps with pre"):
+        rg.conv3_dgrad(g, w1, taps=1, pre=pre, **act)
+    assert not _build.LAUNCHES
+
+
+def test_dgrad_refuses_a_plan_it_does_not_take(dev, monkeypatch):
+    """A plan whose grid or shared memory is not the kernel's for the shape
+    is refused before any launch (too few M tiles would leave rows of the
+    output unwritten, too little shared memory would overrun the ring)."""
+    from lm2a_tpu_torch.ops import resblock_grad as rg
+
+    b, t, cin, cout = 2, 100, 128, 192
+    g, w3, _, pre, act = _dgrad_case(dev, b, t, cin, cout, seed=5)
+    plan = rg.dgrad_plan(b, t, cin, cout, 3)
+    _build.reset_launches()
+    for bad in (dataclasses.replace(plan, mtiles=plan.mtiles - 1),
+                dataclasses.replace(plan, ntiles=plan.ntiles + 1),
+                dataclasses.replace(plan, smem=plan.smem - 1024),
+                dataclasses.replace(plan, splits=rg.dgrad_plan(b, t, cin, cout, 3).chunks + 1),
+                dataclasses.replace(plan, mw=3)):
+        monkeypatch.setattr(rg, "dgrad_plan", lambda *a, bad=bad: bad)
+        with pytest.raises(RuntimeError, match="launch plan"):
+            rg.conv3_dgrad(g, w3, taps=3, pre=pre, **act)
+    assert not _build.LAUNCHES
