@@ -18,8 +18,11 @@ skipped:
    rows (the one-clip protocol chain), the snake sandwich at the 6 vocoder stages plus
    ``activation_post`` (bf16); each with its time, its plain version's time,
    its bound and, where one PyTorch call computes the same function, that
-   call's time; each ``conv3_fused`` launch run twice on the same inputs
-   for the same bits (its K split sums in a fixed rank order);
+   call's time; each ``conv3_fused`` and ``gn_stats`` launch run twice on
+   the same inputs for the same bits (their K and T splits sum in a fixed
+   rank order); the sums over the 30 ``gn_stats`` launches of a forward
+   beside the device time of an empty kernel's launch, the floor of such
+   small launches;
    3b. the resblock kernels at the long-form row counts and lengths: 16
    rows at T=516 (8 windows of ``generate_long`` under CFG) and 2 rows at
    T=12920 (``generate_single_pass`` at 150 s);
@@ -35,8 +38,9 @@ skipped:
    plain versions, timed against them, their bounds and one cuDNN call each
    (``aten.convolution_backward``, ``aten.native_group_norm_backward``), and
    each block's whole backward against the autograd backward of the same
-   chain built from ``F.group_norm``/``F.conv1d``, ``conv3_wgrad`` and
-   ``conv3_dgrad`` run twice on the same inputs for the same bits;
+   chain built from ``F.group_norm``/``F.conv1d``, ``conv3_wgrad``,
+   ``conv3_dgrad`` and ``gn_bwd`` run twice on the same inputs for the same
+   bits, ``gn_bwd`` also beside a device copy of the bytes it moves;
    ``adan_ema`` over the full flagship parameter tree for 3 steps (the step-0
    freeze included),
    fp32 and bf16 state, against its plain version;
@@ -44,7 +48,9 @@ skipped:
    and two synthetic 6 s clips, then ``cli sample`` (DDIM-50, CFG 2.1, bf16)
    and ``cli towav`` (full BIGVGAN_22KHZ_80BAND width) with the launch
    counters reset just before and read just after; outputs checked for shape
-   and finiteness, counts checked against the expected launches;
+   and finiteness, counts checked against the expected launches (every
+   forward launches ``gn_stats`` twice a block and once for the UNet's last
+   GroupNorm);
    4b. ``cli serve`` (DDIM-50, CFG 2.1, ``--warmup_t 516``) answering ping,
    one clip, a list of two, one clip with ``wav``, a request without
    ``npz`` and quit: replies in order, files, launch counts after warm-up;
@@ -371,6 +377,8 @@ def phase_resblock(timer, device, gen, rows: int, mel_t: int = MEL_T):
     mc = ModelConfig()
     per = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, err=0.0,
                    ops=0.0, nbytes=0.0) for k in ("gn_stats", "conv3_fused")}
+    # the device time of a launch that does nothing: the floor of each small launch
+    floor_ms = timer.ms(lambda: rb.empty_kernel(device))
     rows_out = []
     for name, t, cin, cout, has_skip, add_res in resblock_geometries(mc, mel_t):
         w, x, (fs, fh) = random_chain(gen, rows, t, cin, cout, has_skip, device)
@@ -387,6 +395,7 @@ def phase_resblock(timer, device, gen, rows: int, mel_t: int = MEL_T):
         pm1, pr1 = rb.gn_stats_plain(x, w.groups1)
         err_gn = max(check_close(f"{name} gn1 mean", m1, pm1, TOL["gn_stats"]),
                      check_close(f"{name} gn1 rstd", r1, pr1, TOL["gn_stats"]))
+        check_same_bits(f"{name} gn1", lambda: rb.gn_stats(x, w.groups1), (m1, r1))
         c1 = dict(film=film, out_dtype=torch.float32)
         args1 = (x, m1, r1, w.gn1_scale, w.gn1_bias, w.conv1_w, w.conv1_b)
         f = rb.conv3_fused(*args1, **c1)
@@ -397,6 +406,7 @@ def phase_resblock(timer, device, gen, rows: int, mel_t: int = MEL_T):
         pm2, pr2 = rb.gn_stats_plain(f, w.groups2)
         err_gn = max(err_gn, check_close(f"{name} gn2 mean", m2, pm2, TOL["gn_stats"]),
                      check_close(f"{name} gn2 rstd", r2, pr2, TOL["gn_stats"]))
+        check_same_bits(f"{name} gn2", lambda: rb.gn_stats(f, w.groups2), (m2, r2))
         c2 = dict(out_dtype=torch.bfloat16)
         if has_skip:
             c2.update(skip=(x, w.skip_w, w.skip_b), split_skip=not add_res)
@@ -466,7 +476,9 @@ def phase_resblock(timer, device, gen, rows: int, mel_t: int = MEL_T):
             f"skip={int(has_skip)} res={int(add_res)} | err chain {chain_err:.2e} gn "
             f"{err_gn:.2e} conv {err_conv:.2e} | ms gn {g['gn1'] + g['gn2']:.4f} (plain "
             f"{g['gn1_plain'] + g['gn2_plain']:.4f}, var_mean "
-            f"{g['gn1_library'] + g['gn2_library']:.4f}) conv {g['conv1'] + g['conv2']:.4f} "
+            f"{g['gn1_library'] + g['gn2_library']:.4f}, bound {g['gn_bound_ms']:.4f}, splits "
+            f"{rb.gn_stats_plan(rows, t, cin, w.groups1, 2)}/"
+            f"{rb.gn_stats_plan(rows, t, cout, w.groups2, 4)}) conv {g['conv1'] + g['conv2']:.4f} "
             f"(plain {g['conv1_plain'] + g['conv2_plain']:.4f}, F.conv1d "
             f"{g['conv1_library'] + g['conv2_library']:.4f}, bound "
             f"{g['conv_bound_ms']:.4f}) {g['conv_tflops']:.1f} TFLOP/s")
@@ -481,6 +493,13 @@ def phase_resblock(timer, device, gen, rows: int, mel_t: int = MEL_T):
     for k in ("gn_stats", "conv3_fused"):
         per[k]["bound_by"] = ("operations" if per[k]["ops"] / (PEAK_BF16 if k == "conv3_fused"
                               else PEAK_FP32) > per[k]["nbytes"] / PEAK_BYTES else "bytes")
+    k = per["gn_stats"]
+    n = 2 * len(rows_out)
+    k["floor_ms"] = floor_ms
+    log(f"[resblock] rows={rows} T={mel_t} sums over the {n} GroupNorms: gn_stats {k['ms']:.4f} ms "
+        f"({k['ms'] / n * 1e3:.2f} us a launch; plain {k['plain_ms']:.4f}, var_mean "
+        f"{k['library_ms']:.4f}, bound {k['bound_ms']:.4f}); an empty kernel "
+        f"{floor_ms * 1e3:.2f} us a launch ({n} of them {n * floor_ms:.4f} ms)")
     k = per["conv3_fused"]
     log(f"[resblock] rows={rows} T={mel_t} sums over the 30 convs: conv3_fused {k['ms']:.4f} ms "
         f"({k['ops'] / k['ms'] / 1e9:.1f} TFLOP/s, {k['bound_ms'] / k['ms']:.1%} of its bound "
@@ -669,16 +688,16 @@ def bwd_costs(b, t, cin, cout, skip, f_bytes=4):
     (15% at C = 256), so the bound is the GEMM's and it is left out."""
     nt = rg.n_tiles(t)
     bt = b * t
-    dg = [  # conv 2 (pre f fp32), conv 1 (pre x bf16)
+    dg = [  # conv 2 (pre f fp32), conv 1 (pre x bf16); the bucket sums in head and tail pieces
         (bt * cout * 2 + cout * 3 * cout * 2 + bt * cout * f_bytes + bt * cout * 4
-         + 2 * b * nt * cout * 4, 2.0 * bt * cout * 3 * cout),
-        (bt * cout * 2 + cout * 3 * cin * 2 + bt * cin * 2 + bt * cin * 4 + 2 * b * nt * cin * 4,
+         + 4 * b * nt * cout * 4, 2.0 * bt * cout * 3 * cout),
+        (bt * cout * 2 + cout * 3 * cin * 2 + bt * cin * 2 + bt * cin * 4 + 4 * b * nt * cin * 4,
          2.0 * bt * cin * 3 * cout)]
     wg = [(bt * cout * f_bytes + bt * cout * 2 + 3 * cout * cout * 4 + cout * 4,
            2.0 * 3 * cout * cout * bt),
           (bt * cin * 2 + bt * cout * 2 + 3 * cin * cout * 4, 2.0 * 3 * cin * cout * bt)]
-    gn = [(bt * cout * (4 + f_bytes + 2 + 4) + 5 * b * nt * cout * 4, 12.0 * bt * cout),
-          (bt * cin * (4 + 2 + 2) + 2 * b * nt * cin * 4, 10.0 * bt * cin)]
+    gn = [(bt * cout * (4 + f_bytes + 2 + 4) + 7 * b * nt * cout * 4, 12.0 * bt * cout),
+          (bt * cin * (4 + 2 + 2) + 4 * b * nt * cin * 4, 10.0 * bt * cin)]
     if skip:
         dg.append((bt * cout * 2 + cin * cout * 2 + bt * cin * 4, 2.0 * bt * cin * cout))
         wg.append((bt * cin * 2 + bt * cout * 2 + cin * cout * 4 + cout * 4,
@@ -717,7 +736,7 @@ def phase_backward(timer, device, gen, rows: int = TRAIN_B, mel_t: int = MEL_T):
     mc = ModelConfig()
     names = ("conv3_dgrad", "conv3_wgrad", "gn_bwd")
     per = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, err=0.0, ops=0.0,
-                   nbytes=0.0) for k in names}
+                   nbytes=0.0, copy_ms=0.0) for k in names}
     plain = rg.PLAIN
     rows_out = []
     for name, t, cin, cout, has_skip, _ in resblock_geometries(mc, mel_t):
@@ -802,24 +821,34 @@ def phase_backward(timer, device, gen, rows: int = TRAIN_B, mel_t: int = MEL_T):
             for label, call in calls[kname]:
                 tol = TOL_REL_L2[kname]
                 outs_k, outs_p = call(rg.KERNELS), call(plain)
-                if kname in ("conv3_wgrad", "conv3_dgrad"):
+                if kname in ("conv3_wgrad", "conv3_dgrad", "gn_bwd"):
                     check_same_bits(f"{name} {kname} {label}", lambda c=call: c(rg.KERNELS),
                                     outs_k)
                 for i, (a, b) in enumerate(zip(outs_k, outs_p)):
                     if b is None:
                         continue
+                    if kname == "conv3_dgrad" and i == 1:  # the pieces split by M tile
+                        a, b = rg.bucket_sums(a), rg.bucket_sums(b)
                     part = kname == "gn_bwd" and i == 1
                     rel = max(rel, check_rel(f"{name} {kname} {label}[{i}]", a, b,
                                              TOL_REL_L2["gn_bwd_partials"] if part else tol))
                     err = max(err, max_abs(a, b))
             ms = sum(timer.ms(lambda c=c: c(rg.KERNELS)) for _, c in calls[kname])
+            copy_ms = 0.0
+            if kname == "gn_bwd":  # a device copy of the same bytes, half read, half written
+                for nbytes, _ in costs[kname]:
+                    src = torch.empty(int(nbytes) // 8, device=device)
+                    dst = torch.empty_like(src)
+                    copy_ms += timer.ms(lambda: dst.copy_(src))
+                del src, dst
             plain_ms = sum(timer.ms(lambda c=c: c(plain)) for _, c in calls[kname])
             lib_ms = sum(timer.ms(fn) for fn in library[kname])
             nb = sum(c[0] for c in costs[kname])
             ops = sum(c[1] for c in costs[kname])
             bnd = bound_ms(nb, ops, PEAK_FP32 if kname == "gn_bwd" else PEAK_BF16)[0]
             g[kname] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd, err=err,
-                            rel_l2=rel, nbytes=nb, ops=ops, launches=len(calls[kname]))
+                            rel_l2=rel, nbytes=nb, ops=ops, launches=len(calls[kname]),
+                            copy_ms=copy_ms)
             k = per[kname]
             k["err"] = max(k["err"], err)
             k["rel_l2"] = max(k.get("rel_l2", 0.0), rel)
@@ -827,7 +856,8 @@ def phase_backward(timer, device, gen, rows: int = TRAIN_B, mel_t: int = MEL_T):
                 k[f"all_{fld}"] = k.get(f"all_{fld}", 0.0) + v
             if gated:
                 for fld, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
-                               ("bound_ms", bnd), ("ops", ops), ("nbytes", nb)):
+                               ("bound_ms", bnd), ("ops", ops), ("nbytes", nb),
+                               ("copy_ms", copy_ms)):
                     k[fld] += v
         # the whole block backward: kernels against plain, and against cuDNN autograd
         args = (saved, w.gn1_scale, w.gn1_bias, w.conv1_w, w.gn2_scale, w.gn2_bias, w.conv2_w,
@@ -852,15 +882,17 @@ def phase_backward(timer, device, gen, rows: int = TRAIN_B, mel_t: int = MEL_T):
             f"{g['conv3_wgrad']['ms']:.4f} (plain {g['conv3_wgrad']['plain_ms']:.4f}, cuDNN "
             f"{g['conv3_wgrad']['library_ms']:.4f}, bound {g['conv3_wgrad']['bound_ms']:.4f}) gn_bwd "
             f"{g['gn_bwd']['ms']:.4f} (plain {g['gn_bwd']['plain_ms']:.4f}, ATen "
-            f"{g['gn_bwd']['library_ms']:.4f}, bound {g['gn_bwd']['bound_ms']:.4f}) | block "
+            f"{g['gn_bwd']['library_ms']:.4f}, bound {g['gn_bwd']['bound_ms']:.4f}, a copy of "
+            f"its bytes {g['gn_bwd']['copy_ms']:.4f}) | block "
             f"{g['chain_ms']:.4f} against cuDNN autograd {g['chain_library_ms']:.4f}")
     for kname in names:
         k = per[kname]
         peak = PEAK_FP32 if kname == "gn_bwd" else PEAK_BF16
         k["bound_by"] = "operations" if k["ops"] / peak > k["nbytes"] / PEAK_BYTES else "bytes"
+        copy = f", a copy of its bytes {k['copy_ms']:.4f}" if kname == "gn_bwd" else ""
         log(f"[backward] B={rows} {kname} sums: the gated blocks {k['ms']:.4f} ms "
             f"({k['ops'] / k['ms'] / 1e9:.1f} TFLOP/s, {k['bound_ms'] / k['ms']:.1%} of its bound "
-            f"{k['bound_ms']:.4f}; library {k['library_ms']:.4f}), all 15 blocks "
+            f"{k['bound_ms']:.4f}; library {k['library_ms']:.4f}{copy}), all 15 blocks "
             f"{k['all_ms']:.4f} ms ({k['all_ops'] / k['all_ms'] / 1e9:.1f} TFLOP/s, bound "
             f"{k['all_bound_ms']:.4f}; library {k['all_library_ms']:.4f})")
     return per, rows_out
@@ -1364,12 +1396,13 @@ def run_long_form(models, rng, ddim_steps: int, n_blocks: int):
         "single_pass_150s": (lambda n: generate_single_pass(
             models, long_motion, long_lyrics, LONG_SECONDS, ddim_steps=n, **kw), LONG_T,
             # per step: 9 sites x 2 branches x (conditioned row + CFG constant)
-            {"attention": 36 * ddim_steps, "gn_stats": 2 * n_blocks * ddim_steps,
+            {"attention": 36 * ddim_steps, "gn_stats": (2 * n_blocks + 1) * ddim_steps,
              "conv3_fused": 2 * n_blocks * ddim_steps}),
         "windowed_60s": (lambda n: generate_long(
             models, win_motion, win_lyrics, 60.0, batch_size=8, ddim_steps=n, **kw), 5168,
             # two chains: 8 windows, then 4
-            {"gn_stats": 4 * n_blocks * ddim_steps, "conv3_fused": 4 * n_blocks * ddim_steps}),
+            {"gn_stats": 2 * (2 * n_blocks + 1) * ddim_steps,
+             "conv3_fused": 4 * n_blocks * ddim_steps}),
     }
     out = {}
     for label, (fn, mel_t, expected) in runs.items():
@@ -1578,7 +1611,9 @@ def main(argv=None) -> int:
         "bigvgan_22khz_80band")
     launches = dict(_build.LAUNCHES)
     check_outputs(gens, wavs, len(clips), MEL_T, BIGVGAN_22KHZ_80BAND.hop)
-    expected = {"gn_stats": 2 * n_blocks * ddim_steps,
+    # per forward: GN1 and GN2 of every block, and the UNet's last GroupNorm (out_gn)
+    n_gn = 2 * n_blocks + 1
+    expected = {"gn_stats": n_gn * ddim_steps,
                 "conv3_fused": 2 * n_blocks * ddim_steps,
                 "snake_sandwich": n_sandwich * len(clips)}
     log(f"[slice] cli sample (DDIM-{ddim_steps}, CFG 2.1, {len(clips)} clips, bf16) "
@@ -1592,7 +1627,7 @@ def main(argv=None) -> int:
                                         ddim_steps)
     serve_s = time.perf_counter() - t0
     check_serve(replies, MEL_T, BIGVGAN_22KHZ_80BAND.hop)
-    serve_expected = {"gn_stats": 3 * 2 * n_blocks * ddim_steps,
+    serve_expected = {"gn_stats": 3 * n_gn * ddim_steps,
                       "conv3_fused": 3 * 2 * n_blocks * ddim_steps,
                       "snake_sandwich": n_sandwich}
     log(f"[serve] cli serve (DDIM-{ddim_steps}, CFG 2.1, warm-up T={MEL_T}) {serve_s:.2f} s "
@@ -1619,7 +1654,7 @@ def main(argv=None) -> int:
     check_mels([os.path.join(fused_out, f) for f in sorted(os.listdir(fused_out))
                 if f.endswith("_gen.npz")], MEL_T)
     # per step: every site, both branches, the conditioned rows and the CFG constant
-    fused_expected = {"gn_stats": 2 * n_blocks * ddim_steps,
+    fused_expected = {"gn_stats": n_gn * ddim_steps,
                       "conv3_fused": 2 * n_blocks * ddim_steps,
                       "attention": 4 * n_sites * ddim_steps}
     log(f"[fused] cli sample, fused_attention checkpoint (DDIM-{ddim_steps}, CFG 2.1, "

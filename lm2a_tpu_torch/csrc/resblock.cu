@@ -50,7 +50,16 @@
 // take a fraction of its ~3 us) but each block's serial chain per chunk of
 // copy issue, barrier, activation and wgmma, and the waves of a grid that
 // holds one block per SM (PERF.md).
-// gn_stats is one pass over its input and bound by bytes.
+// gn_stats is one pass over its input, bound by bytes in principle (0.0134
+// ms a 4-row forward's 30 launches) and in practice by a launch's own floor
+// (about 5 us each on the H100 under chip_smoke.py's timer). The first
+// design, one block per (row, group) walking T x C/G one scalar at a time
+// with a division per element, took 14 us a launch at 4 rows and 180 us at
+// T=12920, where 16 blocks ran on 132 SMs. This one (below) splits T over a
+// cluster so the grid comes near one block an SM at every row count, loads
+// 16-byte vectors several at a time, and sums the cluster's ranks in order.
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "sm90_gemm.cuh"
@@ -58,29 +67,86 @@
 namespace {
 
 // ---------------------------------------------------------------- gn_stats
-// One block per (group, row): fp32 sum and sum of squares over T x C/G,
-// then fast variance E[x^2] - E[x]^2 as in the TPU kernel.
-template <typename In>
-__global__ void __launch_bounds__(1024)
-gn_stats_kernel(const In* __restrict__ x, float* __restrict__ mean,
-                float* __restrict__ rstd, int T, int C, int G, float eps) {
-  const int g = blockIdx.x, b = blockIdx.y;
-  const int cg = C / G;
-  const In* xb = x + (size_t)b * T * C + (size_t)g * cg;
-  const int n = T * cg;
+// Per (row, group): fp32 sum and sum of squares over T x C/G, then fast
+// variance E[x^2] - E[x]^2 as in the TPU kernel. Grid (G, B, S): the S
+// blocks of a thread-block cluster along z split T (rank r takes frames
+// [T*r/S, T*(r+1)/S)), so the grid fills the card where B*G blocks would not
+// (ops/resblock.py gn_stats_plan). A block reads its frames' runs of the
+// group's C/G channels in VW-element vectors (16 bytes, or scalars where a
+// run is not a whole number of them), GN_UNROLL in flight a thread; each
+// thread walks its (frame, vector) units by fixed steps, so no division per
+// element. Warps reduce by shuffles, the block's warps in order through
+// shared memory, and the cluster's ranks in rank order in rank 0's shared
+// memory, which the others write remotely: the same bits on every launch,
+// no atomics, one cluster barrier.
+constexpr int GN_THREADS = 512;
+constexpr int GN_UNROLL = 4;
+constexpr int GN_SPLIT_MAX = 8;  // the portable cluster size
+
+template <int VW, typename In>
+__device__ __forceinline__ void load_vw(const In* p, float* v) {
+  if constexpr (VW == 1) {
+    v[0] = to_f(*p);
+  } else if constexpr (std::is_same<In, float>::value) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  } else {
+    load8(p, v);
+  }
+}
+
+struct GnStatsArgs {
+  const void* x;  // (B, T, C), bf16 or fp32
+  float* mean;    // (B, G)
+  float* rstd;
+  int T, C, G;
+  float eps;
+};
+
+template <typename In, int VW>
+__global__ void __launch_bounds__(GN_THREADS) gn_stats_kernel(const GnStatsArgs p) {
+  const int g = blockIdx.x, b = blockIdx.y, S = gridDim.z, rank = blockIdx.z;
+  const int T = p.T, C = p.C, G = p.G;
+  const int cg = C / G, V = cg / VW;  // vectors a frame of the group
+  const int f0 = (int)((long long)T * rank / S), nf = (int)((long long)T * (rank + 1) / S) - f0;
+  const In* xg = static_cast<const In*>(p.x) + ((size_t)b * T + f0) * C + (size_t)g * cg;
+  // unit u = tid + k * GN_THREADS is (frame u / V, vector u % V); a step of
+  // GN_THREADS units is df frames and dv vectors
+  const int df = GN_THREADS / V, dv = GN_THREADS - df * V;
+  int f = threadIdx.x / V, v = threadIdx.x - f * V;
   float s = 0.f, ss = 0.f;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int t = i / cg, c = i - t * cg;
-    const float v = to_f(xb[(size_t)t * C + c]);
-    s += v;
-    ss += v * v;
+  while (f < nf) {
+    float e[GN_UNROLL][VW];
+#pragma unroll
+    for (int u = 0; u < GN_UNROLL; ++u) {
+      if (f < nf) {
+        load_vw<VW>(xg + (size_t)f * C + v * VW, e[u]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < VW; ++i) e[u][i] = 0.f;
+      }
+      f += df;
+      v += dv;
+      if (v >= V) {
+        v -= V;
+        ++f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < GN_UNROLL; ++u)
+#pragma unroll
+      for (int i = 0; i < VW; ++i) {
+        s += e[u][i];
+        ss += e[u][i] * e[u][i];
+      }
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     s += __shfl_xor_sync(0xffffffffu, s, o);
     ss += __shfl_xor_sync(0xffffffffu, ss, o);
   }
-  __shared__ float sh_s[32], sh_ss[32];
+  __shared__ float sh_s[GN_THREADS / 32], sh_ss[GN_THREADS / 32];
+  __shared__ float2 rank_sums[GN_SPLIT_MAX];  // rank 0's: every rank's block sums
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (lane == 0) {
     sh_s[warp] = s;
@@ -88,26 +154,59 @@ gn_stats_kernel(const In* __restrict__ x, float* __restrict__ mean,
   }
   __syncthreads();
   if (warp == 0) {
-    const int nw = blockDim.x >> 5;
-    s = lane < nw ? sh_s[lane] : 0.f;
-    ss = lane < nw ? sh_ss[lane] : 0.f;
+    s = lane < GN_THREADS / 32 ? sh_s[lane] : 0.f;
+    ss = lane < GN_THREADS / 32 ? sh_ss[lane] : 0.f;
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
       s += __shfl_xor_sync(0xffffffffu, s, o);
       ss += __shfl_xor_sync(0xffffffffu, ss, o);
     }
-    if (lane == 0) {
-      const float m = s / (float)n;
-      const float var = ss / (float)n - m * m;
-      mean[b * G + g] = m;
-      rstd[b * G + g] = rsqrtf(var + eps);
+  }
+  if (S > 1) {
+    // each rank writes its sums into rank 0's shared memory; after the
+    // barrier rank 0 adds them in rank order and the others may leave
+    namespace cgrp = cooperative_groups;
+    cgrp::cluster_group cluster = cgrp::this_cluster();
+    if (threadIdx.x == 0) *cluster.map_shared_rank(&rank_sums[rank], 0) = make_float2(s, ss);
+    cluster.sync();
+    if (rank == 0 && threadIdx.x == 0) {
+      s = ss = 0.f;
+      for (int r = 0; r < S; ++r) {
+        s += rank_sums[r].x;
+        ss += rank_sums[r].y;
+      }
     }
   }
+  if (rank == 0 && threadIdx.x == 0) {
+    const float n = (float)T * (float)cg;
+    const float m = s / n;
+    const float var = ss / n - m * m;
+    p.mean[b * G + g] = m;
+    p.rstd[b * G + g] = rsqrtf(var + p.eps);
+  }
 }
+
+__global__ void empty_kernel() {}
 
 // ------------------------------------------------------------- conv3_fused
 constexpr int NSTAGE = 3;    // weight ring depth (chunks in flight)
 constexpr int LDW = 72;      // bf16 row stride of the activation window (144 bytes)
+
+// the kernel's shared-memory layout; smem(splits) is what the launch must
+// give it (ops/resblock.py _conv3_smem computes the same)
+template <typename In, int MW, int BN>
+struct ConvGeo {
+  static constexpr int BM = 64 * MW;
+  static constexpr int TAP_BYTES = BN * 128, STAGE_BYTES = 3 * TAP_BYTES;
+  static constexpr int WIN_BYTES = (BM + 3) * LDW * 2;
+  static constexpr int RAW_LD = 64 * (int)sizeof(In) + 16;  // bytes a staged raw row
+  static constexpr int RAW_BYTES = (BM + 2) * RAW_LD;
+  static constexpr int BODY = NSTAGE * STAGE_BYTES + 2 * WIN_BYTES + NSTAGE * RAW_BYTES;
+  // alignment slack, then the rings and windows, or a split's fp32 tile
+  static constexpr int smem(int splits) {
+    return 1024 + (splits > 1 && BM * BN * 4 > BODY ? BM * BN * 4 : BODY);
+  }
+};
 
 struct ConvArgs {
   const void* a;       // (B, T, cin), bf16 or fp32: the GN+SiLU input
@@ -144,12 +243,11 @@ struct ConvArgs {
 // steps); a skip chunk copies its rows and feeds one.
 template <typename In, typename Out, int MW, int BN>
 __global__ void __launch_bounds__(128 * (MW + 1)) conv3_fused_kernel(const ConvArgs p) {
-  constexpr int NT = 128 * (MW + 1), BM = 64 * MW;  // MW consumers and one helper
+  using D = ConvGeo<In, MW, BN>;
+  constexpr int NT = 128 * (MW + 1), BM = D::BM;  // MW consumers and one helper
   constexpr int ZROW = BM + 2;  // an all-zero window row: taps outside [0, T)
-  constexpr int TAP_BYTES = BN * 128, STAGE_BYTES = 3 * TAP_BYTES;
-  constexpr int WIN_BYTES = (BM + 3) * LDW * 2;
-  constexpr int RAW_LD = 64 * (int)sizeof(In) + 16;  // bytes a staged raw row
-  constexpr int RAW_BYTES = (BM + 2) * RAW_LD;
+  constexpr int TAP_BYTES = D::TAP_BYTES, STAGE_BYTES = D::STAGE_BYTES;
+  constexpr int WIN_BYTES = D::WIN_BYTES, RAW_LD = D::RAW_LD, RAW_BYTES = D::RAW_BYTES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* ring = smem;
@@ -401,40 +499,74 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_fused_kernel(const ConvA
   }
 }
 
-template <typename In>
-void launch_gn(const void* x, float* mean, float* rstd, int B, int T, int C, int G,
-               float eps, cudaStream_t s) {
-  gn_stats_kernel<In><<<dim3(G, B), 1024, 0, s>>>(static_cast<const In*>(x), mean,
-                                                  rstd, T, C, G, eps);
+constexpr int ERR_PLAN = -3;  // a launch plan the kernel does not take (ops/_build.py)
+
+template <typename In, int VW>
+int launch_gn(const void* x, float* mean, float* rstd, int B, int T, int C, int G, int splits,
+              float eps, cudaStream_t s) {
+  GnStatsArgs p{x, mean, rstd, T, C, G, eps};
+  static bool attr_set = false;
+  return (int)sm90::launch_cluster(gn_stats_kernel<In, VW>, attr_set, dim3(G, B, splits),
+                                   GN_THREADS, 0, splits, s, p);
 }
 
+// 16-byte vectors where every run of a group's channels is whole vectors
+// from a 16-byte boundary, scalars otherwise
+template <typename In>
+int launch_gn_vw(const void* x, float* mean, float* rstd, int B, int T, int C, int G,
+                 int splits, float eps, cudaStream_t s) {
+  constexpr int VW = 16 / (int)sizeof(In);
+  if ((C / G) % VW == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0)
+    return launch_gn<In, VW>(x, mean, rstd, B, T, C, G, splits, eps, s);
+  return launch_gn<In, 1>(x, mean, rstd, B, T, C, G, splits, eps, s);
+}
+
+// the plan's grid and shared memory must be this kernel's for the shape: too
+// few M or N tiles would leave output unwritten, a split past the K chunks
+// would give ranks nothing to sum, too little shared memory would overrun
+// the ring
 template <typename In, typename Out, int MW, int BN>
-cudaError_t launch_conv(const ConvArgs& p, int mtiles, int ntiles, int splits, int smem,
-                        cudaStream_t s) {
+int launch_conv(const ConvArgs& p, int mtiles, int ntiles, int splits, int smem,
+                cudaStream_t s) {
+  using D = ConvGeo<In, MW, BN>;
+  const int ntot = p.out2 ? 2 * p.cout : p.cout;
+  const int nconv = p.cin / 64, nskip = p.cin2 / 64;
+  const int kmin = p.out2 ? (nconv < nskip ? nconv : nskip) : nconv + nskip;
+  if (p.cin % 64 || p.cin2 % 64 || p.cout % BN || mtiles != (p.B * p.T + D::BM - 1) / D::BM ||
+      ntiles != ntot / BN || splits < 1 || splits > 8 || splits > kmin || smem != D::smem(splits))
+    return ERR_PLAN;
   static bool attr_set = false;
-  return sm90::launch_cluster(conv3_fused_kernel<In, Out, MW, BN>, attr_set,
-                              dim3(mtiles, ntiles, splits), 128 * (MW + 1), smem, splits, s, p);
+  return (int)sm90::launch_cluster(conv3_fused_kernel<In, Out, MW, BN>, attr_set,
+                                   dim3(mtiles, ntiles, splits), 128 * (MW + 1), smem, splits,
+                                   s, p);
 }
 
 template <typename In, typename Out>
-cudaError_t launch_conv_plan(const ConvArgs& p, int mw, int bn, int mtiles, int ntiles,
-                             int splits, int smem, cudaStream_t s) {
+int launch_conv_plan(const ConvArgs& p, int mw, int bn, int mtiles, int ntiles, int splits,
+                     int smem, cudaStream_t s) {
   if (bn == 64 && mw == 1) return launch_conv<In, Out, 1, 64>(p, mtiles, ntiles, splits, smem, s);
   if (bn == 64 && mw == 2) return launch_conv<In, Out, 2, 64>(p, mtiles, ntiles, splits, smem, s);
   if (bn == 128 && mw == 1) return launch_conv<In, Out, 1, 128>(p, mtiles, ntiles, splits, smem, s);
-  if (bn == 128 && mw == 2) return launch_conv<In, Out, 2, 128>(p, mtiles, ntiles, splits, smem, s);
-  return cudaErrorInvalidValue;
+  return ERR_PLAN;
 }
 
 }  // namespace
 
+// splits: the cluster's blocks along T (1 to 8, at most T)
 extern "C" int lm2a_gn_stats(const void* x, int x_is_f32, float* mean, float* rstd,
-                             int B, int T, int C, int G, float eps, void* stream) {
+                             int B, int T, int C, int G, int splits, float eps, void* stream) {
+  if (B < 1 || T < 1 || G < 1 || C % G) return (int)cudaErrorInvalidValue;
+  if (splits < 1 || splits > GN_SPLIT_MAX || splits > T) return ERR_PLAN;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_is_f32)
-    launch_gn<float>(x, mean, rstd, B, T, C, G, eps, s);
-  else
-    launch_gn<bf16>(x, mean, rstd, B, T, C, G, eps, s);
+  const int e = x_is_f32 ? launch_gn_vw<float>(x, mean, rstd, B, T, C, G, splits, eps, s)
+                         : launch_gn_vw<bf16>(x, mean, rstd, B, T, C, G, splits, eps, s);
+  if (e != 0) return e;
+  return (int)cudaGetLastError();
+}
+
+// one launch of a kernel that does nothing: the floor of a launch's device time
+extern "C" int lm2a_empty_kernel(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return (int)cudaGetLastError();
 }
 
@@ -471,13 +603,13 @@ extern "C" int lm2a_conv3_fused(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // the chain's two convs: bf16 block input -> fp32 intermediate (conv 1),
   // fp32 intermediate -> bf16 block output (conv 2)
-  cudaError_t e;
+  int e;
   if (!a_is_f32 && out_is_f32)
     e = launch_conv_plan<bf16, float>(p, mw, bn, mtiles, ntiles, splits, smem, s);
   else if (a_is_f32 && !out_is_f32)
     e = launch_conv_plan<float, bf16>(p, mw, bn, mtiles, ntiles, splits, smem, s);
   else
     return (int)cudaErrorInvalidValue;
-  if (e != cudaSuccess) return (int)e;
+  if (e != 0) return e;
   return (int)cudaGetLastError();
 }

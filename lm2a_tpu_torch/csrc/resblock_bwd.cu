@@ -22,8 +22,9 @@
 //   [conv3_wgrad(x, gx), 1 tap]         -> dWskip, dbskip
 //   gn_bwd(d_y1; GN1; + skip term)      -> dx (compute dtype)
 //
-// The wrapper (ops/resblock_grad.py) sums the partials (T tiles of a
-// channel sum) in a fixed order.
+// conv3_dgrad's bucket sums come as head and tail pieces (below); gn_bwd
+// reads them as they are, and the wrapper (ops/resblock_grad.py) sums the
+// partials (T tiles of a channel sum) in a fixed order.
 //
 // conv3_dgrad, d_in[t] = sum_k g[t+1-k] W_k^T (the input-gradient part), is
 // conv3_fused's implicit GEMM with the taps reversed, the weights read
@@ -57,7 +58,15 @@
 // distributed shared memory straight into the (taps*Cin, Cout) gradient.
 // Like conv3_fused it is bound by each block's serial chain per 64-frame
 // chunk, not by the tensor cores.
-// gn_bwd is elementwise and bound by bytes.
+// gn_bwd is one pass over d_y, the GroupNorm input (and z1 or the skip
+// term) and its output, bound by bytes (0.1083 ms over a step's 7 gated
+// blocks). The first design spent most of its time before its first element:
+// 64 threads of each block summed the partial planes of their channel's group
+// serially (cg x nT loads each, the other threads waiting), every block of a
+// (row, group) again, then scalar loads. This one (below): a block a 64-frame
+// bucket and 64 or 128 channels, its tiles in flight to shared memory by
+// cp.async while all its threads form the group means from coalesced loads
+// of the pieces, then vector stores.
 
 #include <type_traits>
 
@@ -66,7 +75,6 @@
 
 namespace {
 
-constexpr int BN = 64;   // gn_bwd's channel tile
 constexpr int TT = 64;   // frames per partial-sum tile (bucket)
 
 // ------------------------------------------------------------ conv3_dgrad
@@ -88,7 +96,7 @@ constexpr int TT = 64;   // frames per partial-sum tile (bucket)
 // bucket, rows in order. A tile may hold the end of a bucket that began in
 // the previous tile: the bucket's rows in the tile of its first row are its
 // head piece, the rest its tail piece (zero when there is none); each is
-// written by one block, and the wrapper adds head + tail.
+// written by one block, and every reader adds head + tail in that order.
 constexpr int DG_STAGES = 3;
 constexpr int DG_LDW = 72;  // bf16 row stride of a g window (144 bytes)
 
@@ -341,6 +349,23 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_dgrad_kernel(const Dgrad
 // fragments already in registers and reduced in the epilogue. The K split
 // (a cluster along z) sums the fp32 tiles in rank order.
 constexpr int WG_STAGES = 3;
+constexpr int WGRAD_PARTS = 4;  // partials of the whole gradient at most (ops/resblock_grad.py)
+
+// the kernel's shared-memory layout; SMEM is what the launch must give it
+// (ops/resblock_grad.py wgrad_candidates computes the same)
+template <typename Src, int TAPS, int MW>
+struct WgradGeo {
+  static constexpr int BMN = 64 * MW, NW = TAPS * 64;
+  static constexpr int LDG = BMN + 8;  // bf16 row stride of a g tile (odd multiple of 16 bytes)
+  static constexpr int ACT_BYTES = TAPS * 64 * 128, G_BYTES = 64 * LDG * 2;
+  static constexpr int ROWS = TAPS == 3 ? 66 : 64;  // source frames a chunk reads
+  static constexpr int RAW_LD = 64 * (int)sizeof(Src) + 16;  // bytes a staged source row
+  static constexpr int RAW_BYTES = ROWS * RAW_LD;
+  static constexpr int BODY = 2 * ACT_BYTES + WG_STAGES * G_BYTES + WG_STAGES * RAW_BYTES;
+  static constexpr int EPILOGUE = (NW + 1) * BMN * 4;  // the fp32 tile, transposed, and the bias
+  // alignment slack, then the tap tiles and rings, or the epilogue's tile
+  static constexpr int SMEM = 1024 + (BODY > EPILOGUE ? BODY : EPILOGUE);
+};
 
 struct WgradArgs {
   const void* src;     // (B, T, cin): GroupNorm input (bf16 or fp32), or bf16 x (raw)
@@ -359,12 +384,11 @@ template <typename Src, bool ACT, int TAPS, int MW>
 __global__ void __launch_bounds__(128 * (MW + 1)) conv3_wgrad_kernel(const WgradArgs p) {
   // MW consumer warpgroups and one helper: all share the copies and the
   // activation, the consumers issue the wgmmas and hold the tile
-  constexpr int NT = 128 * (MW + 1), BMN = 64 * MW, NW = TAPS * 64;
-  constexpr int LDG = BMN + 8;  // bf16 row stride of a g tile (odd multiple of 16 bytes)
-  constexpr int ACT_BYTES = TAPS * 64 * 128, G_BYTES = 64 * LDG * 2;
-  constexpr int ROWS = TAPS == 3 ? 66 : 64, LO = TAPS == 3 ? -1 : 0;  // source frames
-  constexpr int RAW_LD = 64 * (int)sizeof(Src) + 16;  // bytes a staged source row
-  constexpr int RAW_BYTES = ROWS * RAW_LD;
+  using D = WgradGeo<Src, TAPS, MW>;
+  constexpr int NT = 128 * (MW + 1), BMN = D::BMN, NW = D::NW, LDG = D::LDG;
+  constexpr int ACT_BYTES = D::ACT_BYTES, G_BYTES = D::G_BYTES;
+  constexpr int ROWS = D::ROWS, LO = TAPS == 3 ? -1 : 0;  // source frames
+  constexpr int RAW_LD = D::RAW_LD, RAW_BYTES = D::RAW_BYTES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* act = smem;                    // 2 x ACT_BYTES, swizzled K-major tiles
@@ -575,90 +599,211 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_wgrad_kernel(const Wgrad
 }
 
 // ------------------------------------------------------------ gn_bwd
+// GroupNorm's input gradient, d = rstd * (gamma * d_y - m1 - xhat * m2) (+
+// extra), m1 and m2 the group means of gamma * d_y and gamma * d_y * xhat;
+// in FiLM mode (GN2) also d_z1 = d * (1 + scale) and the 64-frame bucket
+// sums of d, d * z1 and d_z1. Grid (nT, C / CB, B): a block takes one
+// bucket of one batch row, CB channels wide (ops/resblock_grad.py
+// gn_bwd_plan). At its start every thread puts its share of the d_y and
+// GroupNorm-input tiles in flight to shared memory by cp.async (no
+// registers held while they come) and loads its own frames of the third
+// input, z1 or extra, into registers, so a block's whole tile is requested
+// at once and three or four blocks fit an SM. Meanwhile the block forms m1
+// and m2 of every group its channels touch from conv3_dgrad's bucket-sum
+// pieces (head + tail, then over the buckets): all threads load channels
+// side by side (coalesced), the buckets split among the threads of a
+// channel where the channels are fewer than the threads, then one warp a
+// group sums its channels in a fixed order. The pass over the tile gives
+// each thread 4 neighbouring channels and every RP-th frame, and stores by
+// vectors; the FiLM sums go through shared memory and are added in row
+// order. No atomics: two launches give the same bits.
+constexpr int GB_THREADS = 256;
+constexpr int GB_CPT = 4;  // channels a thread (load4, store4)
+
 struct GnBwdArgs {
-  const float* dy;     // (B, T, C): gradient of the GroupNorm output (d_y)
-  const void* pre;     // (B, T, C): GroupNorm input, bf16 or fp32
-  const float* mean;   // (B, G)
+  const float* dy;      // (B, T, C): gradient of the GroupNorm output (d_y)
+  const void* pre;      // (B, T, C): GroupNorm input, bf16 or fp32
+  const float* mean;    // (B, G)
   const float* rstd;
-  const float* gamma;  // (C,)
-  const float* part;   // (2, B, nT, C) from conv3_dgrad
-  const float* extra;  // (B, T, C) added to the input gradient, or null
-  const float* film_scale;  // (B, C): FiLM mode (GN2) when set
-  const float* z1;     // (B, T, C) conv-1 output before FiLM (FiLM mode)
-  void* out;           // (B, T, C): dx, or d_z1 = d_f * (1 + scale)
-  float* part_out;     // (3, B, nT, C): tile sums of d_f, d_f*z1, d_z1 (FiLM mode)
+  const float* gamma;   // (C,)
+  const float* pieces;  // (2, 2, B, nT, C): head and tail pieces of the bucket
+                        // sums of d_y and d_y * xhat, from conv3_dgrad
+  const float* extra;   // (B, T, C) added to the input gradient, or null
+  const float* film_scale;  // (B, C): FiLM mode (GN2)
+  const float* z1;      // (B, T, C) conv-1 output before FiLM (FiLM mode)
+  void* out;            // (B, T, C): dx, or d_z1 = d * (1 + scale)
+  float* part_out;      // (3, B, nT, C): bucket sums of d, d * z1, d_z1 (FiLM mode)
   int B, T, C, G, nT;
 };
 
-constexpr int GN_THREADS = 256;
+// the channels of the whole groups that channels [c0, c0 + cb) touch
+__host__ __device__ inline int gn_bwd_window(int c0, int cb, int cg) {
+  return ((c0 + cb - 1) / cg - c0 / cg + 1) * cg;
+}
 
-template <typename Pre, typename Out>
-__global__ void __launch_bounds__(GN_THREADS) gn_bwd_kernel(const GnBwdArgs p) {
-  __shared__ float sm1[BN], sm2[BN];
-  __shared__ float red[3][GN_THREADS / BN][BN];
-  const int tile = blockIdx.x, c0 = blockIdx.y * BN, b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int T = p.T, C = p.C, cg = C / p.G;
-  const size_t plane = (size_t)p.B * p.nT * C;
-
-  // m1, m2 of each channel's group: sum over the group's channels and all
-  // tiles of gamma * (tile sums of d_y, d_y * xhat), over T * C/G
-  if (tid < BN) {
-    const int c = c0 + tid, gs = (c / cg) * cg;
-    float s1 = 0.f, s2 = 0.f;
-    for (int cc = gs; cc < gs + cg; ++cc) {
-      float a1 = 0.f, a2 = 0.f;
-      for (int k = 0; k < p.nT; ++k) {
-        const size_t o = ((size_t)b * p.nT + k) * C + cc;
-        a1 += p.part[o];
-        a2 += p.part[plane + o];
-      }
-      s1 += p.gamma[cc] * a1;
-      s2 += p.gamma[cc] * a2;
-    }
-    const float n = (float)T * (float)cg;
-    sm1[tid] = s1 / n;
-    sm2[tid] = s2 / n;
+// rows [0, nrows) of a TT x CB tile of a (rows, C) tensor into shared memory
+// by cp.async, 16 bytes a copy; rows past nrows are zero
+template <int CB, typename E>
+__device__ __forceinline__ void gn_bwd_stage(E* dst, const E* src, int nrows, int C) {
+  constexpr int CH = CB * (int)sizeof(E) / 16;  // copies a row
+  for (int u = threadIdx.x; u < TT * CH; u += GB_THREADS) {
+    const int r = u / CH, k = u - r * CH;
+    const bool ok = r < nrows;
+    sm90::cp_async16(sm90::smem_u32(dst + r * CB) + 16 * k,
+                     src + (ok ? (size_t)r * C : 0) + k * (16 / (int)sizeof(E)), ok ? 16 : 0);
   }
-  __syncthreads();
+}
 
-  const int j = tid & (BN - 1), rg = tid / BN;
-  const int c = c0 + j;
-  const int gi = b * p.G + c / cg;
-  const float mu = p.mean[gi], rs = p.rstd[gi], ga = p.gamma[c];
-  const float m1 = sm1[j], m2 = sm2[j];
-  const bool film = p.film_scale != nullptr;
-  const float sc1 = film ? 1.f + p.film_scale[b * C + c] : 1.f;
-  const Pre* pre = static_cast<const Pre*>(p.pre);
-  Out* out = static_cast<Out*>(p.out);
-  float q0 = 0.f, q1 = 0.f, q2 = 0.f;
-  for (int r = rg; r < TT; r += GN_THREADS / BN) {
-    const int t = tile * TT + r;
-    if (t >= T) break;
-    const size_t o = ((size_t)b * T + t) * C + c;
-    const float xh = (to_f(pre[o]) - mu) * rs;
-    float d = rs * (p.dy[o] * ga - m1 - xh * m2);
-    if (p.extra) d += p.extra[o];
-    if (film) {
-      const float dz = d * sc1;
-      out[o] = from_f<Out>(dz);
-      q0 += d;
-      q1 += d * p.z1[o];
-      q2 += dz;
+template <typename Pre, typename Out, int CB, bool FILM>
+__global__ void __launch_bounds__(GB_THREADS, 3) gn_bwd_kernel(const GnBwdArgs p) {
+  constexpr int CPT = GB_CPT;
+  constexpr int TPR = CB / CPT;         // threads a frame
+  constexpr int RP = GB_THREADS / TPR;  // frames at a time
+  constexpr int ITERS = TT / RP;        // this thread's frames of the bucket
+  extern __shared__ __align__(16) float sm[];
+  const int tile = blockIdx.x, c0 = blockIdx.y * CB, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int T = p.T, C = p.C, cg = C / p.G, nT = p.nT;
+  const int t0 = tile * TT, nrows = min(TT, T - t0);
+  const bool has_extra = p.extra != nullptr;
+
+  // dynamic shared memory (gn_bwd_smem): the staged tiles (then the FiLM
+  // sums' rows), the channels' bucket sums, the groups' means
+  float* s_dy = sm;                                                   // [TT][CB]
+  Pre* s_x = reinterpret_cast<Pre*>(s_dy + TT * CB);                  // [TT][CB]
+  float* acc = reinterpret_cast<float*>(s_x + TT * CB);
+  const int g_lo = c0 / cg, W = gn_bwd_window(c0, CB, cg), ngr = W / cg, w0 = g_lo * cg;
+  float* mm = acc + 2 * (W > GB_THREADS ? W : GB_THREADS);            // [2][ngr]
+  float* red = sm;                                       // [3][RP][CB], after the pass
+
+  const size_t row0 = ((size_t)b * T + t0) * C + c0;
+  gn_bwd_stage<CB>(s_dy, p.dy + row0, nrows, C);
+  gn_bwd_stage<CB>(s_x, static_cast<const Pre*>(p.pre) + row0, nrows, C);
+  sm90::cp_async_commit();
+  // the third input, z1 (FiLM) or extra, straight into registers: this
+  // thread's frames r0 + i RP and channels, so a block's shared memory
+  // leaves room for three or four blocks an SM
+  const int r0 = tid / TPR, j0 = (tid % TPR) * CPT, cb = c0 + j0;
+  const float* third = FILM ? p.z1 : p.extra;
+  float z[ITERS][CPT];
+#pragma unroll
+  for (int i = 0; i < ITERS; ++i) {
+    const int r = r0 + i * RP;
+    if (third != nullptr && r < nrows) {
+      load4(third + row0 + (size_t)r * C + j0, z[i]);
     } else {
-      out[o] = from_f<Out>(d);
+#pragma unroll
+      for (int e = 0; e < CPT; ++e) z[i][e] = 0.f;
     }
   }
-  if (!film) return;
-  red[0][rg][j] = q0;
-  red[1][rg][j] = q1;
-  red[2][rg][j] = q2;
+
+  // 1. m1, m2 of the groups [g_lo, g_lo + ngr), channels [w0, w0 + W)
+  const int NS = W >= GB_THREADS ? 1 : GB_THREADS / W;  // slices of the buckets a channel
+  {
+    const size_t plane = (size_t)p.B * nT * C;
+    const float* q = p.pieces + (size_t)b * nT * C + w0;
+    for (int u = tid; u < NS * W; u += GB_THREADS) {
+      const int sl = u / W, c = u - sl * W;
+      const int k1 = nT * (sl + 1) / NS;
+      float a1 = 0.f, a2 = 0.f;
+#pragma unroll 4
+      for (int k = nT * sl / NS; k < k1; ++k) {
+        const float* e = q + (size_t)k * C + c;
+        a1 += e[0] + e[plane];              // d_y: head + tail
+        a2 += e[2 * plane] + e[3 * plane];  // d_y * xhat
+      }
+      acc[u] = a1;
+      acc[NS * W + u] = a2;
+    }
+  }
   __syncthreads();
-  if (tid < 3 * BN) {
-    const int w = tid / BN, jj = tid - w * BN;
-    float s = 0.f;
-    for (int k = 0; k < GN_THREADS / BN; ++k) s += red[w][k][jj];
-    p.part_out[(size_t)w * plane + ((size_t)b * p.nT + tile) * C + c0 + jj] = s;
+  const float inv_n = 1.f / ((float)T * (float)cg);
+  for (int j = warp; j < ngr; j += GB_THREADS / 32) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int c = j * cg + lane; c < (j + 1) * cg; c += 32) {
+      float a1 = 0.f, a2 = 0.f;
+      for (int sl = 0; sl < NS; ++sl) {
+        a1 += acc[sl * W + c];
+        a2 += acc[(NS + sl) * W + c];
+      }
+      const float ga = __ldg(p.gamma + w0 + c);
+      s1 += ga * a1;
+      s2 += ga * a2;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+      s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+    }
+    if (lane == 0) {
+      mm[j] = s1 * inv_n;
+      mm[ngr + j] = s2 * inv_n;
+    }
+  }
+
+  // 2. this thread's CPT channels (one group's: C/G is a multiple of CPT;
+  // their constants loaded once) and frames r0, r0 + RP, ... of the tile
+  const int gi = cb / cg;
+  const float mu = __ldg(p.mean + b * p.G + gi), rs = __ldg(p.rstd + b * p.G + gi);
+  float ga[CPT], sc[CPT];
+#pragma unroll
+  for (int e = 0; e < CPT; ++e) {
+    ga[e] = __ldg(p.gamma + cb + e);
+    sc[e] = FILM ? 1.f + __ldg(p.film_scale + b * C + cb + e) : 1.f;
+  }
+  sm90::cp_async_wait<0>();
+  __syncthreads();  // the group means and every thread's staged rows are in
+  const float m1 = mm[gi - g_lo], m2 = mm[ngr + gi - g_lo];
+  Out* out = static_cast<Out*>(p.out) + row0 + j0;
+  float q0[CPT], q1[CPT], q2[CPT];
+#pragma unroll
+  for (int e = 0; e < CPT; ++e) q0[e] = q1[e] = q2[e] = 0.f;
+#pragma unroll
+  for (int i = 0; i < ITERS; ++i) {
+    const int r = r0 + i * RP;
+    if (r >= nrows) break;
+    const int o = r * CB + j0;
+    float dy[CPT], x[CPT], d[CPT];
+    load4(s_dy + o, dy);
+    load4(s_x + o, x);
+#pragma unroll
+    for (int e = 0; e < CPT; ++e) {
+      const float xh = (x[e] - mu) * rs;
+      d[e] = rs * (dy[e] * ga[e] - m1 - xh * m2);
+    }
+    if (!FILM && has_extra) {
+#pragma unroll
+      for (int e = 0; e < CPT; ++e) d[e] += z[i][e];
+    }
+    if constexpr (FILM) {
+#pragma unroll
+      for (int e = 0; e < CPT; ++e) {
+        const float dz = d[e] * sc[e];
+        q0[e] += d[e];
+        q1[e] += d[e] * z[i][e];
+        q2[e] += dz;
+        d[e] = dz;
+      }
+    }
+    store4(out + (size_t)r * C, d);
+  }
+  if constexpr (FILM) {
+    __syncthreads();  // every thread's reads of the staged tiles are done
+#pragma unroll
+    for (int e = 0; e < CPT; ++e) {
+      const int o = r0 * CB + j0 + e;
+      red[o] = q0[e];
+      red[RP * CB + o] = q1[e];
+      red[2 * RP * CB + o] = q2[e];
+    }
+    __syncthreads();
+    const size_t plane = (size_t)p.B * nT * C;
+    for (int u = tid; u < 3 * CB; u += GB_THREADS) {
+      const int w = u / CB, c = u - w * CB;
+      float s = 0.f;
+      for (int r = 0; r < RP; ++r) s += red[(w * RP + r) * CB + c];
+      p.part_out[w * plane + ((size_t)b * nT + tile) * C + c0 + c] = s;
+    }
   }
 }
 
@@ -734,27 +879,68 @@ extern "C" int lm2a_conv3_dgrad(const void* g, const void* w, const void* pre, i
 
 namespace {
 
+// the plan must be this kernel's for the shape: its grid, its shared memory
+// (less would overrun the rings), a split and parts that leave every rank
+// chunks to sum, and no more parts than the wrapper's partials hold
 template <typename Src, bool ACT, int TAPS, int MW>
-cudaError_t launch_wgrad(const WgradArgs& a, int parts, int smem, cudaStream_t s) {
+int launch_wgrad(const WgradArgs& a, int ntiles, int ctiles, int parts, int smem,
+                 cudaStream_t s) {
+  const int nch = (a.B * a.T + 63) / 64;
+  if (a.cout % (64 * MW) || a.cin % 64 || ntiles != a.cout / (64 * MW) || ctiles != a.cin / 64 ||
+      a.splits < 1 || a.splits > 8 || parts < 1 || parts > WGRAD_PARTS ||
+      a.splits * parts > nch || smem != WgradGeo<Src, TAPS, MW>::SMEM)
+    return ERR_PLAN;
   static bool attr_set = false;
-  return sm90::launch_cluster(conv3_wgrad_kernel<Src, ACT, TAPS, MW>, attr_set,
-                              dim3(a.cout / (64 * MW), a.cin / 64, a.splits * parts),
-                              128 * (MW + 1), smem, a.splits, s, a);
+  return (int)sm90::launch_cluster(conv3_wgrad_kernel<Src, ACT, TAPS, MW>, attr_set,
+                                   dim3(ntiles, ctiles, a.splits * parts), 128 * (MW + 1), smem,
+                                   a.splits, s, a);
 }
 
 template <typename Src, bool ACT, int TAPS>
-cudaError_t launch_wgrad_mw(const WgradArgs& a, int mw, int parts, int smem, cudaStream_t s) {
-  if (mw == 1) return launch_wgrad<Src, ACT, TAPS, 1>(a, parts, smem, s);
-  if (mw == 2) return launch_wgrad<Src, ACT, TAPS, 2>(a, parts, smem, s);
-  return cudaErrorInvalidValue;
+int launch_wgrad_mw(const WgradArgs& a, int mw, int ntiles, int ctiles, int parts, int smem,
+                    cudaStream_t s) {
+  if (mw == 1) return launch_wgrad<Src, ACT, TAPS, 1>(a, ntiles, ctiles, parts, smem, s);
+  if (mw == 2) return launch_wgrad<Src, ACT, TAPS, 2>(a, ntiles, ctiles, parts, smem, s);
+  return ERR_PLAN;
 }
 
 template <typename Src, bool ACT>
-cudaError_t launch_wgrad_taps(const WgradArgs& a, int taps, int mw, int parts, int smem,
-                              cudaStream_t s) {
-  if (taps == 3) return launch_wgrad_mw<Src, ACT, 3>(a, mw, parts, smem, s);
-  if (taps == 1) return launch_wgrad_mw<Src, ACT, 1>(a, mw, parts, smem, s);
-  return cudaErrorInvalidValue;
+int launch_wgrad_taps(const WgradArgs& a, int taps, int mw, int ntiles, int ctiles, int parts,
+                      int smem, cudaStream_t s) {
+  if (taps == 3) return launch_wgrad_mw<Src, ACT, 3>(a, mw, ntiles, ctiles, parts, smem, s);
+  if (taps == 1) return launch_wgrad_mw<Src, ACT, 1>(a, mw, ntiles, ctiles, parts, smem, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// dynamic shared bytes of gn_bwd_kernel: the staged tiles and the largest
+// block's bucket sums and group means (the FiLM sums' rows reuse the d_y tile)
+int gn_bwd_smem(int C, int cg, int cb, int pre_bytes) {
+  int w = 0;
+  for (int c0 = 0; c0 < C; c0 += cb) {
+    const int wi = gn_bwd_window(c0, cb, cg);
+    w = wi > w ? wi : w;
+  }
+  return TT * cb * (4 + pre_bytes) +
+         4 * (2 * (w > GB_THREADS ? w : GB_THREADS) + 2 * (w / cg));
+}
+static_assert(3 * GB_THREADS * GB_CPT <= TT * 64, "the FiLM sums' rows fit the d_y tile");
+
+template <typename Pre, typename Out, int CB, bool FILM>
+int launch_gn_bwd(const GnBwdArgs& a, cudaStream_t s) {
+  const int smem = gn_bwd_smem(a.C, a.C / a.G, CB, (int)sizeof(Pre));
+  static bool attr_set = false;
+  return (int)sm90::launch_cluster(gn_bwd_kernel<Pre, Out, CB, FILM>, attr_set,
+                                   dim3(a.nT, a.C / CB, a.B), GB_THREADS, smem, 1, s, a);
+}
+
+template <typename Pre, typename Out>
+int launch_gn_bwd_plan(const GnBwdArgs& a, int cb, cudaStream_t s) {
+  const bool film = a.film_scale != nullptr;
+  if (cb == 128) return film ? launch_gn_bwd<Pre, Out, 128, true>(a, s)
+                             : launch_gn_bwd<Pre, Out, 128, false>(a, s);
+  if (cb == 64) return film ? launch_gn_bwd<Pre, Out, 64, true>(a, s)
+                            : launch_gn_bwd<Pre, Out, 64, false>(a, s);
+  return ERR_PLAN;
 }
 
 }  // namespace
@@ -762,8 +948,9 @@ cudaError_t launch_wgrad_taps(const WgradArgs& a, int taps, int mw, int parts, i
 extern "C" int lm2a_conv3_wgrad(const void* src, int src_is_f32, const float* mean,
                                 const float* rstd, const float* gamma, const float* beta,
                                 const void* g, float* out, float* bias_out, int B, int T,
-                                int cin, int cout, int taps, int groups, int mw, int splits,
-                                int parts, int smem, void* stream) {
+                                int cin, int cout, int taps, int groups, int mw, int ntiles,
+                                int ctiles, int splits, int parts, int smem, void* stream) {
+  if (B < 1 || T < 1) return (int)cudaErrorInvalidValue;
   WgradArgs a;
   a.src = src;
   a.mean = mean;
@@ -780,31 +967,40 @@ extern "C" int lm2a_conv3_wgrad(const void* src, int src_is_f32, const float* me
   a.groups = groups;
   a.splits = splits;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
+  int e;
   if (mean == nullptr) {
     if (src_is_f32) return (int)cudaErrorInvalidValue;  // raw mode reads bf16 x
-    e = launch_wgrad_taps<bf16, false>(a, taps, mw, parts, smem, s);
+    e = launch_wgrad_taps<bf16, false>(a, taps, mw, ntiles, ctiles, parts, smem, s);
   } else if (src_is_f32) {
-    e = launch_wgrad_taps<float, true>(a, taps, mw, parts, smem, s);
+    e = launch_wgrad_taps<float, true>(a, taps, mw, ntiles, ctiles, parts, smem, s);
   } else {
-    e = launch_wgrad_taps<bf16, true>(a, taps, mw, parts, smem, s);
+    e = launch_wgrad_taps<bf16, true>(a, taps, mw, ntiles, ctiles, parts, smem, s);
   }
-  if (e != cudaSuccess) return (int)e;
+  if (e != 0) return e;
   return (int)cudaGetLastError();
 }
 
+// pieces: conv3_dgrad's (2, 2, B, nT, C) head and tail pieces, read as they
+// are (head + tail per bucket); every pointer 16-byte aligned; C/G a
+// multiple of 4; extra (GN1) or FiLM (GN2), not both; cb: the plan's
+// channels a block (64 or 128, dividing C)
 extern "C" int lm2a_gn_bwd(const float* dy, const void* pre, int pre_is_f32, const float* mean,
-                           const float* rstd, const float* gamma, const float* part,
+                           const float* rstd, const float* gamma, const float* pieces,
                            const float* extra, const float* film_scale, const float* z1,
                            void* out, int out_is_f32, float* part_out, int B, int T, int C,
-                           int G, int nT, void* stream) {
+                           int G, int nT, int cb, void* stream) {
+  if (B < 1 || T < 1 || G < 1 || C % G || nT != (T + TT - 1) / TT ||
+      (film_scale != nullptr) != (z1 != nullptr) || (film_scale != nullptr) != (part_out != nullptr) ||
+      (film_scale != nullptr && extra != nullptr) || (C / G) % GB_CPT)
+    return (int)cudaErrorInvalidValue;
+  if ((cb != 64 && cb != 128) || C % cb) return ERR_PLAN;
   GnBwdArgs a;
   a.dy = dy;
   a.pre = pre;
   a.mean = mean;
   a.rstd = rstd;
   a.gamma = gamma;
-  a.part = part;
+  a.pieces = pieces;
   a.extra = extra;
   a.film_scale = film_scale;
   a.z1 = z1;
@@ -816,14 +1012,15 @@ extern "C" int lm2a_gn_bwd(const float* dy, const void* pre, int pre_is_f32, con
   a.G = G;
   a.nT = nT;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid(nT, C / BN, B);
+  int e;
   if (pre_is_f32 && out_is_f32)
-    gn_bwd_kernel<float, float><<<grid, GN_THREADS, 0, s>>>(a);
+    e = launch_gn_bwd_plan<float, float>(a, cb, s);
   else if (pre_is_f32)
-    gn_bwd_kernel<float, bf16><<<grid, GN_THREADS, 0, s>>>(a);
+    e = launch_gn_bwd_plan<float, bf16>(a, cb, s);
   else if (out_is_f32)
-    gn_bwd_kernel<bf16, float><<<grid, GN_THREADS, 0, s>>>(a);
+    e = launch_gn_bwd_plan<bf16, float>(a, cb, s);
   else
-    gn_bwd_kernel<bf16, bf16><<<grid, GN_THREADS, 0, s>>>(a);
+    e = launch_gn_bwd_plan<bf16, bf16>(a, cb, s);
+  if (e != 0) return e;
   return (int)cudaGetLastError();
 }

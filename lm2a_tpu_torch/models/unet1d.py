@@ -44,7 +44,7 @@ import torch.nn.functional as F
 from lm2a_tpu_torch.models.attention import CrossAttentionFusion
 from lm2a_tpu_torch.models.embedding import TimestepEmbedding, dense
 from lm2a_tpu_torch.ops.resblock import (
-    GN_EPS, ResblockWeights, fused_resblock_chain, gn_stats_plain,
+    GN_EPS, ResblockWeights, fused_resblock_chain, gn_stats, gn_stats_plain,
 )
 from lm2a_tpu_torch.ops.resblock_grad import fused_resblock_train
 
@@ -60,7 +60,10 @@ def default_num_groups(channels: int) -> int:
 class GroupNorm(nn.GroupNorm):
     """GroupNorm over channels-last (B, T, C): fp32 statistics with fast
     variance, eps 1e-5 (torch's default, kept by the JAX package), output in
-    the input dtype."""
+    the input dtype. Where no gradient flows to the input (serving: the
+    UNet's ``out_gn``), the statistics come from the ``gn_stats`` kernel's
+    wrapper; under autograd from its plain version, which autograd can
+    differentiate."""
 
     def __init__(self, channels: int):
         super().__init__(default_num_groups(channels), channels, eps=GN_EPS)
@@ -68,7 +71,10 @@ class GroupNorm(nn.GroupNorm):
     def forward(self, x):
         b, t, c = x.shape
         g = self.num_groups
-        mean, rstd = gn_stats_plain(x, g, self.eps)
+        if torch.is_grad_enabled() and x.requires_grad:
+            mean, rstd = gn_stats_plain(x, g, self.eps)
+        else:
+            mean, rstd = gn_stats(x.contiguous(), g, self.eps)
         y = (x.float().reshape(b, t, g, c // g) - mean[:, None, :, None]) * rstd[:, None, :, None]
         return (y.reshape(b, t, c) * self.weight.float() + self.bias.float()).to(x.dtype)
 

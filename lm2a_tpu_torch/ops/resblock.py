@@ -43,10 +43,32 @@ _ALIGN = 1024            # slack for aligning the swizzled tiles to 1024 bytes
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _build.declare("resblock", "lm2a_gn_stats",
-               [_P, _I, _P, _P, _I, _I, _I, _I, _F, _P])
+               [_P, _I, _P, _P, _I, _I, _I, _I, _I, _F, _P])
+_build.declare("resblock", "lm2a_empty_kernel", [_P])
 _build.declare("resblock", "lm2a_conv3_fused",
                [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                 _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P])
+
+
+# gn_stats (csrc/resblock.cu): threads a block; T split over a cluster of
+# blocks for each (row, group)
+GN_THREADS = 512
+
+
+def gn_stats_plan(b: int, t: int, c: int, groups: int, in_bytes: int = 2) -> int:
+    """The cluster size of ``gn_stats`` (pure; the wrapper passes it to the
+    kernel): the blocks that split each (row, group)'s T frames, so many
+    that the B·G·splits blocks come nearest one block an SM, at most
+    CLUSTER_MAX and at most T, and no more than leave each block a full pass
+    of its threads over the group's 16-byte vectors (or scalars, where a run
+    of C/G channels is not whole vectors). Measured on the H100 (PERF.md),
+    a second wave of blocks, or a larger cluster at 16 rows, costs more
+    than the few SMs a grid just under one wave leaves idle."""
+    cg = c // groups
+    vw = 16 // in_bytes if cg % (16 // in_bytes) == 0 else 1
+    full = t * cg // vw // GN_THREADS
+    nearest = (2 * SMS + b * groups) // (2 * b * groups)
+    return max(1, min(CLUSTER_MAX, nearest, full, t))
 
 
 def k_ranges(chunks: int, splits: int):
@@ -106,6 +128,8 @@ class ConvPlan:
 
 
 def _conv3_smem(mw: int, bn: int, splits: int, in_bytes: int) -> int:
+    """Dynamic shared bytes of ``conv3_fused``: ``ConvGeo::smem`` in
+    ``csrc/resblock.cu``, which the C entry holds the plan to."""
     bm = 64 * mw
     body = (_NSTAGE * 3 * bn * 128                    # the weight ring
             + 2 * (bm + 3) * _LDW * 2                 # two activated windows
@@ -281,10 +305,20 @@ def gn_stats(x: torch.Tensor, groups: int, eps: float = GN_EPS):
     _need(c % groups == 0, "gn_stats: C must divide into groups")
     mean = torch.empty((b, groups), device=x.device, dtype=torch.float32)
     rstd = torch.empty_like(mean)
+    splits = gn_stats_plan(b, t, c, groups, x.element_size())
     _build.launch("resblock", "lm2a_gn_stats", "gn_stats",
                   _build.ptr(x), int(x.dtype == torch.float32), _build.ptr(mean),
-                  _build.ptr(rstd), b, t, c, groups, eps, _build.stream_ptr(x.device))
+                  _build.ptr(rstd), b, t, c, groups, splits, eps, _build.stream_ptr(x.device))
     return mean, rstd
+
+
+def empty_kernel(device) -> None:
+    """One launch of a kernel that does nothing, on the current stream and
+    counted nowhere: the floor of any launch's device time, which
+    ``chip_smoke.py`` prints beside the small kernels' times."""
+    err = _build.library("resblock").lm2a_empty_kernel(_build.stream_ptr(device))
+    if err != 0:
+        raise RuntimeError(f"CUDA empty kernel failed: cudaError_t {err}")
 
 
 def conv3_fused(a, mean, rstd, gamma, beta, w, bias, *, film=None, skip=None,

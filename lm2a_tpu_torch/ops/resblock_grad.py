@@ -14,13 +14,14 @@ backward (``csrc/resblock_bwd.cu``) is three kernels:
 - ``conv3_dgrad``: the input gradient of a SAME conv3 (or of the 1x1 skip),
   with the SiLU backward of the GroupNorm+SiLU that fed it in the epilogue
   and per-(row, channel, 64-frame tile) partial sums of ``d_y`` and
-  ``d_y * xhat``; its M tiles run over the flattened B·T rows, so a tile's
-  bucket sums come in two pieces that the wrapper adds (``dgrad_plan``);
+  ``d_y * xhat``; its M tiles run over the flattened B·T rows, so a
+  bucket's sums come in a head and a tail piece (``dgrad_plan``), which
+  ``gn_bwd`` and the sums below read as they are, head first;
 - ``conv3_wgrad``: the weight gradient and the bias gradient's column sums,
   its operand ``silu(gn(.))`` formed in the prologue; where the output tiles
   are fewer than the SMs, K (B*T) is split over a thread-block cluster whose
   fp32 tiles are summed in rank order inside the kernel (``wgrad_plan``);
-- ``gn_bwd``: GroupNorm's input gradient from those partials; for GN2 also
+- ``gn_bwd``: GroupNorm's input gradient from those pieces; for GN2 also
   ``d_z1 = d_f * (1 + scale)`` and tile sums of ``d_f``, ``d_f * z1`` and
   ``d_z1`` (the FiLM shift, FiLM scale and conv-1 bias gradients).
 
@@ -86,9 +87,10 @@ _build.declare("resblock_bwd", "lm2a_conv3_dgrad",
                [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                 _I, _I, _I, _I, _I, _I, _P])
 _build.declare("resblock_bwd", "lm2a_conv3_wgrad",
-               [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P])
+               [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                _I, _P])
 _build.declare("resblock_bwd", "lm2a_gn_bwd",
-               [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P])
+               [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P])
 
 
 def resblock_train_fits(t: int, cin: int, cout: int, has_skip: bool,
@@ -113,6 +115,14 @@ def _tile_sums(v: torch.Tensor) -> torch.Tensor:
     return v.view(b, nt, TT, c).sum(2)
 
 
+def bucket_sums(pieces: torch.Tensor) -> torch.Tensor:
+    """(2, 2, B, nT, C) head and tail pieces -> the (2, B, nT, C) bucket sums
+    of d_y and d_y * xhat, head + tail. How a bucket splits into pieces
+    follows the kernel's M tiles (the plain version puts it all in the
+    head), so kernel and plain version are compared on these sums."""
+    return pieces[:, 0] + pieces[:, 1]
+
+
 def _xhat(pre, mean, rstd):
     b, t, c = pre.shape
     g = mean.shape[1]
@@ -135,7 +145,9 @@ def conv3_dgrad_plain(g, w, *, taps: int = 3, pre=None, mean=None, rstd=None,
     ``w[n, k*Cin + c]`` = tap ``k``. Raw: returns ``(d, None)``, fp32 ``d[t]
     = sum_k g[t+1-k] W_k^T``. With ``pre`` (the GroupNorm input) and its
     statistics and affine: ``d_y = d * silu'(y)``, ``y = xhat*gamma + beta``,
-    and partials (2, B, nT, Cin): tile sums of ``d_y`` and ``d_y * xhat``."""
+    and pieces (2, 2, B, nT, Cin): the tile sums of ``d_y`` and ``d_y *
+    xhat``, each as a head piece (here the whole sum) and a tail piece (here
+    zero), as the kernel writes them (``bucket_sums`` adds them)."""
     cout = g.shape[-1]
     cin = w.shape[1] // taps
     gf, wf = g.float(), w.float()
@@ -151,7 +163,8 @@ def conv3_dgrad_plain(g, w, *, taps: int = 3, pre=None, mean=None, rstd=None,
     y = xh * gamma + beta
     sig = torch.sigmoid(y)
     dy = d * (sig * (1.0 + y * (1.0 - sig)))
-    return dy, torch.stack([_tile_sums(dy), _tile_sums(dy * xh)])
+    sums = torch.stack([_tile_sums(dy), _tile_sums(dy * xh)])
+    return dy, torch.stack([sums, torch.zeros_like(sums)], 1)
 
 
 def conv3_wgrad_plain(src, g, *, taps: int = 3, mean=None, rstd=None, gamma=None,
@@ -177,18 +190,19 @@ def conv3_wgrad_plain(src, g, *, taps: int = 3, mean=None, rstd=None, gamma=None
     return dw, (g2.sum(0) if bias else None)
 
 
-def gn_bwd_plain(dy, pre, mean, rstd, gamma, part, *, extra=None, film_scale=None,
+def gn_bwd_plain(dy, pre, mean, rstd, gamma, pieces, *, extra=None, film_scale=None,
                  z1=None, out_dtype=torch.float32):
     """GroupNorm input gradient ``rstd * (gamma*dy - m1 - xhat*m2)`` with
     ``m1, m2`` the group means of ``gamma * dy`` and ``gamma * dy * xhat``
-    taken from ``part`` (conv3_dgrad's tile sums), plus ``extra``. With
+    taken from ``pieces`` (conv3_dgrad's (2, 2, B, nT, C) head and tail
+    pieces of the tile sums, head + tail per tile), plus ``extra``. With
     ``film_scale`` (GN2): returns ``d_z1 = d_f * (1 + scale)`` and partials
     (3, B, nT, C): tile sums of ``d_f``, ``d_f * z1``, ``d_z1``; else
     ``(dx, None)``."""
     b, t, c = dy.shape
     g = mean.shape[1]
     cg = c // g
-    s = part.sum(2) * gamma  # (2, B, C): gamma * per-row sums
+    s = bucket_sums(pieces).sum(2) * gamma  # (2, B, C): gamma * per-row sums
     m = s.view(2, b, g, cg).sum(-1) / float(t * cg)  # (2, B, G)
     m = m.repeat_interleave(cg, dim=-1)[:, :, None, :]  # (2, B, 1, C)
     xh = _xhat(pre, mean, rstd)
@@ -321,7 +335,7 @@ def conv3_dgrad(g, w, *, taps: int = 3, pre=None, mean=None, rstd=None, gamma=No
                   P(mean), P(rstd), P(gamma), P(beta), P(out), P(pieces),
                   b, t, cin, cout, taps, groups or 1, nt, plan.mw, plan.bn, plan.mtiles,
                   plan.ntiles, plan.splits, plan.smem, _build.stream_ptr(dev))
-    return out, (None if pieces is None else pieces[:, 0] + pieces[:, 1])
+    return out, pieces
 
 
 @dataclass(frozen=True)
@@ -413,17 +427,24 @@ def conv3_wgrad(src, g, *, taps: int = 3, mean=None, rstd=None, gamma=None, beta
     _build.launch("resblock_bwd", "lm2a_conv3_wgrad", "conv3_wgrad",
                   P(src), int(src.dtype == torch.float32), P(mean), P(rstd), P(gamma),
                   P(beta), P(g), P(dw), P(db), b, t, cin, cout, taps, groups, plan.mw,
-                  plan.splits, plan.parts, plan.smem, _build.stream_ptr(dev))
+                  plan.ntiles, plan.ctiles, plan.splits, plan.parts, plan.smem,
+                  _build.stream_ptr(dev))
     if plan.parts == 1:
         return dw[0], (db[0] if bias else None)
     return dw.sum(0), (db.sum(0) if bias else None)
 
 
-def gn_bwd(dy, pre, mean, rstd, gamma, part, *, extra=None, film_scale=None, z1=None,
+def gn_bwd_plan(c: int) -> int:
+    """Channels a block of ``gn_bwd`` takes (pure; the wrapper passes it to
+    the kernel, whose grid is (nT, C / cb, B)): 128 where C allows, else 64."""
+    return 128 if c % 128 == 0 else 64
+
+
+def gn_bwd(dy, pre, mean, rstd, gamma, pieces, *, extra=None, film_scale=None, z1=None,
            out_dtype=torch.float32):
     """Kernel wrapper of ``gn_bwd_plain`` (same arguments)."""
     if not _is_cuda(dy):
-        return gn_bwd_plain(dy, pre, mean, rstd, gamma, part, extra=extra,
+        return gn_bwd_plain(dy, pre, mean, rstd, gamma, pieces, extra=extra,
                             film_scale=film_scale, z1=z1, out_dtype=out_dtype)
     dev = dy.device
     b, t, c = dy.shape
@@ -433,30 +454,35 @@ def gn_bwd(dy, pre, mean, rstd, gamma, part, *, extra=None, film_scale=None, z1=
           and pre.dtype in (torch.bfloat16, torch.float32), "gn_bwd: pre must be (B, T, C)")
     _need(c % _BT == 0, f"gn_bwd: needs C % {_BT} == 0")
     groups = mean.shape[1]
-    _need(c % groups == 0, "gn_bwd: C must divide into groups")
+    _need(c % groups == 0 and (c // groups) % 4 == 0,
+          "gn_bwd: C must divide into groups of a multiple of 4 channels")
     for s, name in ((mean, "mean"), (rstd, "rstd")):
         _check_stats(s, b, groups, dev, f"gn_bwd {name}")
     _check_vec(gamma, c, dev, "gn_bwd gamma")
-    _need(part.dtype == torch.float32 and part.is_contiguous()
-          and tuple(part.shape) == (2, b, nt, c), "gn_bwd: part must be fp32 (2, B, nT, C)")
+    _need(pieces.dtype == torch.float32 and pieces.is_contiguous()
+          and tuple(pieces.shape) == (2, 2, b, nt, c),
+          "gn_bwd: pieces must be fp32 (2, 2, B, nT, C)")
     _need(out_dtype in (torch.bfloat16, torch.float32), "gn_bwd: out_dtype bf16 or fp32")
     if extra is not None:
         _need(extra.dtype == torch.float32 and extra.is_contiguous()
               and tuple(extra.shape) == (b, t, c), "gn_bwd: extra must be fp32 (B, T, C)")
     part_out = None
     if film_scale is not None:
+        _need(extra is None, "gn_bwd: the kernel takes extra (GN1) or FiLM (GN2), not both")
         _need(film_scale.dtype == torch.float32 and film_scale.is_contiguous()
               and tuple(film_scale.shape) == (b, c), "gn_bwd: film_scale must be fp32 (B, C)")
         _need(z1 is not None and z1.dtype == torch.float32 and z1.is_contiguous()
               and tuple(z1.shape) == (b, t, c), "gn_bwd: z1 must be fp32 (B, T, C)")
         part_out = torch.empty((3, b, nt, c), device=dev, dtype=torch.float32)
     out = torch.empty((b, t, c), device=dev, dtype=out_dtype)
+    _need(all(v.data_ptr() % 16 == 0 for v in (dy, pre, extra, z1) if v is not None),
+          "gn_bwd: the (B, T, C) tensors must start on a 16-byte boundary")
     P = _build.ptr
     _build.launch("resblock_bwd", "lm2a_gn_bwd", "gn_bwd",
                   P(dy), P(pre), int(pre.dtype == torch.float32), P(mean), P(rstd),
-                  P(gamma), P(part), P(extra), P(film_scale), P(z1), P(out),
+                  P(gamma), P(pieces), P(extra), P(film_scale), P(z1), P(out),
                   int(out_dtype == torch.float32), P(part_out), b, t, c, groups, nt,
-                  _build.stream_ptr(dev))
+                  gn_bwd_plan(c), _build.stream_ptr(dev))
     return out, part_out
 
 
@@ -504,11 +530,11 @@ def chain_backward(saved, g1s, g1b, w1, g2s, g2b, w2, sw, gh, gxs, k=KERNELS):
                                      beta=g2b, bias=True)
     d_y2, p2 = k.dgrad(gh, w2, taps=3, pre=f, mean=mean2, rstd=rstd2, gamma=g2s, beta=g2b)
     d_z1, q = k.gn_bwd(d_y2, f, mean2, rstd2, g2s, p2, film_scale=sc, z1=z1, out_dtype=cdt)
-    out["dg2b"], out["dg2s"] = p2[0].sum((0, 1)), p2[1].sum((0, 1))
+    out["dg2b"], out["dg2s"] = p2.sum((1, 2, 3)).unbind()  # the pieces, rows and tiles
     out["dshift"], out["dscale"], out["db1"] = q[0].sum(1), q[1].sum(1), q[2].sum((0, 1))
     out["dw1"], _ = k.wgrad(x, d_z1, taps=3, mean=mean1, rstd=rstd1, gamma=g1s, beta=g1b)
     d_y1, p1 = k.dgrad(d_z1, w1, taps=3, pre=x, mean=mean1, rstd=rstd1, gamma=g1s, beta=g1b)
-    out["dg1b"], out["dg1s"] = p1[0].sum((0, 1)), p1[1].sum((0, 1))
+    out["dg1b"], out["dg1s"] = p1.sum((1, 2, 3)).unbind()
     extra = None
     if sw is not None:
         gxs = gxs.to(cdt).contiguous()

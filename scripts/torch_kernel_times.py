@@ -1,18 +1,24 @@
 #!/usr/bin/env python3
-"""Device times of the attention and resblock backward kernels of a tree of
-this repository under this tree's timer, and host times of an attention call.
+"""Device times of the resblock, attention and resblock backward kernels of
+a tree of this repository under this tree's timer, and host times of an
+attention call.
 
     python3 scripts/torch_kernel_times.py [--tree DIR] [--label NAME] [--out FILE]
+                                          [--only resblock,attention,backward]
 
-Runs phases 3c (the attention kernel at every 6 s and 150 s geometry) and 3d
-(the resblock backward kernels at the 15 flagship blocks, B=16) of
-``DIR/chip_smoke.py`` (default: this tree) on the kernels of
+Runs phases 3 and 3b (the resblock forward kernels, ``gn_stats`` and
+``conv3_fused``, at the 15 flagship blocks at 4 rows, 16 rows and 2 rows of
+T=516 and 2 rows of T=12920), 3c (the attention kernel at every 6 s and 150 s
+geometry) and 3d (the resblock backward kernels, ``gn_bwd`` among them, at
+the 15 flagship blocks, B=16) of ``DIR/chip_smoke.py`` (default: this tree)
+on the kernels of
 ``DIR/lm2a_tpu_torch``, with ``Timer`` taken from this tree's
 ``chip_smoke.py``: it spins the card after each L2 flush, so the CUDA events
 time the device's work and not the host's launch latency. An older commit
 unpacked with ``git archive`` into an ignored directory is so timed as this
 tree times itself; run the two in one call (older, newer, newer, older) to
-compare them. It also prints
+compare them. ``--only`` names the phases to run (all by default). With
+the attention phase it also prints
 
 - the host time of one ``attention_core`` call at each 6 s site (two clips'
   conditioned rows, the main path's call): 200 calls enqueued back to back,
@@ -130,7 +136,12 @@ def main(argv=None) -> int:
     ap.add_argument("--tree", default=ROOT, help="root of the tree whose kernels are timed")
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "kernel_times.json"))
+    ap.add_argument("--only", default="resblock,attention,backward",
+                    help="comma-separated phases: resblock (3, 3b), attention (3c), backward (3d)")
     args = ap.parse_args(argv)
+    phases = set(args.only.split(","))
+    if not phases <= {"resblock", "attention", "backward"}:
+        raise SystemExit(f"unknown phases in --only {args.only}")
     tree = os.path.abspath(args.tree)
     cs = load_tree(tree)
     import torch
@@ -147,27 +158,47 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     timer = cs.Timer(dev)
-    attn, _ = cs.phase_attention(timer, dev, gen)
-    bwd, _ = cs.phase_backward(timer, dev, gen)
-    host = attention_host_us(cs, att, dev, gen)
-    enc, enc_call, marshal = encode_us(dev)
-    report = dict(label=args.label, tree=tree, device=smi, attention=attn, backward=bwd,
-                  attention_host_us=host, encode_us=enc, encode_call_us=enc_call,
-                  marshal_us=marshal)
+    report = dict(label=args.label, tree=tree, device=smi)
     keep = ("ms", "plain_ms", "library_ms", "bound_ms")
-    for route, k in attn.items():
-        print(f"[times] {args.label}: attention {route} "
+
+    def show(what, k):
+        print(f"[times] {args.label}: {what} "
               + " ".join(f"{n} {k[n]:.4f}" for n in keep if k.get(n) is not None), flush=True)
-    for name, k in bwd.items():
-        print(f"[times] {args.label}: {name} per step "
-              + " ".join(f"{n} {k[n]:.4f}" for n in keep if k.get(n) is not None), flush=True)
-    mean = sum(us for _, us in host) / len(host)
-    print(f"[times] {args.label}: attention_core host us a call at 6 s, mean {mean:.2f}: "
-          + ", ".join(f"{n} {us:.2f}" for n, us in host), flush=True)
-    print(f"[times] {args.label}: cuTensorMapEncodeTiled host us "
-          + ("not measured (the driver refused the map)" if enc is None else
-             f"{enc:.3f} (the call {enc_call:.3f} less ctypes' marshalling {marshal:.3f})"),
-          flush=True)
+
+    if "resblock" in phases:
+        rb = importlib.import_module("lm2a_tpu_torch.ops.resblock")
+        if hasattr(rb, "empty_kernel"):
+            report["empty_kernel_ms"] = timer.ms(lambda: rb.empty_kernel(dev))
+            print(f"[times] {args.label}: an empty kernel "
+                  f"{report['empty_kernel_ms'] * 1e3:.2f} us a launch", flush=True)
+        for rows, mel_t in ((cs.MAIN_ROWS, cs.MEL_T), (cs.WINDOW_ROWS, cs.MEL_T),
+                            (cs.PROTOCOL_ROWS, cs.MEL_T), (cs.PROTOCOL_ROWS, cs.LONG_T)):
+            per, _ = cs.phase_resblock(timer, dev, gen, rows, mel_t)
+            report[f"resblock_{rows}x{mel_t}"] = per
+            for name, k in per.items():
+                show(f"{name} per {rows}-row forward at T={mel_t} (30 launches)", k)
+    if "attention" in phases:
+        attn, _ = cs.phase_attention(timer, dev, gen)
+        report["attention"] = attn
+        for route, k in attn.items():
+            show(f"attention {route}", k)
+    if "backward" in phases:
+        bwd, _ = cs.phase_backward(timer, dev, gen)
+        report["backward"] = bwd
+        for name, k in bwd.items():
+            show(f"{name} per step", k)
+    if "attention" in phases:
+        host = attention_host_us(cs, att, dev, gen)
+        enc, enc_call, marshal = encode_us(dev)
+        report.update(attention_host_us=host, encode_us=enc, encode_call_us=enc_call,
+                      marshal_us=marshal)
+        mean = sum(us for _, us in host) / len(host)
+        print(f"[times] {args.label}: attention_core host us a call at 6 s, mean {mean:.2f}: "
+              + ", ".join(f"{n} {us:.2f}" for n, us in host), flush=True)
+        print(f"[times] {args.label}: cuTensorMapEncodeTiled host us "
+              + ("not measured (cuTensorMapEncodeTiled refused the map)" if enc is None else
+                 f"{enc:.3f} (the call {enc_call:.3f} less ctypes' marshalling {marshal:.3f})"),
+              flush=True)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1, default=str)

@@ -28,7 +28,14 @@ cluster) and of ``conv3_dgrad`` (the wgmma main loop over flattened rows):
 every head dim at ragged T and S under split and unsplit plans forced
 through the plan function, ``conv3_dgrad`` with 3 taps (pre bf16, fp32) and
 1 tap raw under every plan at T = 1, 37, 65, 300 with M tiles across batch
-rows, both giving the same bits on two launches, and their refusals.
+rows, both giving the same bits on two launches, and their refusals. For
+the Hopper designs of ``gn_stats`` (T split over a cluster) and ``gn_bwd``
+(cp.async-staged tiles, the group means from conv3_dgrad's head and tail
+pieces): T = 1 to 12920, C/G from 5 to 2048 channels, every cluster size,
+a misaligned input, channel blocks that groups cross, plain, extra and FiLM
+modes, bf16 and fp32, the same bits twice; and every C entry's refusal of
+a launch plan that is not its own (``conv3_fused``, ``conv3_wgrad``,
+``gn_stats``, ``gn_bwd``), with nothing launched.
 
 Tolerances are those of ``chip_smoke.py``: 1e-2 absolute + relative on bf16
 outputs (one bf16 ulp, where the kernel's and torch's SiLU round an operand
@@ -281,8 +288,10 @@ def test_backward_kernels_one_by_one(dev, b, t, cin, cout, has_skip):
                   ("conv3_wgrad", lambda m: m(x, gx, taps=1, bias=True), rg.conv3_wgrad,
                    rg.conv3_wgrad_plain)]
     for name, call, kernel, plain in calls:
-        for g, p in zip(call(kernel), call(plain)):
+        for i, (g, p) in enumerate(zip(call(kernel), call(plain))):
             if p is not None:
+                if name == "conv3_dgrad" and i == 1:  # head and tail pieces, split by M tile
+                    g, p = rg.bucket_sums(g), rg.bucket_sums(p)
                 assert _rel_l2(g, p) <= chip_smoke.TOL_REL_L2[name], name
     d_y2, p2 = rg.conv3_dgrad_plain(gh, w.conv2_w, taps=3, pre=f, **act2)
     for film in (True, False):
@@ -636,11 +645,13 @@ def test_dgrad_every_plan_across_batch_rows(dev, monkeypatch, b, t, pre_dtype):
             got = rg.conv3_dgrad(g, w, taps=taps, **kw)
             torch.cuda.synchronize()
             assert _build.LAUNCHES == {"conv3_dgrad": 1}
-            for x, y in zip(got, want):
+            for i, (x, y) in enumerate(zip(got, want)):
                 if y is None:
                     assert x is None
                     continue
                 assert x.dtype == y.dtype and x.shape == y.shape
+                if i == 1:  # head and tail pieces, split by the plan's M tiles
+                    x, y = rg.bucket_sums(x), rg.bucket_sums(y)
                 assert _rel_l2(x, y) <= tol, (taps, plan)
             again = rg.conv3_dgrad(g, w, taps=taps, **kw)
             assert all(x is None or torch.equal(x, y) for x, y in zip(got, again)), plan
@@ -656,7 +667,7 @@ def test_dgrad_default_plan_at_training_shapes(dev, b, t, cin, cout):
     g, w3, _, pre, act = _dgrad_case(dev, b, t, cin, cout, seed=t)
     got = rg.conv3_dgrad(g, w3, taps=3, pre=pre, **act)
     want = rg.conv3_dgrad_plain(g, w3, taps=3, pre=pre, **act)
-    for x, y in zip(got, want):
+    for x, y in ((got[0], want[0]), (rg.bucket_sums(got[1]), rg.bucket_sums(want[1]))):
         assert _rel_l2(x, y) <= chip_smoke.TOL_REL_L2["conv3_dgrad"]
     again = rg.conv3_dgrad(g, w3, taps=3, pre=pre, **act)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
@@ -693,3 +704,216 @@ def test_dgrad_refuses_a_plan_it_does_not_take(dev, monkeypatch):
         with pytest.raises(RuntimeError, match="launch plan"):
             rg.conv3_dgrad(g, w3, taps=3, pre=pre, **act)
     assert not _build.LAUNCHES
+
+
+# ---------------------------------------------------------------- plan checks of the conv entries
+
+def test_conv3_fused_refuses_a_plan_it_does_not_take(dev, monkeypatch):
+    """A plan whose grid, split or shared memory is not the kernel's for the
+    shape, or whose tile it has no instance of, is refused before any launch
+    (too few M or N tiles would leave output unwritten, too little shared
+    memory would overrun the ring). Conv 1 and conv 2 with the skip apart."""
+    gen = torch.Generator().manual_seed(11)
+    rows, t, cin, cout = 2, 100, 256, 128
+    w, x, film = chip_smoke.random_chain(gen, rows, t, cin, cout, True, dev)
+    m1, r1 = rb.gn_stats(x, w.groups1)
+    args1 = (x, m1, r1, w.gn1_scale, w.gn1_bias, w.conv1_w, w.conv1_b)
+    f = rb.conv3_fused(*args1, film=film)
+    m2, r2 = rb.gn_stats(f, w.groups2)
+    args2 = (f, m2, r2, w.gn2_scale, w.gn2_bias, w.conv2_w, w.conv2_b)
+    calls = [((rows, t, cin, cout, 0, False, 2), args1, dict(film=film)),
+             ((rows, t, cout, cout, cin, True, 4), args2,
+              dict(skip=(x, w.skip_w, w.skip_b), split_skip=True, out_dtype=torch.bfloat16))]
+    real = rb.conv3_plan
+    for key, args, kw in calls:
+        plan = real(*key)
+        bad = [dataclasses.replace(plan, mtiles=plan.mtiles - 1),
+               dataclasses.replace(plan, mtiles=plan.mtiles + 1),
+               dataclasses.replace(plan, ntiles=plan.ntiles - 1),
+               dataclasses.replace(plan, smem=plan.smem - 1024),
+               dataclasses.replace(plan, splits=min(plan.chunks) + 1),
+               dataclasses.replace(plan, splits=0),
+               dataclasses.replace(plan, mw=3),
+               dataclasses.replace(plan, bn=96)]
+        _build.reset_launches()
+        for p in bad:
+            monkeypatch.setattr(rb, "conv3_plan", lambda *a, p=p: p)
+            with pytest.raises(RuntimeError, match="launch plan"):
+                rb.conv3_fused(*args, **kw)
+        torch.cuda.synchronize()
+        assert not _build.LAUNCHES
+        monkeypatch.setattr(rb, "conv3_plan", real)
+        _close(rb.conv3_fused(*args, **kw), rb.conv3_fused_plain(*args, **kw),
+               TOL["conv3_fused"])
+
+
+@pytest.mark.parametrize("taps", [3, 1])
+def test_wgrad_refuses_a_plan_it_does_not_take(dev, monkeypatch, taps):
+    """conv3_wgrad's entry refuses a grid, split, partial count, shared
+    memory or tile that is not the kernel's for the shape, before any launch."""
+    from lm2a_tpu_torch.ops import resblock_grad as rg
+
+    b, t, cin, cout = 2, 100, 128, 256
+    gen = torch.Generator().manual_seed(taps)
+    src = torch.randn((b, t, cin), generator=gen).to(dev, torch.bfloat16)
+    g = torch.randn((b, t, cout), generator=gen).to(dev, torch.bfloat16)
+    mean, rstd = rb.gn_stats(src, 8)
+    kw = dict(taps=taps, mean=mean, rstd=rstd, gamma=torch.ones(cin, device=dev),
+              beta=torch.zeros(cin, device=dev), bias=True)
+    plan = rg.wgrad_plan(b, t, cin, cout, taps)
+    bad = [dataclasses.replace(plan, ntiles=plan.ntiles - 1),
+           dataclasses.replace(plan, ctiles=plan.ctiles + 1),
+           dataclasses.replace(plan, smem=plan.smem - 1024),
+           dataclasses.replace(plan, splits=0),
+           dataclasses.replace(plan, splits=9),
+           dataclasses.replace(plan, splits=plan.chunks + 1, parts=1),
+           dataclasses.replace(plan, parts=rg.WGRAD_PARTS + 1, splits=1),
+           dataclasses.replace(plan, mw=3)]
+    _build.reset_launches()
+    for p in bad:
+        monkeypatch.setattr(rg, "wgrad_plan", lambda *a, p=p: p)
+        with pytest.raises(RuntimeError, match="launch plan"):
+            rg.conv3_wgrad(src, g, **kw)
+    torch.cuda.synchronize()
+    assert not _build.LAUNCHES
+
+
+# ---------------------------------------------------------------- Hopper GroupNorm redesign
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("groups", [8, 4, 2, 1])
+@pytest.mark.parametrize("t", [1, 63, 64, 129, 12920])
+@pytest.mark.parametrize("c", [256, 2048, 40])
+def test_gn_stats_edge_shapes(dev, c, t, groups, dtype):
+    """T split over the cluster as the plan gives it, 16-byte vectors (and
+    scalars where C/G is not whole vectors: C = 40), groups up to the whole
+    of C = 2048; the same bits twice."""
+    gen = torch.Generator().manual_seed(t + c + groups)
+    x = (1.5 * torch.randn((2, t, c), generator=gen) + 0.3).to(dev, dtype)
+    _build.reset_launches()
+    got = rb.gn_stats(x, groups)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {"gn_stats": 1}
+    _close(got, rb.gn_stats_plain(x, groups), TOL["gn_stats"])
+    again = rb.gn_stats(x, groups)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,t,c", [(4, 129, 256), (16, 516, 256), (2, 12920, 256), (4, 129, 2048)])
+def test_gn_stats_every_cluster_size(dev, monkeypatch, b, t, c, dtype):
+    """Every split of T from 1 to 8 blocks, forced through the plan function,
+    at the main path's row counts; the plan's own split among them."""
+    gen = torch.Generator().manual_seed(b + t)
+    x = (torch.randn((b, t, c), generator=gen) - 0.7).to(dev, dtype)
+    want = rb.gn_stats_plain(x, 8)
+    assert 1 <= rb.gn_stats_plan(b, t, c, 8, x.element_size()) <= 8
+    for splits in range(1, 9):
+        monkeypatch.setattr(rb, "gn_stats_plan", lambda *a, s=splits: s)
+        _close(rb.gn_stats(x, 8), want, TOL["gn_stats"])
+
+
+def test_gn_stats_misaligned_input_and_refused_splits(dev, monkeypatch):
+    """A contiguous view that does not start on a 16-byte boundary takes the
+    scalar loads; a split outside 1..min(8, T) is refused before launch."""
+    gen = torch.Generator().manual_seed(2)
+    flat = torch.randn(2 * 65 * 256 + 1, generator=gen).to(dev, torch.bfloat16)
+    x = flat[1:].view(2, 65, 256)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    _close(rb.gn_stats(x, 8), rb.gn_stats_plain(x, 8), TOL["gn_stats"])
+    _build.reset_launches()
+    for s in (0, 9, 66):
+        monkeypatch.setattr(rb, "gn_stats_plan", lambda *a, s=s: s)
+        with pytest.raises(RuntimeError, match="launch plan"):
+            rb.gn_stats(x, 8)
+    assert not _build.LAUNCHES
+
+
+def _gn_bwd_inputs(dev, b, t, c, groups, pre_dtype, seed):
+    from lm2a_tpu_torch.ops import resblock_grad as rg
+
+    gen = torch.Generator().manual_seed(seed)
+    pre = (torch.randn((b, t, c), generator=gen) + 0.2).to(dev, pre_dtype)
+    dy = torch.randn((b, t, c), generator=gen).to(dev)
+    gamma = (1 + 0.1 * torch.randn(c, generator=gen)).to(dev)
+    mean, rstd = rb.gn_stats_plain(pre, groups)
+    xh = rg._xhat(pre, mean, rstd)
+    sums = torch.stack([rg._tile_sums(dy), rg._tile_sums(dy * xh)])
+    head = sums * torch.rand(sums.shape, generator=gen).to(dev)  # a bucket split anyhow
+    pieces = torch.stack([head, sums - head], 1).contiguous()
+    return pre, dy, gamma, mean, rstd, pieces, gen
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mode", ["plain", "extra", "film"])
+@pytest.mark.parametrize("c,groups", [(128, 8), (192, 8), (256, 4), (2048, 1)])
+@pytest.mark.parametrize("t", [1, 37, 64, 100, 130])
+def test_gn_bwd_edge_shapes(dev, t, c, groups, mode, out_dtype):
+    """T below one bucket and off the 64-frame buckets, channel blocks of 64
+    (C = 192) and 128 that groups cross, a group of 2048 channels; with and
+    without the extra term, FiLM mode; bf16 and fp32 output, pre fp32 in
+    FiLM mode (GN2 reads f) and bf16 otherwise (GN1 reads x); pieces split
+    at random; the same bits twice."""
+    from lm2a_tpu_torch.ops import resblock_grad as rg
+
+    b = 3
+    pre_dtype = torch.float32 if mode == "film" else torch.bfloat16
+    pre, dy, gamma, mean, rstd, pieces, gen = _gn_bwd_inputs(dev, b, t, c, groups, pre_dtype,
+                                                             seed=t * c + groups)
+    kw = dict(out_dtype=out_dtype)
+    if mode == "extra":
+        kw["extra"] = torch.randn((b, t, c), generator=gen).to(dev)
+    elif mode == "film":
+        kw.update(film_scale=(0.2 * torch.randn((b, c), generator=gen)).to(dev),
+                  z1=torch.randn((b, t, c), generator=gen).to(dev))
+    _build.reset_launches()
+    got = rg.gn_bwd(dy, pre, mean, rstd, gamma, pieces, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {"gn_bwd": 1}
+    want = rg.gn_bwd_plain(dy, pre, mean, rstd, gamma, pieces, **kw)
+    assert got[0].dtype == out_dtype and got[0].shape == want[0].shape
+    assert _rel_l2(got[0], want[0]) <= chip_smoke.TOL_REL_L2["gn_bwd"]
+    if mode == "film":
+        assert got[1].shape == want[1].shape
+        assert _rel_l2(got[1], want[1]) <= chip_smoke.TOL_REL_L2["gn_bwd_partials"]
+    else:
+        assert got[1] is None
+    again = rg.gn_bwd(dy, pre, mean, rstd, gamma, pieces, **kw)
+    assert all(x is None or torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_gn_bwd_refuses_what_it_cannot_take(dev):
+    from lm2a_tpu_torch.ops import resblock_grad as rg
+
+    pre, dy, gamma, mean, rstd, pieces, _ = _gn_bwd_inputs(dev, 2, 70, 128, 8,
+                                                           torch.bfloat16, seed=1)
+    flat = torch.empty(dy.numel() + 1, device=dev)
+    flat[1:] = dy.flatten()
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="16-byte"):
+        rg.gn_bwd(flat[1:].view(dy.shape), pre, mean, rstd, gamma, pieces)
+    with pytest.raises(ValueError, match="pieces"):
+        rg.gn_bwd(dy, pre, mean, rstd, gamma, rg.bucket_sums(pieces).contiguous())
+    with pytest.raises(ValueError, match="not both"):
+        rg.gn_bwd(dy, pre, mean, rstd, gamma, pieces, extra=dy, z1=dy,
+                  film_scale=torch.zeros((2, 128), device=dev))
+    assert not _build.LAUNCHES
+
+
+def test_gn_bwd_refuses_a_plan_it_does_not_take(dev, monkeypatch):
+    """A channel block the kernel has no instance of, or one that does not
+    divide C, is refused before any launch; both of its own run."""
+    from lm2a_tpu_torch.ops import resblock_grad as rg
+
+    pre, dy, gamma, mean, rstd, pieces, _ = _gn_bwd_inputs(dev, 2, 70, 192, 8,
+                                                           torch.bfloat16, seed=2)
+    want = rg.gn_bwd_plain(dy, pre, mean, rstd, gamma, pieces)
+    _build.reset_launches()
+    for cb in (32, 96, 128, 256):
+        monkeypatch.setattr(rg, "gn_bwd_plan", lambda *a, cb=cb: cb)
+        with pytest.raises(RuntimeError, match="launch plan"):
+            rg.gn_bwd(dy, pre, mean, rstd, gamma, pieces)
+    assert not _build.LAUNCHES
+    monkeypatch.setattr(rg, "gn_bwd_plan", lambda *a: 64)
+    got = rg.gn_bwd(dy, pre, mean, rstd, gamma, pieces)
+    assert _rel_l2(got[0], want[0]) <= chip_smoke.TOL_REL_L2["gn_bwd"]

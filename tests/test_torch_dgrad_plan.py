@@ -163,6 +163,7 @@ def test_dgrad_tiling_emulation(b, t, mw, bn, splits, cout):
                                     beta=beta)
     tol = chip_smoke.TOL_REL_L2["conv3_dgrad"]
     assert _rel(got.reshape(b, t, cin), want) <= tol
+    wp = rg.bucket_sums(wp)
     assert gp.shape == wp.shape and _rel(gp, wp) <= tol
     # the skip's raw product, one tap
     w1 = (torch.randn((cout, cin), generator=gen) * cout ** -0.5).to(torch.bfloat16)
