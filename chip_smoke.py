@@ -16,13 +16,17 @@ skipped:
    (``gn_stats``, ``conv3_fused``) at the 15 FiLM resblocks of the flagship
    UNet (bf16) at 4 rows (``cli sample`` of two clips under CFG) and at 2
    rows (the one-clip protocol chain), the snake sandwich at the 6 vocoder stages plus
-   ``activation_post`` (bf16); each with its time, its plain version's time,
+   ``activation_post`` (bf16, log-scale parameters raw as the vocoder passes
+   them); each with its time, its plain version's time,
    its bound and, where one PyTorch call computes the same function, that
-   call's time; each ``conv3_fused`` and ``gn_stats`` launch run twice on
-   the same inputs for the same bits (their K and T splits sum in a fixed
-   rank order); the sums over the 30 ``gn_stats`` launches of a forward
+   call's time; each ``conv3_fused``, ``gn_stats`` and sandwich launch run
+   twice on the same inputs for the same bits (their K and T splits sum in a
+   fixed rank order); the sums over the 30 ``gn_stats`` launches of a forward
    beside the device time of an empty kernel's launch, the floor of such
-   small launches;
+   small launches; the sandwich beside the MUFU floor of its sines, a device
+   copy of its bytes and BigVGAN's own ``Activation1d`` form (several
+   PyTorch calls, a yardstick and not a library time), then one vocode
+   profiled (device time by group, busy share, launches);
    3b. the resblock kernels at the long-form row counts and lengths: 16
    rows at T=516 (8 windows of ``generate_long`` under CFG) and 2 rows at
    T=12920 (``generate_single_pass`` at 150 s);
@@ -124,6 +128,7 @@ from lm2a_tpu_torch.ops import resblock as rb
 from lm2a_tpu_torch.ops import resblock_grad as rg
 from lm2a_tpu_torch.vocoder import sandwich as sw
 from lm2a_tpu_torch.vocoder.bigvgan import BIGVGAN_22KHZ_80BAND
+from lm2a_tpu_torch.vocoder.filters import kaiser_sinc_filter1d
 from lm2a_tpu_torch.vocoder.vocode import Vocoder
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -131,7 +136,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16 = 989e12
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
-# sm_90's MUFU: 16 exp2 a clock per SM (the attention softmax takes one per score)
+# sm_90's MUFU: 16 exp2 or sine a clock per SM (the attention softmax takes
+# one exp2 per score, the sandwich two sines per output)
 MUFU_PER_CLOCK = 16
 MEL_T, MOTION_T = 516, 180
 # the main path samples N_CLIPS clips in one batch; CFG doubles the rows of
@@ -622,40 +628,123 @@ def phase_attention(timer, device, gen):
     return sums, rows_out
 
 
+def activation1d(x, alpha, beta):
+    """BigVGAN's own PyTorch form of the anti-aliased SnakeBeta
+    (``alias_free_torch`` ``Activation1d``: ``UpSample1d(2, 12)``, snake,
+    ``DownSample1d(2, 12)``) on channels-first ``(B, C, T)``: replicate pad,
+    a grouped ``conv_transpose1d``, the snake, replicate pad, a grouped
+    ``conv1d`` — several PyTorch calls, so it is a yardstick of the sandwich
+    and not its ``library_ms``. The port never calls it."""
+    c, k = x.shape[1], sw.TAPS
+    alpha, beta = alpha.to(x.dtype), beta.to(x.dtype)  # the module's dtype, as in BigVGAN
+    f = torch.tensor(kaiser_sinc_filter1d(0.25, 0.3, k), device=x.device, dtype=x.dtype)
+    f = f.view(1, 1, k).expand(c, 1, k)
+    pad = k // 2 - 1  # UpSample1d: pad 5, crop 15 a side
+    crop = pad * 2 + (k - 2) // 2
+    y = 2 * F.conv_transpose1d(F.pad(x, (pad, pad), mode="replicate"), f, stride=2, groups=c)
+    y = y[..., crop:-crop]
+    y = y + (1.0 / (beta + 1e-9)).view(1, c, 1) * torch.sin(y * alpha.view(1, c, 1)) ** 2
+    return F.conv1d(F.pad(y, (k // 2 - 1, k // 2), mode="replicate"), f, stride=2, groups=c)
+
+
+def profile_vocode(voc, mel, label: str = ""):
+    """One vocode under torch.profiler: device time by group (the sandwich
+    kernel, ``aten::conv1d``, ``aten::conv_transpose1d``, and the rest:
+    elementwise, copies and casts), the device's busy share of the wall
+    time, the kernels launched and among them the elementwise ``exp``s."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    voc.mel_to_wav(mel)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        voc.mel_to_wav(mel)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    avg = prof.key_averages()
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in avg
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(r[1] for r in rows)
+    op_ms = {e.key: e.device_time_total / 1e3 for e in avg if e.device_type == DeviceType.CPU}
+    groups = {"sandwich": sum(ms for k, ms, _ in rows if "sandwich" in k),
+              "conv": op_ms.get("aten::conv1d", 0.0),
+              "transposed conv": op_ms.get("aten::conv_transpose1d", 0.0)}
+    groups["elementwise and other"] = busy - sum(groups.values())
+    launches = sum(n for *_, n in rows)
+    exps = sum(n for k, _, n in rows if "exp" in k.lower() and "sandwich" not in k)
+    log(f"[vocode] profiled vocode{label}: wall {wall_ms:.3f} ms, device kernels {busy:.4f} ms, "
+        f"busy share {busy / wall_ms:.3f}, {launches} launches ({exps} elementwise exp); by "
+        "group (ms): " + ", ".join(f"{k} {v:.4f}" for k, v in groups.items()))
+    for name, ms, n in sorted(rows, key=lambda r: -r[1])[:8]:
+        log(f"[vocode]   {ms:9.4f} ms {n:5d}x  {name[:90]}")
+    return dict(wall_ms=wall_ms, busy_ms=busy, groups=groups, launches=launches, exps=exps,
+                kernels=[dict(name=r[0], ms=r[1], count=r[2]) for r in rows])
+
+
 def phase_sandwich(timer, device, gen):
+    """The sandwich kernel at the 7 geometries of a 516-frame vocode (bf16,
+    channels-first views as the vocoder passes them, log-scale parameters
+    raw as ``SnakeAlias`` passes them): against its plain version under
+    ``TOL``, the output's layout, two launches for the same bits; timed
+    against the plain version, its byte bound, the MUFU floor (two sines an
+    output at 16 a clock per SM at the card's maximum clock), a device copy
+    of the same bytes and BigVGAN's own ``Activation1d`` form. Then one
+    profiled vocode."""
     vcfg = BIGVGAN_22KHZ_80BAND
-    k = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None, err=0.0,
-             ops=0.0, nbytes=0.0)
+    k = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None, err=0.0, ops=0.0,
+             nbytes=0.0, mufu_floor_ms=0.0, copy_ms=0.0, activation1d_ms=0.0)
+    clock = sm_clock_hz()
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     rows_out = []
     for name, t, c, uses in sandwich_geometries(vcfg, MEL_T):
         # channels-first activations viewed as (B, T, C), as the vocoder passes them
         x = torch.randn((1, c, t), generator=gen).to(device, torch.bfloat16).transpose(1, 2)
-        alpha = torch.exp(0.3 * torch.randn(c, generator=gen)).to(device)
-        beta = torch.exp(0.3 * torch.randn(c, generator=gen)).to(device)
-        got = sw.snake_sandwich(x, alpha, beta)
-        err = check_close(f"sandwich {name}", got, sw.snake_sandwich_plain(x, alpha, beta),
-                          TOL["snake_sandwich"])
+        la = (0.3 * torch.randn(c, generator=gen)).to(device)
+        lb = (0.3 * torch.randn(c, generator=gen)).to(device)
+        run = lambda: sw.snake_sandwich(x, la, lb, logscale=True)  # noqa: E731
+        got = run()
+        err = check_close(f"sandwich {name}", got,
+                          sw.snake_sandwich_plain(x, la, lb, logscale=True), TOL["snake_sandwich"])
         need(got.stride() == x.stride(), f"sandwich {name}: output layout changed")
-        ms = timer.ms(lambda: sw.snake_sandwich(x, alpha, beta))
-        plain = timer.ms(lambda: sw.snake_sandwich_plain(x, alpha, beta))
+        check_same_bits(f"sandwich {name}", run, got)
+        plan = sw.sandwich_plan(1, t, c, x.dtype, x.stride())
+        ms = timer.ms(run)
+        plain = timer.ms(lambda: sw.snake_sandwich_plain(x, la, lb, logscale=True))
+        z = torch.empty_like(x)
+        copy_ms = timer.ms(lambda: z.copy_(x))
+        xb, a, b = x.transpose(1, 2), la.exp(), lb.exp()
+        act_ms = timer.ms(lambda: activation1d(xb, a, b))
         # x read once, z written once (bf16); 58 fp32 operations per output:
         # 2x6 up taps x2 phases (24), snake on both phases (10), 12 down taps (24)
         nbytes, ops = 4.0 * t * c + 8 * c + 48, 58.0 * t * c
         bnd, by = bound_ms(nbytes, ops, PEAK_FP32)
-        k["ms"] += uses * ms
-        k["plain_ms"] += uses * plain
-        k["bound_ms"] += uses * bnd
-        k["ops"] += uses * ops
-        k["nbytes"] += uses * nbytes
+        mufu_ms = 2.0 * t * c / (sms * MUFU_PER_CLOCK * clock) * 1e3
+        for f, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bnd), ("ops", ops),
+                     ("nbytes", nbytes), ("mufu_floor_ms", mufu_ms), ("copy_ms", copy_ms),
+                     ("activation1d_ms", act_ms)):
+            k[f] += uses * v
         k["err"] = max(k["err"], err)
         rows_out.append(dict(name=name, T=t, C=c, uses=uses, ms=ms, plain_ms=plain,
-                             bound_ms=bnd, bound_by=by, err=err,
+                             bound_ms=bnd, bound_by=by, mufu_floor_ms=mufu_ms, copy_ms=copy_ms,
+                             activation1d_ms=act_ms, err=err, plan=dataclasses.asdict(plan),
                              gbps=nbytes / ms / 1e6))
-        log(f"[sandwich] {name:15s} T={t:6d} C={c:4d} x{uses:2d} | err {err:.2e} | "
-            f"ms {ms:.4f} (plain {plain:.4f}, bound {bnd:.4f} {by}) "
-            f"{nbytes / ms / 1e6:.0f} GB/s")
+        log(f"[sandwich] {name:15s} T={t:6d} C={c:4d} x{uses:2d} | err {err:.2e}, same bits "
+            f"twice | ms {ms:.4f} (plain {plain:.4f}, bound {bnd:.4f} {by}, MUFU floor "
+            f"{mufu_ms:.4f} at {clock / 1e6:.0f} MHz, copy of the bytes {copy_ms:.4f}, "
+            f"Activation1d {act_ms:.4f}) {nbytes / ms / 1e6:.0f} GB/s | plan {plan.warps} warps "
+            f"x {plan.blocks} blocks, {plan.tiles} tiles a warp")
+        del x, z, got
     k["bound_by"] = ("operations" if k["ops"] / PEAK_FP32 > k["nbytes"] / PEAK_BYTES
                      else "bytes")
+    log(f"[sandwich] one {MEL_T}-frame vocode (109 launches): ms {k['ms']:.4f} (bound "
+        f"{k['bound_ms']:.4f} {k['bound_by']}, MUFU floor {k['mufu_floor_ms']:.4f}, copies of "
+        f"the same bytes {k['copy_ms']:.4f}, Activation1d {k['activation1d_ms']:.4f}, plain "
+        f"{k['plain_ms']:.4f})")
+    mel = np.random.default_rng(6).standard_normal((1, 80, MEL_T)).astype(np.float32)
+    voc = Vocoder(device=device, seed=0)
+    k["profile"] = profile_vocode(voc, mel)
+    del voc
     return k, rows_out
 
 
@@ -1574,6 +1663,7 @@ def main(argv=None) -> int:
             per[k]["err"] = max(per[k]["err"], other[k]["err"])
         report[f"resblock_{label}_sums"] = other
     per["snake_sandwich"], report["sandwich"] = phase_sandwich(timer, dev, gen)
+    report["vocode_profile"] = per["snake_sandwich"].pop("profile")
     # 3c
     attn_sums, report["attention"] = phase_attention(timer, dev, gen)
     report["attention_sums"] = attn_sums

@@ -58,6 +58,22 @@ __device__ __forceinline__ void load8(const float* p, float* v) {
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
+// fp32 registers -> 8 consecutive values (16-byte aligned; bf16 rounded to
+// nearest even)
+__device__ __forceinline__ void store8(float* p, const float* v) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+__device__ __forceinline__ void store8(bf16* p, const float* v) {
+  uint4 u;
+  *reinterpret_cast<__nv_bfloat162*>(&u.x) = __floats2bfloat162_rn(v[0], v[1]);
+  *reinterpret_cast<__nv_bfloat162*>(&u.y) = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<__nv_bfloat162*>(&u.z) = __floats2bfloat162_rn(v[4], v[5]);
+  *reinterpret_cast<__nv_bfloat162*>(&u.w) = __floats2bfloat162_rn(v[6], v[7]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+
 // 4 consecutive values <-> fp32 registers (16-byte aligned fp32, 8-byte
 // aligned bf16; bf16 rounded to nearest even)
 __device__ __forceinline__ void load4(const float* p, float* v) {

@@ -87,11 +87,11 @@ class SnakeAlias(nn.Module):
         self.logscale = logscale
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # log-scale parameters go in raw: the kernel exponentiates them
         alpha = self.alpha.float()
         beta = self.beta.float() if self.beta is not None else alpha
-        if self.logscale:
-            alpha, beta = torch.exp(alpha), torch.exp(beta)
-        return snake_sandwich(x.transpose(1, 2), alpha, beta).transpose(1, 2)
+        return snake_sandwich(x.transpose(1, 2), alpha, beta,
+                              logscale=self.logscale).transpose(1, 2)
 
 
 def _conv(cin, cout, kernel, dilation=1):

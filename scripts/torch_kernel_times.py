@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
-"""Device times of the resblock, attention and resblock backward kernels of
-a tree of this repository under this tree's timer, and host times of an
-attention call.
+"""Device times of the resblock, attention, resblock backward and sandwich
+kernels of a tree of this repository under this tree's timer, and host times
+of an attention call.
 
     python3 scripts/torch_kernel_times.py [--tree DIR] [--label NAME] [--out FILE]
-                                          [--only resblock,attention,backward]
+                                          [--only resblock,attention,backward,sandwich]
 
 Runs phases 3 and 3b (the resblock forward kernels, ``gn_stats`` and
 ``conv3_fused``, at the 15 flagship blocks at 4 rows, 16 rows and 2 rows of
 T=516 and 2 rows of T=12920), 3c (the attention kernel at every 6 s and 150 s
 geometry) and 3d (the resblock backward kernels, ``gn_bwd`` among them, at
-the 15 flagship blocks, B=16) of ``DIR/chip_smoke.py`` (default: this tree)
-on the kernels of
+the 15 flagship blocks, B=16) and the sandwich phase (the snake sandwich at
+the 7 geometries of a 516-frame vocode, one row a geometry, and the sum a
+vocode) of ``DIR/chip_smoke.py`` (default: this tree) on the kernels of
 ``DIR/lm2a_tpu_torch``, with ``Timer`` taken from this tree's
 ``chip_smoke.py``: it spins the card after each L2 flush, so the CUDA events
-time the device's work and not the host's launch latency. An older commit
+time the device's work and not the host's launch latency. The sandwich phase
+also profiles one vocode of ``DIR``'s vocoder with this tree's
+``profile_vocode`` (device time by group, busy share, launches). An older commit
 unpacked with ``git archive`` into an ignored directory is so timed as this
 tree times itself; run the two in one call (older, newer, newer, older) to
 compare them. ``--only`` names the phases to run (all by default). With
@@ -47,16 +50,16 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def load_tree(tree: str):
-    """``DIR/chip_smoke.py`` with its package, its ``Timer`` replaced by this
-    tree's."""
+    """``DIR/chip_smoke.py`` with its package, its ``Timer`` and
+    ``profile_vocode`` replaced by this tree's."""
     sys.path.insert(0, tree)
     cs = importlib.import_module("chip_smoke")
     if os.path.dirname(os.path.abspath(cs.__file__)) != tree:
         raise SystemExit(f"chip_smoke came from {cs.__file__}, not {tree}")
     src = open(os.path.join(ROOT, "chip_smoke.py")).read()
-    node = next(n for n in ast.parse(src).body
-                if isinstance(n, ast.ClassDef) and n.name == "Timer")
-    exec(ast.get_source_segment(src, node), cs.__dict__)
+    for node in ast.parse(src).body:
+        if getattr(node, "name", None) in ("Timer", "profile_vocode"):
+            exec(ast.get_source_segment(src, node), cs.__dict__)
     return cs
 
 
@@ -136,11 +139,12 @@ def main(argv=None) -> int:
     ap.add_argument("--tree", default=ROOT, help="root of the tree whose kernels are timed")
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "kernel_times.json"))
-    ap.add_argument("--only", default="resblock,attention,backward",
-                    help="comma-separated phases: resblock (3, 3b), attention (3c), backward (3d)")
+    ap.add_argument("--only", default="resblock,attention,backward,sandwich",
+                    help="comma-separated phases: resblock (3, 3b), attention (3c), backward "
+                         "(3d), sandwich (3's sandwich and a profiled vocode)")
     args = ap.parse_args(argv)
     phases = set(args.only.split(","))
-    if not phases <= {"resblock", "attention", "backward"}:
+    if not phases <= {"resblock", "attention", "backward", "sandwich"}:
         raise SystemExit(f"unknown phases in --only {args.only}")
     tree = os.path.abspath(args.tree)
     cs = load_tree(tree)
@@ -187,6 +191,19 @@ def main(argv=None) -> int:
         report["backward"] = bwd
         for name, k in bwd.items():
             show(f"{name} per step", k)
+    if "sandwich" in phases:
+        per, rows = cs.phase_sandwich(timer, dev, gen)
+        per.pop("profile", None)
+        report["sandwich"], report["sandwich_rows"] = per, rows
+        for r in rows:
+            print(f"[times] {args.label}: sandwich {r['name']} T={r['T']} C={r['C']} "
+                  f"x{r['uses']}: ms {r['ms']:.4f} bound_ms {r['bound_ms']:.4f}", flush=True)
+        show("snake_sandwich per 516-frame vocode (109 launches)", per)
+        import numpy as np
+
+        mel = np.random.default_rng(6).standard_normal((1, 80, cs.MEL_T)).astype(np.float32)
+        report["vocode_profile"] = cs.profile_vocode(cs.Vocoder(device=dev, seed=0), mel,
+                                                     f" ({args.label})")
     if "attention" in phases:
         host = attention_host_us(cs, att, dev, gen)
         enc, enc_call, marshal = encode_us(dev)

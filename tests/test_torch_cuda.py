@@ -33,14 +33,23 @@ the Hopper designs of ``gn_stats`` (T split over a cluster) and ``gn_bwd``
 (cp.async-staged tiles, the group means from conv3_dgrad's head and tail
 pieces): T = 1 to 12920, C/G from 5 to 2048 channels, every cluster size,
 a misaligned input, channel blocks that groups cross, plain, extra and FiLM
-modes, bf16 and fp32, the same bits twice; and every C entry's refusal of
+modes, bf16 and fp32, the same bits twice; for the Hopper design of the
+snake sandwich (runs of 8 outputs a lane, overlapping warp tiles, one wave
+of blocks striding over the tiles): T at the edges of a run and of a warp
+tile, both layouts, bf16 and fp32, one block and one tile a warp, 1-16
+warps a block, a view one frame off the 16-byte grid, a steep snake (large
+|alpha y|, small beta), log-scale parameters raw and exponentiated, the
+plan's resident blocks against the occupancy calculator, ``SnakeAlias``
+launching no ``exp``, the same bits twice; and every C entry's refusal of
 a launch plan that is not its own (``conv3_fused``, ``conv3_wgrad``,
-``gn_stats``, ``gn_bwd``), with nothing launched.
+``gn_stats``, ``gn_bwd``, the sandwich), with nothing launched.
 
 Tolerances are those of ``chip_smoke.py``: 1e-2 absolute + relative on bf16
 outputs (one bf16 ulp, where the kernel's and torch's SiLU round an operand
 to neighbouring bf16 values), 3e-2 on a whole chain; GroupNorm statistics
-1e-4 / 1e-3; the fp32 sandwich 1e-5 (fp32 sums in another order); the
+1e-4 / 1e-3; the fp32 sandwich 1e-5 (fp32 sums in another order, and
+the MUFU sine within ~2^-21 of the plain version's), a steep fp32 snake
+``STEEP_F32_TOL`` (its reason there); the
 attention kernel ``chip_smoke.TOL["attention"]`` (bf16 output: two ulps, and
 the p rounding of the running max against the global one); the training
 kernels ``chip_smoke.TOL_REL_L2`` (relative L2) and ``TOL["adan_ema"]``, each
@@ -165,6 +174,177 @@ def test_sandwich_matches_plain(dev, t, layout, dtype):
     assert got.stride() == x.stride()
     tol = TOL["snake_sandwich" if dtype == torch.bfloat16 else "snake_sandwich_f32"]
     _close(got, sw.snake_sandwich_plain(x, alpha, beta), tol)
+
+
+# ---------------------------------------------------------------- Hopper sandwich redesign
+
+# fp32 sandwich where the snake is steep: alpha = e^2, inputs x8 (|alpha y| to
+# ~300) and beta = e^-3. The snake's slope 1 + alpha sin(2 alpha y) / beta
+# reaches ~150, so the few-ulp difference of y between the kernel's FMA chain
+# and the plain version's rounded products (|y| <= ~40: ~1e-5) becomes ~2e-3
+# of z; 4e-3 absolute holds that with a margin of 2, rtol as the fp32 sandwich.
+STEEP_F32_TOL = dict(atol=4e-3, rtol=1e-5)
+
+
+def _forced_sandwich_plan(warps, blocks):
+    """A plan function giving ``warps`` a block on ``blocks`` blocks (at
+    most one per ``warps`` tiles), as the kernel takes it."""
+    return lambda b, t, c, dtype, strides: sw.plan_for(b, t, c, warps, blocks)
+
+
+def _sandwich_inputs(dev, b, t, c, dtype, layout, seed, scale=1.0, log_alpha=None,
+                     log_beta=None):
+    gen = torch.Generator().manual_seed(seed)
+    if layout == "channels_first":  # as the vocoder passes it: a (B, T, C) view
+        x = (scale * torch.randn((b, c, t), generator=gen)).to(dev, dtype).transpose(1, 2)
+    else:
+        x = (scale * torch.randn((b, t, c), generator=gen)).to(dev, dtype)
+    la = (0.3 * torch.randn(c, generator=gen) if log_alpha is None
+          else torch.full((c,), float(log_alpha)))
+    lb = (0.3 * torch.randn(c, generator=gen) if log_beta is None
+          else torch.full((c,), float(log_beta)))
+    return x, la.to(dev), lb.to(dev)
+
+
+@pytest.mark.parametrize("blocks", [1, 1 << 30])
+@pytest.mark.parametrize("t", [1, 2, 3, 7, 8, 9, 15, 16, 17, 239, 240, 241, 479, 480, 481, 961])
+@pytest.mark.parametrize("layout", ["channels_first", "channels_last"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_sandwich_run_and_tile_edges(dev, monkeypatch, blocks, t, layout, dtype):
+    """T at the edges of a lane's run of 8 and of a warp tile (30 stored
+    runs: 240 outputs), rows of 3 channels so that warp tiles cross rows,
+    on one block (its 4 warps stride over every tile) and on one tile a
+    warp, both layouts; the same bits from two launches."""
+    monkeypatch.setattr(sw, "sandwich_plan", _forced_sandwich_plan(4, blocks))
+    x, la, lb = _sandwich_inputs(dev, 2, t, 3, dtype, layout, seed=t + blocks % 7)
+    alpha, beta = la.exp(), lb.exp()
+    _build.reset_launches()
+    got = sw.snake_sandwich(x, alpha, beta)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {"snake_sandwich": 1}
+    assert got.stride() == x.stride()
+    tol = TOL["snake_sandwich" if dtype == torch.bfloat16 else "snake_sandwich_f32"]
+    _close(got, sw.snake_sandwich_plain(x, alpha, beta), tol)
+    assert torch.equal(got, sw.snake_sandwich(x, alpha, beta))
+
+
+@pytest.mark.parametrize("blocks", [1, 7, 1 << 30])
+@pytest.mark.parametrize("warps", [1, 4, 16])
+def test_sandwich_every_block_shape(dev, monkeypatch, warps, blocks):
+    """1, 4 and 16 warps a block on 1 block, 7 blocks (the warps stride over
+    many tiles, loading each next one ahead) and one tile a warp, at a
+    vocoder geometry (T = 2064, 64 channels), bf16; the same bits twice."""
+    monkeypatch.setattr(sw, "sandwich_plan", _forced_sandwich_plan(warps, blocks))
+    x, la, lb = _sandwich_inputs(dev, 1, 2064, 64, torch.bfloat16, "channels_first", seed=warps)
+    got = sw.snake_sandwich(x, la, lb, logscale=True)
+    _close(got, sw.snake_sandwich_plain(x, la, lb, logscale=True), TOL["snake_sandwich"])
+    assert torch.equal(got, sw.snake_sandwich(x, la, lb, logscale=True))
+
+
+@pytest.mark.parametrize("warps", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_sandwich_resident_blocks_match_the_card(dev, dtype, warps):
+    """The plan's table of resident warps gives the blocks an SM holds, as
+    the CUDA occupancy calculator finds them for the built kernel."""
+    assert sw.blocks_per_sm(warps) == sw.blocks_per_sm_on_card(dtype, warps)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t", [16, 37, 512])
+def test_sandwich_misaligned_view(dev, t, dtype):
+    """A channels-first view that starts one frame into its buffer: every
+    row off the 16-byte grid, so the kernel takes scalar loads and still
+    stores its (aligned) output by vectors."""
+    b, c = 2, 5
+    gen = torch.Generator().manual_seed(t)
+    flat = torch.randn(b * c * t + 1, generator=gen).to(dev, dtype)
+    x = flat[1:].view(b, c, t).transpose(1, 2)
+    assert x.data_ptr() % 16 != 0
+    alpha = torch.exp(0.3 * torch.randn(c, generator=gen)).to(dev)
+    beta = torch.exp(0.3 * torch.randn(c, generator=gen)).to(dev)
+    got = sw.snake_sandwich(x, alpha, beta)
+    tol = TOL["snake_sandwich" if dtype == torch.bfloat16 else "snake_sandwich_f32"]
+    _close(got, sw.snake_sandwich_plain(x, alpha, beta), tol)
+    assert torch.equal(got, sw.snake_sandwich(x, alpha, beta))
+
+
+@pytest.mark.parametrize("logscale", [False, True])
+@pytest.mark.parametrize("layout", ["channels_first", "channels_last"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_sandwich_steep_snake(dev, dtype, layout, logscale):
+    """Large |alpha y| (alpha = e^2, inputs x8: the sine's argument is
+    reduced over ~50 periods) and a small beta (e^-3), with the parameters
+    raw (logscale) or exponentiated; bf16 under ``TOL``, fp32 under
+    ``STEEP_F32_TOL`` (its reason above)."""
+    x, la, lb = _sandwich_inputs(dev, 2, 2064, 24, dtype, layout, seed=11, scale=8.0,
+                                 log_alpha=2.0, log_beta=-3.0)
+    a, b = (la, lb) if logscale else (la.exp(), lb.exp())
+    got = sw.snake_sandwich(x, a, b, logscale=logscale)
+    tol = TOL["snake_sandwich"] if dtype == torch.bfloat16 else STEEP_F32_TOL
+    _close(got, sw.snake_sandwich_plain(x, a, b, logscale=logscale), tol)
+    assert torch.equal(got, sw.snake_sandwich(x, a, b, logscale=logscale))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t", [5, 2064])
+def test_sandwich_logscale_on_and_off(dev, t, dtype):
+    """Raw log-scale parameters with ``logscale=True`` against their
+    exponentials with it off: the kernel's expf and torch.exp agree to an
+    ulp, so the two launches agree under the sandwich's tolerance, and each
+    matches the plain version."""
+    x, la, lb = _sandwich_inputs(dev, 2, t, 24, dtype, "channels_first", seed=t)
+    tol = TOL["snake_sandwich" if dtype == torch.bfloat16 else "snake_sandwich_f32"]
+    _build.reset_launches()
+    raw = sw.snake_sandwich(x, la, lb, logscale=True)
+    done = sw.snake_sandwich(x, la.exp(), lb.exp())
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {"snake_sandwich": 2}
+    _close(raw, sw.snake_sandwich_plain(x, la, lb, logscale=True), tol)
+    _close(done, sw.snake_sandwich_plain(x, la.exp(), lb.exp()), tol)
+    _close(raw, done, tol)
+
+
+def test_sandwich_refuses_a_plan_it_does_not_take(dev, monkeypatch):
+    """Runs other than 8, warps outside 1..16, no blocks, a block
+    with no tile, and a count of tiles a warp that is not the grid's are
+    refused before any launch."""
+    x, la, lb = _sandwich_inputs(dev, 1, 300, 24, torch.bfloat16, "channels_first", seed=3)
+    good = sw.sandwich_plan(1, 300, 24, x.dtype, x.stride())
+    n = sw.sandwich_tiles(1, 300, 24)
+    bad = [dataclasses.replace(good, run=16), dataclasses.replace(good, run=4),
+           dataclasses.replace(good, warps=0), dataclasses.replace(good, warps=17),
+           dataclasses.replace(good, blocks=0),
+           dataclasses.replace(good, blocks=-(-n // good.warps) + 1),  # a block with no tile
+           dataclasses.replace(good, tiles=good.tiles + 1),
+           dataclasses.replace(good, tiles=good.tiles - 1)]
+    _build.reset_launches()
+    for p in bad:
+        monkeypatch.setattr(sw, "sandwich_plan", lambda *a, p=p: p)
+        with pytest.raises(RuntimeError, match="launch plan"):
+            sw.snake_sandwich(x, la, lb, logscale=True)
+    assert not _build.LAUNCHES
+
+
+def test_snake_alias_launches_no_exp(dev, monkeypatch):
+    """The vocoder's activation passes its raw log-scale parameters to the
+    kernel: one launch, no torch.exp."""
+    from lm2a_tpu_torch.vocoder.bigvgan import SnakeAlias
+
+    mod = SnakeAlias(24).to(dev)
+    with torch.no_grad():
+        mod.alpha.copy_(0.2 * torch.arange(24, device=dev) / 24)
+        mod.beta.copy_(-0.1 * torch.arange(24, device=dev) / 24)
+    x = torch.randn((2, 24, 300), device=dev, dtype=torch.bfloat16)
+    calls = []
+    real_exp = torch.exp
+    monkeypatch.setattr(torch, "exp", lambda *a, **k: calls.append(1) or real_exp(*a, **k))
+    _build.reset_launches()
+    got = mod(x)
+    torch.cuda.synchronize()
+    assert not calls and _build.LAUNCHES == {"snake_sandwich": 1}
+    monkeypatch.undo()
+    want = sw.snake_sandwich_plain(x.transpose(1, 2), mod.alpha.exp(), mod.beta.exp())
+    _close(got, want.transpose(1, 2), TOL["snake_sandwich"])
 
 
 def _attn_inputs(dev, b, h, t, s, hd, seed, layout="projections"):
