@@ -29,7 +29,8 @@ skipped:
    profiled (device time by group, busy share, launches);
    3b. the resblock kernels at the long-form row counts and lengths: 16
    rows at T=516 (8 windows of ``generate_long`` under CFG) and 2 rows at
-   T=12920 (``generate_single_pass`` at 150 s);
+   T=12920 (``generate_single_pass`` at 150 s), and at the 32 rows at T=516
+   of ``cli distill``'s teacher (its guided forwards at B = 16);
    3c. the attention kernel at every geometry of the fused route: the 9
    cross-attention sites at 6 s (S=516) with 1, 2 and 16 conditioned rows,
    the CFG constant at T=S=1, and the 150 s single pass (S=T=12920), each
@@ -71,6 +72,17 @@ skipped:
    kernel route and one on the plain route (``--opt_backend xla``, no
    ``--fused_resblock_grad``) with the same batch and generator: loss,
    every gradient leaf, parameters and EMA;
+   4f. distillation: ``cli distill`` with 4d's last checkpoint as the
+   teacher over 4d's pack (stages 100 -> 50, 4 steps each, K = 2 steps a
+   call over the pack on the card, a save every 2 steps, cosine rate), the
+   launches of every kernel per step exactly (the teacher's two serving
+   forwards, the student's gated blocks forward and backward, the update),
+   checkpoints, ``distill_progress`` and finite losses; then, the run cut
+   after stage 1's mid-stage save, ``--resume``: the point it resumes at,
+   the rows it draws, its launches; the student through ``cli sample`` with
+   no flags (DDIM-50 at guidance 1.0, B-row forwards); one stage-0 step
+   timed: wall ms, peak memory, busy share, device ms of the teacher's
+   forwards, the student's forward and backward and the update;
 5. one protocol chain (B=1, T=516, CFG 2.1, DDPM with ``--ddpm_steps``
    steps) and one vocode, timed;
    5b. long form, timed: ``generate_single_pass`` at 150 s (12920 frames,
@@ -78,7 +90,7 @@ skipped:
    (12 windows of 516 frames, 8 per chain, DDIM-10);
 6. references: full-width UNet forwards on the card against the same
    checkpoint's forwards on the host CPU (plain versions, same bf16 weights)
-   at 2 and 4 CFG rows, and the full-width vocoder on a short mel, card against host CPU, fp32;
+   at 2, 4 and 32 CFG rows (the last the distill teacher's), and the full-width vocoder on a short mel, card against host CPU, fp32;
    6b. one full-width UNet forward at T=12920 on the fused route against the
    same forward through ``attention_core_plain`` on the card.
 
@@ -95,6 +107,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -208,6 +221,8 @@ KERNELS = {
                      replaces="lm2a_tpu/ops/pallas_opt.py:103 (calls :173, :197)"),
 }
 TRAIN_B, TRAIN_CLIPS = 16, 64
+# cli distill's teacher runs its guided forwards on 2B rows
+DISTILL_ROWS = 2 * TRAIN_B
 # 4e, kernel route against plain route on the card (bf16 compute on both; the
 # routes round to bf16 at different places: GroupNorm and SiLU in fp32 inside
 # the kernels, in bf16 between cuDNN ops on the plain route): the loss; each
@@ -1174,15 +1189,30 @@ def run_cli(argv) -> None:
         sys.argv = saved
 
 
-def train_launches_per_step(mc: ModelConfig):
+def train_launches_per_step(mc: ModelConfig, mel_t: int = MEL_T):
     """Kernel launches of one ``cli train`` step on the kernel route: the
     blocks the training gate routes run 4 forward launches each and 6
     backward (8 with a 1x1 skip); one adan_ema launch updates every leaf."""
-    gated = [skip for _, t, cin, cout, skip, _ in resblock_geometries(mc, MEL_T)
+    gated = [skip for _, t, cin, cout, skip, _ in resblock_geometries(mc, mel_t)
              if rg.resblock_train_fits(t, cin, cout, skip, 2)]
     n, ns = len(gated), sum(gated)
     return {"gn_stats": 2 * n, "conv3_fused": 2 * n, "conv3_dgrad": 2 * n + ns,
             "conv3_wgrad": 2 * n + ns, "gn_bwd": 2 * n, "adan_ema": 1}, n
+
+
+def distill_launches_per_step(mc: ModelConfig, mel_t: int = MEL_T):
+    """Kernel launches of one ``cli distill`` step: the student's, a train
+    step's on the kernel route without the condition drop and dropout (the
+    same launches), and the teacher's two serving forwards (guided or not),
+    each ``gn_stats`` twice a block and once for ``out_gn`` and
+    ``conv3_fused`` twice a block. For a teacher with ``fused_attention``
+    off."""
+    need(not mc.fused_attention, "distill_launches_per_step counts the unfused attention route")
+    per, _ = train_launches_per_step(mc, mel_t)
+    n_blocks = len(resblock_geometries(mc, mel_t))
+    per["gn_stats"] += 2 * (2 * n_blocks + 1)
+    per["conv3_fused"] += 2 * 2 * n_blocks
+    return per
 
 
 def npz_steps(path: str):
@@ -1379,34 +1409,45 @@ def time_routes(routes, batch, device, steps: int = 3, rounds: int = 2):
     return out
 
 
-def profile_train(state, step, batch, device, steps: int = 2):
-    """Device kernel time by name over ``steps`` kernel-route train steps
-    under torch.profiler, grouped, and the device's busy share."""
+KERNEL_GROUPS = ("conv3_fused", "gn_stats", "conv3_dgrad", "conv3_wgrad", "gn_bwd", "adan_ema")
+
+
+def profile_device(fn, steps: int):
+    """``fn(i)`` for i < ``steps`` under torch.profiler: the wall ms, the device
+    kernels by name (ms over all steps, count), their sum and their sums by
+    group (the port's kernels, cuBLAS/cuDNN, the rest)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    step(state, batch, generator=torch.Generator(device=device).manual_seed(99))
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(steps):
-            step(state, batch, generator=torch.Generator(device=device).manual_seed(100 + i))
+            fn(i)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                    for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
                   key=lambda r: -r[1])
-    busy = sum(r[1] for r in rows)
-    groups = {"conv3_fused": 0.0, "gn_stats": 0.0, "conv3_dgrad": 0.0, "conv3_wgrad": 0.0,
-              "gn_bwd": 0.0, "adan_ema": 0.0, "gemm/conv (cuBLAS, cuDNN)": 0.0, "other": 0.0}
+    groups = dict.fromkeys(KERNEL_GROUPS + ("gemm/conv (cuBLAS, cuDNN)", "other"), 0.0)
     for name, ms, _ in rows:
-        key = next((g for g in list(groups)[:6] if g in name), None)
+        key = next((g for g in KERNEL_GROUPS if g in name), None)
         if key is None:
             low = name.lower()
             key = ("gemm/conv (cuBLAS, cuDNN)" if any(w in low for w in (
                 "gemm", "cutlass", "conv", "wgrad", "dgrad", "xmma", "sm90", "cudnn"))
                 else "other")
         groups[key] += ms
+    return wall_ms, rows, sum(r[1] for r in rows), groups
+
+
+def profile_train(state, step, batch, device, steps: int = 2):
+    """Device kernel time by name over ``steps`` kernel-route train steps
+    under torch.profiler, grouped, and the device's busy share."""
+    step(state, batch, generator=torch.Generator(device=device).manual_seed(99))
+    torch.cuda.synchronize()
+    wall_ms, rows, busy, groups = profile_device(
+        lambda i: step(state, batch, generator=torch.Generator(device=device).manual_seed(100 + i)),
+        steps)
     log(f"[profile] {steps} train steps, kernel route, B={TRAIN_B}: wall {wall_ms:.2f} ms "
         f"({wall_ms / steps:.2f} ms/step), device kernels {busy:.2f} ms, busy share "
         f"{busy / wall_ms:.3f}; by group (ms per step): "
@@ -1415,6 +1456,251 @@ def profile_train(state, step, batch, device, steps: int = 2):
         log(f"[profile]   {ms / steps:9.3f} ms/step {n // steps:6d}x  {name[:90]}")
     return dict(steps=steps, wall_ms=wall_ms, busy_ms=busy, groups=groups,
                 kernels=[dict(name=r[0], ms=r[1], count=r[2]) for r in rows[:40]])
+
+
+# ---------------------------------------------------------------- phase 4f
+
+# two stages (the stage-1 teacher is the stage-0 student at guidance 1.0), K =
+# 2 steps a call over the pack on the card, a save every 2 steps
+DISTILL_STAGES = [100, 50]
+DISTILL_ARGS = ["--start_steps", "100", "--student_steps", "50", "--steps_per_stage", "4",
+                "--steps_per_call", "2", "--save_interval", "2", "--lr_decay", "cosine",
+                "--batch_size", str(TRAIN_B), "--seed", "0"]
+# (stage, steps done in it, global step) of each checkpoint of the run
+DISTILL_CKPTS = {2: (0, 2, 2), 4: (0, 4, 4), 6: (1, 2, 6), 8: (1, 4, 8)}
+DISTILL_LOSS_RE = re.compile(r"\[(\d+)\] step (\d+)/\d+ loss (\S+)")
+
+
+class Tee(io.TextIOBase):
+    """Writes to ``out`` and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.kept = out, io.StringIO()
+
+    def write(self, text):
+        self.kept.write(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+@contextlib.contextmanager
+def distill_calls(calls: list):
+    """Record the rows and global steps of each K-step call ``cli distill``
+    makes; the calls run as they would."""
+    from lm2a_tpu_torch.training import distill
+
+    real = distill.make_device_data_multistep_distill
+
+    def make(*a, **kw):
+        fn = real(*a, **kw)
+
+        def multi(state, teacher, data, idx, seed, offsets):
+            calls.append((idx.cpu().tolist(), list(offsets)))
+            return fn(state, teacher, data, idx, seed, offsets)
+
+        return multi
+
+    distill.make_device_data_multistep_distill = make
+    try:
+        yield calls
+    finally:
+        distill.make_device_data_multistep_distill = real
+
+
+def run_distill_cli(work: str, teacher: str, pack: str, mc: ModelConfig):
+    """4f: ``cli distill`` (8 steps), then, with the run cut after stage 1's
+    mid-stage save, ``--resume`` (2 steps); launch counters reset just
+    before each run. Returns the per-run readings and the student's path."""
+    from lm2a_tpu_torch.training import distill
+    from lm2a_tpu_torch.training.checkpoint import list_checkpoints, load_metadata
+
+    save = os.path.join(work, "run")
+    per_step = distill_launches_per_step(mc)
+    argv = ["distill", "--teacher", teacher, "--npz_dir", pack, "--save_dir", save,
+            *DISTILL_ARGS]
+    runs = dict(launches_per_step=per_step)
+    for label, extra, steps in (("distill", [], 8), ("resume", ["--resume"], 2)):
+        if label == "resume":  # the run as if cut after stage 1's mid-stage save
+            shutil.rmtree(os.path.join(save, "ckpt_step_8"))
+            os.remove(os.path.join(save, "ckpt_step_8.meta.json"))
+        calls, tee = [], Tee(sys.stdout)
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with distill_calls(calls), contextlib.redirect_stdout(tee):
+            run_cli(argv + extra)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        expected = {k: v * steps for k, v in per_step.items()}
+        text = tee.kept.getvalue()
+        losses = [(int(a), int(b), float(c)) for a, b, c in DISTILL_LOSS_RE.findall(text)]
+        found = list_checkpoints(save)
+        log(f"[distill] cli {label}: {steps} steps, B={TRAIN_B}, T={MEL_T}, flagship, bf16, "
+            f"stages {DISTILL_STAGES}, K=2 a call: {secs:.2f} s with set-up and saves; "
+            f"checkpoints {found}; launches {launches} expected {expected}; losses "
+            f"(stage steps, done, loss) {losses}")
+        need(launches == expected, f"cli distill {label}: launches {launches} != {expected}")
+        need(found == sorted(DISTILL_CKPTS), f"cli distill {label}: checkpoints {found}")
+        need(len(losses) == steps // 2 and all(np.isfinite(v) for *_, v in losses),
+             f"cli distill {label}: losses {losses}")
+        runs[label] = dict(seconds=secs, launches=launches, losses=losses, calls=calls)
+        if label == "distill":
+            need(all(f"stage: student_steps={n}, 4 steps, teacher guidance {w}" in text
+                     for n, w in zip(DISTILL_STAGES, (2.1, 1.0))), "cli distill: stage lines")
+        else:
+            point = f"resumed {os.path.join(save, 'ckpt_step_6')}: stage 1 step 2/4 (gstep 6)"
+            need(point in text, f"cli distill --resume did not report {point!r}")
+    first, resumed = runs["distill"]["calls"], runs["resume"]["calls"]
+    stream = [idx.tolist() for idx in distill.index_stream(
+        TRAIN_CLIPS, TRAIN_B, 0 + DISTILL_STAGES[1], 4, 2, done=2)]
+    need(resumed == first[3:] and [c[0] for c in resumed] == stream and resumed[0][1] == [6, 7],
+         f"cli distill --resume drew {resumed}, the cut run {first[3:]}")
+    for step, (stage, done, gstep) in DISTILL_CKPTS.items():
+        path = os.path.join(save, f"ckpt_step_{step}")
+        meta = load_metadata(path)
+        want = dict(stage_idx=stage, done_in_stage=done, gstep=gstep, stages=DISTILL_STAGES)
+        need(meta["distill_progress"] == want and meta["step"] == step
+             and npz_steps(path) == (step, step)
+             and meta["distilled_steps"] == DISTILL_STAGES[stage]
+             and meta["folded_guidance"] == 2.1 and meta["teacher"] == teacher,
+             f"{path}: metadata {meta.get('distill_progress')}, step {meta['step']}")
+    log(f"[distill] resume: stage 1, step 2/4, gstep 6 from ckpt_step_6; its call drew rows "
+        f"{resumed[0][0]} at global steps {resumed[0][1]}, the cut run's last call; "
+        f"checkpoints {sorted(DISTILL_CKPTS)} with distill_progress as expected")
+    return runs, os.path.join(save, "ckpt_step_8")
+
+
+def sample_student(ckpt: str, clip_dir: str, out_dir: str, n_blocks: int):
+    """``cli sample --all`` of the student with no method, step or guidance
+    flag: DDIM-50 at guidance 1.0, B-row forwards (a forward pre-hook on the
+    denoiser counts the rows of each call)."""
+    from lm2a_tpu_torch.models.unet1d import UNet1DUltimate
+
+    rows = []
+
+    def hook(module, args):
+        if isinstance(module, UNet1DUltimate):
+            rows.append(int(args[0].shape[0]))
+
+    handle = torch.nn.modules.module.register_module_forward_pre_hook(hook)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        cli_sample.main(["--all", "--npz_dir", clip_dir, "--ckpt", ckpt, "--out_dir", out_dir,
+                         "--seed", "0", "--device", "cuda"])
+    finally:
+        handle.remove()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    gens = sorted(os.path.join(out_dir, f) for f in os.listdir(out_dir) if f.endswith("_gen.npz"))
+    need(len(gens) == N_CLIPS, f"student sample wrote {gens}")
+    check_mels(gens, MEL_T)
+    expected = {"gn_stats": (2 * n_blocks + 1) * 50, "conv3_fused": 2 * n_blocks * 50}
+    log(f"[distill] cli sample of the student, no flags, {N_CLIPS} clips: {secs:.2f} s; "
+        f"{len(rows)} forwards of {sorted(set(rows))} rows (DDIM-50 at guidance 1.0: 50 of "
+        f"{N_CLIPS}); launches {launches} expected {expected}")
+    need(rows == [N_CLIPS] * 50, f"student sample: forwards of {rows} rows")
+    need(launches == expected, f"student sample: launches {launches} != {expected}")
+    return dict(seconds=secs, forwards=len(rows), rows=N_CLIPS, launches=launches)
+
+
+def time_distill(ckpt: str, pack: str, device, smi: str, steps: int = 3):
+    """One distill step of stage 0 (guidance 2.1: 2B-row teacher forwards),
+    the student and the teacher copies of ``ckpt``'s EMA: wall ms a step and
+    peak memory, then torch.profiler windows of two steps, of the teacher's
+    two forwards alone and of one update alone; the student's forward and
+    backward are the step's device time less those two."""
+    from lm2a_tpu_torch.core.config import config_from_dict
+    from lm2a_tpu_torch.diffusion.gaussian import guided_eps
+    from lm2a_tpu_torch.diffusion.schedule import make_schedule
+    from lm2a_tpu_torch.training import distill
+    from lm2a_tpu_torch.training.checkpoint import load_ema, load_metadata
+    from lm2a_tpu_torch.training.loop import step_generator
+    from lm2a_tpu_torch.training.train_step import init_train_state, make_optimizer
+
+    meta = load_metadata(ckpt)
+    tcfg = config_from_dict(meta["config"])  # the optimizer of cli distill
+    cfg = dataclasses.replace(tcfg, train=dataclasses.replace(tcfg.train, weight_decay=0.0,
+                                                              opt_backend="pallas"))
+    optimizer = make_optimizer(cfg)
+    state = init_train_state(cfg, 0, device, optimizer)
+    ema = load_ema(ckpt, state)
+    distill.start_student(state, ema)
+    teacher = distill.build_teacher(cfg, ema)
+    del ema
+    step = distill.make_distill_step(
+        make_schedule(cfg.diffusion, device=device), cfg, optimizer, DISTILL_STAGES[0],
+        dataset_mean=meta["dataset_mean"], dataset_std=meta["dataset_std"],
+        guidance_weight=2.1, loss_space="eps")
+    batch = train_batch(pack, device)
+
+    def one(i):
+        return step(state, teacher, batch, generator=step_generator(0, 100 + i, device))
+
+    torch.cuda.reset_peak_memory_stats()
+    one(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        one(1 + i)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / steps * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    gen = torch.Generator(device=device).manual_seed(7)
+    x = torch.randn((TRAIN_B, MEL_T, cfg.model.in_dim), generator=gen, device=device)
+    t = torch.randint(0, cfg.diffusion.timesteps, (TRAIN_B,), generator=gen, device=device)
+    with torch.no_grad():
+        cond = teacher.cond_proj(batch["motion"], batch["lyrics"])
+
+    @torch.no_grad()
+    def teacher_forwards(i):
+        for _ in range(2):
+            guided_eps(teacher.unet, x, t, *cond, 2.1)
+
+    def update(i):
+        params = state.params()
+        optimizer.update(params, {k: p.grad for k, p in params.items()}, state.ema, state.opt)
+
+    windows = {}
+    for name, fn in (("step", one), ("teacher", teacher_forwards), ("update", update)):
+        fn(0)
+        torch.cuda.synchronize()
+        windows[name] = profile_device(fn, 2)
+    s_wall, rows, busy, groups = windows["step"]
+    teacher_ms, update_ms = windows["teacher"][2] / 2, windows["update"][2] / 2
+    split = dict(teacher_forwards=teacher_ms, update=update_ms,
+                 student_forward_backward=busy / 2 - teacher_ms - update_ms)
+    log(f"[distill] {smi}: one distill step, stage 0 (teacher guidance 2.1, {2 * TRAIN_B}-row "
+        f"teacher forwards, B={TRAIN_B}, T={MEL_T}, flagship, bf16): {wall:.2f} ms a step "
+        f"(mean of {steps} after one warm-up), peak memory {peak:.2f} GiB; profiled two "
+        f"steps: wall {s_wall / 2:.2f} ms a step, device kernels {busy / 2:.2f} ms, busy share "
+        f"{busy / s_wall:.3f}; device ms a step: teacher's two forwards {teacher_ms:.2f} "
+        f"(profiled alone), update {update_ms:.2f} (alone), student forward and backward "
+        f"{split['student_forward_backward']:.2f} (the rest); by group: "
+        + ", ".join(f"{k} {v / 2:.2f}" for k, v in groups.items()))
+    for name, ms, n in rows[:12]:
+        log(f"[distill]   {ms / 2:9.3f} ms/step {n // 2:6d}x  {name[:90]}")
+    return dict(ms_per_step=wall, peak_gib=peak, profiled_wall_ms=s_wall / 2,
+                busy_ms=busy / 2, busy_share=busy / s_wall, split_ms=split,
+                groups={k: v / 2 for k, v in groups.items()},
+                kernels=[dict(name=r[0], ms=r[1] / 2, count=r[2] // 2) for r in rows[:40]])
+
+
+def run_distill(work: str, teacher: str, pack: str, mc: ModelConfig, clip_dir: str,
+                n_blocks: int, smi: str, device):
+    """4f: the distill run and its resume, the student sampled, a step timed."""
+    t0 = time.perf_counter()
+    runs, student = run_distill_cli(work, teacher, pack, mc)
+    runs["sample"] = sample_student(student, clip_dir, os.path.join(work, "out"), n_blocks)
+    runs["timing"] = time_distill(student, pack, device, smi)
+    runs["seconds"] = time.perf_counter() - t0
+    log(f"[distill] phase 4f: {runs['seconds']:.1f} s in all (cli distill "
+        f"{runs['distill']['seconds']:.2f} s, --resume {runs['resume']['seconds']:.2f} s)")
+    return runs
 
 
 # ---------------------------------------------------------------- references
@@ -1440,11 +1726,13 @@ def unet_forward(denoiser, inputs, device) -> torch.Tensor:
 def unet_card_vs_host(models, cpu_models, rng, rows: int, label: str) -> float:
     inputs = unet_inputs(rng, rows, MEL_T, models.cfg.model.cond_dim)
     card = unet_forward(models.denoiser, inputs, models.device)
+    t0 = time.perf_counter()
     host = unet_forward(cpu_models.denoiser, inputs, torch.device("cpu"))
+    host_s = time.perf_counter() - t0
     err = rel_l2(card, host)
     log(f"[reference] UNet forward{label}, {rows} CFG rows (uncond_rows={rows // 2}), "
         f"T={MEL_T}, bf16: card kernels vs host plain: rel L2 {err:.3e} (tolerance "
-        f"{UNET_REL_L2}), max abs {max_abs(card, host):.3e}")
+        f"{UNET_REL_L2}), max abs {max_abs(card, host):.3e}; host forward {host_s:.1f} s")
     need(bool(torch.isfinite(card).all()) and err <= UNET_REL_L2,
          f"UNet forward{label} at {rows} rows disagrees with the host reference")
     return err
@@ -1657,7 +1945,8 @@ def main(argv=None) -> int:
     per, report["resblock"] = phase_resblock(timer, dev, gen, rows=MAIN_ROWS)
     for label, rows, mel_t in (("protocol", PROTOCOL_ROWS, MEL_T),
                                ("windowed", WINDOW_ROWS, MEL_T),  # 3b
-                               ("single_pass", PROTOCOL_ROWS, LONG_T)):
+                               ("single_pass", PROTOCOL_ROWS, LONG_T),
+                               ("distill", DISTILL_ROWS, MEL_T)):
         other, report[f"resblock_{label}"] = phase_resblock(timer, dev, gen, rows, mel_t)
         for k in other:
             per[k]["err"] = max(per[k]["err"], other[k]["err"])
@@ -1771,6 +2060,11 @@ def main(argv=None) -> int:
     report["train"] = {k: v for k, v in train.items() if k not in ("pack", "ckpt")}
     del routes, batch
     torch.cuda.empty_cache()
+    # 4f. cli distill from 4d's checkpoint over 4d's pack, resumed, the student sampled
+    report["distill"] = run_distill(os.path.join(work, "distill"), train["ckpt"], train["pack"],
+                                    cfg.model, os.path.dirname(clips[0]), n_blocks, smi, dev)
+    torch.cuda.empty_cache()
+    shutil.rmtree(os.path.join(work, "distill"), ignore_errors=True)
     shutil.rmtree(os.path.join(work, "train"), ignore_errors=True)
 
     # 5. protocol chain and one vocode, timed
@@ -1822,7 +2116,7 @@ def main(argv=None) -> int:
 
     # 6. references on the host CPU
     cpu_models = load_models(ckpt, device="cpu")
-    for rows in (PROTOCOL_ROWS, MAIN_ROWS):
+    for rows in (PROTOCOL_ROWS, MAIN_ROWS, DISTILL_ROWS):
         unet_err[rows] = unet_card_vs_host(models, cpu_models, rng, rows, "")
     del cpu_models
     mel32 = rng.standard_normal((1, 80, 32)).astype(np.float32) + FALLBACK_MEL_MEAN

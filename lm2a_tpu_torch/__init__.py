@@ -11,10 +11,11 @@ on the ported path with a CUDA kernel written for Hopper (``csrc/``):
 - ``models``     CondProjection, cross-attention, UNet1DUltimate (serving
                  and training forms)
 - ``diffusion``  beta schedule, the training loss, DDPM/DDIM samplers with CFG
-- ``training``   Adan, train/eval steps, full-state checkpoints, the loop
+- ``training``   Adan, train/eval steps, full-state checkpoints, the loop,
+                 progressive distillation
 - ``inference``  checkpoint -> mel sampling, long form
 - ``vocoder``    BigVGAN generator with the fused snake sandwich
-- ``cli``        ``python -m lm2a_tpu_torch.cli pack|sample|serve|towav|train``
+- ``cli``        ``python -m lm2a_tpu_torch.cli distill|pack|sample|serve|towav|train``
 - ``checkpoint`` / ``convert``  JAX checkpoint directories in and out
 
 Public functions keep the JAX layout, channels-last ``(B, T, C)``. Entry

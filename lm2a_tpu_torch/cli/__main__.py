@@ -1,5 +1,6 @@
 """CLI dispatcher: ``python -m lm2a_tpu_torch.cli <command> [args]``.
 
+  distill  teacher checkpoint -> few-step DDIM student (CFG folded in)
   pack     npz split -> memory-mapped training arrays
   sample   checkpoint + npz conditions -> generated mel npz
   serve    persistent JSON-line sampling server (stdin -> stdout)
@@ -12,6 +13,7 @@ All but ``pack`` take ``--device`` (default ``cuda``).
 import sys
 
 COMMANDS = {
+    "distill": "lm2a_tpu_torch.cli.distill",
     "pack": "lm2a_tpu_torch.cli.pack",
     "sample": "lm2a_tpu_torch.cli.sample",
     "serve": "lm2a_tpu_torch.cli.serve",

@@ -79,6 +79,25 @@ def make_lr_schedule(base_lr: float, decay_steps: Tuple[int, ...] = (),
     return schedule
 
 
+def cosine_decay_schedule(init_value: float, decay_steps: int,
+                          alpha: float = 0.0) -> Callable[[int], np.float32]:
+    """``optax.cosine_decay_schedule(init_value, decay_steps, alpha)`` in fp32:
+    ``init * ((1 - alpha) * 0.5 (1 + cos(pi min(step, D) / D)) + alpha)``,
+    taken at the 1-indexed step ``Adan.scalars`` passes (``cli distill
+    --lr_decay cosine``)."""
+    if not decay_steps > 0:
+        raise ValueError(f"cosine decay needs decay_steps > 0, got {decay_steps}")
+    f32 = np.float32
+    d = f32(decay_steps)
+
+    def schedule(step: int) -> np.float32:
+        count = min(f32(step), d)
+        cosine = f32(0.5) * (f32(1.0) + np.cos(f32(np.pi) * count / d))
+        return f32(init_value) * (f32(1.0 - alpha) * cosine + f32(alpha))
+
+    return schedule
+
+
 class Adan:
     """The optimizer of the train step: clip + Adan + EMA over named
     parameters, in place, on either route."""

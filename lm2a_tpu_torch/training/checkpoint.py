@@ -34,8 +34,8 @@ from lm2a_tpu_torch.training.train_step import TrainState
 _STEP_RE = re.compile(r"^ckpt_step_(\d+)$")
 
 __all__ = ["CheckpointWriter", "checkpoint_path", "latest_checkpoint", "list_checkpoints",
-           "load_metadata", "load_state_arrays", "restore_checkpoint", "save_checkpoint",
-           "state_arrays"]
+           "load_ema", "load_metadata", "load_state_arrays", "restore_checkpoint",
+           "save_checkpoint", "state_arrays"]
 
 
 def flax_path(name: str, ndim: int) -> Tuple[str, ...]:
@@ -210,6 +210,20 @@ def load_state_arrays(state: TrainState, arrays: Mapping[str, np.ndarray]) -> No
             _load_into(t, arrays[key], key)
     state.step = int(arrays[".step"])
     state.opt.step = int(arrays[".opt_state.step"])
+
+
+@torch.no_grad()
+def load_ema(path: str, state: TrainState) -> Dict[str, torch.Tensor]:
+    """A checkpoint's EMA weights as new tensors keyed, shaped and placed
+    like ``state.ema``; ``state`` is left as it is."""
+    ema = {k: torch.empty_like(e) for k, e in state.ema.items()}
+    with np.load(os.path.join(os.path.abspath(path), STATE_FILE)) as z:
+        for name, t in ema.items():
+            key = keystr("ema_params", flax_path(name, t.ndim))
+            if key not in z.files:
+                raise KeyError(f"{path}: no leaf {key}")
+            _load_into(t, z[key], key)
+    return ema
 
 
 def restore_checkpoint(path: str, state: TrainState) -> dict:

@@ -20,6 +20,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from lm2a_tpu_torch.core.config import LM2AConfig
@@ -59,13 +60,16 @@ class Draws(NamedTuple):
     keep: Optional[torch.Tensor] = None
 
 
-def make_optimizer(cfg: LM2AConfig) -> Adan:
+def make_optimizer(cfg: LM2AConfig,
+                   lr_schedule: Optional[Callable[[int], np.float32]] = None) -> Adan:
+    """The Adan of ``cfg.train``; ``lr_schedule`` replaces its step decay
+    (``cli distill``'s cosine rate)."""
     tc = cfg.train
     if not tc.fused_opt:
         raise NotImplementedError(
             "fused_opt=False (clip chained before Adan, the round-1 state layout) is not "
             "ported; train with fused_opt=1")
-    return Adan(make_lr_schedule(tc.lr, tc.lr_decay_steps, tc.lr_decay_factors),
+    return Adan(lr_schedule or make_lr_schedule(tc.lr, tc.lr_decay_steps, tc.lr_decay_factors),
                 weight_decay=tc.weight_decay, grad_clip=tc.grad_clip or 0.0,
                 ema_decay=tc.ema_decay,
                 state_dtype=None if tc.opt_dtype in ("", "float32") else dtype_from_str(tc.opt_dtype),

@@ -68,3 +68,31 @@ def rel_l2(a, b) -> float:
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     nb = np.linalg.norm(b)
     return float(np.linalg.norm(a - b) / nb) if nb > 0 else float(np.linalg.norm(a))
+
+
+def jax_train_state(arrays):
+    """A JAX ``TrainState`` (fp32 Adan state) from host arrays in the
+    checkpoint layout, e.g. a port state's ``state_arrays``: no flax init."""
+    import re
+
+    import jax.numpy as jnp
+
+    from lm2a_tpu.training.adan import AdanState
+    from lm2a_tpu.training.train_step import TrainState
+
+    def tree(prefix):
+        out = {}
+        for k, a in arrays.items():
+            if k.startswith(prefix + "["):
+                *path, leaf = re.findall(r"\['([^']*)'\]", k[len(prefix):])
+                d = out
+                for p in path:
+                    d = d.setdefault(p, {})
+                d[leaf] = jnp.asarray(a)
+        return out
+
+    return TrainState(
+        step=jnp.asarray(arrays[".step"], jnp.int32),
+        params=tree(".params"), ema_params=tree(".ema_params"),
+        opt_state=AdanState(jnp.asarray(arrays[".opt_state.step"], jnp.int32),
+                            *(tree(f".opt_state.{n}") for n in ("m", "v", "n", "prev_grad"))))

@@ -86,6 +86,17 @@ def test_conv3_plan(rows, name, t, cin, cout, cin2, split):
                           lambda q: q.blocks)
 
 
+# the distillation teacher's guided forward: 2B = 32 rows at every flagship conv3
+DISTILL_CASES = [(chip_smoke.DISTILL_ROWS, *c) for c in _convs(FLAGSHIP)]
+
+
+@pytest.mark.parametrize("rows,name,t,cin,cout,cin2,split", DISTILL_CASES,
+                         ids=[f"r{c[0]}-{c[1]}" for c in DISTILL_CASES])
+def test_conv3_plan_at_the_distill_teachers_rows(rows, name, t, cin, cout, cin2, split):
+    assert rows == 32
+    test_conv3_plan(rows, name, t, cin, cout, cin2, split)
+
+
 def test_conv3_plan_beats_the_full_waves_it_declines():
     """Where a flagship conv at 2 or 4 rows launches fewer than 132 blocks,
     the model puts a full wave (or two) above it: a second wave of 6 us

@@ -1097,3 +1097,145 @@ def test_gn_bwd_refuses_a_plan_it_does_not_take(dev, monkeypatch):
     monkeypatch.setattr(rg, "gn_bwd_plan", lambda *a: 64)
     got = rg.gn_bwd(dy, pre, mean, rstd, gamma, pieces)
     assert _rel_l2(got[0], want[0]) <= chip_smoke.TOL_REL_L2["gn_bwd"]
+
+
+# ---------------------------------------------------------------- distillation
+
+# the narrowest widths the kernel route takes: conv3_wgrad needs C/G % 16 == 0
+DISTILL_CFG = dataclasses.replace(
+    chip_smoke.LM2AConfig(), model=chip_smoke.ModelConfig(
+        base_dim=128, dim_mults=(1, 2), cond_dim=16, time_emb_dim=32, num_res_blocks=1,
+        mid_blocks=1, attn_heads=2, fused_resblock_grad=True),
+    train=dataclasses.replace(chip_smoke.LM2AConfig().train, weight_decay=0.0,
+                              opt_backend="pallas"))
+
+
+def test_distill_step_on_the_card_matches_the_cpu(dev):
+    """The first two distill steps (x0_snr, teacher guidance 2.1, injected
+    draws, bf16) of the fresh student that ``start_student`` makes, as ``cli
+    distill`` starts (the teacher's EMA, step 0, Adan zeroed), each from the
+    same state on both sides: the card (the teacher's serving forwards
+    through gn_stats and conv3_fused, the gated student blocks through the
+    backward kernels, adan_ema) against the CPU (the plain versions).
+
+    - each step launches ``distill_launches_per_step``;
+    - the loss, each gradient leaf and the whole gradient within
+      ``chip_smoke.ROUTE_TOL``'s bounds (the routes round to bf16 at
+      different places, as 4e's kernel and plain routes do);
+    - the card's update (parameters, EMA, Adan state) equals Adan's plain
+      update of the same state with the card's own gradient, on the card,
+      within ``chip_smoke.TOL["adan_ema"]``.
+
+    The parameters' step is not held to ``ROUTE_TOL``'s step bound here.
+    Adan's first updates do not scale with the gradient: the first stores
+    it and moves nothing; the second divides by sqrt(n) with n = (1.92 g1 -
+    0.92 g0)^2, near 0 where the two draws' gradients nearly cancel. Route
+    rounding in those elements becomes a step of many lr on either side
+    (``scripts/torch_distill_route_steps.py`` reads the gap, PERF.md)."""
+    from lm2a_tpu_torch.diffusion.schedule import make_schedule
+    from lm2a_tpu_torch.ops import adan as adan_op
+    from lm2a_tpu_torch.training import distill
+    from lm2a_tpu_torch.training.adan import BETAS, EPS
+    from lm2a_tpu_torch.training.checkpoint import load_state_arrays, state_arrays
+    from lm2a_tpu_torch.training.train_step import init_train_state, make_optimizer
+
+    cfg, b, t = DISTILL_CFG, 2, 64
+    gen = torch.Generator().manual_seed(11)
+    batch = {"mel": -4.6 + 1.9 * torch.randn((b, t, 80), generator=gen),
+             "motion": torch.randn((b, t, 234), generator=gen),
+             "lyrics": torch.randn((b, t, 768), generator=gen)}
+    draws = [distill.DistillDraws(torch.tensor(idx), torch.randn((b, t, 80), generator=gen))
+             for idx in ([0, 3], [2, 1])]
+    teacher_ema = init_train_state(cfg, 5, "cpu").ema
+    kw = dict(dataset_mean=-4.6, dataset_std=1.9, guidance_weight=2.1, loss_space="x0_snr")
+
+    def student(d):
+        optimizer = make_optimizer(cfg)
+        state = init_train_state(cfg, 0, d, optimizer)
+        ema = {k: v.to(d) for k, v in teacher_ema.items()}
+        distill.start_student(state, ema)
+        step = distill.make_distill_step(make_schedule(cfg.diffusion, device=d), cfg, optimizer,
+                                         4, **kw)
+        return state, distill.build_teacher(cfg, ema), step, optimizer
+
+    sides = {d: student(d) for d in (torch.device("cpu"), dev)}
+    pre = state_arrays(sides[dev][0])
+    tol = chip_smoke.ROUTE_TOL
+    for i, dr in enumerate(draws):
+        out = {}
+        for d, (state, teacher, step, _) in sides.items():
+            load_state_arrays(state, pre)
+            _build.reset_launches()
+            loss = float(step(state, teacher, {k: v.to(d) for k, v in batch.items()}, draws=dr))
+            out[d.type] = dict(loss=loss, launches=dict(_build.LAUNCHES), grads={
+                n: p.grad.detach().clone() for n, p in state.params().items()})
+        assert out["cpu"]["launches"] == {}
+        assert out["cuda"]["launches"] == chip_smoke.distill_launches_per_step(cfg.model, t), i
+        k, p = out["cuda"], out["cpu"]
+        assert abs(k["loss"] - p["loss"]) <= tol["loss_rel"] * abs(p["loss"]), (i, k["loss"],
+                                                                               p["loss"])
+        gsum = float(torch.sqrt(sum(g.square().sum() for g in p["grads"].values())))
+        num = 0.0
+        for name, gp in p["grads"].items():
+            diff = float((k["grads"][name].cpu() - gp).norm())
+            assert diff <= tol["leaf_rel_l2"] * float(gp.norm()) + tol["leaf_floor"] * gsum, (
+                i, name)
+            num += diff * diff
+        assert num ** 0.5 <= tol["grad_rel_l2"] * gsum, i
+
+        # the card's update against the plain one of the same state and gradient
+        ref, _, _, optimizer = student(dev)
+        load_state_arrays(ref, pre)
+        names = list(ref.params())
+        grads = [k["grads"][n] for n in names]
+        scal = optimizer.scalars(ref.opt, grads)
+        with torch.no_grad():
+            for n, g in zip(names, grads):
+                leaf = (g, ref.params()[n], ref.ema[n], ref.opt.m[n], ref.opt.v[n],
+                        ref.opt.n[n], ref.opt.prev_grad[n])
+                adan_op.adan_ema_plain(leaf, scal, betas=BETAS, eps=EPS,
+                                       clip=optimizer.grad_clip)
+        ref.step += 1
+        ref.opt.step += 1
+        got, want = state_arrays(sides[dev][0]), state_arrays(ref)
+        assert set(got) == set(want)
+        for key, w in want.items():
+            torch.testing.assert_close(torch.from_numpy(got[key]), torch.from_numpy(w),
+                                       **chip_smoke.TOL["adan_ema"], msg=f"step {i}: {key}")
+        pre = got
+
+
+def test_distill_teacher_forward_at_32_rows(dev):
+    """The distill teacher's guided serving forward at 2B = 32 rows (B = 16,
+    T = 516) at the flagship's depth and a quarter of its width, same bf16
+    weights: the card's kernels against the CPU's plain versions within
+    ``chip_smoke.UNET_REL_L2``, with 31 gn_stats and 30 conv3_fused launches."""
+    from lm2a_tpu_torch.diffusion.gaussian import guided_eps
+    from lm2a_tpu_torch.training import distill
+    from lm2a_tpu_torch.training.train_step import init_train_state
+
+    cfg = dataclasses.replace(chip_smoke.LM2AConfig(),
+                              model=chip_smoke.ModelConfig(base_dim=64))
+    b, t = chip_smoke.DISTILL_ROWS // 2, chip_smoke.MEL_T
+    ema = init_train_state(cfg, 3, "cpu").ema
+    gen = torch.Generator().manual_seed(12)
+    x = torch.randn((b, t, 80), generator=gen)
+    steps = torch.randint(0, 1000, (b,), generator=gen)
+    motion, lyrics = torch.randn((b, t, 234), generator=gen), torch.randn((b, t, 768), generator=gen)
+    eps = {}
+    for d in (torch.device("cpu"), dev):
+        teacher = distill.build_teacher(cfg, {k: v.to(d) for k, v in ema.items()})
+        rows = []
+        handle = teacher.unet.register_forward_pre_hook(lambda m, a: rows.append(a[0].shape[0]))
+        _build.reset_launches()
+        with torch.no_grad():
+            m, l = teacher.cond_proj(motion.to(d), lyrics.to(d))
+            eps[d.type] = guided_eps(teacher.unet, x.to(d), steps.to(d), m, l, 2.1).cpu()
+        handle.remove()
+        assert rows == [chip_smoke.DISTILL_ROWS]
+        launches = dict(_build.LAUNCHES)
+    n_blocks = len(chip_smoke.resblock_geometries(cfg.model, t))
+    assert launches == {"gn_stats": 2 * n_blocks + 1, "conv3_fused": 2 * n_blocks} == {
+        "gn_stats": 31, "conv3_fused": 30}
+    assert eps["cuda"].shape == (b, t, 80) and torch.isfinite(eps["cuda"]).all()
+    assert chip_smoke.rel_l2(eps["cuda"], eps["cpu"]) <= chip_smoke.UNET_REL_L2

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import lm2a_tpu.ops.pallas_resblock as prb
 from lm2a_tpu_torch.ops import resblock as rb
 from lm2a_tpu_torch.ops import resblock_grad as rg
@@ -162,6 +163,18 @@ def test_gn_stats_plan(b, t, c, groups, in_bytes):
     cap = max(1, min(rb.CLUSTER_MAX, t, t * cg // vw // rb.GN_THREADS))
     assert s == min(range(1, cap + 1), key=lambda k: (abs(b * groups * k - rb.SMS), -k))
     assert s == 1 or t * cg // vw // s >= rb.GN_THREADS
+
+
+# the distillation teacher's guided forward: 2B = 32 rows at every flagship GroupNorm
+DISTILL_PLAN_SHAPES = [(chip_smoke.DISTILL_ROWS, t, c) for t, c in FLAGSHIP_TC]
+
+
+@pytest.mark.parametrize("in_bytes", [2, 4])
+@pytest.mark.parametrize("groups", [8, 4, 2, 1])
+@pytest.mark.parametrize("b,t,c", DISTILL_PLAN_SHAPES)
+def test_gn_stats_plan_at_the_distill_teachers_rows(b, t, c, groups, in_bytes):
+    assert b == 32
+    test_gn_stats_plan(b, t, c, groups, in_bytes)
 
 
 def _walk(tid: int, v_per_frame: int, nf: int, threads: int):
