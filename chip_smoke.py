@@ -59,6 +59,9 @@ skipped:
    4b. ``cli serve`` (DDIM-50, CFG 2.1, ``--warmup_t 516``) answering ping,
    one clip, a list of two, one clip with ``wav``, a request without
    ``npz`` and quit: replies in order, files, launch counts after warm-up;
+   then a server without warm-up: the first request of a geometry captures
+   its chain's CUDA graph, a second request and one at another CFG weight
+   above 1 capture nothing (their seconds printed);
    4c. the 6 s fused route: ``cli sample`` of a checkpoint whose config sets
    ``fused_attention``, its attention launches counted, and its 4-row UNet
    forward on the card against the host;
@@ -72,6 +75,15 @@ skipped:
    kernel route and one on the plain route (``--opt_backend xla``, no
    ``--fused_resblock_grad``) with the same batch and generator: loss,
    every gradient leaf, parameters and EMA;
+   4g. compiled steps: one flagship train step from 4d's resumed state as a
+   CUDA graph replay against the eager step (the same bits, or the first
+   module where the replay departs printed and the two within
+   ``ROUTE_TOL``); ms per step and clips/s at K = 1 and 2, streaming and
+   device-resident, beside the eager step, and a profiled window of
+   replays; ``cli train --steps_per_call 2 --device_data`` over 4d's pack
+   (6 steps, a save every 4, then ``--resume`` for 2): checkpoints by the
+   JAX fused rule, 4d's launches a step, the step-8 state the same bits as
+   4d's K = 1 run's;
    4f. distillation: ``cli distill`` with 4d's last checkpoint as the
    teacher over 4d's pack (stages 100 -> 50, 4 steps each, K = 2 steps a
    call over the pack on the card, a save every 2 steps, cosine rate), the
@@ -84,10 +96,18 @@ skipped:
    timed: wall ms, peak memory, busy share, device ms of the teacher's
    forwards, the student's forward and backward and the update;
 5. one protocol chain (B=1, T=516, CFG 2.1, DDPM with ``--ddpm_steps``
-   steps) and one vocode, timed;
+   steps), DDIM-2 and DDIM-50, each run once to capture its cache entry and
+   then timed as replays, and one vocode, timed; a DDIM-10 chain profiled
+   as replays and with every step eager;
    5b. long form, timed: ``generate_single_pass`` at 150 s (12920 frames,
    the fused route taken by itself, DDIM-10) and ``generate_long`` at 60 s
    (12 windows of 516 frames, 8 per chain, DDIM-10);
+   5c. cached chains (CUDA graph replays) against the same chains with every
+   step eager, one seed: 6 s DDIM-50 at 4 rows, 20 DDPM steps at 2 rows,
+   the 150 s single pass at DDIM-2 on the fused route: the same bits, or
+   the first module where a replay departs printed and the two within
+   ``UNET_REL_L2``; wall per step cached and eager, each entry's capture
+   seconds and the device memory its capture reserved;
 6. references: full-width UNet forwards on the card against the same
    checkpoint's forwards on the host CPU (plain versions, same bf16 weights)
    at 2, 4 and 32 CFG rows (the last the distill teacher's), and the full-width vocoder on a short mel, card against host CPU, fp32;
@@ -1575,8 +1595,11 @@ def run_distill_cli(work: str, teacher: str, pack: str, mc: ModelConfig):
 
 def sample_student(ckpt: str, clip_dir: str, out_dir: str, n_blocks: int):
     """``cli sample --all`` of the student with no method, step or guidance
-    flag: DDIM-50 at guidance 1.0, B-row forwards (a forward pre-hook on the
-    denoiser counts the rows of each call)."""
+    flag: DDIM-50 at guidance 1.0, B-row forwards. A forward pre-hook on the
+    denoiser counts the rows of each forward Python runs: the chain's first
+    step (the capture's warm-up) and its capture; the other 48 steps replay
+    the capture, which the launches count."""
+    from lm2a_tpu_torch.core import graphs
     from lm2a_tpu_torch.models.unet1d import UNet1DUltimate
 
     rows = []
@@ -1587,6 +1610,7 @@ def sample_student(ckpt: str, clip_dir: str, out_dir: str, n_blocks: int):
 
     handle = torch.nn.modules.module.register_module_forward_pre_hook(hook)
     _build.reset_launches()
+    captures = graphs.captures
     t0 = time.perf_counter()
     try:
         cli_sample.main(["--all", "--npz_dir", clip_dir, "--ckpt", ckpt, "--out_dir", out_dir,
@@ -1600,10 +1624,13 @@ def sample_student(ckpt: str, clip_dir: str, out_dir: str, n_blocks: int):
     need(len(gens) == N_CLIPS, f"student sample wrote {gens}")
     check_mels(gens, MEL_T)
     expected = {"gn_stats": (2 * n_blocks + 1) * 50, "conv3_fused": 2 * n_blocks * 50}
+    captures = graphs.captures - captures
     log(f"[distill] cli sample of the student, no flags, {N_CLIPS} clips: {secs:.2f} s; "
-        f"{len(rows)} forwards of {sorted(set(rows))} rows (DDIM-50 at guidance 1.0: 50 of "
-        f"{N_CLIPS}); launches {launches} expected {expected}")
-    need(rows == [N_CLIPS] * 50, f"student sample: forwards of {rows} rows")
+        f"{len(rows)} forwards of {sorted(set(rows))} rows run by Python and {captures} CUDA "
+        f"graph capture (DDIM-50 at guidance 1.0: the first step and the capture of 50 "
+        f"forwards of {N_CLIPS} rows, the rest replays); launches {launches} expected {expected}")
+    need(rows == [N_CLIPS] * 2 and captures == 1,
+         f"student sample: forwards of {rows} rows, {captures} captures")
     need(launches == expected, f"student sample: launches {launches} != {expected}")
     return dict(seconds=secs, forwards=len(rows), rows=N_CLIPS, launches=launches)
 
@@ -1619,8 +1646,9 @@ def time_distill(ckpt: str, pack: str, device, smi: str, steps: int = 3):
     from lm2a_tpu_torch.diffusion.schedule import make_schedule
     from lm2a_tpu_torch.training import distill
     from lm2a_tpu_torch.training.checkpoint import load_ema, load_metadata
-    from lm2a_tpu_torch.training.loop import step_generator
-    from lm2a_tpu_torch.training.train_step import init_train_state, make_optimizer
+    from lm2a_tpu_torch.training.train_step import (
+        init_train_state, make_optimizer, step_generator,
+    )
 
     meta = load_metadata(ckpt)
     tcfg = config_from_dict(meta["config"])  # the optimizer of cli distill
@@ -1703,6 +1731,350 @@ def run_distill(work: str, teacher: str, pack: str, mc: ModelConfig, clip_dir: s
     return runs
 
 
+# ---------------------------------------------------------------- compiled steps
+
+def first_divergence(root: torch.nn.Module, run) -> str:
+    """Where a CUDA graph replay of ``run()`` first departs from an eager
+    run: every submodule's tensor outputs recorded (forward hooks, clones
+    captured into the graph), compared in call order; the first module whose
+    output is not the same bits, with its max abs difference."""
+    records = {"eager": [], "graph": []}
+    side = {"list": None}
+
+    def hook(name):
+        def fn(m, a, out):
+            for o in out if isinstance(out, tuple) else (out,):
+                if isinstance(o, torch.Tensor):
+                    side["list"].append((name, o.detach().clone()))
+        return fn
+
+    handles = [m.register_forward_hook(hook(n)) for n, m in root.named_modules() if n]
+    try:
+        with torch.no_grad():
+            side["list"] = records["eager"]
+            run()
+            side["list"] = []
+            s = torch.cuda.Stream()
+            s.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(s):
+                run()
+            torch.cuda.current_stream().wait_stream(s)
+            graph = torch.cuda.CUDAGraph()
+            side["list"] = records["graph"]
+            with torch.cuda.graph(graph):
+                run()
+            graph.replay()
+            torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    for (name, a), (_, b) in zip(records["eager"], records["graph"]):
+        if not torch.equal(a, b):
+            return f"{name} (max abs {max_abs(a, b):.3e})"
+    return "none of the modules' outputs (the difference is outside them)"
+
+
+def graph_vs_eager_chains(models, clips, rng):
+    """5c: chains through the cache (CUDA graph replays) against the same
+    chains with every step eager, one seed: a 6 s DDIM-50 at CFG 2.1 over the
+    two clips (4 rows), 20 DDPM steps at 2 rows, the 150 s single pass at
+    DDIM-2 on the fused route. The same bits, or the first module where a
+    replay departs printed and the two within ``UNET_REL_L2``. Also the wall
+    per step of the cached chain against the eager one (DDIM-50) and each
+    entry's capture seconds and device memory."""
+    from lm2a_tpu_torch.core.graphs import eager_on_card
+    from lm2a_tpu_torch.inference.longform import with_streaming_attention
+    from lm2a_tpu_torch.inference.sample import generate_mel_batch
+
+    samples = [np.load(c) for c in clips]
+    motions, lyrics = [s["motion"] for s in samples], [s["lyrics"] for s in samples]
+    long_m = rng.standard_normal((int(LONG_SECONDS * 30) + 1, 234)).astype(np.float32)
+    long_l = rng.standard_normal((long_m.shape[0], 768)).astype(np.float32)
+    long_models = with_streaming_attention(models, LONG_T)
+    cases = {
+        "ddim50_4rows": (models, lambda m: generate_mel_batch(
+            m, motions, lyrics, MEL_T, guidance_weight=2.1, method="ddim", ddim_steps=50,
+            seed=3)[0], 50, MAIN_ROWS, MEL_T),
+        "ddpm20_2rows": (models, lambda m: generate_mel(
+            m, motions[0], lyrics[0], MEL_T, steps=20, guidance_weight=2.1, method="ddpm",
+            seed=3)[0], 20, PROTOCOL_ROWS, MEL_T),
+        "single_pass_ddim2": (long_models, lambda m: generate_mel(
+            m, long_m, long_l, LONG_T, guidance_weight=2.1, method="ddim", ddim_steps=2,
+            seed=3)[0], 2, PROTOCOL_ROWS, LONG_T),
+    }
+    out = {}
+    for label, (m, fn, n_steps, rows, mel_t) in cases.items():
+        walls = {}
+        res = {}
+        for run in ("first", "cached", "eager"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with eager_on_card() if run == "eager" else contextlib.nullcontext():
+                res[run] = fn(m)
+            torch.cuda.synchronize()
+            walls[run] = time.perf_counter() - t0
+        need(all(np.isfinite(r).all() for r in res.values()), f"{label}: not finite")
+        same = np.array_equal(res["cached"], res["eager"]) and np.array_equal(
+            res["first"], res["eager"])
+        err = rel_l2(torch.from_numpy(res["cached"]), torch.from_numpy(res["eager"]))
+        cause = ""
+        if not same:
+            inputs = unet_inputs(rng, rows, mel_t, models.cfg.model.cond_dim)
+            x, t, conds, n = inputs
+            x, t = x.to(models.device), t.to(models.device)
+            mf, tf = (c.to(models.device, torch.bfloat16) for c in conds)
+            cause = first_divergence(m.denoiser, lambda: m.denoiser(x, t, mf, tf, uncond_rows=n))
+        ddpm = label.startswith("ddpm")
+        entry = next(c for k, c in m._samplers.items() if k[0] == mel_t and k[4] == rows // 2
+                     and (k[1] if ddpm else k[5]) == n_steps and k[3] == ("ddpm" if ddpm else
+                                                                       "ddim"))
+        step, = entry.steps.values()
+        log(f"[graphs] {label}: CFG 2.1, {rows} rows, T={mel_t}: cached chain against the "
+            f"eager chain, same seed: {'the same bits' if same else 'NOT the same bits'} "
+            f"(rel L2 {err:.3e}, tolerance {UNET_REL_L2}"
+            + (f"; first module departing under the graph: {cause}" if cause else "")
+            + f"); wall: first call (with its capture) {walls['first']:.4f} s, cached "
+            f"{walls['cached']:.4f} s ({walls['cached'] / n_steps * 1e3:.3f} ms/step), eager "
+            f"{walls['eager']:.4f} s ({walls['eager'] / n_steps * 1e3:.3f} ms/step); capture "
+            f"{step.capture_seconds:.3f} s, {step.capture_bytes / 2 ** 20:.1f} MiB reserved by "
+            f"the capture")
+        need(same or err <= UNET_REL_L2, f"{label}: the replayed chain departs from the eager one")
+        out[label] = dict(same_bits=same, rel_l2=err, cause=cause, walls=walls,
+                          capture_s=step.capture_seconds, capture_bytes=step.capture_bytes,
+                          steps=n_steps, rows=rows, mel_t=mel_t)
+    del long_models
+    torch.cuda.empty_cache()
+    return out
+
+
+def sampler_cache_memory(models, label: str):
+    """Each cached chain's capture seconds and the device memory its capture
+    reserved (the entries share one pool, so a later entry reserves only
+    what the pool lacked)."""
+    rows = []
+    for key, chain in models._samplers.items():
+        for step in chain.steps.values():
+            if step.graph is not None:
+                rows.append(dict(key=list(key), capture_s=step.capture_seconds,
+                                 capture_mib=step.capture_bytes / 2 ** 20))
+    log(f"[graphs] sampler cache {label}: {len(rows)} captured chains; "
+        + "; ".join(f"(mel_t, steps, guided, method, batch, ddim) {r['key']}: capture "
+                    f"{r['capture_s']:.3f} s, {r['capture_mib']:.1f} MiB" for r in rows)
+        + f"; device memory reserved {torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB")
+    return rows
+
+
+def run_serve_cache(ckpt: str, clip: str, out_dir: str, ddim_steps: int):
+    """4b: ``cli serve`` without a warm-up, three requests of one geometry
+    (DDIM-50, B=1): the first captures its chain, a second with another
+    seed and a third at another CFG weight above 1 capture nothing. Returns
+    the replies and the captures during each request."""
+    from lm2a_tpu_torch.core import graphs
+
+    reqs = [{"npz": clip, "id": "first", "seed": 1},
+            {"npz": clip, "id": "second", "seed": 2},
+            {"npz": clip, "id": "weight3", "seed": 1, "guidance": 3.0},
+            {"cmd": "quit", "id": "quit"}]
+    for r in reqs[:3]:
+        r["out_dir"] = os.path.join(out_dir, r["id"])
+    marks = []
+
+    class Requests:
+        def __iter__(self):
+            for r in reqs:
+                marks.append(graphs.captures)
+                yield json.dumps(r) + "\n"
+
+    argv = ["lm2a_tpu_torch.cli", "serve", "--ckpt", ckpt, "--method", "ddim",
+            "--ddim_steps", str(ddim_steps), "--guidance", "2.1", "--out_dir", out_dir,
+            "--device", "cuda"]
+    out = io.StringIO()
+    saved = sys.argv, sys.stdin
+    sys.argv, sys.stdin = argv, Requests()
+    try:
+        with contextlib.redirect_stdout(out):
+            cli_main.main()
+    finally:
+        sys.argv, sys.stdin = saved
+    replies = [json.loads(line) for line in out.getvalue().splitlines()]
+    captures = [b - a for a, b in zip(marks, marks[1:])]
+    log(f"[serve] cli serve, no warm-up, DDIM-{ddim_steps}, B=1: seconds per request "
+        + ", ".join(f"{r['id']} {r['seconds']}" for r in replies if "seconds" in r)
+        + f"; CUDA graph captures during each request {captures} (expected [1, 0, 0]: one "
+        "entry for the geometry and for every weight above 1)")
+    need([r["ok"] for r in replies] == [True] * 4 and captures == [1, 0, 0],
+         f"serve cache: replies {replies}, captures {captures}")
+    check_mels([r["out"] for r in replies[:3]], MEL_T)
+    return dict(replies=replies, captures=captures)
+
+
+def run_train_k2(work: str, mc: ModelConfig, pack: str, k1_ckpt: str):
+    """4g: ``cli train --steps_per_call 2 --device_data`` over 4d's pack
+    (6 steps, a save every 4), then ``--resume`` for 2: checkpoints where the
+    JAX fused rule puts them (``step % 4 < 2``), 4d's launches a step, and
+    the step-8 checkpoint the same bits as 4d's K = 1 run's (parameters,
+    EMA, Adan state: the same rows and generators each step)."""
+    from lm2a_tpu_torch.training.checkpoint import list_checkpoints, load_metadata
+
+    save = os.path.join(work, "run_k2")
+    per_step, _ = train_launches_per_step(mc)
+    out = {}
+    for label, extra, steps, ckpts in (
+            ("train", ["--max_steps", "6", "--save_interval", "4"], 6, [4, 6]),
+            ("resume", ["--max_steps", "8", "--save_interval", "4", "--resume"], 2, [4, 6, 8])):
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_cli(["train", "--npz_dir", pack, "--save_dir", save, *TRAIN_ARGS,
+                 "--steps_per_call", "2", "--device_data", *extra])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        expected = {k: v * steps for k, v in per_step.items()}
+        found = list_checkpoints(save)
+        log(f"[train] cli {label} --steps_per_call 2 --device_data: {steps} steps, B={TRAIN_B}, "
+            f"flagship: {secs:.2f} s with set-up and saves; checkpoints {found}; launches "
+            f"{launches} expected {expected}")
+        need(launches == expected, f"K=2 {label}: launches {launches} != expected {expected}")
+        need(found == ckpts, f"K=2 {label}: checkpoints {found} != {ckpts}")
+        out[label] = dict(seconds=secs, launches=launches, checkpoints=found)
+    for step, epoch in ((4, 0), (6, 1), (8, 1)):
+        path = os.path.join(save, f"ckpt_step_{step}")
+        meta = load_metadata(path)
+        need(meta["epoch"] == epoch and meta["step"] == step and npz_steps(path) == (step, step),
+             f"{path}: epoch {meta['epoch']}, steps {npz_steps(path)}")
+    differ = []
+    with np.load(os.path.join(save, "ckpt_step_8", "state.npz")) as a, \
+            np.load(os.path.join(k1_ckpt, "state.npz")) as b:
+        need(sorted(a.files) == sorted(b.files), "K=2 and K=1 checkpoints hold other leaves")
+        for key in a.files:
+            if not np.array_equal(a[key], b[key]):
+                differ.append(key)
+        n = len(a.files)
+    log(f"[train] step-8 checkpoint, K=2 --device_data against 4d's K=1 run: {n - len(differ)} "
+        f"of {n} arrays (parameters, EMA, Adan state, steps) the same bits"
+        + (f"; differ: {differ[:8]}" if differ else ""))
+    need(not differ, "the K=2 device-data run's step-8 state is not the K=1 run's")
+    out["same_bits"] = n
+    return out
+
+
+def graph_step_vs_eager(routes, batch, device):
+    """4g: one flagship train step from one state (4d's resumed checkpoint)
+    as a CUDA graph replay and as the eager step, the same generator: loss,
+    every gradient leaf, the parameters and the EMA, the same bits, or the
+    first module where a replay departs printed and the two within
+    ``ROUTE_TOL``."""
+    from lm2a_tpu_torch.core.graphs import eager_on_card
+    from lm2a_tpu_torch.training.train_step import StepRunner
+
+    state, step = routes["kernel"]
+    snap = snapshot(state)
+    runner = StepRunner(step, state, None, TRAIN_B, 1)
+    rows = runner.load(batch)
+    runner.run(rows, 0, [600])  # the capture's warm-up: an eager step
+    res = {}
+    for label in ("replay", "eager"):
+        restore(state, snap)
+        with eager_on_card() if label == "eager" else contextlib.nullcontext():
+            loss = float(runner.run(rows, 0, [601])[0])
+        torch.cuda.synchronize()
+        res[label] = dict(loss=loss, grads={k: p.grad.detach().clone()
+                                            for k, p in state.params().items()},
+                          params={k: p.detach().clone() for k, p in state.params().items()},
+                          ema={k: e.clone() for k, e in state.ema.items()})
+    restore(state, snap)
+    r, e = res["replay"], res["eager"]
+    differ = [f"{kind}:{k}" for kind in ("grads", "params", "ema")
+              for k in e[kind] if not torch.equal(r[kind][k], e[kind][k])]
+    same = not differ and r["loss"] == e["loss"]
+    cause, grad_rel = "", 0.0
+    if not same:
+        gsum = float(torch.sqrt(sum(g.float().square().sum() for g in e["grads"].values())))
+        num = sum(float((r["grads"][k] - g).float().norm()) ** 2 for k, g in e["grads"].items())
+        grad_rel = num ** 0.5 / gsum
+        t = torch.arange(TRAIN_B, device=device) * 60
+        with torch.no_grad():
+            m, l = state.cond_proj.forward_train(batch["motion"], batch["lyrics"], torch.bfloat16)
+        cause = first_divergence(state.unet, lambda: state.unet.forward_train(
+            batch["mel"], t, m, l, dtype=torch.bfloat16))
+    log(f"[train] one flagship step from 4d's resumed state, B={TRAIN_B}: CUDA graph replay "
+        f"against the eager step, same generator: loss {r['loss']:.6f} / {e['loss']:.6f}; "
+        + ("the same bits in every gradient leaf, parameter and EMA" if same else
+           f"NOT the same bits ({len(differ)} arrays differ, e.g. {differ[:4]}; gradient "
+           f"relative L2 {grad_rel:.3e}, tolerance {ROUTE_TOL['grad_rel_l2']}; first module "
+           f"departing under the graph: {cause})"))
+    need(same or (grad_rel <= ROUTE_TOL["grad_rel_l2"]
+                  and abs(r["loss"] - e["loss"]) <= ROUTE_TOL["loss_rel"] * abs(e["loss"])),
+         "the replayed train step departs from the eager one")
+    del runner, res
+    return dict(same_bits=same, differ=differ[:20], cause=cause, grad_rel_l2=grad_rel)
+
+
+def time_compiled_steps(routes, pack: str, device, calls: int = 4, windows: int = 5):
+    """ms per train step and clips/s of the compiled steps (CUDA graph
+    replays) at K = 1 and K = 2, streaming (each call's batches copied into
+    the runner's buffer, as ``cli train`` does after its prefetch) and
+    device-resident (``--device_data``: only row indices staged), beside the
+    eager K = 1 step; each after one warm-up call, from 4d's resumed state
+    (restored after), as the median of ``windows`` timed windows of
+    ``calls`` calls, with their spread (least and most). A profiled window
+    of device-resident K = 1 replays gives the busy share."""
+    from lm2a_tpu_torch.core.graphs import eager_on_card
+    from lm2a_tpu_torch.data.dataset import PackedDataset, upload_dataset
+    from lm2a_tpu_torch.training.train_step import StepRunner
+
+    state, step = routes["kernel"]
+    snap = snapshot(state)
+    data = upload_dataset(PackedDataset(pack), device)
+    n = data["mel"].shape[0]
+    out = {}
+    for label, k, resident, eager in (("K=1 eager", 1, False, True), ("K=1", 1, False, False),
+                                      ("K=1 device_data", 1, True, False),
+                                      ("K=2", 2, False, False), ("K=2 device_data", 2, True, False)):
+        runner = StepRunner(step, state, data if resident else None, TRAIN_B, k)
+        order = [np.arange(c * k * TRAIN_B, (c + 1) * k * TRAIN_B) % n for c in range(calls + 1)]
+        batches = [{key: v[o].view((k, TRAIN_B) + v.shape[1:]) for key, v in data.items()}
+                   for o in order]
+
+        def call(c, runner=runner, k=k, resident=resident):
+            idx = order[c].reshape(k, TRAIN_B) if resident else runner.load(batches[c])
+            return runner.run(idx, 0, list(range(700 + c * k, 700 + (c + 1) * k)))
+
+        wins = []
+        with eager_on_card() if eager else contextlib.nullcontext():
+            call(0)
+            for _ in range(windows):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for c in range(1, calls + 1):
+                    losses = call(c)
+                torch.cuda.synchronize()
+                wins.append((time.perf_counter() - t0) / (calls * k) * 1e3)
+        ms = float(np.median(wins))
+        need(bool(torch.isfinite(losses).all()), f"{label}: losses not finite")
+        out[label] = dict(ms_per_step=ms, windows_ms=wins, clips_per_s=TRAIN_B / ms * 1e3, k=k,
+                          resident=resident)
+        log(f"[train] compiled steps, {label}{' (every step eager)' if eager else ' (CUDA graph replays)'}: "
+            f"{ms:.3f} ms per step (median of {windows} windows of {calls * k} steps; spread "
+            f"{min(wins):.3f}-{max(wins):.3f}), {TRAIN_B / ms * 1e3:.1f} clips/s (B={TRAIN_B}, "
+            f"T={MEL_T}, flagship, kernel route)")
+        if label == "K=1 device_data":
+            wall_ms, rows, busy, groups = profile_device(lambda i: call(1 + i % calls), 3)
+            out["profile"] = dict(wall_ms=wall_ms, busy_ms=busy, kernels=len(rows),
+                                  launches=sum(r[2] for r in rows), groups=groups)
+            log(f"[profile] 3 device-resident K=1 train steps as CUDA graph replays: wall "
+                f"{wall_ms:.2f} ms, device kernels {busy:.2f} ms (busy share "
+                f"{busy / wall_ms:.3f}), {sum(r[2] for r in rows)} kernel executions seen by "
+                "torch.profiler inside the replays; by group (ms per step): "
+                + ", ".join(f"{g} {v / 3:.2f}" for g, v in groups.items()))
+        del runner
+    restore(state, snap)
+    del data
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------- references
 
 def unet_inputs(rng, rows: int, mel_t: int, cond_dim: int):
@@ -1762,7 +2134,9 @@ def unet_kernel_vs_plain_core(models, rng, mel_t: int) -> float:
 
 def run_long_form(models, rng, ddim_steps: int, n_blocks: int):
     """``generate_single_pass`` at 150 s and ``generate_long`` at 60 s (CFG
-    2.1, DDIM), each after an untimed DDIM-1 call at the same shapes; the
+    2.1, DDIM), each after an untimed call of the same chains: the windowed
+    chains then replay from the cache; the single pass's model copy starts
+    a fresh cache each call, so its timed call includes its capture. The
     launches of the timed calls are checked."""
     kw = dict(guidance_weight=2.1, method="ddim", seed=0)
     long_motion = rng.standard_normal((int(LONG_SECONDS * 30) + 1, 234)).astype(np.float32)
@@ -1783,7 +2157,7 @@ def run_long_form(models, rng, ddim_steps: int, n_blocks: int):
     }
     out = {}
     for label, (fn, mel_t, expected) in runs.items():
-        fn(1)
+        fn(ddim_steps)
         _build.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1834,31 +2208,41 @@ def route_break_even(models, rng, lengths=(516, 2048, 4096, 8192, LONG_T), reps:
 # ---------------------------------------------------------------- where the time goes
 
 def profile_chain(models, motion, lyrics, steps: int):
-    """Device kernel time by name over a ``steps``-step DDIM chain (B=1, CFG
-    2.1) under torch.profiler, and the device's busy share of the window."""
+    """A ``steps``-step DDIM chain (B=1, CFG 2.1) under torch.profiler, twice:
+    cached (CUDA graph replays; the busy share of the window, and how many
+    kernel executions the profiler sees inside the replays) and with every
+    step eager (device kernel time by name)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from lm2a_tpu_torch.core.graphs import eager_on_card
 
     run = lambda: generate_mel(models, motion, lyrics, MEL_T, method="ddim",  # noqa: E731
                                ddim_steps=steps, guidance_weight=2.1, seed=4)
     run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                   for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-                  key=lambda r: -r[1])
-    busy_ms = sum(r[1] for r in rows)
-    log(f"[profile] DDIM-{steps} chain, B=1 CFG 2.1: wall {wall_ms:.2f} ms "
-        f"({wall_ms / steps:.2f} ms/step), device kernels {busy_ms:.2f} ms, busy share "
-        f"{busy_ms / wall_ms:.3f}, {sum(r[2] for r in rows)} kernels")
-    for name, ms, n in rows[:12]:
-        log(f"[profile]   {ms:9.3f} ms {n:6d}x  {name[:90]}")
-    return dict(steps=steps, wall_ms=wall_ms, busy_ms=busy_ms,
-                kernels=[dict(name=r[0], ms=r[1], count=r[2]) for r in rows])
+    out = {}
+    for label in ("cached", "eager"):
+        with eager_on_card() if label == "eager" else contextlib.nullcontext():
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                       for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                      key=lambda r: -r[1])
+        busy_ms = sum(r[1] for r in rows)
+        log(f"[profile] DDIM-{steps} chain, B=1 CFG 2.1, {label}"
+            f"{' (CUDA graph replays)' if label == 'cached' else ' (every step eager)'}: wall "
+            f"{wall_ms:.2f} ms ({wall_ms / steps:.2f} ms/step), device kernels {busy_ms:.2f} ms, "
+            f"busy share {busy_ms / wall_ms:.3f}, {sum(r[2] for r in rows)} kernel executions "
+            "seen")
+        for name, ms, n in rows[:12 if label == "eager" else 4]:
+            log(f"[profile]   {ms:9.3f} ms {n:6d}x  {name[:90]}")
+        out[label] = dict(steps=steps, wall_ms=wall_ms, busy_ms=busy_ms,
+                          kernels=[dict(name=r[0], ms=r[1], count=r[2]) for r in rows])
+    return out
 
 
 # ---------------------------------------------------------------- main
@@ -2016,6 +2400,8 @@ def main(argv=None) -> int:
         f"warm-up {serve_launches} expected {serve_expected}")
     need(serve_launches == serve_expected,
          f"serve launch counts {serve_launches} != expected {serve_expected}")
+    report["serve_cache"] = run_serve_cache(ckpt, clips[0], os.path.join(work, "serve_cache"),
+                                            ddim_steps)
 
     # 4c. the 6 s fused route: a checkpoint whose config sets fused_attention
     fused_cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
@@ -2055,10 +2441,16 @@ def main(argv=None) -> int:
     routes = route_states(train["ckpt"], dev)
     batch = train_batch(train["pack"], dev)
     report["route_comparison"] = route_comparison(routes, batch, dev)  # 4e
+    report["graph_step"] = graph_step_vs_eager(routes, batch, dev)  # 4g
+    report["compiled_steps"] = time_compiled_steps(routes, train["pack"], dev)
     report["train_timing"] = time_routes(routes, batch, dev)
     report["train_profile"] = profile_train(*routes["kernel"], batch, dev)
     report["train"] = {k: v for k, v in train.items() if k not in ("pack", "ckpt")}
     del routes, batch
+    torch.cuda.empty_cache()
+    # 4g. cli train --steps_per_call 2 --device_data over 4d's pack, resumed
+    report["train_k2"] = run_train_k2(os.path.join(work, "train"), cfg.model, train["pack"],
+                                      train["ckpt"])
     torch.cuda.empty_cache()
     # 4f. cli distill from 4d's checkpoint over 4d's pack, resumed, the student sampled
     report["distill"] = run_distill(os.path.join(work, "distill"), train["ckpt"], train["pack"],
@@ -2072,30 +2464,33 @@ def main(argv=None) -> int:
     s = np.load(clips[0])
     motion, lyrics = s["motion"], s["lyrics"]
     times = {}
-    # warm-up at the timed shapes: cuBLAS/cuDNN pick their kernels on first use
-    generate_mel(models, motion, lyrics, MEL_T, guidance_weight=2.1, method="ddim", ddim_steps=2)
-    # DDIM-2 is timed too: a chain's seconds less DDIM-2's, over its steps less
-    # 2, is the marginal time of a step without the per-call set-up
+    # each chain twice: the first call captures its cache entry's CUDA graph
+    # (its first step the capture's warm-up), the second is timed and only
+    # replays. DDIM-2 is timed too: a chain's seconds less DDIM-2's, over its
+    # steps less 2, is the marginal time of a step without the per-call set-up
     for label, kw in (("ddim2", dict(method="ddim", ddim_steps=2)),
                       ("ddim50", dict(method="ddim", ddim_steps=50)),
                       (f"ddpm{args.ddpm_steps}", dict(method="ddpm",
                                                       steps=args.ddpm_steps))):
-        _build.reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        mel = generate_mel(models, motion, lyrics, MEL_T, guidance_weight=2.1, seed=3, **kw)[0]
-        torch.cuda.synchronize()
-        times[label] = time.perf_counter() - t0
-        need(mel.shape == (1, 80, MEL_T) and np.isfinite(mel).all(), f"{label}: bad mel")
         n_fwd = kw.get("ddim_steps") or kw["steps"]
-        need(_build.LAUNCHES["conv3_fused"] == 2 * n_blocks * n_fwd,
-             f"{label}: {dict(_build.LAUNCHES)}")
+        for key in (f"{label}_first", label):
+            _build.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mel = generate_mel(models, motion, lyrics, MEL_T, guidance_weight=2.1, seed=3,
+                               **kw)[0]
+            torch.cuda.synchronize()
+            times[key] = time.perf_counter() - t0
+            need(mel.shape == (1, 80, MEL_T) and np.isfinite(mel).all(), f"{label}: bad mel")
+            need(_build.LAUNCHES["conv3_fused"] == 2 * n_blocks * n_fwd,
+                 f"{label}: {dict(_build.LAUNCHES)}")
         marginal = ("" if label == "ddim2" else
                     f", marginal {(times[label] - times['ddim2']) / (n_fwd - 2) * 1e3:.2f} "
                     "ms per step")
-        log(f"[chain] {label}: B=1 T={MEL_T} CFG 2.1 bf16: {times[label]:.4f} s, "
-            f"{MEL_T / times[label]:.1f} mel frames/s, "
-            f"{times[label] / n_fwd * 1e3:.2f} ms per step (2-row forward){marginal}")
+        log(f"[chain] {label}: B=1 T={MEL_T} CFG 2.1 bf16, cached (CUDA graph replays): "
+            f"{times[label]:.4f} s, {MEL_T / times[label]:.1f} mel frames/s, "
+            f"{times[label] / n_fwd * 1e3:.2f} ms per step (2-row forward){marginal}; the "
+            f"first call with its capture {times[label + '_first']:.4f} s")
     voc = Vocoder(device=dev, seed=0)
     voc.mel_to_wav(mel[0])
     torch.cuda.synchronize()
@@ -2113,6 +2508,9 @@ def main(argv=None) -> int:
     # 5b. long form, timed, and the length where the fused route starts to win
     report["longform"] = run_long_form(models, rng, ddim_steps=10, n_blocks=n_blocks)
     report["route_break_even"] = route_break_even(models, rng)
+    # 5c. cached chains against eager chains, the cache's captures and memory
+    report["graphs"] = graph_vs_eager_chains(models, clips, rng)
+    report["sampler_cache"] = sampler_cache_memory(models, "after phases 5-5c")
 
     # 6. references on the host CPU
     cpu_models = load_models(ckpt, device="cpu")

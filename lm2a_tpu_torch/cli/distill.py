@@ -116,15 +116,18 @@ def main(args=None):
 
     from lm2a_tpu_torch.core.config import LM2AConfig, TrainConfig, config_from_dict
     from lm2a_tpu_torch.core.device import resolve_device
-    from lm2a_tpu_torch.data.dataset import BatchIterator, device_prefetch, open_dataset
+    from lm2a_tpu_torch.data.dataset import (
+        BatchIterator, device_prefetch, open_dataset, upload_dataset,
+    )
     from lm2a_tpu_torch.diffusion.schedule import make_schedule
     from lm2a_tpu_torch.training import distill
     from lm2a_tpu_torch.training.adan import cosine_decay_schedule
     from lm2a_tpu_torch.training.checkpoint import (
         latest_checkpoint, load_ema, load_metadata, restore_checkpoint, save_checkpoint,
     )
-    from lm2a_tpu_torch.training.loop import step_generator
-    from lm2a_tpu_torch.training.train_step import init_train_state, make_optimizer
+    from lm2a_tpu_torch.training.train_step import (
+        init_train_state, make_optimizer, step_generator,
+    )
 
     dev = resolve_device(args.device)
     meta = load_metadata(args.teacher)
@@ -201,7 +204,7 @@ def main(args=None):
     if k_fuse > 1 and hasattr(ds, "mel"):
         nbytes = sum(np.asarray(getattr(ds, k)).nbytes for k in ("mel", "motion", "lyrics"))
         print(f"uploading dataset to device ({nbytes / 1e9:.2f} GB) ...", flush=True)
-        data = distill.upload_dataset(ds, dev)
+        data = upload_dataset(ds, dev)
 
     # a distilled teacher's eps is already CFG-folded: every stage runs at
     # w = 1.0 and the metadata keeps the original fold

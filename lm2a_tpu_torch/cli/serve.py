@@ -4,11 +4,15 @@ The port of ``python -m lm2a_tpu.cli serve``: a long-lived process reads one
 JSON request per line on stdin and writes one JSON response per line on
 stdout. Model parameters load once (a checkpoint directory or a reference
 ``.pt`` file); ``--device`` (default ``cuda``; ``cpu`` runs the kernels'
-plain versions) places them. The JAX package also keeps an LRU cache of
-compiled XLA sampler chains (``sampler_cache_max``); PyTorch runs eagerly,
-so the port compiles no chain and has no such cache. ``--warmup_t`` runs one
-chain at that geometry before the first request: on the card that builds the
-CUDA kernels and lets cuBLAS/cuDNN pick theirs.
+plain versions) places them. As in the JAX package, the sampler chain is
+cached per request geometry (mel_t, steps, guided?, method, batch) in an LRU
+capped at 16 entries for this long-lived process: on the card an entry is
+the CUDA graph of the chain's step, captured at the first request of that
+geometry; the CFG weight is a device scalar, so every weight above 1 shares
+one entry. A later request of a cached geometry costs only the graph
+replays and the host's file work. ``--warmup_t`` runs one chain at that
+geometry before the first request: on the card that builds the CUDA
+kernels and captures that geometry's chain.
 
 Two-stage pipeline: device compute runs on the main thread; host IO (npz /
 wav / PNG writes) runs on a single writer thread, overlapping the NEXT
@@ -293,6 +297,7 @@ def main(args=None):
 
     t0 = time.perf_counter()
     models = load_models(args.ckpt, device=args.device)
+    models.sampler_cache_max = 16  # long-lived process: bound the cached chains
     print(f"[serve] loaded {args.ckpt} on {models.device} in "
           f"{time.perf_counter() - t0:.1f}s (timesteps={models.timesteps})",
           file=sys.stderr)

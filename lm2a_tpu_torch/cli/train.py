@@ -8,12 +8,16 @@ are the JAX package's full-state layout, so either package resumes the
 other's. ``--fused_resblock_grad`` routes the blocks that pass the JAX
 kernel's gate through the fused chain and its CUDA backward;
 ``--opt_backend pallas`` runs the CUDA Adan+EMA kernel (the value keeps the
-JAX name so the config round-trips).
+JAX name so the config round-trips). On the card every step is a replay of
+one captured CUDA graph of the step. ``--steps_per_call K`` runs K steps a
+call over groups of K batches; with ``--device_data`` (and a packed split)
+the pack is uploaded to the device once and each call stages only (K, B)
+row indices, as the JAX package does.
 
-Refused, not ported: ``--steps_per_call`` > 1, ``--device_data``,
-``--quality_every_epochs``, ``--fused_opt 0``, ``--rng rbg`` (a TPU
-generator) and the multi-host flags (``--coordinator``,
-``--num_processes``, ``--process_id``, ``--model_parallel`` > 1).
+Refused, not ported: ``--quality_every_epochs``, ``--fused_opt 0``,
+``--rng rbg`` (a TPU generator) and the multi-host flags
+(``--coordinator``, ``--num_processes``, ``--process_id``,
+``--model_parallel`` > 1).
 """
 
 import argparse
@@ -68,12 +72,16 @@ def build_parser(p=None):
                         "kernel launch updates every leaf)")
     p.add_argument("--amp", action="store_true",
                    help="accepted for reference-script compatibility (bf16 is the default)")
-    p.add_argument("--steps_per_call", type=int, default=1, help="1 only (not ported)")
+    p.add_argument("--steps_per_call", type=int, default=1,
+                   help="K optimizer steps per call over groups of K batches (1 = "
+                        "one step a call); tail batches run single steps")
     p.add_argument("--keep_checkpoints", type=int, default=0,
                    help="prune to newest N checkpoints (0 = keep all)")
     p.add_argument("--ckpt_fetch_workers", type=int, default=0,
                    help="kept for the config round trip; the port fetches in one pass")
-    p.add_argument("--device_data", action="store_true", help="not ported")
+    p.add_argument("--device_data", action="store_true",
+                   help="with --steps_per_call > 1 and a packed split: keep the dataset "
+                        "on the device, stage only row indices per call")
     p.add_argument("--fused_resblock_grad", action="store_true",
                    help="route fitting residual blocks through the fused chain and "
                         "its CUDA backward kernels")

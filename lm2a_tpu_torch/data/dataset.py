@@ -10,8 +10,13 @@
 
 :class:`BatchIterator` yields stacked numpy batches, shuffled with
 ``default_rng(seed + epoch)`` and dropping the remainder, so both packages
-see the same batches in the same order. :func:`device_prefetch` stages the
-next batches onto the card from a background thread.
+see the same batches in the same order. :func:`superbatch_iterator` and
+:class:`SuperbatchStream` are the fused K-step mode's source: ``("multi",
+(K, B, T, .))`` groups then ``("single", (B, T, .))`` tail batches, in the
+JAX package's row order, the stream gathering groups ahead across epochs on
+a thread of its own. :func:`device_prefetch` stages the next batches onto
+the card from a background thread; :func:`upload_dataset` puts a packed
+split on the device once (the ``device_data`` form).
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
+from lm2a_tpu_torch.core.graphs import CAPTURE_LOCK
 from lm2a_tpu_torch.data.schema import load_sample, normalize_mel_layout
 from lm2a_tpu_torch.ops.moments import RunningMoments
 from lm2a_tpu_torch.ops.resample import match_len
@@ -123,6 +129,13 @@ def open_dataset(path: str, align_mode: str = "interp"):
     return MelNpzDataset(path, align_mode=align_mode)
 
 
+def _gather(dataset, idx: np.ndarray) -> Dict[str, np.ndarray]:
+    if isinstance(dataset, PackedDataset):
+        return dataset.gather(idx)
+    items = [dataset[int(i)] for i in idx]
+    return {k: np.stack([it[k] for it in items]) for k in KEYS}
+
+
 class BatchIterator:
     """Seeded, shuffled, drop-remainder batches of static shape over a
     :class:`PackedDataset` or a :class:`MelNpzDataset`."""
@@ -145,22 +158,139 @@ class BatchIterator:
         self.epoch += 1
         bs = self.batch_size
         for start in range(0, n - bs + 1, bs):
-            idx = order[start:start + bs]
-            if isinstance(self.dataset, PackedDataset):
-                yield self.dataset.gather(idx)
-            else:
-                items = [self.dataset[int(i)] for i in idx]
-                yield {k: np.stack([it[k] for it in items]) for k in KEYS}
+            yield _gather(self.dataset, order[start:start + bs])
 
 
-def device_prefetch(iterator, device, depth: int = 2):
-    """Yield the batches of ``iterator`` as dicts of tensors on ``device``.
+def _epoch_order(n: int, shuffle: bool, seed: int) -> np.ndarray:
+    order = np.arange(n)
+    if shuffle:
+        np.random.default_rng(seed).shuffle(order)
+    return order
+
+
+def _multi(flat: Dict[str, np.ndarray], k: int, bs: int) -> Dict[str, np.ndarray]:
+    return {key: v.reshape((k, bs) + v.shape[1:]) for key, v in flat.items()}
+
+
+def superbatch_indices(n: int, batch_size: int, k: int, shuffle: bool = True,
+                       seed: int = 0) -> Iterator[tuple]:
+    """The rows of one epoch of the fused K-step mode over ``n`` rows:
+    ``("multi", (K, B) rows)`` for each full group of K batches of the
+    ``default_rng(seed)`` order, then ``("single", (1, B) rows)`` for each
+    tail batch that does not fill a group; the order of
+    :func:`superbatch_iterator`, and the rows ``--device_data`` gathers on
+    the device."""
+    order = _epoch_order(n, shuffle, seed)
+    group = batch_size * k
+    n_groups = n // group
+    for g in range(n_groups):
+        yield "multi", order[g * group:(g + 1) * group].reshape(k, batch_size)
+    for start in range(n_groups * group, n - batch_size + 1, batch_size):
+        yield "single", order[start:start + batch_size][None]
+
+
+def superbatch_iterator(dataset, batch_size: int, k: int, shuffle: bool = True,
+                        seed: int = 0) -> Iterator[tuple]:
+    """One epoch of the fused K-step mode: ``("multi", {key: (K, B, T, .)})``
+    for each full group of K batches (one K*B-row gather, the rows of K
+    consecutive batches of the ``default_rng(seed)`` order), then
+    ``("single", {key: (B, T, .)})`` for the tail batches that do not fill a
+    group; the JAX package's stream."""
+    for tag, rows in superbatch_indices(len(dataset), batch_size, k, shuffle, seed):
+        flat = _gather(dataset, rows.reshape(-1))
+        yield tag, (_multi(flat, k, batch_size) if tag == "multi" else flat)
+
+
+class SuperbatchStream:
+    """The fused K-step mode's stream across epochs: the batches of
+    :func:`superbatch_iterator` with seed ``base_seed + epoch``, while a
+    thread of its own gathers up to ``depth`` groups ahead, across epoch
+    boundaries (the first groups of epoch e+1 are gathered while epoch e's
+    tail, validation and checkpoints run). Epochs are consumed in order; an
+    early stop retires the stream with :meth:`drain`."""
+
+    def __init__(self, dataset, batch_size: int, k: int, base_seed: int = 0,
+                 shuffle: bool = True, total_epochs: Optional[int] = None,
+                 start_epoch: int = 0, depth: int = 2):
+        self.ds, self.bs, self.k = dataset, batch_size, k
+        self.base_seed, self.shuffle = base_seed, shuffle
+        self.n_groups = len(dataset) // (batch_size * k)
+        self._next_epoch = start_epoch
+        self._queue: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
+        self._stop = threading.Event()
+        self._thread = None
+        if self.n_groups and (total_epochs is None or start_epoch < total_epochs):
+            self._thread = threading.Thread(target=self._gather_ahead,
+                                            args=(start_epoch, total_epochs), daemon=True)
+            self._thread.start()
+
+    def _rows(self, epoch: int) -> Iterator[tuple]:
+        return superbatch_indices(len(self.ds), self.bs, self.k, self.shuffle,
+                                  self.base_seed + epoch)
+
+    def _gather_ahead(self, epoch: int, total_epochs: Optional[int]) -> None:
+        while total_epochs is None or epoch < total_epochs:
+            for tag, rows in self._rows(epoch):
+                if tag != "multi":
+                    break
+                try:
+                    item = (epoch, _multi(_gather(self.ds, rows.reshape(-1)), self.k, self.bs))
+                except BaseException as e:  # raised in the consumer
+                    item = (epoch, e)
+                while not self._stop.is_set():
+                    try:
+                        self._queue.put(item, timeout=0.1)
+                        break
+                    except queue.Full:
+                        continue
+                if self._stop.is_set() or isinstance(item[1], BaseException):
+                    return
+            epoch += 1
+
+    def epoch(self, epoch: int) -> Iterator[tuple]:
+        """Epoch ``epoch``'s ("multi"/"single", batch) stream."""
+        if epoch != self._next_epoch:
+            raise ValueError(f"epochs must be consumed in order: expected "
+                             f"{self._next_epoch}, got {epoch}")
+        self._next_epoch = epoch + 1
+        for _ in range(self.n_groups):
+            e, item = self._queue.get()
+            if isinstance(item, BaseException):
+                raise item
+            if e != epoch:
+                raise RuntimeError(f"superbatch stream gathered epoch {e} for epoch {epoch}")
+            yield "multi", item
+        for tag, rows in self._rows(epoch):
+            if tag == "single":
+                yield tag, _gather(self.ds, rows[0])
+
+    def drain(self) -> None:
+        """Retire the stream: stop gathering ahead and drop what is queued."""
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=60.0)
+            self._thread = None
+        while not self._queue.empty():
+            self._queue.get_nowait()
+
+
+def upload_dataset(ds, device) -> Dict[str, torch.Tensor]:
+    """A packed dataset's ``mel``/``motion``/``lyrics`` arrays on ``device``, once."""
+    return {k: torch.from_numpy(np.array(getattr(ds, k), dtype=np.float32)).to(device)
+            for k in KEYS}
+
+
+def device_prefetch(iterator, device, depth: int = 2, tagged: bool = False):
+    """Yield the batches of ``iterator`` as dicts of tensors on ``device``
+    (``tagged``: ``(tag, batch)`` items, the tag passed through).
 
     A background thread stages up to ``depth`` batches ahead: on a card it
     copies each batch from pinned host memory with ``non_blocking`` copies
-    on a side stream and records an event; the consumer's stream waits on
-    that event before the batch is used. An exception in the producer is
-    raised in the consumer. Abandoning the generator stops the producer.
+    on a side stream and records an event, holding ``CAPTURE_LOCK`` (so
+    none of these calls lands inside a CUDA graph capture); the consumer's
+    stream waits on that event before the batch is used. An exception in
+    the producer is raised in the consumer. Abandoning the generator stops
+    the producer.
     """
     device = torch.device(device)
     cuda = device.type == "cuda"
@@ -169,15 +299,17 @@ def device_prefetch(iterator, device, depth: int = 2):
     stop = threading.Event()
     done = object()
 
-    def stage(batch):
+    def stage(item):
+        tag, batch = item if tagged else (None, item)
         if not cuda:
-            return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}, None
-        with torch.cuda.stream(copy_stream):
+            out = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
+            return tag, out, None
+        with CAPTURE_LOCK, torch.cuda.stream(copy_stream):
             out = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
                    .to(device, non_blocking=True) for k, v in batch.items()}
             ev = torch.cuda.Event()
             ev.record(copy_stream)
-        return out, ev
+        return tag, out, ev
 
     def put(item) -> bool:
         while not stop.is_set():
@@ -211,13 +343,13 @@ def device_prefetch(iterator, device, depth: int = 2):
                 return
             if isinstance(item, BaseException):
                 raise item
-            batch, ev = item
+            tag, batch, ev = item
             if ev is not None:
                 cur = torch.cuda.current_stream(device)
                 cur.wait_event(ev)
                 for v in batch.values():
                     v.record_stream(cur)
-            yield batch
+            yield (tag, batch) if tagged else batch
     finally:
         stop.set()
         t.join(timeout=60.0)

@@ -13,6 +13,9 @@ Two protocols:
   is linear in T (the kernel never holds (T, S) scores); compute is
   quadratic.
 
+Both run their chains through ``inference.sample``'s chain cache: on the
+card each geometry's step is a CUDA graph, replayed step after step.
+
 ``window_conditions`` and ``crossfade_stitch`` are numpy copies of the JAX
 functions.
 """
@@ -137,7 +140,9 @@ def with_streaming_attention(models: LoadedModels, mel_t: int) -> LoadedModels:
     copy's denoiser shares every weight tensor with ``models.denoiser``
     (``UNet1DUltimate.with_fused_attention``), the caller's ``models`` is
     left as it is, and the distilled metadata is kept: losing it would send
-    method and guidance resolution back to DDPM at 2.1."""
+    method and guidance resolution back to DDPM at 2.1. Its sampler cache is
+    fresh (its chains run another route, so other graphs), as in the JAX
+    package."""
     if mel_t <= attention.FUSED_ATTENTION_MIN_T:
         return models
     cfg = dataclasses.replace(models.cfg, model=dataclasses.replace(

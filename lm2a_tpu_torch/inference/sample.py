@@ -13,13 +13,24 @@ the checkpoint's config names (``fused_attention``). Noise comes from a
 ``torch.Generator`` seeded per call, with the JAX package's per-chunk seed
 offsets, so runs are reproducible per device but do not reproduce JAX's
 random streams.
+
+``LoadedModels`` caches one sampler chain per geometry (``mel_t``, steps,
+guided?, method, batch, DDIM steps) in an LRU of ``sampler_cache_max``
+entries, as the JAX package caches its jitted chains: on the card an entry
+holds the chain's static buffers and the CUDA graph of its step, captured
+at the entry's first chain and replayed by every later one; every CFG
+weight above 1 shares one entry. The entries' captures share one memory
+pool: all replay on one stream, one at a time, and each keeps its static
+buffers referenced, so one graph's dead intermediates are all another may
+reuse. The ``--debug`` telemetry chain runs eagerly, outside the cache.
 """
 
 from __future__ import annotations
 
 import os
 import sys
-from dataclasses import dataclass
+from collections import OrderedDict
+from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
@@ -29,8 +40,9 @@ from lm2a_tpu_torch.checkpoint import load_metadata, read_params
 from lm2a_tpu_torch.convert import jax_params_to_torch
 from lm2a_tpu_torch.core.config import DiffusionConfig, LM2AConfig, config_from_dict
 from lm2a_tpu_torch.core.device import DeviceLike, dtype_from_str, resolve_device
+from lm2a_tpu_torch.core.graphs import new_pool
 from lm2a_tpu_torch.data.schema import load_sample, normalize_mel_layout
-from lm2a_tpu_torch.diffusion.gaussian import ddim_sample, ddpm_sample
+from lm2a_tpu_torch.diffusion.gaussian import SamplerChain, ddim_sample, ddpm_sample
 from lm2a_tpu_torch.diffusion.schedule import make_schedule
 from lm2a_tpu_torch.models.factory import build_cond_projection, build_denoiser
 from lm2a_tpu_torch.ops.resample import match_len
@@ -59,6 +71,28 @@ class LoadedModels:
     folded_guidance: Optional[float] = None
     # post-hoc z-space std rescale of each generated clip; None = off
     std_calibration: Optional[float] = None
+    # the sampler chain cache (see the module docstring); cli serve sets 16.
+    # Not init fields, so a dataclasses.replace copy starts with a fresh cache
+    sampler_cache_max: int = 64
+    _samplers: "OrderedDict" = field(default_factory=OrderedDict, init=False, repr=False)
+    _pool: object = field(default=None, init=False, repr=False)
+
+    def _sampler_get(self, key) -> Optional[SamplerChain]:
+        chain = self._samplers.get(key)
+        if chain is not None:  # refresh its LRU position
+            self._samplers.move_to_end(key)
+        return chain
+
+    def _sampler_put(self, key, chain: SamplerChain) -> None:
+        while len(self._samplers) >= max(1, self.sampler_cache_max):
+            self._samplers.popitem(last=False)
+        self._samplers[key] = chain
+
+    def sampler_pool(self):
+        """The CUDA graph memory pool this model's cached chains share."""
+        if self._pool is None:
+            self._pool = new_pool(self.device)
+        return self._pool
 
 
 def load_models(ckpt_path: str, cfg: Optional[LM2AConfig] = None, prefer_ema: bool = True,
@@ -178,21 +212,36 @@ def _run_chain(models: LoadedModels, motion_f, text_f, mel_t: int, steps: int,
                debug: bool = False):
     cfg = models.cfg
     dev = models.device
-    schedule = make_schedule(DiffusionConfig(
-        timesteps=steps, beta_start=cfg.diffusion.beta_start,
-        beta_end=cfg.diffusion.beta_end), device=dev)
-    guided = guidance_weight > 1.0
-    gen = torch.Generator(device=dev).manual_seed(int(seed))
-    shape = (motion_f.shape[0], mel_t, cfg.model.in_dim)
-    kw = dict(guidance_weight=guidance_weight if guided else 1.0, generator=gen,
-              uncond_fast=guided)  # constant-fold the CFG uncond rows' attention
-    if method == "ddpm":
-        return ddpm_sample(models.denoiser, schedule, shape, motion_f, text_f,
-                           collect_stats=debug, **kw)
-    if method != "ddim":
+    if method not in ("ddpm", "ddim"):
         raise ValueError(f"unknown method {method!r}; use 'ddpm' or 'ddim'")
-    return ddim_sample(models.denoiser, schedule, shape, motion_f, text_f,
-                       num_steps=_ddim_num_steps(steps, ddim_steps), **kw)
+    guided = guidance_weight > 1.0
+    shape = (motion_f.shape[0], mel_t, cfg.model.in_dim)
+    num_ddim = None if method == "ddpm" else _ddim_num_steps(steps, ddim_steps)
+    kw = dict(guidance_weight=guidance_weight if guided else 1.0,
+              uncond_fast=guided)  # constant-fold the CFG uncond rows' attention
+
+    def schedule():
+        return make_schedule(DiffusionConfig(
+            timesteps=steps, beta_start=cfg.diffusion.beta_start,
+            beta_end=cfg.diffusion.beta_end), device=dev)
+
+    if debug and method == "ddpm":  # the telemetry chain runs eagerly, uncached
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        return ddpm_sample(models.denoiser, schedule(), shape, motion_f, text_f,
+                           generator=gen, collect_stats=True, **kw)
+    key = (mel_t, steps, guided, method, shape[0], num_ddim)
+    chain = models._sampler_get(key)
+    if chain is None:
+        chain = SamplerChain(schedule(), shape, method, num_steps=num_ddim,
+                             generator=torch.Generator(device=dev),
+                             pool=models.sampler_pool())
+        models._sampler_put(key, chain)
+    chain.generator.manual_seed(int(seed))
+    if method == "ddpm":
+        return ddpm_sample(models.denoiser, chain.schedule, shape, motion_f, text_f,
+                           generator=chain.generator, chain=chain, **kw)
+    return ddim_sample(models.denoiser, chain.schedule, shape, motion_f, text_f,
+                       num_steps=num_ddim, generator=chain.generator, chain=chain, **kw)
 
 
 def _finish(models: LoadedModels, out: torch.Tensor) -> np.ndarray:

@@ -33,8 +33,9 @@ from lm2a_tpu_torch.ops.attention import attention_core
 
 
 def _inv_scale(hd: int, like: torch.Tensor) -> torch.Tensor:
-    # sqrt(hd) in the activation dtype, as jnp.sqrt(asarray(hd, q.dtype))
-    return torch.sqrt(torch.tensor(float(hd), dtype=like.dtype, device=like.device))
+    # sqrt(hd) in the activation dtype, as jnp.sqrt(asarray(hd, q.dtype)); made
+    # on the device (no host copy, so a CUDA graph can capture it)
+    return torch.full((), float(hd), dtype=like.dtype, device=like.device).sqrt()
 
 
 class MultiheadAttention(nn.Module):

@@ -9,7 +9,10 @@ first kernel launch (or an explicit ``build_all``) does it.
 
 ``launch`` is the single place a kernel is launched from Python: it calls
 the C entry, raises if the returned ``cudaError_t`` is not 0, and adds one
-to the kernel's count in ``LAUNCHES``.
+to the kernel's count in ``LAUNCHES``. Under a CUDA graph capture
+(``recording``) the launch is recorded against that graph instead: a
+capture runs nothing, and a replay makes no Python call, so the graph adds
+its record to ``LAUNCHES`` at every replay (``count``).
 """
 
 from __future__ import annotations
@@ -21,8 +24,9 @@ import shutil
 import subprocess
 import time
 from collections import Counter
+from contextlib import contextmanager
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterator, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lm2a_tpu_torch"
@@ -33,6 +37,10 @@ NVCC_FLAGS = [
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: Counter = Counter()
+# the record of the graph being captured (launch() counts into it), or None;
+# module-wide, not per thread, because autograd runs a captured backward on
+# its own thread
+_recording: Optional[Counter] = None
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _argtypes: Dict[tuple, list] = {}
@@ -42,6 +50,23 @@ build_log: Dict[str, str] = {}
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+
+
+@contextmanager
+def recording(into: Counter) -> Iterator[Counter]:
+    """Count the launches made inside the block into ``into`` (a capture's
+    record), not into ``LAUNCHES``."""
+    global _recording
+    prev, _recording = _recording, into
+    try:
+        yield into
+    finally:
+        _recording = prev
+
+
+def count(launches: Counter) -> None:
+    """Add a captured graph's record to ``LAUNCHES``: one replay's launches."""
+    LAUNCHES.update(launches)
 
 
 def _nvcc() -> str:
@@ -134,7 +159,7 @@ def launch(lib_name: str, fn_name: str, kernel: str, *args) -> None:
     if err != 0:
         why = HOST_REFUSALS.get(err, f"cudaError_t {err}")
         raise RuntimeError(f"CUDA kernel {kernel} ({fn_name}) failed: {why}")
-    LAUNCHES[kernel] += 1
+    (LAUNCHES if _recording is None else _recording)[kernel] += 1
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -23,6 +23,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from lm2a_tpu_torch.core.graphs import stage
 from lm2a_tpu_torch.ops import _build
 from lm2a_tpu_torch.ops.resblock import _is_cuda, _need
 
@@ -37,22 +38,28 @@ _build.declare("adan", "lm2a_adan_ema",
                [_P, _P, _I, _L, _P, _F, _F, _F, _F, _F, _F, _F, _F, _I, _I, _P])
 
 
-def step_scalars(step: int, gnorm: torch.Tensor, lr: float, *, betas, weight_decay: float,
-                 ema_decay: float, device) -> torch.Tensor:
-    """The 8 scalars of the step after ``step`` completed steps, fp32 on
-    ``device``: host-side fp32 arithmetic as the JAX package's (bias
-    corrections ``1 / (1 - (1-b)^step)`` at the 1-indexed step), then the
-    device-side ``gnorm`` written into slot 1 without a host sync."""
+def host_scalars(step: int, lr: float, *, betas, weight_decay: float,
+                 ema_decay: float) -> np.ndarray:
+    """The 8 scalars of the step after ``step`` completed steps, fp32 on the
+    host, as the JAX package computes them (bias corrections ``1 / (1 -
+    (1-b)^step)`` at the 1-indexed step); slot 1, the gradient norm, holds
+    1.0 until the step writes the norm it computes on the device."""
     f32 = np.float32
     sf = f32(step + 1)
     c = [f32(1.0) / (f32(1.0) - f32(1.0 - b) ** sf) for b in betas]
     lr32 = f32(lr)
     denom = f32(1.0) + f32(weight_decay) * lr32
-    host = np.array([f32(step > 0), 0.0, lr32, c[0], c[1], c[2], denom, f32(ema_decay)],
+    return np.array([f32(step > 0), 1.0, lr32, c[0], c[1], c[2], denom, f32(ema_decay)],
                     dtype=np.float32)
-    t = torch.from_numpy(host)
-    if torch.device(device).type == "cuda":
-        t = t.pin_memory().to(device, non_blocking=True)
+
+
+def step_scalars(step: int, gnorm: torch.Tensor, lr: float, *, betas, weight_decay: float,
+                 ema_decay: float, device) -> torch.Tensor:
+    """``host_scalars`` staged on ``device`` (``core.graphs.stage``: no host
+    sync), then the device-side ``gnorm`` written into slot 1."""
+    t = torch.empty(N_SCALARS, dtype=torch.float32, device=device)
+    stage(t, host_scalars(step, lr, betas=betas, weight_decay=weight_decay,
+                          ema_decay=ema_decay))
     t[1] = gnorm
     return t
 
@@ -132,6 +139,10 @@ class AdanEma:
               and scal.device == dev, "adan_ema: scalars must be fp32 (8,) on the leaves' device")
         key = tuple(t.data_ptr() for leaf in leaves for t in leaf)
         if key != self._key:
+            # a pinned host copy: legal only outside a CUDA graph capture (the
+            # warm-up call builds the table; the leaves then stay where they are)
+            _need(not torch.cuda.is_current_stream_capturing(),
+                  "adan_ema: the leaf table must be built before a CUDA graph capture")
             self._table = self._build_table(leaves, dev)
             self._key = key
         table, first, n_chunks, bf16_state = self._table

@@ -147,7 +147,7 @@ def attention_core_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
     # in place: at long form the (B, H, T, S) fp32 scores are gigabytes. The
     # max is a constant shift (softmax does not depend on it), so it is
     # detached and the gradient stays exact.
-    s.div_(torch.sqrt(torch.tensor(float(hd), device=q.device)))
+    s.div_(torch.full((), float(hd), dtype=torch.float32, device=q.device).sqrt())
     s.sub_(s.detach().amax(dim=-1, keepdim=True)).exp_()
     denom = s.sum(dim=-1, keepdim=True)
     out = torch.matmul(s.to(v.dtype).float(), v.float()) / denom

@@ -228,8 +228,10 @@ def _check_act(fn, src, mean, rstd, gamma, beta):
     _need(src.dtype in (torch.bfloat16, torch.float32) and src.is_contiguous(),
           f"{fn}: the GroupNorm input must be contiguous bf16 or fp32")
     groups = mean.shape[1]
-    _need(c % groups == 0 and (c // groups) % 16 == 0,
-          f"{fn}: C/G must be a multiple of 16")
+    # conv3_wgrad's prologue normalizes 8 channels of one group at a time;
+    # conv3_dgrad's epilogue takes a group per channel
+    _need(c % groups == 0 and (c // groups) % 8 == 0,
+          f"{fn}: C/G must be a multiple of 8")
     for s, name in ((mean, "mean"), (rstd, "rstd")):
         _check_stats(s, b, groups, src.device, f"{fn} {name}")
     for v, name in ((gamma, "gamma"), (beta, "beta")):

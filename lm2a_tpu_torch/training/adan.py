@@ -31,8 +31,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from lm2a_tpu_torch.core.graphs import stage
 from lm2a_tpu_torch.ops.adan import (
-    AdanEma, adan_ema_plain, global_norm, step_scalars,
+    N_SCALARS, AdanEma, adan_ema_plain, global_norm, host_scalars,
 )
 
 BETAS = (0.02, 0.08, 0.01)
@@ -117,28 +118,55 @@ class Adan:
     def init(self, params: Dict[str, torch.Tensor]) -> AdanState:
         return init_adan_state(params, self.state_dtype)
 
+    def host_scalars(self, step: int) -> np.ndarray:
+        """The 8 scalars of the step after ``step`` completed steps, on the
+        host (slot 1, the gradient norm, 1.0 until ``apply`` writes it)."""
+        return host_scalars(step, self.lr_schedule(step + 1), betas=BETAS,
+                            weight_decay=self.weight_decay, ema_decay=self.ema_decay)
+
+    def stage_scalars(self, step: int, out: torch.Tensor) -> torch.Tensor:
+        """Stage into ``out`` the host scalars of the steps after ``step``
+        completed steps: a (K, 8) table for K steps, or (8,) for one (no host
+        sync; ``core.graphs.stage``). Returns ``out``."""
+        k = out.shape[0] if out.dim() == 2 else 1
+        table = np.stack([self.host_scalars(step + j) for j in range(k)])
+        return stage(out, table.reshape(out.shape))
+
     def scalars(self, state: AdanState, grads: List[torch.Tensor]) -> torch.Tensor:
         """The step's 8 scalars on the gradients' device (no host sync)."""
-        dev = grads[0].device
-        gnorm = (global_norm(grads) if self.grad_clip > 0
-                 else torch.ones((), dtype=torch.float32, device=dev))
-        return step_scalars(state.step, gnorm, self.lr_schedule(state.step + 1), betas=BETAS,
-                            weight_decay=self.weight_decay, ema_decay=self.ema_decay,
-                            device=dev)
+        scal = self.stage_scalars(state.step, torch.empty(N_SCALARS, dtype=torch.float32,
+                                                          device=grads[0].device))
+        self.write_gnorm(scal, grads)
+        return scal
+
+    def write_gnorm(self, scal: torch.Tensor, grads: List[torch.Tensor]) -> None:
+        """Slot 1: the global gradient norm when clipping (else it stays 1.0)."""
+        if self.grad_clip > 0:
+            scal[1] = global_norm(grads)
 
     @torch.no_grad()
-    def update(self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
-               ema: Dict[str, torch.Tensor], state: AdanState) -> None:
-        """One step: params, EMA and state updated in place; ``state.step``
-        counts up."""
+    def apply(self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
+              ema: Dict[str, torch.Tensor], state: AdanState, scal: torch.Tensor) -> None:
+        """The step's device work with its staged scalars ``scal`` (8,) fp32:
+        the gradient norm into slot 1, then params, EMA and state updated in
+        place. ``state.step`` is the caller's to count (``update``)."""
         names = list(params)
         leaves = [(grads[k], params[k], ema[k], state.m[k], state.v[k], state.n[k],
                    state.prev_grad[k]) for k in names]
-        scal = self.scalars(state, [leaf[0] for leaf in leaves])
+        self.write_gnorm(scal, [leaf[0] for leaf in leaves])
         if self.backend == "pallas":
             self._kernel(leaves, scal)
         else:
             for leaf in leaves:
                 adan_ema_plain(leaf, scal, betas=BETAS, eps=EPS, clip=self.grad_clip,
                                ema_term=1.0 - self.ema_decay)
+
+    @torch.no_grad()
+    def update(self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
+               ema: Dict[str, torch.Tensor], state: AdanState) -> None:
+        """One step: its scalars staged, ``apply``, and ``state.step`` counts up."""
+        dev = next(iter(grads.values())).device
+        scal = self.stage_scalars(state.step, torch.empty(N_SCALARS, dtype=torch.float32,
+                                                          device=dev))
+        self.apply(params, grads, ema, state, scal)
         state.step += 1

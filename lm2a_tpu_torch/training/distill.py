@@ -22,7 +22,7 @@ Routes on the card:
   card, its plain per-leaf version on the CPU.
 
 Randomness: each step draws its student grid index, then its noise, from
-the generator the caller passes (``training.loop.step_generator(seed,
+the generator the caller passes (``training.train_step.step_generator(seed,
 global step)``), or takes them injected (``DistillDraws``). The K-step form
 (``make_device_data_multistep_distill``) is a loop of the single step over
 batches gathered on the device, so it equals K single steps bit for bit.
@@ -38,15 +38,13 @@ import torch
 
 from lm2a_tpu_torch.core.config import LM2AConfig
 from lm2a_tpu_torch.core.device import dtype_from_str
-from lm2a_tpu_torch.data.dataset import KEYS
 from lm2a_tpu_torch.diffusion.gaussian import ddim_time_grid, guided_eps
 from lm2a_tpu_torch.diffusion.schedule import Schedule
 from lm2a_tpu_torch.models.embedding import CondProjection
 from lm2a_tpu_torch.models.factory import build_cond_projection, build_denoiser
 from lm2a_tpu_torch.models.unet1d import UNet1DUltimate
 from lm2a_tpu_torch.training.adan import Adan
-from lm2a_tpu_torch.training.loop import step_generator
-from lm2a_tpu_torch.training.train_step import TrainState, make_update_step
+from lm2a_tpu_torch.training.train_step import TrainState, make_update_step, step_generator
 
 LOSS_SPACES = ("eps", "x0_snr", "x0_snr_mm")
 
@@ -207,7 +205,7 @@ def make_device_data_multistep_distill(schedule: Schedule, cfg: LM2AConfig, opti
                                        num_student_steps: int, **kw):
     """``multi(state, teacher, data, idx, seed, offsets) -> losses (K,)``: K
     distill steps over a dataset already on the device. ``data`` holds the
-    packed (N, T, .) tensors (``upload_dataset``), ``idx`` (K, B) row indices
+    packed (N, T, .) tensors (``data.dataset.upload_dataset``), ``idx`` (K, B) row indices
     on the device, ``offsets`` the K global steps; step k gathers its batch
     with ``index_select`` and draws from ``step_generator(seed,
     offsets[k])``. The same math as ``make_distill_step``'s step."""
@@ -222,12 +220,6 @@ def make_device_data_multistep_distill(schedule: Schedule, cfg: LM2AConfig, opti
         return torch.stack(losses)
 
     return multi
-
-
-def upload_dataset(ds, device) -> Dict[str, torch.Tensor]:
-    """A packed dataset's ``mel``/``motion``/``lyrics`` arrays on ``device``, once."""
-    return {k: torch.from_numpy(np.array(getattr(ds, k), dtype=np.float32)).to(device)
-            for k in KEYS}
 
 
 def index_stream(n: int, batch_size: int, seed: int, steps_per_stage: int, k_fuse: int,

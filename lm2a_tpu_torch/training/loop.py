@@ -1,17 +1,37 @@
 """Training loop: epochs, validation, logging, checkpoint and resume (port
-of the per-step path of ``lm2a_tpu/training/loop.py``).
+of ``lm2a_tpu/training/loop.py``).
 
-Batches stream from ``BatchIterator`` (shuffled with ``seed + epoch``)
-through ``device_prefetch``; the loss is fetched from the card only on log
-steps. Step ``s`` draws its randomness from a generator seeded with
-``(seed + 1, s)`` (validation batch ``i`` after step ``s``: ``10_000_000 +
-s + i``), so a resumed run draws what an uninterrupted one would. A save
-every ``save_interval`` steps keeps the current epoch (a resume re-runs the
-partial epoch, as in the JAX package); the final save records the next
-epoch unless the run stopped early.
+Every step and validation batch runs through the compiled steps of
+``training/train_step.py``, as the JAX loop calls its jitted ones: on the
+card a replay of one captured CUDA graph of the step (the run's first step
+is the capture's warm-up), on the CPU the same step eagerly. Three paths,
+as in the JAX package:
 
-Refused with an error (ROADMAP lists them): ``steps_per_call > 1``,
-``device_data``, ``quality_every_epochs`` and the ``rbg`` generator.
+- per step (``steps_per_call`` 1): batches stream from ``BatchIterator``
+  (shuffled with ``seed + epoch``) through ``device_prefetch``, one step a
+  call of ``make_multistep_train_step``; the loss is fetched from the card
+  only on log steps;
+- fused (``steps_per_call`` K > 1): ``SuperbatchStream`` groups of K
+  batches, K steps a call of ``make_multistep_train_step``; tail batches
+  that do not fill a group run single steps;
+- device-resident (``device_data`` with K > 1 and a packed split): the pack
+  uploaded once, ``make_device_data_multistep`` called with only the (K, B)
+  rows of ``superbatch_indices`` (the same row order, ``default_rng(seed +
+  epoch)``, and the same tails); validation through
+  ``make_device_data_eval`` over the device-resident val pack when that
+  split is packed too, else through ``make_multistep_eval``.
+
+The fused paths log on crossing ``log_interval`` (the call's last loss) and
+save when ``step % save_interval < K`` and ``step >= save_interval``. Step
+``s`` draws its randomness from a generator seeded with ``(seed + 1, s)``
+(validation batch ``i`` after step ``s``: ``10_000_000 + s + i``), so a
+resumed run draws what an uninterrupted one would, on every path. A save
+keeps the current epoch (a resume re-runs the partial epoch, as in the JAX
+package); the final save records the next epoch unless the run stopped
+early.
+
+Refused with an error (ROADMAP lists them): ``quality_every_epochs`` and
+the ``rbg`` generator.
 """
 
 from __future__ import annotations
@@ -27,15 +47,16 @@ import torch
 from lm2a_tpu_torch.core.config import LM2AConfig
 from lm2a_tpu_torch.core.device import DeviceLike, resolve_device
 from lm2a_tpu_torch.data.dataset import (
-    PACK_META, BatchIterator, PackedDataset, compute_dataset_stats, device_prefetch,
-    open_dataset,
+    PACK_META, BatchIterator, PackedDataset, SuperbatchStream, compute_dataset_stats,
+    device_prefetch, open_dataset, superbatch_indices, upload_dataset,
 )
 from lm2a_tpu_torch.diffusion.schedule import make_schedule
 from lm2a_tpu_torch.training.checkpoint import (
     CheckpointWriter, latest_checkpoint, restore_checkpoint, save_checkpoint,
 )
 from lm2a_tpu_torch.training.train_step import (
-    init_train_state, make_eval_step, make_optimizer, make_train_step,
+    init_train_state, make_device_data_eval, make_device_data_multistep, make_multistep_eval,
+    make_multistep_train_step, make_optimizer,
 )
 from lm2a_tpu_torch.utils.logging import TrainLogger
 from lm2a_tpu_torch.utils.profiling import StepTimer
@@ -50,19 +71,8 @@ class TrainResult:
     ckpt_dir: str
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
-    """The generator of one step (or validation batch) of a run."""
-    g = torch.Generator(device=device)
-    g.manual_seed(((seed + 1) << 32) + step)
-    return g
-
-
 def check_supported(cfg: LM2AConfig) -> None:
     tc = cfg.train
-    if tc.steps_per_call > 1:
-        raise NotImplementedError("steps_per_call > 1 (K steps per dispatch) is not ported")
-    if tc.device_data:
-        raise NotImplementedError("device_data (a device-resident dataset) is not ported")
     if tc.quality_every_epochs:
         raise NotImplementedError("quality_every_epochs (the sample-quality monitor) is not ported")
     if tc.rng_impl not in ("", "threefry"):
@@ -103,8 +113,29 @@ def train(cfg: LM2AConfig, npz_dir: str, save_dir: str, val_npz_dir: Optional[st
             dataset_std = float(meta.get("dataset_std", dataset_std))
             print(f"resumed from {path} at step {state.step}")
 
-    train_step = make_train_step(schedule, cfg, optimizer, dataset_mean, dataset_std)
-    eval_step = make_eval_step(schedule, cfg, dataset_mean, dataset_std)
+    stats = dict(dataset_mean=dataset_mean, dataset_std=dataset_std)
+    multistep = make_multistep_train_step(schedule, cfg, optimizer, **stats)
+    eval_multi = make_multistep_eval(schedule, cfg, **stats)
+    bs = tc.batch_size
+    k_fuse = max(1, tc.steps_per_call)
+    devdata_step = device_data = devdata_eval = val_data = None
+    if tc.device_data and k_fuse > 1 and isinstance(ds, PackedDataset):
+        nbytes = sum(getattr(ds, k).size * 4 for k in ("mel", "motion", "lyrics"))
+        print(f"uploading dataset to device ({nbytes / 1e9:.2f} GB) ...")
+        t_up = time.time()
+        devdata_step = make_device_data_multistep(schedule, cfg, optimizer, **stats)
+        device_data = upload_dataset(ds, dev)
+        if isinstance(val_ds, PackedDataset):
+            devdata_eval = make_device_data_eval(schedule, cfg, **stats)
+            val_data = upload_dataset(val_ds, dev)
+        print(f"dataset resident on the device ({time.time() - t_up:.1f}s)")
+    elif tc.device_data:
+        print("device_data requested but needs steps_per_call>1 and a "
+              "packed dataset; falling back to the streaming path")
+    sb_stream = None
+    if k_fuse > 1 and devdata_step is None:
+        sb_stream = SuperbatchStream(ds, bs, k_fuse, base_seed=tc.seed, total_epochs=tc.epochs,
+                                     start_epoch=start_epoch)
     logger = TrainLogger(save_dir, use_tensorboard=use_tensorboard)
     timer = StepTimer(report_every=max(tc.log_interval * 10, 100))
     writer = CheckpointWriter()
@@ -115,40 +146,89 @@ def train(cfg: LM2AConfig, npz_dir: str, save_dir: str, val_npz_dir: Optional[st
                                writer=writer)
         print("saved checkpoint:", path)
 
+    def lr_at(s):
+        return float(optimizer.lr_schedule(s))
+
     step = state.step
     pending_loss = None
     last_loss = float("nan")
     stop = False
     epoch = start_epoch
+
+    def fused_call(epoch, tag, run):
+        """``run(offsets)`` the K steps of a group ("multi": log on crossing
+        log_interval, the JAX save rule) or the one step of a tail batch
+        that does not fill a group ("single")."""
+        nonlocal step, pending_loss, last_loss
+        if tag == "single":
+            pending_loss = run([step])[0]
+            step += 1
+            return
+        losses = run(range(step, step + k_fuse))
+        pending_loss = losses[-1]
+        if step // tc.log_interval != (step + k_fuse) // tc.log_interval:
+            last_loss = float(losses[-1])
+            logger.log_step(epoch, step + k_fuse - 1, last_loss, lr_at(step))
+        step += k_fuse
+        timer.tick()
+        if tc.save_interval and step % tc.save_interval < k_fuse and step >= tc.save_interval:
+            ckpt(epoch)
+
+    def one(batch):
+        """A (B, T, .) batch as a group of one."""
+        return {key: v[None] for key, v in batch.items()}
+
     for epoch in range(start_epoch, tc.epochs):
         t0 = time.time()
-        it = BatchIterator(ds, tc.batch_size, shuffle=True, seed=tc.seed + epoch)
-        for batch in device_prefetch(it, dev):
-            pending_loss = train_step(state, batch, generator=step_generator(tc.seed, step, dev))
-            ema_dt = timer.tick()
-            if ema_dt is not None:
-                print(f"step time (ema): {ema_dt * 1e3:.2f} ms")
-            if step % tc.log_interval == 0:
-                last_loss = float(pending_loss)
-                logger.log_step(epoch, step, last_loss, float(optimizer.lr_schedule(step)))
-            if tc.save_interval and step % tc.save_interval == 0 and step > 0:
-                ckpt(epoch)
-            step += 1
-            if max_steps is not None and step >= max_steps:
-                stop = True
-                break
+        if devdata_step is not None:
+            for tag, idx in superbatch_indices(len(ds), bs, k_fuse, seed=tc.seed + epoch):
+                fused_call(epoch, tag, lambda offsets, idx=idx: devdata_step(
+                    state, device_data, idx, tc.seed, offsets))
+                if max_steps is not None and step >= max_steps:
+                    stop = True
+                    break
+        elif k_fuse > 1:
+            for tag, batch in device_prefetch(sb_stream.epoch(epoch), dev, tagged=True):
+                batches = batch if tag == "multi" else one(batch)
+                fused_call(epoch, tag, lambda offsets, batches=batches: multistep(
+                    state, batches, tc.seed, offsets))
+                if max_steps is not None and step >= max_steps:
+                    stop = True
+                    break
+        else:
+            it = BatchIterator(ds, bs, shuffle=True, seed=tc.seed + epoch)
+            for batch in device_prefetch(it, dev):
+                pending_loss = multistep(state, one(batch), tc.seed, [step])[0]
+                ema_dt = timer.tick()
+                if ema_dt is not None:
+                    print(f"step time (ema): {ema_dt * 1e3:.2f} ms")
+                if step % tc.log_interval == 0:
+                    last_loss = float(pending_loss)
+                    logger.log_step(epoch, step, last_loss, lr_at(step))
+                if tc.save_interval and step % tc.save_interval == 0 and step > 0:
+                    ckpt(epoch)
+                step += 1
+                if max_steps is not None and step >= max_steps:
+                    stop = True
+                    break
 
         val_loss = None
         ve = tc.validate_every_epochs
         if val_ds is not None and not stop and bool(ve) and (epoch + 1) % ve == 0:
-            vlosses = []
-            vit = BatchIterator(val_ds, tc.batch_size, shuffle=False)
-            for i, vbatch in enumerate(device_prefetch(vit, dev)):
-                if tc.val_cap_batches and i >= tc.val_cap_batches:
-                    break
-                gen = step_generator(tc.seed, VAL_OFFSET + step + i, dev)
-                vlosses.append(eval_step(state, vbatch, generator=gen))
-            if vlosses:
+            n_val = len(val_ds) // bs
+            if tc.val_cap_batches:
+                n_val = min(n_val, tc.val_cap_batches)
+            offsets = [VAL_OFFSET + step + i for i in range(n_val)]
+            if val_data is not None and n_val:
+                vlosses = devdata_eval(state, val_data, np.arange(n_val * bs).reshape(n_val, bs),
+                                       tc.seed, offsets)
+                val_loss = float(vlosses.mean())
+                print(f"epoch {epoch} val loss: {val_loss:.6f} ({n_val} batches, "
+                      "device-resident)")
+            elif n_val:
+                vit = BatchIterator(val_ds, bs, shuffle=False)
+                vlosses = [eval_multi(state, one(vbatch), tc.seed, [off])[0]
+                           for off, vbatch in zip(offsets, device_prefetch(vit, dev))]
                 val_loss = float(torch.stack(vlosses).mean())
                 print(f"epoch {epoch} val loss: {val_loss:.6f} ({len(vlosses)} batches)")
 
@@ -158,6 +238,8 @@ def train(cfg: LM2AConfig, npz_dir: str, save_dir: str, val_npz_dir: Optional[st
         if stop:
             break
 
+    if sb_stream is not None:
+        sb_stream.drain()
     if start_epoch < tc.epochs:
         ckpt(epoch if stop else epoch + 1)
     writer.wait()

@@ -13,23 +13,41 @@ package's draws instead (``Draws``).
 
 Gradients accumulate into ``.grad`` buffers that are allocated once and
 zeroed each step, so the optimizer kernel's table of pointers is built once.
+
+The compiled steps (the JAX package's jitted ``make_multistep_train_step``,
+``make_device_data_multistep`` and ``make_device_data_eval``, and
+``make_multistep_eval`` for streamed validation, which the JAX package jits
+as ``make_eval_step``) are what ``training/loop.py`` calls. Each runs
+through a ``StepRunner``, cached per state and batch geometry: one step's
+device work (``make_update_step``'s math, or the eval loss) over rows of a
+static data buffer, its batch gathered with ``index_select`` from a (K, B)
+row table, its Adan scalars read from a (K, 8) table
+(``Adan.stage_scalars``) and its loss written into a (K,) buffer at the
+step counter.
+K steps a call are K replays of one captured step on the card (the first
+call's first step is the capture's warm-up), K eager calls on the CPU, the
+generator seeded before each from ``(seed, offset)`` as ``step_generator``
+does. A (K, B) table from a device-resident pack is the ``device_data``
+form; the streaming forms copy their batches into the buffer first.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from lm2a_tpu_torch.core.config import LM2AConfig
 from lm2a_tpu_torch.core.device import DeviceLike, dtype_from_str, resolve_device
+from lm2a_tpu_torch.core.graphs import GraphedStep, stage
 from lm2a_tpu_torch.diffusion.gaussian import diffusion_loss
 from lm2a_tpu_torch.diffusion.schedule import Schedule
 from lm2a_tpu_torch.models.embedding import CondProjection
 from lm2a_tpu_torch.models.factory import build_cond_projection, build_denoiser, random_init_
 from lm2a_tpu_torch.models.unet1d import UNet1DUltimate
+from lm2a_tpu_torch.ops.adan import N_SCALARS
 from lm2a_tpu_torch.training.adan import Adan, AdanState, make_lr_schedule
 
 TREES = ("unet", "cond_proj")
@@ -126,21 +144,44 @@ def loss_fn(state: TrainState, schedule: Schedule, batch, cfg: LM2AConfig, *,
                           generator=generator)
 
 
+def step_seed(seed: int, step: int) -> int:
+    """The seed of one step's (or validation batch's) generator in a run."""
+    return ((seed + 1) << 32) + step
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of one step (or validation batch) of a run."""
+    return torch.Generator(device=device).manual_seed(step_seed(seed, step))
+
+
 def make_update_step(loss_builder: Callable, optimizer: Adan):
     """The grad -> optimizer -> EMA update. ``loss_builder(state, batch,
     **kw) -> scalar loss``; returns ``one_step(state, batch, **kw) -> loss``
-    (detached), updating ``state`` in place."""
+    (detached), updating ``state`` in place. ``one_step.device_step(state,
+    batch, scal, **kw)`` is its device work with the step's Adan scalars
+    staged in ``scal``: no host state changes, what a CUDA graph captures;
+    ``one_step`` stages the scalars, runs it and counts the step."""
 
-    def one_step(state: TrainState, batch, **kw) -> torch.Tensor:
+    def device_step(state: TrainState, batch, scal: torch.Tensor, **kw) -> torch.Tensor:
         params = state.params()
         grads = [p.grad for p in params.values()]
         torch._foreach_zero_(grads)
         loss = loss_builder(state, batch, **kw)
         loss.backward()
-        optimizer.update(params, {k: p.grad for k, p in params.items()}, state.ema, state.opt)
-        state.step += 1
+        optimizer.apply(params, {k: p.grad for k, p in params.items()}, state.ema, state.opt,
+                        scal)
         return loss.detach()
 
+    def one_step(state: TrainState, batch, **kw) -> torch.Tensor:
+        scal = optimizer.stage_scalars(state.opt.step, torch.empty(
+            N_SCALARS, dtype=torch.float32, device=state.unet.in_proj.weight.device))
+        loss = device_step(state, batch, scal, **kw)
+        state.step += 1
+        state.opt.step += 1
+        return loss
+
+    one_step.device_step = device_step
+    one_step.optimizer = optimizer
     return one_step
 
 
@@ -167,3 +208,157 @@ def make_eval_step(schedule: Schedule, cfg: LM2AConfig, dataset_mean: float = 0.
                        draws=draws)
 
     return eval_step
+
+
+class StepRunner:
+    """K train (or eval) steps a call over rows of ``data``, on the card as
+    replays of one captured step (see the module docstring).
+
+    ``step`` is a ``make_update_step`` step (train) or the loss function
+    ``loss(state, batch, generator=...)`` (eval, ``train=False``); ``data``
+    the (N, T, .) tensors the rows index: a device-resident pack, or None
+    for a buffer of ``k_max * batch_size`` rows made at the first ``load``.
+    """
+
+    def __init__(self, step: Callable, state: TrainState, data: Optional[Dict[str, torch.Tensor]],
+                 batch_size: int, k_max: int, *, train: bool = True, device=None):
+        dev = torch.device(device) if device is not None else state.unet.in_proj.weight.device
+        self.step, self.state, self.train = step, state, train
+        self.batch_size, self.k_max, self.device = batch_size, k_max, dev
+        self.idx = idx = torch.zeros((k_max, batch_size), dtype=torch.long, device=dev)
+        self.scal = scal = torch.zeros((k_max, N_SCALARS), dtype=torch.float32, device=dev)
+        self.k = k = torch.zeros((1,), dtype=torch.long, device=dev)
+        self.losses = losses = torch.zeros((k_max,), dtype=torch.float32, device=dev)
+        self.generator = gen = torch.Generator(device=dev)
+        self.data = data = {} if data is None else dict(data)
+
+        def device_step() -> None:  # closes over the buffers, not the runner: no cycle
+            rows = idx.index_select(0, k).view(-1)
+            batch = {key: v.index_select(0, rows) for key, v in data.items()}
+            if train:
+                loss = step.device_step(state, batch, scal.index_select(0, k).view(-1),
+                                        generator=gen)
+            else:
+                with torch.no_grad():
+                    loss = step(state, batch, generator=gen)
+            losses.index_copy_(0, k, loss.float().view(1))
+            k.add_(1)
+
+        self.graphed = GraphedStep(device_step, device=dev, generators=(gen,))
+
+    def load(self, batches: Dict[str, torch.Tensor]) -> np.ndarray:
+        """Copy ``batches`` ((K, B, T, .) or (B, T, .) tensors) into the
+        buffer's first rows; returns their (K, B) row table."""
+        flat = {key: v.reshape((-1,) + tuple(v.shape[-2:])) for key, v in batches.items()}
+        if not self.data:  # the buffer, made at the first load
+            self.data.update({key: torch.zeros((self.k_max * self.batch_size,)
+                                               + tuple(v.shape[1:]),
+                                               dtype=torch.float32, device=self.device)
+                              for key, v in flat.items()})
+        rows = flat["mel"].shape[0]
+        for key, v in flat.items():
+            buf = self.data[key]
+            if v.shape[0] != rows or rows > buf.shape[0] or v.shape[1:] != buf.shape[1:]:
+                raise ValueError(f"StepRunner.load: {key} {tuple(v.shape)} does not fit the "
+                                 f"buffer {tuple(buf.shape)}")
+            stage(buf[:rows], v)
+        return np.arange(rows).reshape(-1, self.batch_size)
+
+    def run(self, idx, seed: int, offsets: Sequence[int]) -> torch.Tensor:
+        """``len(offsets)`` steps, step j over rows ``idx[j]`` with the
+        generator of ``(seed, offsets[j])``; returns their (K,) losses. A
+        train runner counts the steps on its state."""
+        k = len(offsets)
+        if not 0 < k <= self.k_max or tuple(np.shape(idx)) != (k, self.batch_size):
+            raise ValueError(f"StepRunner.run: rows {tuple(np.shape(idx))} for {k} steps "
+                             f"(at most {self.k_max} of {self.batch_size})")
+        stage(self.idx[:k], idx if isinstance(idx, torch.Tensor) else np.asarray(idx, np.int64))
+        if self.train:
+            self.step.optimizer.stage_scalars(self.state.opt.step, self.scal[:k])
+        self.k.zero_()
+        for off in offsets:
+            self.generator.manual_seed(step_seed(seed, int(off)))
+            self.graphed()
+        if self.train:
+            self.state.step += k
+            self.state.opt.step += k
+        return self.losses[:k].clone()
+
+
+def _runner_for(cache: dict, key, make: Callable[[], StepRunner], k: int) -> StepRunner:
+    """The cached runner for ``key`` (one per state and data), made anew when
+    a call asks for more steps than its tables hold."""
+    r = cache.get(key)
+    if r is None or r.k_max < k:
+        r = cache[key] = make()
+    return r
+
+
+def _streaming(step: Callable, train: bool):
+    """``fn(state, batches, seed, offsets) -> (K,) losses`` over stacked
+    batches (dict of (K, B, T, .) tensors) copied into a runner's buffer."""
+    cache: dict = {}
+
+    def fn(state: TrainState, batches, seed: int, offsets) -> torch.Tensor:
+        k, b = batches["mel"].shape[:2]
+        shapes = tuple((key, tuple(v.shape[2:])) for key, v in batches.items())
+        r = _runner_for(cache, (id(state), b, shapes),
+                        lambda: StepRunner(step, state, None, b, k, train=train), k)
+        return r.run(r.load(batches), seed, offsets)
+
+    return fn
+
+
+def _resident(step: Callable, train: bool):
+    """``fn(state, data, idx, seed, offsets) -> (K,) losses`` gathering each
+    step's batch from the device-resident ``data`` at the rows ``idx[k]``."""
+    cache: dict = {}
+
+    def fn(state: TrainState, data, idx, seed: int, offsets) -> torch.Tensor:
+        k, b = np.shape(idx)
+        key = (id(state), b, tuple((n, v.data_ptr(), tuple(v.shape)) for n, v in data.items()))
+        r = _runner_for(cache, key, lambda: StepRunner(step, state, data, b, k, train=train), k)
+        return r.run(idx, seed, offsets)
+
+    return fn
+
+
+def make_multistep_train_step(schedule: Schedule, cfg: LM2AConfig,
+                              optimizer: Optional[Adan] = None, dataset_mean: float = 0.0,
+                              dataset_std: float = 1.0):
+    """``multi(state, batches, seed, offsets) -> losses (K,)``: K optimizer
+    steps over stacked batches (dict of (K, B, T, .) tensors), step k
+    drawing from ``step_generator(seed, offsets[k])``; each step is
+    ``make_train_step``'s math. ``cli train`` runs every streamed step
+    through it, K = 1 included."""
+    return _streaming(make_train_step(schedule, cfg, optimizer, dataset_mean, dataset_std),
+                      train=True)
+
+
+def make_device_data_multistep(schedule: Schedule, cfg: LM2AConfig,
+                               optimizer: Optional[Adan] = None, dataset_mean: float = 0.0,
+                               dataset_std: float = 1.0):
+    """``multi(state, data, idx, seed, offsets) -> losses (K,)``: K fused
+    optimizer steps gathering their batches from a device-resident dataset
+    (``data``: the packed (N, T, .) tensors, ``data.dataset.upload_dataset``),
+    ``idx`` the (K, B) row indices, the only per-call input; the same math
+    as ``make_multistep_train_step``."""
+    return _resident(make_train_step(schedule, cfg, optimizer, dataset_mean, dataset_std),
+                     train=True)
+
+
+def make_multistep_eval(schedule: Schedule, cfg: LM2AConfig, dataset_mean: float = 0.0,
+                        dataset_std: float = 1.0):
+    """``fn(state, batches, seed, offsets) -> (K,) losses``: validation over
+    stacked batches, each scored with ``make_eval_step``'s math from
+    ``step_generator(seed, offsets[k])``; the streaming counterpart of
+    ``make_device_data_eval`` (the JAX package jits ``make_eval_step``)."""
+    return _streaming(make_eval_step(schedule, cfg, dataset_mean, dataset_std), train=False)
+
+
+def make_device_data_eval(schedule: Schedule, cfg: LM2AConfig, dataset_mean: float = 0.0,
+                          dataset_std: float = 1.0):
+    """``fn(state, data, idx, seed, offsets) -> (K,) losses``: validation
+    batches gathered from a device-resident split, each scored with
+    ``make_eval_step``'s math from ``step_generator(seed, offsets[k])``."""
+    return _resident(make_eval_step(schedule, cfg, dataset_mean, dataset_std), train=False)

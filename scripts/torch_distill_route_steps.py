@@ -36,8 +36,9 @@ from lm2a_tpu_torch.ops import adan as adan_op  # noqa: E402
 from lm2a_tpu_torch.training import distill  # noqa: E402
 from lm2a_tpu_torch.training.adan import BETAS, EPS  # noqa: E402
 from lm2a_tpu_torch.training.checkpoint import load_state_arrays, state_arrays  # noqa: E402
-from lm2a_tpu_torch.training.loop import step_generator  # noqa: E402
-from lm2a_tpu_torch.training.train_step import init_train_state, make_optimizer  # noqa: E402
+from lm2a_tpu_torch.training.train_step import (  # noqa: E402
+    init_train_state, make_optimizer, step_generator,
+)
 
 CFG = dataclasses.replace(
     chip_smoke.LM2AConfig(), model=chip_smoke.ModelConfig(

@@ -42,7 +42,16 @@ warps a block, a view one frame off the 16-byte grid, a steep snake (large
 plan's resident blocks against the occupancy calculator, ``SnakeAlias``
 launching no ``exp``, the same bits twice; and every C entry's refusal of
 a launch plan that is not its own (``conv3_fused``, ``conv3_wgrad``,
-``gn_stats``, ``gn_bwd``, the sandwich), with nothing launched.
+``gn_stats``, ``gn_bwd``, the sandwich), with nothing launched. For the
+compiled steps (CUDA graph replays): a cached DDIM chain (the default
+attention route) and a cached DDPM chain (the fused route) at base width 64,
+and two calls of K = 2 device-resident train steps at base width 128,
+against the same steps run eagerly (the same bits and launches); a capture
+in which a wrapper refuses its plan raising, the step never running eagerly
+instead; the training route at C/G = 8 on the backward kernels (``cli
+train`` and one train and one distill step against the CPU within
+``chip_smoke.ROUTE_TOL``); and base width 32, whose widths the kernels do
+not take, refused by name on the card.
 
 Tolerances are those of ``chip_smoke.py``: 1e-2 absolute + relative on bf16
 outputs (one bf16 ulp, where the kernel's and torch's SiLU round an operand
@@ -56,6 +65,7 @@ kernels ``chip_smoke.TOL_REL_L2`` (relative L2) and ``TOL["adan_ema"]``, each
 with its reason there.
 """
 
+import contextlib
 import dataclasses
 
 import pytest
@@ -425,6 +435,8 @@ BWD_GEOMETRIES = [  # (B, T, Cin, Cout, skip): ragged and short T, C/G = 16, 204
     (2, 1, 128, 128, False), (2, 2, 128, 128, False), (2, 3, 256, 128, True),
     (3, 37, 128, 128, False), (2, 65, 256, 128, True), (2, 130, 128, 256, True),
     (1, 5, 2048, 1024, True), (16, 64, 128, 128, False),
+    # C/G = 8 (64 channels at 8 groups): base width 64's blocks
+    (2, 37, 64, 64, False), (2, 65, 64, 128, True), (3, 70, 128, 64, True),
 ]
 
 
@@ -448,7 +460,7 @@ def test_resblock_backward_matches_plain(dev, b, t, cin, cout, has_skip):
         assert _rel_l2(got[name], want[name]) <= chip_smoke.TOL_REL_L2["resblock_bwd"], name
 
 
-@pytest.mark.parametrize("b,t,cin,cout,has_skip", BWD_GEOMETRIES[:5])
+@pytest.mark.parametrize("b,t,cin,cout,has_skip", BWD_GEOMETRIES[:5] + BWD_GEOMETRIES[-3:])
 def test_backward_kernels_one_by_one(dev, b, t, cin, cout, has_skip):
     """Each kernel against its plain version on the same inputs."""
     from lm2a_tpu_torch.ops import resblock_grad as rg
@@ -1101,7 +1113,7 @@ def test_gn_bwd_refuses_a_plan_it_does_not_take(dev, monkeypatch):
 
 # ---------------------------------------------------------------- distillation
 
-# the narrowest widths the kernel route takes: conv3_wgrad needs C/G % 16 == 0
+# base width 128 (C/G = 16); test_train_and_distill_at_c_over_g_8 takes it to 64
 DISTILL_CFG = dataclasses.replace(
     chip_smoke.LM2AConfig(), model=chip_smoke.ModelConfig(
         base_dim=128, dim_mults=(1, 2), cond_dim=16, time_emb_dim=32, num_res_blocks=1,
@@ -1239,3 +1251,240 @@ def test_distill_teacher_forward_at_32_rows(dev):
         "gn_stats": 31, "conv3_fused": 30}
     assert eps["cuda"].shape == (b, t, 80) and torch.isfinite(eps["cuda"]).all()
     assert chip_smoke.rel_l2(eps["cuda"], eps["cpu"]) <= chip_smoke.UNET_REL_L2
+
+
+# ---------------------------------------------------------------- compiled steps (CUDA graphs)
+
+NARROW = chip_smoke.ModelConfig(base_dim=64, dim_mults=(1, 2), cond_dim=16, time_emb_dim=32,
+                                num_res_blocks=1, mid_blocks=1, attn_heads=2)
+
+
+def _narrow_ckpt(tmp_path, **model):
+    cfg = dataclasses.replace(chip_smoke.LM2AConfig(),
+                              model=dataclasses.replace(NARROW, **model))
+    return chip_smoke.write_checkpoint(str(tmp_path / "ckpt"), cfg, seed=0)
+
+
+@pytest.mark.parametrize("method,steps", [("ddim", 6), ("ddpm", 12)])
+def test_graphed_chain_equals_its_eager_run(dev, tmp_path, method, steps):
+    """A chain through the sampler cache (the first step the capture's
+    warm-up, every later one a replay) against the same chain with every
+    step eager, one seed, CFG 2.1, base width 64 (C/G = 8, every block on
+    the kernels): the same bits, the same launches, and a second guided
+    weight reusing the entry."""
+    from lm2a_tpu_torch.core import graphs
+    from lm2a_tpu_torch.inference.sample import generate_mel, load_models
+
+    ckpt = _narrow_ckpt(tmp_path, fused_attention=method == "ddpm")
+    models = load_models(ckpt, device=dev)
+    gen = torch.Generator().manual_seed(4)
+    motion, lyrics = (torch.randn((40, c), generator=gen).numpy() for c in (234, 768))
+    kw = dict(guidance_weight=2.1, method=method, seed=9, batch=2,
+              **({"ddim_steps": steps} if method == "ddim" else {"steps": steps}))
+    out = {}
+    for label in ("graph", "graph again", "eager"):
+        _build.reset_launches()
+        ctx = graphs.eager_on_card() if label == "eager" else contextlib.nullcontext()
+        with ctx:
+            out[label] = (generate_mel(models, motion, lyrics, 64, **kw)[0],
+                          dict(_build.LAUNCHES))
+    (key, chain), = models._samplers.items()
+    step, = chain.steps.values()
+    assert step.graph is not None and step.replays == 2 * steps - 1
+    for label in ("graph again", "eager"):
+        assert (out[label][0] == out["graph"][0]).all(), label
+        assert out[label][1] == out["graph"][1], label
+    n_blocks = len(chip_smoke.resblock_geometries(models.cfg.model, 64))
+    assert out["graph"][1]["conv3_fused"] == 2 * n_blocks * steps
+    generate_mel(models, motion, lyrics, 64, **dict(kw, guidance_weight=3.0))
+    assert len(models._samplers) == 1 and step.replays == 3 * steps - 1
+
+
+def test_graphed_train_steps_equal_their_eager_run(dev):
+    """Two calls of K = 2 device-data steps (base width 128, the gated
+    blocks on the backward kernels, adan_ema): the graphed run (the first
+    step the warm-up, three replays) against the same steps eager from the
+    same state: losses and the whole state the same bits, the same launches."""
+    from lm2a_tpu_torch.core import graphs
+    from lm2a_tpu_torch.diffusion.schedule import make_schedule
+    from lm2a_tpu_torch.training.checkpoint import state_arrays
+    from lm2a_tpu_torch.training.train_step import init_train_state, make_device_data_multistep
+
+    cfg = dataclasses.replace(DISTILL_CFG, train=dataclasses.replace(
+        DISTILL_CFG.train, weight_decay=1e-4))
+    gen = torch.Generator().manual_seed(3)
+    data = {"mel": -4.6 + 1.9 * torch.randn((6, 64, 80), generator=gen),
+            "motion": torch.randn((6, 64, 234), generator=gen),
+            "lyrics": torch.randn((6, 64, 768), generator=gen)}
+    data = {k: v.to(dev) for k, v in data.items()}
+    idx = [[[0, 4], [5, 1]], [[2, 3], [3, 0]]]
+    out = {}
+    for label in ("graph", "eager"):
+        state = init_train_state(cfg, 0, dev)
+        multi = make_device_data_multistep(make_schedule(cfg.diffusion, device=dev), cfg,
+                                           dataset_mean=-4.6, dataset_std=1.9)
+        _build.reset_launches()
+        with graphs.eager_on_card() if label == "eager" else contextlib.nullcontext():
+            losses = [multi(state, data, torch.tensor(i), 7, [2 * c, 2 * c + 1])
+                      for c, i in enumerate(idx)]
+        torch.cuda.synchronize()
+        out[label] = (torch.cat(losses).cpu(), state_arrays(state), dict(_build.LAUNCHES))
+    assert torch.equal(out["graph"][0], out["eager"][0])
+    assert out["graph"][2] == out["eager"][2]
+    per_step, _ = chip_smoke.train_launches_per_step(cfg.model, 64)
+    assert out["graph"][2] == {k: 4 * v for k, v in per_step.items()}
+    for key, want in out["eager"][1].items():
+        assert (out["graph"][1][key] == want).all(), key
+
+
+def test_a_capture_that_a_wrapper_refuses_raises(dev, monkeypatch):
+    """A kernel wrapper refusing a launch plan inside a capture (ERR_PLAN:
+    here only while capturing) fails the capture loudly; the step keeps
+    raising and never runs eagerly instead; the stream is left capturing
+    nothing."""
+    from lm2a_tpu_torch.core import graphs
+
+    gen = torch.Generator().manual_seed(11)
+    w, x, film = chip_smoke.random_chain(gen, 2, 64, 128, 128, False, dev)
+    real = rb.conv3_plan
+
+    def plan(*a):
+        p = real(*a)
+        if torch.cuda.is_current_stream_capturing():
+            return dataclasses.replace(p, smem=p.smem - 1024)
+        return p
+
+    monkeypatch.setattr(rb, "conv3_plan", plan)
+    out = []
+    step = graphs.GraphedStep(lambda: out.append(rb.fused_resblock_chain(x, w, *film)),
+                              device=dev)
+    _build.reset_launches()
+    with pytest.raises(RuntimeError, match="launch plan"):
+        step()
+    assert len(out) == 1 and step.graph is None  # the warm-up ran; the capture did not
+    with pytest.raises(RuntimeError, match="capture failed"):
+        step()
+    assert len(out) == 1 and not torch.cuda.is_current_stream_capturing()
+    assert _build.LAUNCHES == {"gn_stats": 2, "conv3_fused": 2}  # the warm-up's alone
+    torch.cuda.synchronize()
+
+
+def test_train_and_distill_at_c_over_g_8(dev, tmp_path):
+    """Base width 64 at 8 groups (C/G = 8 in the 64-channel blocks): the
+    JAX gate routes every block to the fused train chain, and on the card
+    every one of them runs the forward and backward kernels. ``cli train
+    --fused_resblock_grad`` runs on the card (two steps, the launches of
+    all its blocks), and one train step and one distill step from one state
+    match the CPU within ``chip_smoke.ROUTE_TOL`` (loss, each gradient
+    leaf, the whole gradient)."""
+    from lm2a_tpu_torch.diffusion.schedule import make_schedule
+    from lm2a_tpu_torch.ops import resblock_grad as rg
+    from lm2a_tpu_torch.training import distill
+    from lm2a_tpu_torch.training.checkpoint import load_state_arrays, state_arrays
+    from lm2a_tpu_torch.training.train_step import (
+        Draws, init_train_state, make_optimizer, make_train_step,
+    )
+
+    cfg = dataclasses.replace(DISTILL_CFG, model=dataclasses.replace(DISTILL_CFG.model,
+                                                                     base_dim=64))
+    geos = chip_smoke.resblock_geometries(cfg.model, 64)
+    assert any(64 in (cin, cout) for _, _, cin, cout, _, _ in geos)
+    assert all(rg.resblock_train_fits(t, cin, cout, skip, 2) for _, t, cin, cout, skip, _ in geos)
+
+    clips = str(tmp_path / "clips")
+    chip_smoke.write_clips(clips, 4, seed=3, mel_t=64, motion_t=23)
+    chip_smoke.run_cli(["pack", "--npz_dir", clips, "--out_dir", str(tmp_path / "pack")])
+    _build.reset_launches()
+    chip_smoke.run_cli(["train", "--npz_dir", str(tmp_path / "pack"), "--save_dir",
+                        str(tmp_path / "run"), "--batch_size", "2", "--base_dim", "64",
+                        "--dim_mults", "1,2", "--cond_dim", "16", "--time_emb_dim", "32",
+                        "--num_res_blocks", "1", "--mid_blocks", "1", "--attn_heads", "2",
+                        "--epochs", "1", "--fused_resblock_grad", "--opt_backend", "pallas",
+                        "--no_tensorboard"])
+    per_step, gated = chip_smoke.train_launches_per_step(cfg.model, 64)
+    assert gated == len(geos)
+    assert dict(_build.LAUNCHES) == {k: 2 * v for k, v in per_step.items()}
+
+    gen = torch.Generator().manual_seed(13)
+    batch = {"mel": -4.6 + 1.9 * torch.randn((2, 64, 80), generator=gen),
+             "motion": torch.randn((2, 64, 234), generator=gen),
+             "lyrics": torch.randn((2, 64, 768), generator=gen)}
+    tol = chip_smoke.ROUTE_TOL
+    pre = state_arrays(init_train_state(cfg, 0, "cpu"))
+    teacher_ema = init_train_state(cfg, 5, "cpu").ema
+
+    def one(d, kind):
+        optimizer = make_optimizer(cfg)
+        state = init_train_state(cfg, 0, d, optimizer)
+        load_state_arrays(state, pre)
+        sched = make_schedule(cfg.diffusion, device=d)
+        b = {k: v.to(d) for k, v in batch.items()}
+        if kind == "train":  # injected draws, no generator: no condition drop, no dropout
+            noise = torch.randn((2, 64, 80), generator=torch.Generator().manual_seed(2))
+            keep = torch.ones((2, 1, 1))
+            loss = make_train_step(sched, cfg, optimizer, -4.6, 1.9)(
+                state, b, draws=Draws(torch.tensor([3, 700]), noise, keep))
+        else:
+            ema = {k: v.to(d) for k, v in teacher_ema.items()}
+            distill.start_student(state, ema)
+            step = distill.make_distill_step(sched, cfg, optimizer, 4, dataset_mean=-4.6,
+                                             dataset_std=1.9, guidance_weight=2.1)
+            dr = distill.DistillDraws(torch.tensor([0, 3]),
+                                      torch.randn((2, 64, 80),
+                                                  generator=torch.Generator().manual_seed(4)))
+            loss = step(state, distill.build_teacher(cfg, ema), b, draws=dr)
+        return float(loss), {n: p.grad.detach().cpu().clone() for n, p in state.params().items()}
+
+    for kind in ("train", "distill"):
+        (lk, gk), (lp, gp) = one(dev, kind), one(torch.device("cpu"), kind)
+        assert abs(lk - lp) <= tol["loss_rel"] * abs(lp), (kind, lk, lp)
+        gsum = float(torch.sqrt(sum(g.square().sum() for g in gp.values())))
+        num = 0.0
+        for name, g in gp.items():
+            diff = float((gk[name] - g).norm())
+            assert diff <= tol["leaf_rel_l2"] * float(g.norm()) + tol["leaf_floor"] * gsum, (
+                kind, name)
+            num += diff * diff
+        assert num ** 0.5 <= tol["grad_rel_l2"] * gsum, kind
+
+
+def test_base_width_32_is_refused_on_the_card(dev, tmp_path):
+    """Base width 32 (Cin 32, C/G = 4): the kernels do not take these
+    widths (an open item of ROADMAP Queue 3), so sampling and a fused train
+    block raise by name on the card, and nothing runs the plain version in
+    their place."""
+    from lm2a_tpu_torch.inference.sample import generate_mel, load_models
+    from lm2a_tpu_torch.ops import resblock_grad as rg
+
+    models = load_models(_narrow_ckpt(tmp_path, base_dim=32), device=dev)
+    gen = torch.Generator().manual_seed(4)
+    motion, lyrics = (torch.randn((40, c), generator=gen).numpy() for c in (234, 768))
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="Cin % 64"):
+        generate_mel(models, motion, lyrics, 64, guidance_weight=2.1, method="ddim",
+                     ddim_steps=2, seed=0, batch=1)
+    assert not _build.LAUNCHES.get("conv3_fused")
+    x = torch.randn((2, 16, 32), generator=gen).to(dev, torch.bfloat16)
+    w = [torch.randn((32, 32, 3), generator=gen).to(dev) * 0.05 for _ in range(2)]
+    vec = [torch.randn(32, generator=gen).to(dev) for _ in range(6)]
+    film = [torch.randn((2, 32), generator=gen).to(dev) for _ in range(2)]
+    assert rg.resblock_train_fits(16, 32, 32, False, 2)  # the JAX gate routes it
+    with pytest.raises(ValueError, match="Cin % 64"):
+        rg.fused_resblock_train(x, vec[0], vec[1], w[0], vec[2], *film, vec[3], vec[4], w[1],
+                                vec[5], groups1=8, groups2=8)
+
+
+def test_first_divergence_names_the_module_a_replay_departs_at(dev):
+    """``chip_smoke.first_divergence`` (what the smoke prints when a replay
+    is not the eager run's bits): nothing for a module that replays the
+    same bits, and the first module whose output departs under the graph."""
+
+    class Departs(torch.nn.Module):
+        def forward(self, x):
+            return x + float(torch.cuda.is_current_stream_capturing())
+
+    net = torch.nn.Sequential(torch.nn.Linear(8, 8), torch.nn.ReLU()).to(dev)
+    x = torch.randn((4, 8), device=dev)
+    assert chip_smoke.first_divergence(net, lambda: net(x)).startswith("none")
+    net = torch.nn.Sequential(torch.nn.Linear(8, 8), Departs(), torch.nn.ReLU()).to(dev)
+    assert chip_smoke.first_divergence(net, lambda: net(x)).startswith("1 (max abs 1.000e+00)")

@@ -56,8 +56,7 @@ from lm2a_tpu_torch.diffusion.schedule import make_schedule
 from lm2a_tpu_torch.training import distill
 from lm2a_tpu_torch.training.adan import cosine_decay_schedule
 from lm2a_tpu_torch.training.checkpoint import state_arrays
-from lm2a_tpu_torch.training.loop import step_generator
-from lm2a_tpu_torch.training.train_step import init_train_state, make_optimizer
+from lm2a_tpu_torch.training.train_step import init_train_state, make_optimizer, step_generator
 
 from _torch_port_util import (  # noqa: F401
     jax_state_arrays, jax_train_state, one_torch_thread, rand,

@@ -4,8 +4,9 @@ tiny checkpoint written by the port, and ``default_seed`` and the parser
 against the JAX module.
 
 The JAX suite's three compiled-chain-cache cases (one chain shared by many
-requests and by every guidance weight, the LRU cap) have no counterpart:
-PyTorch runs eagerly and the port compiles no sampler chain."""
+requests and by every guidance weight, the LRU cap) hold the port's chain
+cache the same way (on the card each entry is a captured CUDA graph; on
+the CPU the same entries run eagerly)."""
 
 import io
 import json
@@ -88,6 +89,39 @@ def test_same_seed_is_deterministic_and_seeds_differ(models, clips, tmp_path):
     a, b, c = (_mel(r["out"]) for r in resp)
     np.testing.assert_array_equal(a, b)
     assert not np.array_equal(a, c)
+
+
+def test_requests_of_one_geometry_share_one_chain(ckpt, clips, tmp_path):
+    fresh = load_models(ckpt, device="cpu")
+    served, resp = _run(fresh, [
+        {"npz": clips[0], "id": "a", "seed": 1, "out_dir": str(tmp_path / "a")},
+        {"npz": clips[0], "id": "b", "seed": 2, "out_dir": str(tmp_path / "b")},
+    ])
+    assert served == 2 and all(r["ok"] for r in resp)
+    assert len(fresh._samplers) == 1
+    a, b = (np.load(r["out"])["mel"] for r in resp)
+    assert not np.array_equal(a, b)
+
+
+def test_guidance_values_share_one_chain(ckpt, clips, tmp_path):
+    fresh = load_models(ckpt, device="cpu")
+    served, resp = _run(fresh, [
+        {"npz": clips[0], "id": f"g{w}", "guidance": w, "seed": 3,
+         "out_dir": str(tmp_path / f"g{w}")} for w in (1.5, 2.1, 3.0)])
+    assert served == 3 and all(r["ok"] for r in resp)
+    assert len(fresh._samplers) == 1  # one guided chain for every weight above 1
+    mels = [np.load(r["out"])["mel"] for r in resp]
+    assert not np.array_equal(mels[0], mels[1]) and not np.array_equal(mels[1], mels[2])
+
+
+def test_sampler_cache_is_lru_capped(ckpt, clips, tmp_path):
+    fresh = load_models(ckpt, device="cpu")
+    fresh.sampler_cache_max = 2
+    served, resp = _run(fresh, [
+        {"npz": clips[0], "id": f"s{k}", "steps": k, "out_dir": str(tmp_path / f"s{k}")}
+        for k in (2, 3, 4)])
+    assert served == 3 and all(r["ok"] for r in resp)
+    assert [key[1] for key in fresh._samplers] == [3, 4]  # the oldest geometry evicted
 
 
 def test_batched_request(models, clips, tmp_path):

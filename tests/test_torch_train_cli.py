@@ -11,7 +11,9 @@ checkpoints interchanged with the JAX package both ways.
 - the port resumes a JAX-written checkpoint and its next step matches the
   JAX package's next step with injected randomness, within
   ``test_torch_train.py``'s tolerances;
-- the refusals: features the port does not have fail loudly.
+- the refusals: features the port does not have fail loudly; the
+  ``--steps_per_call``/``--device_data`` flags (once refused) reach the
+  config and the loop.
 """
 
 import csv
@@ -158,8 +160,6 @@ def test_port_resumes_jax_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--steps_per_call", "2"], "steps_per_call"),
-    (["--device_data"], "device_data"),
     (["--quality_every_epochs", "1"], "quality"),
     (["--rng", "rbg"], "TPU"),
     (["--fused_opt", "0"], "fused_opt"),
@@ -170,6 +170,36 @@ def test_cli_refuses_what_is_not_ported(flags, match, tmp_path):
     with pytest.raises(SystemExit, match=match):
         cli_train.main(["--npz_dir", str(tmp_path), "--save_dir", str(tmp_path / "run"),
                         *TINY, *flags])
+
+
+def test_cli_steps_per_call_and_device_data_reach_the_loop(pack, tmp_path, monkeypatch):
+    """``--steps_per_call 2 --device_data`` (once refused) reach the config
+    and the loop: the pack goes onto the device, K = 2 steps a call, and the
+    saved config keeps both flags."""
+    from lm2a_tpu_torch.training import loop
+
+    seen = {}
+    real = loop.make_device_data_multistep
+
+    def spy(*a, **kw):
+        multi = real(*a, **kw)
+
+        def call(state, data, idx, seed, offsets):
+            seen.setdefault("calls", []).append(list(offsets))
+            seen["resident"] = data["mel"].shape[0] == 4 and data["mel"].device.type == "cpu"
+            return multi(state, data, idx, seed, offsets)
+
+        return call
+
+    monkeypatch.setattr(loop, "make_device_data_multistep", spy)
+    out = tmp_path / "run"
+    _train(monkeypatch, "--npz_dir", pack, "--save_dir", str(out), "--epochs", "1",
+           "--steps_per_call", "2", "--device_data")
+    assert seen == {"calls": [[0, 1]], "resident": True}
+    ckpt = latest_checkpoint(str(out))
+    with open(ckpt + ".meta.json") as f:
+        tc = json.load(f)["config"]["train"]
+    assert tc["steps_per_call"] == 2 and tc["device_data"] is True
 
 
 def test_cli_needs_a_card_unless_cpu(pack, tmp_path, monkeypatch):
