@@ -95,6 +95,25 @@ skipped:
    no flags (DDIM-50 at guidance 1.0, B-row forwards); one stage-0 step
    timed: wall ms, peak memory, busy share, device ms of the teacher's
    forwards, the student's forward and backward and the update;
+   4h. the width rule: every block of base widths 16, 32, 48 and 96
+   through the forward and backward kernels and attention at head dims 2
+   and 4, each against its plain version; evaluation: ``cli val
+   --max_samples 2`` over the two clips
+   (DDPM-1000, guidance 2.1): 31 ``gn_stats`` and 30 ``conv3_fused``
+   launches a forward for 1000 forwards a clip, the averages file, each
+   clip's metrics equal to ``compute_metrics`` of the npz it wrote; ``cli
+   train`` for 2 epochs over 4d's pack with a validation pack and
+   ``--quality_every_epochs 1 --quality_clips 4 --quality_steps 50``: two
+   finite quality rows, the second unlike the first, each monitor run's
+   launches those of 50 forwards, its seconds; ``cli inspect_train_log`` on
+   that run's log; ``cli train --fused_opt 0 --opt_backend xla
+   --fused_resblock_grad`` for 2 steps (launches, the chained checkpoint
+   layout), then 2 chained steps from 4d's resumed checkpoint on the card
+   and on the host CPU within ``ROUTE_TOL``; ``cli towav`` of the clips'
+   ground-truth and generated mels into ``sample_*/{gt,gen}.wav`` and ``cli
+   evaluate --no-clap``, every key the JAX package writes; a base-32
+   ``fused_attention`` checkpoint (head dims 4 to 16) through ``cli
+   sample`` on the kernels and its forward against the host;
 5. one protocol chain (B=1, T=516, CFG 2.1, DDPM with ``--ddpm_steps``
    steps), DDIM-2 and DDIM-50, each run once to capture its cache entry and
    then timed as replays, and one vocode, timed; a DDIM-10 chain profiled
@@ -1733,6 +1752,411 @@ def run_distill(work: str, teacher: str, pack: str, mc: ModelConfig, clip_dir: s
 
 # ---------------------------------------------------------------- compiled steps
 
+# ---------------------------------------------------------------- phase 4h
+
+VAL_STEPS = 1000  # cli val's default: the reference's DDPM-1000 protocol
+QUALITY_CLIPS, QUALITY_STEPS, QUALITY_EPOCHS = 4, 50, 2
+BASE32_DDIM = 10
+
+
+def _launch_delta(before: dict) -> dict:
+    now = dict(_build.LAUNCHES)
+    return {k: v - before.get(k, 0) for k, v in now.items() if v - before.get(k, 0)}
+
+
+def _read_metrics_txt(path: str) -> dict:
+    """``k: v`` lines of an assessment's txt after its header, as floats."""
+    out = {}
+    with open(path) as f:
+        for line in f.read().splitlines():
+            k, sep, v = line.partition(": ")
+            if sep and k not in ("sample", "samples", "random", "seed"):
+                try:
+                    out[k] = float(v)
+                except ValueError:
+                    pass
+    return out
+
+
+def run_val(ckpt: str, clip_dir: str, out_dir: str, n_blocks: int):
+    """4h: ``cli val --max_samples 2`` (DDPM-1000, guidance 2.1 resolved for
+    an undistilled checkpoint) over the smoke's clips: every forward on the
+    kernels (31 ``gn_stats``, 30 ``conv3_fused``), the averages file, and
+    each clip's metrics file equal to ``compute_metrics`` of the npz it
+    wrote against its clip."""
+    from lm2a_tpu_torch.data.schema import load_sample, normalize_mel_layout
+    from lm2a_tpu_torch.eval.mel_metrics import compute_metrics
+
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_cli(["val", "--ckpt", ckpt, "--npz_dir", clip_dir, "--out_dir", out_dir,
+             "--max_samples", "2", "--device", "cuda"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    clips = sorted(f for f in os.listdir(clip_dir) if f.endswith(".npz"))
+    expected = {"gn_stats": (2 * n_blocks + 1) * VAL_STEPS * len(clips),
+                "conv3_fused": 2 * n_blocks * VAL_STEPS * len(clips)}
+    need(launches == expected, f"cli val: launches {launches} != expected {expected}")
+    avg_txt = open(os.path.join(out_dir, "average_metrics.txt")).read()
+    need(f"samples: {len(clips)}" in avg_txt and "seed: 100" in avg_txt,
+         f"cli val: averages file {avg_txt!r}")
+    avg = _read_metrics_txt(os.path.join(out_dir, "average_metrics.txt"))
+    per = {}
+    for name in clips:
+        base = os.path.splitext(name)[0]
+        real = normalize_mel_layout(load_sample(os.path.join(clip_dir, name)).mel)
+        gen = normalize_mel_layout(np.load(os.path.join(out_dir, f"{base}_gen_mel.npz"))["mel"])
+        need(gen.shape == real.shape and np.isfinite(gen).all(), f"cli val: {base} mel")
+        want = compute_metrics(real, gen)
+        got = _read_metrics_txt(os.path.join(out_dir, f"{base}_metrics.txt"))
+        need(got == want, f"cli val: {base} metrics {got} != compute_metrics {want}")
+        per[base] = got
+    need(set(avg) == set(next(iter(per.values()))) and all(np.isfinite(list(avg.values()))),
+         f"cli val: averages {avg}")
+    log(f"[eval] cli val --max_samples {len(clips)} (DDPM-{VAL_STEPS}, CFG 2.1, B=1, "
+        f"T={MEL_T}, flagship, bf16): {secs:.2f} s, {secs / len(clips):.2f} s per clip with "
+        f"load and metrics; launches {launches} expected {expected}; per-sample metrics equal "
+        f"compute_metrics of the written npz; averages {avg}")
+    return dict(seconds=secs, per_clip_s=secs / len(clips), launches=launches, averages=avg,
+                per_sample=per)
+
+
+def run_quality(work: str, pack: str, n_blocks: int):
+    """4h: ``cli train`` for 2 epochs over 4d's pack with a validation pack,
+    ``--quality_every_epochs 1 --quality_clips 4 --quality_steps 50``: two
+    quality rows, finite, the second unlike the first (the EMA moved), each
+    monitor run's launches those of 50 forwards."""
+    import csv
+
+    from lm2a_tpu_torch.training import quality
+
+    val_clips, val_pack, save = (os.path.join(work, d) for d in ("val_clips", "val_pack", "run"))
+    write_clips(val_clips, TRAIN_B, seed=11)
+    run_cli(["pack", "--npz_dir", val_clips, "--out_dir", val_pack])
+    runs = []
+    real_run = quality.QualityMonitor.run
+
+    def counted(self, x_init=None):
+        before = dict(_build.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_run(self, x_init)
+        torch.cuda.synchronize()
+        runs.append(dict(seconds=time.perf_counter() - t0, launches=_launch_delta(before)))
+        return out
+
+    quality.QualityMonitor.run = counted
+    try:
+        t0 = time.perf_counter()
+        run_cli(["train", "--npz_dir", pack, "--val_npz_dir", val_pack, "--save_dir", save,
+                 *TRAIN_ARGS, "--epochs", str(QUALITY_EPOCHS), "--quality_every_epochs", "1",
+                 "--quality_clips", str(QUALITY_CLIPS), "--quality_steps", str(QUALITY_STEPS)])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        quality.QualityMonitor.run = real_run
+    with open(os.path.join(save, "quality_log.csv")) as f:
+        rows = list(csv.reader(f))
+    need(rows[0] == ["epoch", "step", "mse", "ssim", "avg_cos_sim", "mean_error", "std_error",
+                     "snr"], f"quality_log.csv header {rows[0]}")
+    need(len(rows) == 1 + QUALITY_EPOCHS, f"quality_log.csv rows {rows}")
+    vals = [[float(v) for v in r[2:]] for r in rows[1:]]
+    need(all(np.isfinite(v).all() for v in vals), f"quality rows not finite: {rows}")
+    need(vals[0] != vals[1], f"the second epoch's quality row equals the first's: {rows}")
+    per_run = {"gn_stats": (2 * n_blocks + 1) * QUALITY_STEPS,
+               "conv3_fused": 2 * n_blocks * QUALITY_STEPS}
+    for r in runs:
+        need(r["launches"] == per_run, f"quality monitor launches {r['launches']} != {per_run}")
+    need(len(runs) == QUALITY_EPOCHS, f"quality monitor ran {len(runs)} times")
+    log(f"[eval] cli train {QUALITY_EPOCHS} epochs (B={TRAIN_B}, flagship, "
+        f"--fused_resblock_grad --opt_backend pallas) with --quality_every_epochs 1 "
+        f"(DDIM-{QUALITY_STEPS}, CFG 2.1 uncond_fast, {QUALITY_CLIPS} val clips, "
+        f"{2 * QUALITY_CLIPS}-row forwards): {secs:.2f} s in all; monitor seconds per epoch "
+        + ", ".join(f"{r['seconds']:.3f}" for r in runs)
+        + f" (the first with its capture); launches per run {runs[0]['launches']} expected "
+        f"{per_run}; quality rows {rows[1:]}")
+    return dict(seconds=secs, runs=runs, rows=rows, train_log=os.path.join(save, "train_log.csv"))
+
+
+def fused_opt0_steps(work: str, pack: str, ckpt: str, mc: ModelConfig, device,
+                     rows: int = 4, steps: int = 2, tol=ROUTE_TOL):
+    """4h: ``cli train --fused_opt 0 --opt_backend xla --fused_resblock_grad``
+    for 2 steps (the gated blocks' kernels, no ``adan_ema``; the chained
+    checkpoint layout), then 2 steps from 4d's resumed checkpoint in the
+    chained form on the card (kernel blocks) and on the host CPU (plain
+    versions), the same injected draws on ``rows`` rows: loss, gradient,
+    step and EMA change within ``ROUTE_TOL`` at each step."""
+    from lm2a_tpu_torch.core.config import config_from_dict
+    from lm2a_tpu_torch.diffusion.schedule import make_schedule
+    from lm2a_tpu_torch.training.checkpoint import load_metadata, load_state_arrays
+    from lm2a_tpu_torch.training.train_step import Draws, init_train_state, make_train_step
+
+    save = os.path.join(work, "fused_opt0")
+    args = list(TRAIN_ARGS)
+    args[args.index("--opt_backend") + 1] = "xla"
+    per_step, _ = train_launches_per_step(mc)
+    expected = {k: steps * v for k, v in per_step.items() if k != "adan_ema"}
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_cli(["train", "--npz_dir", pack, "--save_dir", save, *args, "--fused_opt", "0",
+             "--max_steps", str(steps)])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    need(launches == expected, f"cli train --fused_opt 0: launches {launches} != {expected}")
+    with np.load(os.path.join(save, f"ckpt_step_{steps}", "state.npz")) as z:
+        need(int(z[".opt_state[1].step"]) == steps and ".opt_state.step" not in z.files,
+             "cli train --fused_opt 0: not the chained checkpoint layout")
+
+    meta = load_metadata(ckpt)
+    base = config_from_dict(meta["config"])
+    cfg = dataclasses.replace(base, train=dataclasses.replace(base.train, fused_opt=False,
+                                                              opt_backend="xla"))
+    host = torch.device("cpu")
+    batch = {k: v[:rows] for k, v in train_batch(pack, host).items()}
+    with np.load(os.path.join(ckpt, "state.npz")) as z:  # 4d's fused layout, chained here
+        chained = {k.replace(".opt_state", ".opt_state[1]", 1): z[k] for k in z.files}
+    sides = {}
+    for label, d in (("card", device), ("host", host)):
+        state = init_train_state(cfg, 0, d)
+        load_state_arrays(state, chained)
+        need(state.opt.chained, "the chained form's state")
+        step = make_train_step(make_schedule(cfg.diffusion, device=d), cfg,
+                               dataset_mean=meta["dataset_mean"], dataset_std=meta["dataset_std"])
+        sides[label] = (state, step)
+    gen = torch.Generator().manual_seed(77)
+    out = []
+    for i in range(steps):
+        draws = Draws(torch.randint(0, cfg.diffusion.timesteps, (rows,), generator=gen),
+                      torch.randn(batch["mel"].shape, generator=gen), torch.ones((rows, 1, 1)))
+        res = {}
+        for label, (state, step) in sides.items():
+            d = state.unet.in_proj.weight.device
+            # copies: on the host .float().cpu() of an fp32 tensor is the tensor itself
+            before = {k: p.detach().to("cpu", torch.float32, copy=True)
+                      for k, p in state.params().items()}
+            ema_before = {k: e.to("cpu", torch.float32, copy=True) for k, e in state.ema.items()}
+            t0 = time.perf_counter()
+            loss = float(step(state, {k: v.to(d) for k, v in batch.items()}, draws=draws))
+            res[label] = dict(
+                loss=loss, seconds=time.perf_counter() - t0,
+                grads={k: p.grad.detach().to("cpu", torch.float32, copy=True)
+                       for k, p in state.params().items()},
+                step={k: p.detach().to("cpu", torch.float32) - before[k]
+                      for k, p in state.params().items()},
+                ema={k: e.to("cpu", torch.float32) - ema_before[k] for k, e in state.ema.items()})
+        c, h = res["card"], res["host"]
+        loss_rel = abs(c["loss"] - h["loss"]) / abs(h["loss"])
+        gsum = float(torch.sqrt(sum(g.square().sum() for g in h["grads"].values())))
+        num = den = 0.0
+        for name, gh in h["grads"].items():
+            dd = float((c["grads"][name] - gh).norm())
+            n = float(gh.norm())
+            need(dd <= tol["leaf_rel_l2"] * n + tol["leaf_floor"] * gsum,
+                 f"fused_opt 0, step {i}: gradient {name} card vs host {dd:.3e} of {n:.3e}")
+            num, den = num + dd * dd, den + n * n
+        grad_rel = (num / den) ** 0.5
+        step_rel, ema_rel = (
+            float(torch.sqrt(sum((c[key][k] - h[key][k]).square().sum() for k in h[key])
+                             / sum(v.square().sum() for v in h[key].values())))
+            for key in ("step", "ema"))
+        log(f"[eval] fused_opt 0 step {i}: card (kernel blocks, chained clip + Adan) vs host "
+            f"CPU (plain), {rows} rows, from 4d's resumed checkpoint: loss {c['loss']:.6f} vs "
+            f"{h['loss']:.6f} (relative {loss_rel:.2e}, tolerance {tol['loss_rel']}); gradient "
+            f"rel L2 {grad_rel:.3e} ({tol['grad_rel_l2']}); step rel L2 {step_rel:.3e} "
+            f"({tol['step_rel_l2']}); EMA change rel L2 {ema_rel:.3e} "
+            f"({tol['ema_change_rel_l2']}); host step {h['seconds']:.1f} s")
+        need(loss_rel <= tol["loss_rel"] and grad_rel <= tol["grad_rel_l2"]
+             and step_rel <= tol["step_rel_l2"] and ema_rel <= tol["ema_change_rel_l2"],
+             f"fused_opt 0: the card's step {i} disagrees with the host's")
+        out.append(dict(loss=(c["loss"], h["loss"]), loss_rel=loss_rel, grad_rel_l2=grad_rel,
+                        step_rel_l2=step_rel, ema_change_rel_l2=ema_rel))
+        del res, c, h
+    log(f"[eval] cli train --fused_opt 0 --opt_backend xla --fused_resblock_grad, {steps} "
+        f"steps: {cli_s:.2f} s with set-up; launches {launches} expected {expected}; "
+        "checkpoint in the chained layout (.opt_state[1])")
+    del sides
+    return dict(cli_s=cli_s, launches=launches, steps=out)
+
+
+def run_evaluate(work: str, clip_dir: str, val_out: str):
+    """4h: ``cli towav`` of each clip's ground-truth and generated mel into
+    ``sample_*/{gt,gen}.wav``, then ``cli evaluate --no-clap``: the JSON's
+    keys those the JAX package's ``evaluate_all`` writes (NDB's where
+    scikit-learn imports, its error otherwise, as there)."""
+    import importlib.util
+
+    src, root, results = (os.path.join(work, d) for d in ("eval_src", "evaluation", "results"))
+    os.makedirs(src, exist_ok=True)
+    clips = sorted(f for f in os.listdir(clip_dir) if f.endswith(".npz"))
+    for i, name in enumerate(clips):
+        base = os.path.splitext(name)[0]
+        shutil.copy(os.path.join(clip_dir, name), os.path.join(src, f"s{i}_gt.npz"))
+        shutil.copy(os.path.join(val_out, f"{base}_gen_mel.npz"), os.path.join(src, f"s{i}_gen.npz"))
+    t0 = time.perf_counter()
+    run_cli(["towav", "--npz_dir", src, "--device", "cuda"])
+    towav_s = time.perf_counter() - t0
+    for i in range(len(clips)):
+        d = os.path.join(root, f"sample_{i:03d}")
+        os.makedirs(d)
+        for kind in ("gt", "gen"):
+            shutil.move(os.path.join(src, f"s{i}_{kind}.wav"), os.path.join(d, f"{kind}.wav"))
+    t0 = time.perf_counter()
+    run_cli(["evaluate", "--eval-dir", root, "--output-dir", results, "--no-clap"])
+    eval_s = time.perf_counter() - t0
+    with open(os.path.join(results, "evaluation_results.json")) as f:
+        res = json.load(f)
+    sklearn = importlib.util.find_spec("sklearn") is not None
+    md_keys = {"total_samples", "eval_dir", "acoustic_similarity_mean", "beat_precision_mean",
+               "beat_recall_mean", "beat_error_mean", "fad_overall", "js_kl_overall", "beat_F1"}
+    batch_keys = {"fad_overall", "ndb_overall", "js_kl_overall"}
+    if sklearn:
+        md_keys |= {"ndb_overall", "ndb_K"}
+        batch_keys |= {"ndb_K"}
+    else:
+        batch_keys |= {"ndb_overall_error"}
+    sample_keys = {"gt", "gen", "fad", "js_mean", "kl_mean", "ndb", "batch_only_note",
+                   "acoustic_similarity", "cosine_similarity", "clap_note", "beat_f1",
+                   "beat_precision", "beat_recall", "beat_error", "va_distance", "va_cosine",
+                   "va_status"}
+    need(set(res) == {"metadata", "batch_metrics", "per_sample_metrics"}
+         and set(res["metadata"]) == md_keys and set(res["batch_metrics"]) == batch_keys
+         and len(res["per_sample_metrics"]) == len(clips)
+         and all(set(r) == sample_keys for r in res["per_sample_metrics"].values()),
+         f"evaluation_results.json keys: {sorted(res['metadata'])} "
+         f"{sorted(res['batch_metrics'])}")
+    need(res["metadata"]["total_samples"] == len(clips)
+         and np.isfinite(res["metadata"]["acoustic_similarity_mean"]),
+         f"evaluation metadata {res['metadata']}")
+    log(f"[eval] cli towav of {len(clips)} gt + {len(clips)} generated mels "
+        f"(BIGVGAN_22KHZ_80BAND, seeded) {towav_s:.2f} s; cli evaluate --no-clap "
+        f"{eval_s:.2f} s over {len(clips)} sample_*/{{gt,gen}}.wav pairs (host numpy/scipy; "
+        f"scikit-learn {'present' if sklearn else 'absent: NDB records its error, as in the JAX package'}); "
+        f"metadata {res['metadata']}")
+    return dict(towav_s=towav_s, evaluate_s=eval_s, metadata=res["metadata"],
+                batch_metrics=res["batch_metrics"], sklearn=sklearn)
+
+
+def run_inspect(train_log: str):
+    """4h: ``cli inspect_train_log`` on the quality run's log (no plot: the
+    card's machine has no matplotlib)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        run_cli(["inspect_train_log", train_log, "--head", "2"])
+    text = buf.getvalue()
+    need(re.search(r"^\d+ rows$", text, re.M) and "train loss: first=" in text,
+         f"cli inspect_train_log: {text!r}")
+    log("[eval] cli inspect_train_log: " + " | ".join(
+        line for line in text.splitlines() if "rows" in line or "loss:" in line))
+    return text
+
+
+def sample_base32(work: str, clip_dir: str, device, rng):
+    """4h: a base-32 ``fused_attention`` checkpoint (C/G 4 and 8, head dims
+    4, 8 and 16) through ``cli sample`` with every block on ``gn_stats`` and
+    ``conv3_fused`` and every attention core on the kernel, then one 4-row
+    forward on the card against the host's plain versions."""
+    cfg = LM2AConfig(model=ModelConfig(base_dim=32, fused_attention=True))
+    ckpt = write_checkpoint(os.path.join(work, "ckpt_base32"), cfg, seed=2)
+    n_blocks = len(resblock_geometries(cfg.model, MEL_T))
+    n_sites = len(attention_sites(cfg.model, MEL_T))
+    out = os.path.join(work, "out_base32")
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    cli_sample.main(["--all", "--npz_dir", clip_dir, "--ckpt", ckpt, "--out_dir", out,
+                     "--method", "ddim", "--ddim_steps", str(BASE32_DDIM), "--guidance", "2.1",
+                     "--seed", "0", "--device", "cuda"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    expected = {"gn_stats": (2 * n_blocks + 1) * BASE32_DDIM,
+                "conv3_fused": 2 * n_blocks * BASE32_DDIM,
+                "attention": 4 * n_sites * BASE32_DDIM}
+    check_mels([os.path.join(out, f) for f in sorted(os.listdir(out)) if f.endswith("_gen.npz")],
+               MEL_T)
+    need(launches == expected, f"base 32: launches {launches} != expected {expected}")
+    log(f"[eval] base-32 fused_attention checkpoint through cli sample (DDIM-{BASE32_DDIM}, "
+        f"CFG 2.1, {MAIN_ROWS}-row forwards) {secs:.2f} s; launches {launches} expected "
+        f"{expected}")
+    err = unet_card_vs_host(load_models(ckpt, device=device), load_models(ckpt, device="cpu"),
+                            rng, MAIN_ROWS, " at base width 32 (fused route)")
+    return dict(seconds=secs, launches=launches, unet_rel_l2=err)
+
+
+NARROW_BASES = (16, 32, 48, 96)
+
+
+def narrow_widths(device, gen, rows: int = MAIN_ROWS, t: int = MEL_T):
+    """4h: the width rule on the card. Every distinct block of base widths
+    16, 32, 48 and 96 (C/G 2, 4, 6, 12; K chunks and N tiles narrower than
+    64) through ``gn_stats`` + ``conv3_fused`` against the plain chain (max
+    abs error, ``TOL["chain"]``) and through the backward kernels against
+    their plain versions (relative L2, ``TOL_REL_L2["resblock_bwd"]``), and
+    the attention kernel at head dims 2 and 4 (8 heads, the 6 s sites'
+    shape) against its plain version (max abs, ``TOL["attention"]``)."""
+    out = {}
+    for base in NARROW_BASES:
+        blocks = sorted({g[2:] for g in resblock_geometries(ModelConfig(base_dim=base), t)})
+        fwd_err, bwd_rel = 0.0, 0.0
+        for cin, cout, skip, add_res in blocks:
+            w, x, (fs, fh) = random_chain(gen, rows, t, cin, cout, skip, device)
+            got = rb.fused_resblock_chain(x, w, fs, fh, add_residual=add_res)
+            want = rb.resblock_chain_plain(x, w, fs, fh, add_residual=add_res)
+            for g, p in zip(got if isinstance(got, tuple) else (got,),
+                            want if isinstance(want, tuple) else (want,)):
+                fwd_err = max(fwd_err, check_close(f"narrow base {base} chain {cin}->{cout}",
+                                                   g, p, TOL["chain"]))
+            h, xs, saved = rg.chain_forward(x, fs, fh, w.gn1_scale, w.gn1_bias, w.conv1_w,
+                                            w.conv1_b, w.gn2_scale, w.gn2_bias, w.conv2_w,
+                                            w.conv2_b, w.skip_w, w.skip_b, w.groups1, w.groups2)
+            gh = torch.randn(h.shape, generator=gen).to(device, torch.bfloat16)
+            gx = torch.randn(h.shape, generator=gen).to(device, torch.bfloat16) if skip else None
+            args = (saved, w.gn1_scale, w.gn1_bias, w.conv1_w, w.gn2_scale, w.gn2_bias,
+                    w.conv2_w, w.skip_w, gh, gx)
+            kern, plain = rg.chain_backward(*args), rg.chain_backward(*args, k=rg.PLAIN)
+            for name, p in plain.items():
+                r = rel_l2_dev(kern[name], p)
+                need(bool(torch.isfinite(kern[name]).all()) and r <= TOL_REL_L2["resblock_bwd"],
+                     f"narrow base {base} {cin}->{cout}: backward {name} rel L2 {r:.3e}")
+                bwd_rel = max(bwd_rel, r)
+        out[base] = dict(blocks=len(blocks), chain_max_abs=fwd_err, backward_rel_l2=bwd_rel)
+        log(f"[narrow] base {base}: {len(blocks)} distinct blocks at {rows} rows, T={t}, bf16: "
+            f"gn_stats + conv3_fused chain vs plain max abs {fwd_err:.3e} (tolerance "
+            f"{TOL['chain']}); backward kernels vs plain, worst rel L2 {bwd_rel:.3e} "
+            f"(tolerance {TOL_REL_L2['resblock_bwd']})")
+    for hd in (2, 4):
+        h = 8
+        q, k, v = ((torch.randn((rows, n, h * hd), generator=gen).to(device, torch.bfloat16)
+                    .view(rows, n, h, hd).transpose(1, 2)) for n in (t, t, t))
+        err = check_close(f"attention hd {hd}", att.attention_core(q, k, v),
+                          att.attention_core_plain(q, k, v), TOL["attention"])
+        out[f"attention_hd{hd}"] = err
+        log(f"[narrow] attention hd {hd}, {rows} rows x 8 heads, T=S={t}, bf16: kernel vs plain "
+            f"max abs {err:.3e} (tolerance {TOL['attention']})")
+    return out
+
+
+def run_evaluation(work: str, ckpt: str, clip_dir: str, train: dict, mc: ModelConfig,
+                   n_blocks: int, device, smi: str, rng):
+    """4h: evaluation on the card (see the module docstring)."""
+    t0 = time.perf_counter()
+    out = dict(narrow=narrow_widths(device, torch.Generator().manual_seed(10)))
+    out["val"] = run_val(ckpt, clip_dir, os.path.join(work, "val"), n_blocks)
+    out["quality"] = run_quality(os.path.join(work, "quality"), train["pack"], n_blocks)
+    out["inspect"] = run_inspect(out["quality"].pop("train_log"))
+    torch.cuda.empty_cache()
+    out["fused_opt0"] = fused_opt0_steps(work, train["pack"], train["ckpt"], mc, device)
+    torch.cuda.empty_cache()
+    out["evaluate"] = run_evaluate(work, clip_dir, os.path.join(work, "val"))
+    out["base32"] = sample_base32(work, clip_dir, device, rng)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[eval] phase 4h: {out['seconds']:.1f} s in all | {smi}")
+    return out
+
+
 def first_divergence(root: torch.nn.Module, run) -> str:
     """Where a CUDA graph replay of ``run()`` first departs from an eager
     run: every submodule's tensor outputs recorded (forward hooks, clones
@@ -2457,6 +2881,12 @@ def main(argv=None) -> int:
                                     cfg.model, os.path.dirname(clips[0]), n_blocks, smi, dev)
     torch.cuda.empty_cache()
     shutil.rmtree(os.path.join(work, "distill"), ignore_errors=True)
+    # 4h. evaluation: cli val, the quality monitor, fused_opt 0, cli evaluate, base 32
+    report["evaluation"] = run_evaluation(os.path.join(work, "eval"), ckpt,
+                                          os.path.dirname(clips[0]), train, cfg.model, n_blocks,
+                                          dev, smi, np.random.default_rng(9))
+    torch.cuda.empty_cache()
+    shutil.rmtree(os.path.join(work, "eval"), ignore_errors=True)
     shutil.rmtree(os.path.join(work, "train"), ignore_errors=True)
 
     # 5. protocol chain and one vocode, timed

@@ -14,9 +14,14 @@ call over groups of K batches; with ``--device_data`` (and a packed split)
 the pack is uploaded to the device once and each call stages only (K, B)
 row indices, as the JAX package does.
 
-Refused, not ported: ``--quality_every_epochs``, ``--fused_opt 0``,
-``--rng rbg`` (a TPU generator) and the multi-host flags
-(``--coordinator``, ``--num_processes``, ``--process_id``,
+``--quality_every_epochs N`` runs the sample-quality monitor of the EMA
+model every N epochs over the validation split (``training/quality.py``;
+``quality_log.csv``). ``--fused_opt 0`` is the chained clip-then-Adan form
+(the JAX package's state layout for it), which ``--opt_backend pallas``
+refuses, as the JAX package does.
+
+Refused, not ported: ``--rng rbg`` (a TPU generator) and the multi-host
+flags (``--coordinator``, ``--num_processes``, ``--process_id``,
 ``--model_parallel`` > 1).
 """
 
@@ -63,7 +68,8 @@ def build_parser(p=None):
     p.add_argument("--rng", dest="rng_impl", default="threefry", choices=["threefry", "rbg"],
                    help="threefry only: rbg is the TPU's hardware generator")
     p.add_argument("--fused_opt", type=int, default=1, choices=[0, 1],
-                   help="clip folded into Adan (1); the chained form (0) is not ported")
+                   help="clip folded into Adan (1) or chained before it (0, the plain "
+                        "update only)")
     p.add_argument("--opt_backend", default="xla", choices=["xla", "pallas"],
                    help="xla: the plain per-leaf update; pallas: the CUDA Adan+EMA "
                         "kernel, one launch per step")
@@ -87,7 +93,9 @@ def build_parser(p=None):
                         "its CUDA backward kernels")
     p.add_argument("--max_steps", type=int, default=None, help="debug cap")
     p.add_argument("--no_tensorboard", action="store_true")
-    p.add_argument("--quality_every_epochs", type=int, default=0, help="0 only (not ported)")
+    p.add_argument("--quality_every_epochs", type=int, default=0,
+                   help="every N epochs, log EMA sample-quality metrics on fixed val "
+                        "clips (0 = off)")
     p.add_argument("--quality_clips", type=int, default=4)
     p.add_argument("--quality_steps", type=int, default=50)
     p.add_argument("--quality_guidance", type=float, default=2.1)
@@ -142,14 +150,12 @@ def main(args=None):
             or args.process_id is not None or args.model_parallel != 1):
         raise SystemExit("multi-host and model-parallel training are not ported; "
                          "the port trains on one device")
-    if not args.fused_opt:
-        raise SystemExit("--fused_opt 0 (the chained clip+Adan state layout) is not ported")
     cfg = config_from_args(args)
     from lm2a_tpu_torch.training.loop import check_supported, train
 
     try:
         check_supported(cfg)
-    except NotImplementedError as e:
+    except (NotImplementedError, ValueError) as e:
         raise SystemExit(str(e)) from e
     print("train config:", cfg)
     res = train(cfg, args.npz_dir, args.save_dir, val_npz_dir=args.val_npz_dir,

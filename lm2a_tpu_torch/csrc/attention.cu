@@ -37,6 +37,13 @@
 //    runs the softmax of tile j while the other's products run;
 //  - only the last key tile, where S is ragged, is masked, on a path of its
 //    own;
+//  - head dims 2 and 4 (C/8 at the narrow base-16 and base-32 models): a
+//    head's row of 4 or 8 bytes is below the tensor map's 16-byte stride
+//    unit, so the maps see each row's H*hd channels as H*hd/8 virtual heads
+//    of 8 (hd 8's maps exactly), and a block loads the virtual head that
+//    holds its head, at offset (h*hd) % 8. Q's other columns are zeroed in
+//    registers after the ldmatrix, so the scores see the head's hd values
+//    alone; only the head's hd output columns are stored;
 //  - where the grid is small (the 6 s geometries), the key tiles are split
 //    over the `split` blocks of a thread-block cluster; each keeps (m, l, O)
 //    of its keys, pushes each row's through distributed shared memory to
@@ -142,6 +149,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   const int split = p.split, stages = p.stages;
   const int rank = (int)(blockIdx.x % split), mtile = (int)(blockIdx.x / split);
   const int h = blockIdx.y, b = blockIdx.z;
+  // hd < 8: the virtual head of 8 channels that holds this head, and the
+  // head's first column in it
+  const int hmap = HD < 8 ? (h * HD) >> 3 : h, hoff = HD < 8 ? (h * HD) & 7 : 0;
   const int t0 = mtile * BM;
   const int j_beg = p.tiles * rank / split, n = p.tiles * (rank + 1) / split - j_beg;
 
@@ -163,7 +173,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       sm90::mbar_expect_tx(qbar, G::Q_BYTES);
 #pragma unroll
       for (int hh = 0; hh < G::HALVES; ++hh)
-        tma_box(sm90::smem_u32(qs) + hh * BM * 128, &qmap, qbar, p.qperm, hh * G::BOX, t0, h, b);
+        tma_box(sm90::smem_u32(qs) + hh * BM * 128, &qmap, qbar, p.qperm, hh * G::BOX, t0, hmap,
+                b);
       for (int i = 0; i < n; ++i) {
         const int s = i % stages;
         if (i >= stages) sm90::mbar_wait(empty + s, ((i / stages) & 1) ^ 1);
@@ -172,12 +183,12 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         sm90::mbar_expect_tx(kfull + s, G::KV_BYTES);
 #pragma unroll
         for (int hh = 0; hh < G::HALVES; ++hh)
-          tma_box(kt + hh * BN * 128, &kmap, kfull + s, p.kperm, hh * G::BOX, key0, h, b);
+          tma_box(kt + hh * BN * 128, &kmap, kfull + s, p.kperm, hh * G::BOX, key0, hmap, b);
         sm90::mbar_expect_tx(vfull + s, G::KV_BYTES);
 #pragma unroll
         for (int hh = 0; hh < G::HALVES; ++hh)
           tma_box(kt + G::KV_BYTES + hh * BN * 128, &vmap, vfull + s, p.vperm, hh * G::BOX, key0,
-                  h, b);
+                  hmap, b);
       }
     }
     if (split > 1) {  // the consumers' two cluster barriers of the combine
@@ -206,6 +217,12 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       const int hh = kk / (ROWB / 32), chunk = (kk % (ROWB / 32)) * 2 + (lane >> 4);
       sm90::ldmatrix_x4(qa[kk], sm90::smem_u32(qs) + hh * BM * 128 +
                                     sm90::sw_offset<ROWB>(row, chunk));
+    }
+    if (HD < 8) {  // the virtual head's other heads: Q's columns outside the head are 0
+      // (registers 2, 3 hold columns 8-15; 0, 1 columns 2 (lane & 3) and + 1)
+      const int c = 2 * (lane & 3);
+      qa[0][2] = qa[0][3] = 0u;
+      if (c < hoff || c >= hoff + HD) qa[0][0] = qa[0][1] = 0u;
     }
   }
 
@@ -326,7 +343,17 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
   }
 
-  if (split == 1) {
+  if (split == 1 && HD < 8) {  // the head's columns hoff .. hoff + HD - 1 of O
+    const int c = 2 * (lane & 3);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = t0 + cw * 64 + wrow + 8 * r;
+      if (row < p.T && c >= hoff && c < hoff + HD)
+        *reinterpret_cast<uint32_t*>(p.o + b * p.o_sb + h * p.o_sh + (long long)row * p.o_st +
+                                     c - hoff) =
+            sm90::pack_bf16x2(o[2 * r] / l_run[r], o[2 * r + 1] / l_run[r]);
+    }
+  } else if (split == 1) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = t0 + cw * 64 + wrow + 8 * r;
@@ -386,7 +413,22 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     }
     sm90::bar_sync(BAR_CONSUMERS, 256);
     bf16* ob = p.o + b * p.o_sb + h * p.o_sh;
-    for (int e = tc; e < nr * (HDP / 4); e += 256) {
+    for (int e = tc; HD < 8 && e < nr * (HD / 2); e += 256) {  // the head's column pairs
+      const int li = e / (HD / 2), c = 2 * (e % (HD / 2));
+      if (t0 + r_beg + li >= p.T) continue;
+      float2 acc = make_float2(0.f, 0.f);
+      for (int q = 0; q < split; ++q) {  // rank order
+        const float w = wts[li * MAX_SPLIT + q];
+        const float2 v =
+            *reinterpret_cast<const float2*>(co + (q * rows_per + li) * G::CO_LD + hoff + c);
+        acc.x += w * v.x;
+        acc.y += w * v.y;
+      }
+      const float l = lsum[li];
+      *reinterpret_cast<uint32_t*>(ob + (long long)(t0 + r_beg + li) * p.o_st + c) =
+          sm90::pack_bf16x2(acc.x / l, acc.y / l);
+    }
+    for (int e = tc; HD >= 8 && e < nr * (HDP / 4); e += 256) {
       const int li = e / (HDP / 4), c = 4 * (e % (HDP / 4));
       if (t0 + r_beg + li >= p.T || c >= HD) continue;
       float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -505,9 +547,13 @@ int launch(const void* q, const void* k, const void* v, AttnArgs& p, int B, int 
   if (ready < 0) return ready;
   CUtensorMap qm, km, vm;
   const int mtiles = (p.T + BM - 1) / BM;
-  if (!encode(&qm, p.qperm, q, HD, p.T, H, B, st[2], st[1], st[0], G::BOX, BM, G::ROWB) ||
-      !encode(&km, p.kperm, k, HD, p.S, H, B, st[5], st[4], st[3], G::BOX, BN, G::ROWB) ||
-      !encode(&vm, p.vperm, v, HD, p.S, H, B, st[8], st[7], st[6], G::BOX, BN, G::ROWB))
+  // hd < 8: H*hd/8 virtual heads of 8 channels, 8 apart (each view's heads
+  // lie side by side, checked by the entry)
+  const int mhd = HD < 8 ? 8 : HD, mh = HD < 8 ? H * HD / 8 : H;
+  const long long vs[3] = {HD < 8 ? 8 : st[1], HD < 8 ? 8 : st[4], HD < 8 ? 8 : st[7]};
+  if (!encode(&qm, p.qperm, q, mhd, p.T, mh, B, st[2], vs[0], st[0], G::BOX, BM, G::ROWB) ||
+      !encode(&km, p.kperm, k, mhd, p.S, mh, B, st[5], vs[1], st[3], G::BOX, BN, G::ROWB) ||
+      !encode(&vm, p.vperm, v, mhd, p.S, mh, B, st[8], vs[2], st[6], G::BOX, BN, G::ROWB))
     return ERR_TENSOR_MAP;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(p.split * mtiles, H, B);
@@ -557,7 +603,12 @@ extern "C" int lm2a_attention(const void* q, const void* k, const void* v, void*
   if (split > p.tiles) return ERR_PLAN;
   const long long st[9] = {q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // hd < 8: the heads side by side (head stride hd) in whole 8-channel units
+  if (hd < 8 && (q_sh != hd || k_sh != hd || v_sh != hd || (H * hd) % 8))
+    return (int)cudaErrorInvalidValue;
   switch (hd) {
+    case 2: return launch_bn<2>(q, k, v, p, B, H, st, bn, smem, s);
+    case 4: return launch_bn<4>(q, k, v, p, B, H, st, bn, smem, s);
     case 8: return launch_bn<8>(q, k, v, p, B, H, st, bn, smem, s);
     case 16: return launch_bn<16>(q, k, v, p, B, H, st, bn, smem, s);
     case 32: return launch_bn<32>(q, k, v, p, B, H, st, bn, smem, s);

@@ -46,6 +46,16 @@
 //    summed from distributed shared memory in rank order (the same bits
 //    every run, no atomics, no partial tensor in device memory). A
 //    kept-apart skip doubles N: its tiles are blocks of their own.
+// Widths: Cin, Cin2 and Cout any multiple of 8 (one 16-byte row unit of
+// bf16, what cp.async and the vector loads move) and any C/G. A last K chunk
+// narrower than 64 channels comes in zero-filled (weights and activation
+// window alike), so the wgmma K loop runs over zeros there; a last N tile
+// past Cout loads zero weights and stores nothing; where a thread's 8
+// channels straddle GroupNorm groups (C/G 1, 2, 4, 6, 12, ...) its prologue
+// reads each channel's own statistics. These masks live in the NARROW
+// instantiation alone, which the launch picks from the shape: the
+// flagship's widths (multiples of 64 and of BN, C/G a multiple of 8) run
+// the kernel without them.
 // What bounds it now, measured: not the tensor cores (a chunk's 12 wgmmas
 // take a fraction of its ~3 us) but each block's serial chain per chunk of
 // copy issue, barrier, activation and wgmma, and the waves of a grid that
@@ -241,7 +251,7 @@ struct ConvArgs {
 // work, which otherwise outlasts the chunk's tensor-core work.) A conv chunk activates the window of
 // BM+2 frames once (GN+SiLU, bf16) and feeds three taps (12 wgmma k16
 // steps); a skip chunk copies its rows and feeds one.
-template <typename In, typename Out, int MW, int BN>
+template <typename In, typename Out, int MW, int BN, bool NARROW>
 __global__ void __launch_bounds__(128 * (MW + 1)) conv3_fused_kernel(const ConvArgs p) {
   using D = ConvGeo<In, MW, BN>;
   constexpr int NT = 128 * (MW + 1), BM = D::BM;  // MW consumers and one helper
@@ -257,11 +267,14 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_fused_kernel(const ConvA
   const int tid = threadIdx.x, wg = tid >> 7, tid_wg = tid & 127, lane = tid & 31;
   const int T = p.T, cin = p.cin, cout = p.cout, M = p.B * T;
   const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const bool skip_tile = p.out2 != nullptr && n0 >= cout;
-  const int wrow0 = skip_tile ? n0 - cout : n0;
-  const int nconv = skip_tile ? 0 : cin / 64;
-  const int nskip = skip_tile || (p.x2 != nullptr && p.out2 == nullptr) ? p.cin2 / 64 : 0;
+  // N tiles: the conv's ceil(Cout / BN), then (kept-apart skip) as many
+  // again for the skip projection; wrow0 is the tile's first output channel
+  const int ntc = (cout + BN - 1) / BN;
+  const bool skip_tile = p.out2 != nullptr && (int)blockIdx.y >= ntc;
+  const int wrow0 = (skip_tile ? (int)blockIdx.y - ntc : (int)blockIdx.y) * BN;
+  const int nconv = skip_tile ? 0 : (cin + 63) / 64;
+  const int nskip =
+      skip_tile || (p.x2 != nullptr && p.out2 == nullptr) ? (p.cin2 + 63) / 64 : 0;
   const int nch = nconv + nskip;
   const int S = gridDim.z, rank = blockIdx.z;
   const int ch_beg = nch * rank / S, ch_end = nch * (rank + 1) / S;
@@ -273,16 +286,20 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_fused_kernel(const ConvA
   auto load_chunk = [&](int j, int s) {
     const uint32_t base = sm90::smem_u32(ring + s * STAGE_BYTES);
     const uint32_t rbase = sm90::smem_u32(raw + s * RAW_BYTES);
+    // units past Cout (rows) or past Cin (channels) are zero-filled
     if (j < nconv) {
       for (int u = tid; u < 3 * BN * 8; u += NT) {
         const int tap = u / (BN * 8), r = (u >> 3) % BN, c = u & 7;
-        const bf16* src = p.w + (size_t)(wrow0 + r) * 3 * cin + tap * cin + j * 64 + c * 8;
-        sm90::cp_async16(base + tap * TAP_BYTES + sm90::sw_offset<128>(r, c), src);
+        const bool ok = !NARROW || (wrow0 + r < cout && j * 64 + c * 8 < cin);
+        const bf16* src =
+            p.w + (ok ? (size_t)(wrow0 + r) * 3 * cin + tap * cin + j * 64 + c * 8 : 0);
+        sm90::cp_async16(base + tap * TAP_BYTES + sm90::sw_offset<128>(r, c), src, ok ? 16 : 0);
       }
       const In* a = static_cast<const In*>(p.a);
+      const bool cok = !NARROW || j * 64 + g8 * 8 < cin;
       for (int jr = tid >> 3; jr < BM + 2; jr += NT / 8) {
         const int q = m0 - 1 + jr;
-        const bool ok = q >= 0 && q < M;
+        const bool ok = q >= 0 && q < M && cok;
         const In* src = a + (ok ? (size_t)q * cin + j * 64 + g8 * 8 : 0);
         const uint32_t dst = rbase + jr * RAW_LD + g8 * 8 * (int)sizeof(In);
 #pragma unroll
@@ -292,12 +309,15 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_fused_kernel(const ConvA
     } else {
       for (int u = tid; u < BN * 8; u += NT) {
         const int r = u >> 3, c = u & 7;
-        const bf16* src = p.w2 + (size_t)(wrow0 + r) * p.cin2 + (j - nconv) * 64 + c * 8;
-        sm90::cp_async16(base + sm90::sw_offset<128>(r, c), src);
+        const bool ok = !NARROW || (wrow0 + r < cout && (j - nconv) * 64 + c * 8 < p.cin2);
+        const bf16* src =
+            p.w2 + (ok ? (size_t)(wrow0 + r) * p.cin2 + (j - nconv) * 64 + c * 8 : 0);
+        sm90::cp_async16(base + sm90::sw_offset<128>(r, c), src, ok ? 16 : 0);
       }
+      const bool cok = !NARROW || (j - nconv) * 64 + g8 * 8 < p.cin2;
       for (int jr = tid >> 3; jr < BM + 2; jr += NT / 8) {
         const int q = m0 - 1 + jr;
-        const bool ok = q >= 0 && q < M;
+        const bool ok = q >= 0 && q < M && cok;
         const bf16* src = p.x2 + (ok ? (size_t)q * p.cin2 + (j - nconv) * 64 + g8 * 8 : 0);
         sm90::cp_async16(rbase + jr * RAW_LD + g8 * 16, src, ok ? 16 : 0);
       }
@@ -320,29 +340,46 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_fused_kernel(const ConvA
     bf16* wb = win + buf * (WIN_BYTES / 2);
     const uint8_t* rs_ = raw + s * RAW_BYTES;
     if (j < nconv) {
+      // channels past Cin stay zero; where this thread's 8 channels straddle
+      // groups, each reads its own group's statistics
       const int c = j * 64 + g8 * 8, gi = c / cg;
+      const bool cok = !NARROW || c < cin, mixed = NARROW && cok && (c + 7) / cg != gi;
       float ga[8], be[8];
 #pragma unroll
       for (int e = 0; e < 8; e += 4) {
-        *reinterpret_cast<float4*>(ga + e) = __ldg(reinterpret_cast<const float4*>(p.gamma + c + e));
-        *reinterpret_cast<float4*>(be + e) = __ldg(reinterpret_cast<const float4*>(p.beta + c + e));
+        const float4 z4 = make_float4(0.f, 0.f, 0.f, 0.f);
+        *reinterpret_cast<float4*>(ga + e) =
+            cok ? __ldg(reinterpret_cast<const float4*>(p.gamma + c + e)) : z4;
+        *reinterpret_cast<float4*>(be + e) =
+            cok ? __ldg(reinterpret_cast<const float4*>(p.beta + c + e)) : z4;
       }
 #pragma unroll
       for (int it = 0; it < ITER; ++it) {
         const int jr = (tid >> 3) + it * (NT / 8);
         if (jr < BM + 2) {
           uint4 o = make_uint4(0, 0, 0, 0);
-          if (brow[it] >= 0) {
+          if (brow[it] >= 0 && cok) {
             float v[8];
             load8(reinterpret_cast<const In*>(rs_ + jr * RAW_LD) + g8 * 8, v);
-            const int si = brow[it] * p.groups + gi;
-            const float mu = __ldg(p.mean + si), rstd = __ldg(p.rstd + si);
+            const int s0 = brow[it] * p.groups;
             uint32_t* ow = reinterpret_cast<uint32_t*>(&o);
+            if (!mixed) {
+              const float mu = __ldg(p.mean + s0 + gi), rstd = __ldg(p.rstd + s0 + gi);
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const float y0 = (v[2 * e] - mu) * rstd * ga[2 * e] + be[2 * e];
-              const float y1 = (v[2 * e + 1] - mu) * rstd * ga[2 * e + 1] + be[2 * e + 1];
-              ow[e] = sm90::pack_bf16x2(sm90::silu_fast(y0), sm90::silu_fast(y1));
+              for (int e = 0; e < 4; ++e) {
+                const float y0 = (v[2 * e] - mu) * rstd * ga[2 * e] + be[2 * e];
+                const float y1 = (v[2 * e + 1] - mu) * rstd * ga[2 * e + 1] + be[2 * e + 1];
+                ow[e] = sm90::pack_bf16x2(sm90::silu_fast(y0), sm90::silu_fast(y1));
+              }
+            } else {
+#pragma unroll
+              for (int e = 0; e < 8; ++e) {
+                const int si = s0 + (c + e) / cg;
+                v[e] = sm90::silu_fast((v[e] - __ldg(p.mean + si)) * __ldg(p.rstd + si) * ga[e] +
+                                       be[e]);
+              }
+#pragma unroll
+              for (int e = 0; e < 4; ++e) ow[e] = sm90::pack_bf16x2(v[2 * e], v[2 * e + 1]);
             }
           }
           *reinterpret_cast<uint4*>(wb + jr * LDW + g8 * 8) = o;
@@ -437,13 +474,14 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_fused_kernel(const ConvA
   }
   sm90::cp_async_wait<0>();
 
-  // the epilogue, two neighbouring output channels at a time
+  // the epilogue, two neighbouring output channels n, n + 1 at a time (n
+  // even; Cout a multiple of 8, so a pair is wholly inside Cout or past it)
   Out* out = static_cast<Out*>(p.out);
   auto store2 = [&](int m, int n, float v0, float v1) {
+    if (NARROW && n >= cout) return;  // a last N tile's columns past Cout
     if (skip_tile) {
-      const int nn = n - cout;
-      const float2 b2 = __ldg(reinterpret_cast<const float2*>(p.bias2 + nn));
-      sm90::store_pair(p.out2 + (size_t)m * cout + nn, v0 + b2.x, v1 + b2.y);
+      const float2 b2 = __ldg(reinterpret_cast<const float2*>(p.bias2 + n));
+      sm90::store_pair(p.out2 + (size_t)m * cout + n, v0 + b2.x, v1 + b2.y);
       return;
     }
     const size_t o = (size_t)m * cout + n;
@@ -478,7 +516,8 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_fused_kernel(const ConvA
       if (m < M) {
 #pragma unroll
         for (int jj = 0; jj < BN / 8; ++jj)
-          store2(m, n0 + 8 * jj + (tid_wg & 3) * 2, acc[4 * jj + 2 * h], acc[4 * jj + 2 * h + 1]);
+          store2(m, wrow0 + 8 * jj + (tid_wg & 3) * 2, acc[4 * jj + 2 * h],
+                 acc[4 * jj + 2 * h + 1]);
       }
     }
   } else {
@@ -490,7 +529,7 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_fused_kernel(const ConvA
         red[(wg * 64 + sm90::acc_row(i, tid_wg)) * BN + sm90::acc_col(i, tid_wg)] = acc[i];
     }
     sm90::cluster_reduce(red, BM * BN, [&](int e, float4 v) {
-      const int m = m0 + e / BN, n = n0 + e % BN;
+      const int m = m0 + e / BN, n = wrow0 + e % BN;
       if (m < M) {
         store2(m, n, v.x, v.y);
         store2(m, n + 2, v.z, v.w);
@@ -524,19 +563,29 @@ int launch_gn_vw(const void* x, float* mean, float* rstd, int B, int T, int C, i
 // the plan's grid and shared memory must be this kernel's for the shape: too
 // few M or N tiles would leave output unwritten, a split past the K chunks
 // would give ranks nothing to sum, too little shared memory would overrun
-// the ring
+// the ring. Widths must be multiples of 8 (a 16-byte bf16 row unit).
 template <typename In, typename Out, int MW, int BN>
 int launch_conv(const ConvArgs& p, int mtiles, int ntiles, int splits, int smem,
                 cudaStream_t s) {
   using D = ConvGeo<In, MW, BN>;
-  const int ntot = p.out2 ? 2 * p.cout : p.cout;
-  const int nconv = p.cin / 64, nskip = p.cin2 / 64;
+  if (p.cin < 8 || p.cin % 8 || p.cin2 % 8 || p.cout < 8 || p.cout % 8 || p.groups < 1 ||
+      p.cin % p.groups)
+    return (int)cudaErrorInvalidValue;
+  const int ntot = (p.out2 ? 2 : 1) * ((p.cout + BN - 1) / BN);
+  const int nconv = (p.cin + 63) / 64, nskip = (p.cin2 + 63) / 64;
   const int kmin = p.out2 ? (nconv < nskip ? nconv : nskip) : nconv + nskip;
-  if (p.cin % 64 || p.cin2 % 64 || p.cout % BN || mtiles != (p.B * p.T + D::BM - 1) / D::BM ||
-      ntiles != ntot / BN || splits < 1 || splits > 8 || splits > kmin || smem != D::smem(splits))
+  if (mtiles != (p.B * p.T + D::BM - 1) / D::BM || ntiles != ntot || splits < 1 ||
+      splits > 8 || splits > kmin || smem != D::smem(splits))
     return ERR_PLAN;
-  static bool attr_set = false;
-  return (int)sm90::launch_cluster(conv3_fused_kernel<In, Out, MW, BN>, attr_set,
+  // the masked instantiation where a K chunk or N tile is partial, or a
+  // thread's 8 channels straddle groups
+  const bool narrow = p.cin % 64 || p.cin2 % 64 || p.cout % BN || (p.cin / p.groups) % 8;
+  static bool attr_set[2] = {false, false};
+  if (narrow)
+    return (int)sm90::launch_cluster(conv3_fused_kernel<In, Out, MW, BN, true>, attr_set[1],
+                                     dim3(mtiles, ntiles, splits), 128 * (MW + 1), smem, splits,
+                                     s, p);
+  return (int)sm90::launch_cluster(conv3_fused_kernel<In, Out, MW, BN, false>, attr_set[0],
                                    dim3(mtiles, ntiles, splits), 128 * (MW + 1), smem, splits,
                                    s, p);
 }

@@ -68,6 +68,14 @@
 // cp.async while all its threads form the group means from coalesced loads
 // of the pieces, then vector stores.
 
+// Widths, as conv3_fused's: every channel count a multiple of 8 (a 16-byte
+// bf16 row unit) and any C/G. A last K chunk or channel tile narrower than
+// 64 (or than the block's N) comes in zero-filled and stores nothing past
+// the tensor; where a unit of channels straddles GroupNorm groups, each
+// channel reads its own group's statistics. The convs' masks live in their
+// NARROW instantiations alone (gn_bwd's per-channel groups in MIX), which
+// the launch picks from the shape: the flagship's widths never take them.
+
 #include <type_traits>
 
 #include "common.cuh"
@@ -125,7 +133,7 @@ struct DgradGeo {
   static constexpr int SMEM = 1024 + (RING > EPILOGUE ? RING : EPILOGUE);
 };
 
-template <typename Pre, bool ACT, int TAPS, int MW, int BN_>
+template <typename Pre, bool ACT, int TAPS, int MW, int BN_, bool NARROW>
 __global__ void __launch_bounds__(128 * (MW + 1)) conv3_dgrad_kernel(const DgradArgs p) {
   using D = DgradGeo<TAPS, MW, BN_>;
   constexpr int NT = 128 * (MW + 1), BM = D::BM;
@@ -148,14 +156,18 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_dgrad_kernel(const Dgrad
   auto stage_ptr = [&](int s) { return smem + s * STAGE_BYTES; };
   // chunk j into stage s: the taps' weight tiles, then the window
   auto load_chunk = [&](int j, int s) {
-    const int clen = min(64, cout - 64 * j);
+    // K rows past the chunk's channels, up to the k16 steps that read them
+    // (32 or 64), and channels past Cin are zero-filled
+    const int clen = min(64, cout - 64 * j), krows = clen > 32 ? 64 : 32;
     const uint32_t base = sm90::smem_u32(stage_ptr(s));
     for (int u = tid; u < TAPS * 64 * (BN_ / 8); u += NT) {
       const int tap = u / (64 * (BN_ / 8)), r = (u / (BN_ / 8)) & 63, cc = u % (BN_ / 8);
-      if (r >= clen) continue;
-      const bf16* src = p.w + (size_t)(64 * j + r) * TAPS * cin + tap * cin + n0 + cc * 8;
+      if (r >= krows) continue;
+      const bool ok = !NARROW || (r < clen && n0 + cc * 8 < cin);
+      const bf16* src =
+          p.w + (ok ? (size_t)(64 * j + r) * TAPS * cin + tap * cin + n0 + cc * 8 : 0);
       sm90::cp_async16(base + tap * TAP_BYTES + (cc >> 3) * (64 * 128) +
-                           sm90::sw_offset<128>(r, cc & 7), src);
+                           sm90::sw_offset<128>(r, cc & 7), src, ok ? 16 : 0);
     }
     const uint32_t wbase = base + TAPS * TAP_BYTES;
     for (int u = tid; u < (BM + 2) * 8; u += NT) {
@@ -205,7 +217,8 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_dgrad_kernel(const Dgrad
     if (wg < MW) {
       const uint32_t tiles = sm90::smem_u32(stage_ptr(s));
       const uint32_t wbase = tiles + TAPS * TAP_BYTES;
-      // all taps of the chunk: NK k16 steps each (4, or 2 for a 32-wide last chunk)
+      // all taps of the chunk: NK k16 steps each (4, or 2 for a last chunk
+      // of at most 32 channels; the rows past it are zeros)
       auto chunk_mma = [&](auto nk) {
         constexpr int NK = decltype(nk)::value;
         uint32_t fr[TAPS][NK][4];
@@ -225,7 +238,7 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_dgrad_kernel(const Dgrad
         sm90::wgmma_wait<0>();
         sm90::fence_regs(acc);
       };
-      if (cout - 64 * j >= 64)
+      if (cout - 64 * j > 32)
         chunk_mma(std::integral_constant<int, 4>());
       else
         chunk_mma(std::integral_constant<int, 2>());
@@ -268,7 +281,7 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_dgrad_kernel(const Dgrad
   constexpr int RSTEP = NT / BN_, EU = 8;
   const int nrow = min(BM, M - m0);
   const int col = tid % BN_, gcc = n0 + col;
-  if (col >= c_beg && col < c_beg + ncols) {
+  if (col >= c_beg && col < c_beg + ncols && (!NARROW || gcc < cin)) {
     if (!ACT) {
       for (int r = tid / BN_; r < nrow; r += RSTEP)
         p.out[(size_t)(m0 + r) * cin + gcc] = red[r * LDR + col];
@@ -309,6 +322,7 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_dgrad_kernel(const Dgrad
     const size_t plane = (size_t)p.B * p.nT * cin;
     for (int u = tid; u < 2 * ncols; u += NT) {
       const int which = u / ncols, c = c_beg + u % ncols, cc = n0 + c;
+      if (NARROW && cc >= cin) continue;  // a last tile's columns past Cin
       const float* src = which == 0 ? red : xs;
       int b = m0 / T, t = m0 - b * T;
       float s = 0.f;
@@ -380,7 +394,7 @@ struct WgradArgs {
   int splits;          // blocks of a cluster along z; gridDim.z = splits * parts
 };
 
-template <typename Src, bool ACT, int TAPS, int MW>
+template <typename Src, bool ACT, int TAPS, int MW, bool NARROW>
 __global__ void __launch_bounds__(128 * (MW + 1)) conv3_wgrad_kernel(const WgradArgs p) {
   // MW consumer warpgroups and one helper: all share the copies and the
   // activation, the consumers issue the wgmmas and hold the tile
@@ -408,8 +422,11 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_wgrad_kernel(const Wgrad
   const int ch_end = (int)((long long)nch * (blockIdx.z + 1) / NR);
   const int L = ch_end - ch_beg;
   const bool do_bias = p.bias_out != nullptr && blockIdx.y == 0;
-  __shared__ float gb[128];  // this block's 64 channels of gamma, then beta
-  if (ACT && tid < 128) gb[tid] = tid < 64 ? p.gamma[c0 + tid] : p.beta[c0 + tid - 64];
+  __shared__ float gb[128];  // this block's 64 channels of gamma, then beta (0 past Cin)
+  if (ACT && tid < 128) {
+    const int c = c0 + (tid & 63);
+    gb[tid] = NARROW && c >= cin ? 0.f : tid < 64 ? p.gamma[c] : p.beta[c];
+  }
   __syncthreads();
 
   // chunk j into stage s: the g tile (64 frames x BMN channels) and the
@@ -422,7 +439,7 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_wgrad_kernel(const Wgrad
     for (int u = tid; u < 64 * (BMN / 8); u += NT) {
       const int r = u / (BMN / 8), c = u % (BMN / 8);
       const int q = j * 64 + r;
-      const bool ok = q < BT;
+      const bool ok = q < BT && (!NARROW || n0 + c * 8 < cout);
       sm90::cp_async16(base + (r * LDG + c * 8) * 2,
                        p.g + (ok ? (size_t)q * cout + n0 + c * 8 : 0), ok ? 16 : 0);
     }
@@ -431,7 +448,7 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_wgrad_kernel(const Wgrad
     for (int u = tid; u < ROWS * 8; u += NT) {
       const int rr = u % ROWS, cl = (u / ROWS) * 8;
       const int q = j * 64 + LO + rr;
-      const bool ok = q >= 0 && q < BT;
+      const bool ok = q >= 0 && q < BT && (!NARROW || c0 + cl < cin);
       const Src* sp = src + (ok ? (size_t)q * cin + c0 + cl : 0);
 #pragma unroll
       for (int h = 0; h < (int)sizeof(Src) / 2; ++h)
@@ -441,15 +458,21 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_wgrad_kernel(const Wgrad
   };
 
   // this thread's source units (frame rr, 8 channels from cl) are the same
-  // in every chunk: their frame offsets and GroupNorm groups, computed once
+  // in every chunk: their frame offsets and GroupNorm groups, computed once.
+  // A unit past Cin stays zero (-1 in u_gi); a unit whose 8 channels
+  // straddle groups is marked (u_mixed) and reads each channel's group.
   constexpr int ITER = (ROWS * 8 + NT - 1) / NT;
+  const int cg = cin / p.groups;
   int u_rr[ITER], u_cl[ITER], u_gi[ITER];
+  bool u_mixed[ITER];
 #pragma unroll
   for (int it = 0; it < ITER; ++it) {
     const int u = tid + it * NT;
     u_rr[it] = u < ROWS * 8 ? u % ROWS : -1;
     u_cl[it] = (u / ROWS) * 8;
-    u_gi[it] = ACT ? (c0 + u_cl[it]) / (cin / p.groups) : 0;
+    const int c = c0 + u_cl[it];
+    u_gi[it] = !NARROW || c < cin ? (ACT ? c / cg : 0) : -1;
+    u_mixed[it] = NARROW && ACT && c < cin && (c + 7) / cg != c / cg;
   }
 
   // the tap tiles of chunk j: tile k, row c (channel), column jc (frame
@@ -470,15 +493,25 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_wgrad_kernel(const Wgrad
       float v[8];
 #pragma unroll
       for (int e = 0; e < 8; ++e) v[e] = 0.f;
-      if (in) {
+      if (in && (!NARROW || u_gi[it] >= 0)) {
         load8(reinterpret_cast<const Src*>(rs_ + rr * RAW_LD) + cl, v);
         if (ACT) {
           const float* ga = gb + cl;
           const float* be = gb + 64 + cl;
-          const int si = b * p.groups + u_gi[it];
-          const float mu = __ldg(p.mean + si), rstd = __ldg(p.rstd + si);
+          if (!u_mixed[it]) {
+            const int si = b * p.groups + u_gi[it];
+            const float mu = __ldg(p.mean + si), rstd = __ldg(p.rstd + si);
 #pragma unroll
-          for (int e = 0; e < 8; ++e) v[e] = sm90::silu_fast((v[e] - mu) * rstd * ga[e] + be[e]);
+            for (int e = 0; e < 8; ++e)
+              v[e] = sm90::silu_fast((v[e] - mu) * rstd * ga[e] + be[e]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              const int si = b * p.groups + (c0 + cl + e) / cg;
+              v[e] = sm90::silu_fast((v[e] - __ldg(p.mean + si)) * __ldg(p.rstd + si) * ga[e] +
+                                     be[e]);
+            }
+          }
         }
       }
       bf16 h[8];
@@ -580,12 +613,14 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_wgrad_kernel(const Wgrad
     }
   }
   float* out = p.out + (size_t)part * TAPS * cin * cout;
+  // (Cout a multiple of 8: four neighbouring output channels lie wholly
+  // inside Cout or past it)
   auto store4 = [&](int e, float4 v) {
     if (e < NW * BMN) {  // four neighbouring output channels of one (tap, channel)
-      const int k = (e / BMN) >> 6;
-      *reinterpret_cast<float4*>(out + ((size_t)k * cin + c0 + ((e / BMN) & 63)) * cout +
-                                 n0 + e % BMN) = v;
-    } else if (do_bias) {
+      const int k = (e / BMN) >> 6, c = c0 + ((e / BMN) & 63), n = n0 + e % BMN;
+      if (!NARROW || (c < cin && n < cout))
+        *reinterpret_cast<float4*>(out + ((size_t)k * cin + c) * cout + n) = v;
+    } else if (do_bias && (!NARROW || n0 + e - NW * BMN < cout)) {
       *reinterpret_cast<float4*>(p.bias_out + (size_t)part * cout + n0 + e - NW * BMN) = v;
     }
   };
@@ -616,7 +651,12 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_wgrad_kernel(const Wgrad
 // group sums its channels in a fixed order. The pass over the tile gives
 // each thread 4 neighbouring channels and every RP-th frame, and stores by
 // vectors; the FiLM sums go through shared memory and are added in row
-// order. No atomics: two launches give the same bits.
+// order. No atomics: two launches give the same bits. The NARROW
+// instantiation (blocks of 64 channels only; the launch picks it from the
+// shape) takes C not a multiple of 64, whose last block stages, reads and
+// stores only its channels, and C/G not a multiple of 4 (C/G 1, 2, 6,
+// ...), where a thread's 4 channels may straddle groups and each reads its
+// own group's statistics and means.
 constexpr int GB_THREADS = 256;
 constexpr int GB_CPT = 4;  // channels a thread (load4, store4)
 
@@ -641,21 +681,23 @@ __host__ __device__ inline int gn_bwd_window(int c0, int cb, int cg) {
   return ((c0 + cb - 1) / cg - c0 / cg + 1) * cg;
 }
 
-// rows [0, nrows) of a TT x CB tile of a (rows, C) tensor into shared memory
-// by cp.async, 16 bytes a copy; rows past nrows are zero
-template <int CB, typename E>
-__device__ __forceinline__ void gn_bwd_stage(E* dst, const E* src, int nrows, int C) {
+// rows [0, nrows) (and, MASK, channels [0, ncols)) of a TT x CB tile of a
+// (rows, C) tensor into shared memory by cp.async, 16 bytes a copy; the
+// rest is zero
+template <int CB, bool MASK, typename E>
+__device__ __forceinline__ void gn_bwd_stage(E* dst, const E* src, int nrows, int ncols, int C) {
   constexpr int CH = CB * (int)sizeof(E) / 16;  // copies a row
   for (int u = threadIdx.x; u < TT * CH; u += GB_THREADS) {
     const int r = u / CH, k = u - r * CH;
-    const bool ok = r < nrows;
+    const bool ok = r < nrows && (!MASK || k * (16 / (int)sizeof(E)) < ncols);
     sm90::cp_async16(sm90::smem_u32(dst + r * CB) + 16 * k,
                      src + (ok ? (size_t)r * C : 0) + k * (16 / (int)sizeof(E)), ok ? 16 : 0);
   }
 }
 
-template <typename Pre, typename Out, int CB, bool FILM>
+template <typename Pre, typename Out, int CB, bool FILM, bool NARROW>
 __global__ void __launch_bounds__(GB_THREADS, 3) gn_bwd_kernel(const GnBwdArgs p) {
+  constexpr bool MIX = NARROW;  // a thread's channels may straddle groups
   constexpr int CPT = GB_CPT;
   constexpr int TPR = CB / CPT;         // threads a frame
   constexpr int RP = GB_THREADS / TPR;  // frames at a time
@@ -664,7 +706,7 @@ __global__ void __launch_bounds__(GB_THREADS, 3) gn_bwd_kernel(const GnBwdArgs p
   const int tile = blockIdx.x, c0 = blockIdx.y * CB, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int T = p.T, C = p.C, cg = C / p.G, nT = p.nT;
-  const int t0 = tile * TT, nrows = min(TT, T - t0);
+  const int t0 = tile * TT, nrows = min(TT, T - t0), ncols = NARROW ? min(CB, C - c0) : CB;
   const bool has_extra = p.extra != nullptr;
 
   // dynamic shared memory (gn_bwd_smem): the staged tiles (then the FiLM
@@ -672,24 +714,25 @@ __global__ void __launch_bounds__(GB_THREADS, 3) gn_bwd_kernel(const GnBwdArgs p
   float* s_dy = sm;                                                   // [TT][CB]
   Pre* s_x = reinterpret_cast<Pre*>(s_dy + TT * CB);                  // [TT][CB]
   float* acc = reinterpret_cast<float*>(s_x + TT * CB);
-  const int g_lo = c0 / cg, W = gn_bwd_window(c0, CB, cg), ngr = W / cg, w0 = g_lo * cg;
+  const int g_lo = c0 / cg, W = gn_bwd_window(c0, ncols, cg), ngr = W / cg, w0 = g_lo * cg;
   float* mm = acc + 2 * (W > GB_THREADS ? W : GB_THREADS);            // [2][ngr]
   float* red = sm;                                       // [3][RP][CB], after the pass
 
   const size_t row0 = ((size_t)b * T + t0) * C + c0;
-  gn_bwd_stage<CB>(s_dy, p.dy + row0, nrows, C);
-  gn_bwd_stage<CB>(s_x, static_cast<const Pre*>(p.pre) + row0, nrows, C);
+  gn_bwd_stage<CB, NARROW>(s_dy, p.dy + row0, nrows, ncols, C);
+  gn_bwd_stage<CB, NARROW>(s_x, static_cast<const Pre*>(p.pre) + row0, nrows, ncols, C);
   sm90::cp_async_commit();
   // the third input, z1 (FiLM) or extra, straight into registers: this
   // thread's frames r0 + i RP and channels, so a block's shared memory
   // leaves room for three or four blocks an SM
   const int r0 = tid / TPR, j0 = (tid % TPR) * CPT, cb = c0 + j0;
+  const bool cok = !NARROW || j0 < ncols;  // this thread's channels lie inside C
   const float* third = FILM ? p.z1 : p.extra;
   float z[ITERS][CPT];
 #pragma unroll
   for (int i = 0; i < ITERS; ++i) {
     const int r = r0 + i * RP;
-    if (third != nullptr && r < nrows) {
+    if (third != nullptr && r < nrows && cok) {
       load4(third + row0 + (size_t)r * C + j0, z[i]);
     } else {
 #pragma unroll
@@ -741,19 +784,31 @@ __global__ void __launch_bounds__(GB_THREADS, 3) gn_bwd_kernel(const GnBwdArgs p
     }
   }
 
-  // 2. this thread's CPT channels (one group's: C/G is a multiple of CPT;
-  // their constants loaded once) and frames r0, r0 + RP, ... of the tile
-  const int gi = cb / cg;
-  const float mu = __ldg(p.mean + b * p.G + gi), rs = __ldg(p.rstd + b * p.G + gi);
+  // 2. this thread's CPT channels (one group's unless MIX: C/G is then not
+  // a multiple of CPT, and each channel keeps its own group's constants;
+  // all loaded once) and frames r0, r0 + RP, ... of the tile
   float ga[CPT], sc[CPT];
+  float mu[MIX ? CPT : 1], rs[MIX ? CPT : 1];
+#pragma unroll
+  for (int e = 0; e < (MIX ? CPT : 1); ++e) {
+    const int ge = cok ? (cb + e) / cg : g_lo;
+    mu[e] = __ldg(p.mean + b * p.G + ge);
+    rs[e] = __ldg(p.rstd + b * p.G + ge);
+  }
 #pragma unroll
   for (int e = 0; e < CPT; ++e) {
-    ga[e] = __ldg(p.gamma + cb + e);
-    sc[e] = FILM ? 1.f + __ldg(p.film_scale + b * C + cb + e) : 1.f;
+    ga[e] = cok ? __ldg(p.gamma + cb + e) : 0.f;
+    sc[e] = FILM && cok ? 1.f + __ldg(p.film_scale + b * C + cb + e) : 1.f;
   }
   sm90::cp_async_wait<0>();
   __syncthreads();  // the group means and every thread's staged rows are in
-  const float m1 = mm[gi - g_lo], m2 = mm[ngr + gi - g_lo];
+  float m1[MIX ? CPT : 1], m2[MIX ? CPT : 1];
+#pragma unroll
+  for (int e = 0; e < (MIX ? CPT : 1); ++e) {
+    const int ge = cok ? (cb + e) / cg : g_lo;
+    m1[e] = mm[ge - g_lo];
+    m2[e] = mm[ngr + ge - g_lo];
+  }
   Out* out = static_cast<Out*>(p.out) + row0 + j0;
   float q0[CPT], q1[CPT], q2[CPT];
 #pragma unroll
@@ -761,15 +816,16 @@ __global__ void __launch_bounds__(GB_THREADS, 3) gn_bwd_kernel(const GnBwdArgs p
 #pragma unroll
   for (int i = 0; i < ITERS; ++i) {
     const int r = r0 + i * RP;
-    if (r >= nrows) break;
+    if (r >= nrows || !cok) break;
     const int o = r * CB + j0;
     float dy[CPT], x[CPT], d[CPT];
     load4(s_dy + o, dy);
     load4(s_x + o, x);
 #pragma unroll
     for (int e = 0; e < CPT; ++e) {
-      const float xh = (x[e] - mu) * rs;
-      d[e] = rs * (dy[e] * ga[e] - m1 - xh * m2);
+      const int k = MIX ? e : 0;
+      const float xh = (x[e] - mu[k]) * rs[k];
+      d[e] = rs[k] * (dy[e] * ga[e] - m1[k] - xh * m2[k]);
     }
     if (!FILM && has_extra) {
 #pragma unroll
@@ -800,6 +856,7 @@ __global__ void __launch_bounds__(GB_THREADS, 3) gn_bwd_kernel(const GnBwdArgs p
     const size_t plane = (size_t)p.B * nT * C;
     for (int u = tid; u < 3 * CB; u += GB_THREADS) {
       const int w = u / CB, c = u - w * CB;
+      if (NARROW && c >= ncols) continue;
       float s = 0.f;
       for (int r = 0; r < RP; ++r) s += red[(w * RP + r) * CB + c];
       p.part_out[w * plane + ((size_t)b * nT + tile) * C + c0 + c] = s;
@@ -820,13 +877,20 @@ template <typename Pre, bool ACT, int TAPS, int MW, int BN_>
 int launch_dgrad(const DgradArgs& a, int mtiles, int ntiles, int splits, int smem,
                  cudaStream_t s) {
   using D = DgradGeo<TAPS, MW, BN_>;
-  if (a.cin % BN_ != 0 || mtiles != (a.B * a.T + D::BM - 1) / D::BM || ntiles != a.cin / BN_ ||
+  if (mtiles != (a.B * a.T + D::BM - 1) / D::BM || ntiles != (a.cin + BN_ - 1) / BN_ ||
       smem != D::SMEM || splits < 1 || splits > 8 || splits > (a.cout + 63) / 64)
     return ERR_PLAN;
-  static bool attr_set = false;
-  return (int)sm90::launch_cluster(conv3_dgrad_kernel<Pre, ACT, TAPS, MW, BN_>, attr_set,
-                                   dim3(mtiles, ntiles, splits), 128 * (MW + 1), smem, splits,
-                                   s, a);
+  // the masked instantiation where an N tile or a K chunk is partial (a
+  // last chunk of 32 needs none: its k16 steps stop at 32)
+  const bool narrow = a.cin % BN_ || a.cout % 32;
+  static bool attr_set[2] = {false, false};
+  if (narrow)
+    return (int)sm90::launch_cluster(conv3_dgrad_kernel<Pre, ACT, TAPS, MW, BN_, true>,
+                                     attr_set[1], dim3(mtiles, ntiles, splits), 128 * (MW + 1),
+                                     smem, splits, s, a);
+  return (int)sm90::launch_cluster(conv3_dgrad_kernel<Pre, ACT, TAPS, MW, BN_, false>,
+                                   attr_set[0], dim3(mtiles, ntiles, splits), 128 * (MW + 1),
+                                   smem, splits, s, a);
 }
 
 template <typename Pre, bool ACT, int TAPS>
@@ -846,7 +910,9 @@ extern "C" int lm2a_conv3_dgrad(const void* g, const void* w, const void* pre, i
                                 const float* beta, float* out, float* pieces, int B, int T,
                                 int cin, int cout, int taps, int groups, int nT, int mw, int bn,
                                 int mtiles, int ntiles, int splits, int smem, void* stream) {
-  if (B < 1 || T < 1 || nT != (T + TT - 1) / TT) return (int)cudaErrorInvalidValue;
+  if (B < 1 || T < 1 || nT != (T + TT - 1) / TT || cin < 8 || cin % 8 || cout < 8 ||
+      cout % 8 || groups < 1 || cin % groups)
+    return (int)cudaErrorInvalidValue;
   DgradArgs a;
   a.g = static_cast<const bf16*>(g);
   a.w = static_cast<const bf16*>(w);
@@ -886,12 +952,19 @@ template <typename Src, bool ACT, int TAPS, int MW>
 int launch_wgrad(const WgradArgs& a, int ntiles, int ctiles, int parts, int smem,
                  cudaStream_t s) {
   const int nch = (a.B * a.T + 63) / 64;
-  if (a.cout % (64 * MW) || a.cin % 64 || ntiles != a.cout / (64 * MW) || ctiles != a.cin / 64 ||
+  if (ntiles != (a.cout + 64 * MW - 1) / (64 * MW) || ctiles != (a.cin + 63) / 64 ||
       a.splits < 1 || a.splits > 8 || parts < 1 || parts > WGRAD_PARTS ||
       a.splits * parts > nch || smem != WgradGeo<Src, TAPS, MW>::SMEM)
     return ERR_PLAN;
-  static bool attr_set = false;
-  return (int)sm90::launch_cluster(conv3_wgrad_kernel<Src, ACT, TAPS, MW>, attr_set,
+  // the masked instantiation where a channel tile is partial or a unit of
+  // 8 channels straddles groups
+  const bool narrow = a.cin % 64 || a.cout % (64 * MW) || (ACT && (a.cin / a.groups) % 8);
+  static bool attr_set[2] = {false, false};
+  if (narrow)
+    return (int)sm90::launch_cluster(conv3_wgrad_kernel<Src, ACT, TAPS, MW, true>, attr_set[1],
+                                     dim3(ntiles, ctiles, a.splits * parts), 128 * (MW + 1),
+                                     smem, a.splits, s, a);
+  return (int)sm90::launch_cluster(conv3_wgrad_kernel<Src, ACT, TAPS, MW, false>, attr_set[0],
                                    dim3(ntiles, ctiles, a.splits * parts), 128 * (MW + 1), smem,
                                    a.splits, s, a);
 }
@@ -917,7 +990,7 @@ int launch_wgrad_taps(const WgradArgs& a, int taps, int mw, int ntiles, int ctil
 int gn_bwd_smem(int C, int cg, int cb, int pre_bytes) {
   int w = 0;
   for (int c0 = 0; c0 < C; c0 += cb) {
-    const int wi = gn_bwd_window(c0, cb, cg);
+    const int wi = gn_bwd_window(c0, C - c0 < cb ? C - c0 : cb, cg);
     w = wi > w ? wi : w;
   }
   return TT * cb * (4 + pre_bytes) +
@@ -925,21 +998,30 @@ int gn_bwd_smem(int C, int cg, int cb, int pre_bytes) {
 }
 static_assert(3 * GB_THREADS * GB_CPT <= TT * 64, "the FiLM sums' rows fit the d_y tile");
 
-template <typename Pre, typename Out, int CB, bool FILM>
+template <typename Pre, typename Out, int CB, bool FILM, bool NARROW>
 int launch_gn_bwd(const GnBwdArgs& a, cudaStream_t s) {
   const int smem = gn_bwd_smem(a.C, a.C / a.G, CB, (int)sizeof(Pre));
   static bool attr_set = false;
-  return (int)sm90::launch_cluster(gn_bwd_kernel<Pre, Out, CB, FILM>, attr_set,
-                                   dim3(a.nT, a.C / CB, a.B), GB_THREADS, smem, 1, s, a);
+  return (int)sm90::launch_cluster(gn_bwd_kernel<Pre, Out, CB, FILM, NARROW>, attr_set,
+                                   dim3(a.nT, (a.C + CB - 1) / CB, a.B), GB_THREADS, smem, 1,
+                                   s, a);
 }
 
+template <typename Pre, typename Out, int CB, bool NARROW>
+int launch_gn_bwd_film(const GnBwdArgs& a, cudaStream_t s) {
+  return a.film_scale != nullptr ? launch_gn_bwd<Pre, Out, CB, true, NARROW>(a, s)
+                                 : launch_gn_bwd<Pre, Out, CB, false, NARROW>(a, s);
+}
+
+// a C that blocks of cb channels do not divide, or C/G not a multiple of
+// GB_CPT (the narrow models' C/G 1, 2, 6, ...), takes the NARROW form, in
+// blocks of 64 channels only
 template <typename Pre, typename Out>
 int launch_gn_bwd_plan(const GnBwdArgs& a, int cb, cudaStream_t s) {
-  const bool film = a.film_scale != nullptr;
-  if (cb == 128) return film ? launch_gn_bwd<Pre, Out, 128, true>(a, s)
-                             : launch_gn_bwd<Pre, Out, 128, false>(a, s);
-  if (cb == 64) return film ? launch_gn_bwd<Pre, Out, 64, true>(a, s)
-                            : launch_gn_bwd<Pre, Out, 64, false>(a, s);
+  const bool narrow = (a.C / a.G) % GB_CPT != 0 || a.C % cb != 0;
+  if (cb == 64) return narrow ? launch_gn_bwd_film<Pre, Out, 64, true>(a, s)
+                              : launch_gn_bwd_film<Pre, Out, 64, false>(a, s);
+  if (cb == 128 && !narrow) return launch_gn_bwd_film<Pre, Out, 128, false>(a, s);
   return ERR_PLAN;
 }
 
@@ -950,7 +1032,9 @@ extern "C" int lm2a_conv3_wgrad(const void* src, int src_is_f32, const float* me
                                 const void* g, float* out, float* bias_out, int B, int T,
                                 int cin, int cout, int taps, int groups, int mw, int ntiles,
                                 int ctiles, int splits, int parts, int smem, void* stream) {
-  if (B < 1 || T < 1) return (int)cudaErrorInvalidValue;
+  if (B < 1 || T < 1 || cin < 8 || cin % 8 || cout < 8 || cout % 8 || groups < 1 ||
+      cin % groups)
+    return (int)cudaErrorInvalidValue;
   WgradArgs a;
   a.src = src;
   a.mean = mean;
@@ -981,9 +1065,9 @@ extern "C" int lm2a_conv3_wgrad(const void* src, int src_is_f32, const float* me
 }
 
 // pieces: conv3_dgrad's (2, 2, B, nT, C) head and tail pieces, read as they
-// are (head + tail per bucket); every pointer 16-byte aligned; C/G a
-// multiple of 4; extra (GN1) or FiLM (GN2), not both; cb: the plan's
-// channels a block (64 or 128, dividing C)
+// are (head + tail per bucket); every pointer 16-byte aligned; C a multiple
+// of 8; extra (GN1) or FiLM (GN2), not both; cb: the plan's channels a
+// block (64, or 128 where it divides C and C/G is a multiple of 4)
 extern "C" int lm2a_gn_bwd(const float* dy, const void* pre, int pre_is_f32, const float* mean,
                            const float* rstd, const float* gamma, const float* pieces,
                            const float* extra, const float* film_scale, const float* z1,
@@ -991,9 +1075,9 @@ extern "C" int lm2a_gn_bwd(const float* dy, const void* pre, int pre_is_f32, con
                            int G, int nT, int cb, void* stream) {
   if (B < 1 || T < 1 || G < 1 || C % G || nT != (T + TT - 1) / TT ||
       (film_scale != nullptr) != (z1 != nullptr) || (film_scale != nullptr) != (part_out != nullptr) ||
-      (film_scale != nullptr && extra != nullptr) || (C / G) % GB_CPT)
+      (film_scale != nullptr && extra != nullptr) || C % 8)
     return (int)cudaErrorInvalidValue;
-  if ((cb != 64 && cb != 128) || C % cb) return ERR_PLAN;
+  if (cb != 64 && cb != 128) return ERR_PLAN;
   GnBwdArgs a;
   a.dy = dy;
   a.pre = pre;

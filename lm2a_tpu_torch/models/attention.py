@@ -102,10 +102,14 @@ class CrossAttentionFusion(nn.Module):
         if fused:
             self.folded = None
 
-    @torch.no_grad()
     def fold(self, dtype: torch.dtype) -> None:
         """Precompute the folded weights from the (fp32) parameters; call
         before the module's own weights are cast to ``dtype``."""
+        self.folded = self.folded_weights(dtype)
+
+    @torch.no_grad()
+    def folded_weights(self, dtype: torch.dtype) -> dict:
+        """The folded weights of the current parameters, in ``dtype``."""
         e = self.mel_dim
         am, at = self.attn_motion, self.attn_text
         wf = self.fuse_proj.weight.float().t()  # (2e, e), flax layout
@@ -113,7 +117,7 @@ class CrossAttentionFusion(nn.Module):
                        at.out_proj.weight.float().t() @ wf[e:]], dim=0)
         bias = (am.out_proj.bias.float() @ wf[:e] + at.out_proj.bias.float() @ wf[e:]
                 + self.fuse_proj.bias.float())
-        self.folded = {
+        return {
             "wq": torch.cat([am.q_proj.weight, at.q_proj.weight], dim=0).to(dtype),
             "bq": torch.cat([am.q_proj.bias, at.q_proj.bias]).to(dtype),
             "w_out": w.t().contiguous().to(dtype),  # (e, 2e)

@@ -35,6 +35,7 @@ differentiable PyTorch.
 from __future__ import annotations
 
 import copy
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
@@ -300,6 +301,25 @@ class UNet1DUltimate(nn.Module):
         for m in self.modules():
             if isinstance(m, (nn.Linear, nn.Conv1d)):
                 m.to(dtype)
+        return self
+
+    @torch.no_grad()
+    def refresh(self, src: "UNet1DUltimate") -> "UNet1DUltimate":
+        """Make this prepared model ``src.prepare(dtype)`` again, in place:
+        ``src`` is the same architecture with fp32 parameters. Every tensor
+        the serving forward reads is written with one ``copy_`` into its own
+        storage, so a captured graph that reads them sees the new values."""
+        for d, s in zip(self.parameters(), src.parameters(), strict=True):
+            d.copy_(s)
+        for d, s in zip(self.resblocks(), src.resblocks(), strict=True):
+            fresh = s.chain_weights(d.chain.conv1_w.dtype)
+            for f in dataclasses.fields(fresh):
+                t = getattr(fresh, f.name)
+                if isinstance(t, torch.Tensor):
+                    getattr(d.chain, f.name).copy_(t)
+            if d.use_attn and d.cross_attn.folded is not None:
+                for k, t in s.cross_attn.folded_weights(d.cross_attn.folded["wq"].dtype).items():
+                    d.cross_attn.folded[k].copy_(t)
         return self
 
     def with_fused_attention(self) -> "UNet1DUltimate":

@@ -42,7 +42,11 @@ STREAMING_S_THRESHOLD = 1024
 # Long-form generation takes the fused route above this many mel frames,
 # as the JAX package does (its break-even on the TPU, kept for parity).
 FUSED_ATTENTION_MIN_T = 12288
-HEAD_DIMS = (8, 16, 32, 64, 128)
+# head dims 2 and 4 (C/8 at the narrow base-16 and base-32 models' C = 16 and
+# 32) are read through virtual heads of 8 channels: the heads must lie side
+# by side (head stride hd, a channels-last projection's view), H*hd a
+# multiple of 8
+HEAD_DIMS = (2, 4, 8, 16, 32, 64, 128)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _build.declare("attention", "lm2a_attention",
@@ -64,11 +68,12 @@ _ALIGN = 1024  # slack for aligning the swizzled tiles to 1024 bytes
 # (the ranks' fp32 O through distributed shared memory); a grid runs in
 # waves of WAVE_BLOCKS[split] blocks (ops/resblock.py: one block per SM;
 # clusters fit in one GPC). The constants were fitted to the device times of
-# scripts/torch_attention_plan_sweep.py on an H100 (PERF.md); hd 8 and 16,
-# off the model's path, take hd 32's.
-BLOCK_US = {8: 3.8, 16: 3.8, 32: 3.8, 64: 3.9, 128: 6.0}
+# scripts/torch_attention_plan_sweep.py on an H100 (PERF.md); hd 2 to 16,
+# off the flagship's path, take hd 32's.
+BLOCK_US = {2: 3.8, 4: 3.8, 8: 3.8, 16: 3.8, 32: 3.8, 64: 3.9, 128: 6.0}
 COMBINE_US, COMBINE_US_PER_HD = 0.6, 0.025
-TILE_US = {(8, 64): 0.69, (8, 128): 1.06, (16, 64): 0.69, (16, 128): 1.06,
+TILE_US = {(2, 64): 0.69, (2, 128): 1.06, (4, 64): 0.69, (4, 128): 1.06,
+           (8, 64): 0.69, (8, 128): 1.06, (16, 64): 0.69, (16, 128): 1.06,
            (32, 64): 0.69, (32, 128): 1.06, (64, 64): 0.8, (64, 128): 1.23,
            (128, 64): 0.99, (128, 128): 1.51}
 
@@ -172,8 +177,14 @@ def _check(q, k, v):
     for x, name in ((q, "q"), (k, "k"), (v, "v")):
         st = x.stride()
         need(x.device == q.device, f"{name} on {x.device}, q on {q.device}")
-        need(st[3] == 1 and st[0] % 8 == st[1] % 8 == st[2] % 8 == x.data_ptr() % 16 == 0,
-             f"{name} needs hd contiguous and 16-byte aligned rows, strides {st}")
+        if hd < 8:  # virtual heads of 8 channels: the heads side by side
+            need(st[3] == 1 and st[1] == hd and (h * hd) % 8 == 0
+                 and st[0] % 8 == st[2] % 8 == x.data_ptr() % 16 == 0,
+                 f"{name} at head dim {hd} needs its heads side by side (head stride {hd}), "
+                 f"H*hd a multiple of 8 and 16-byte aligned rows, strides {st}, H {h}")
+        else:
+            need(st[3] == 1 and st[0] % 8 == st[1] % 8 == st[2] % 8 == x.data_ptr() % 16 == 0,
+                 f"{name} needs hd contiguous and 16-byte aligned rows, strides {st}")
 
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

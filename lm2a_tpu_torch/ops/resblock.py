@@ -39,6 +39,10 @@ SMEM_MAX = 232_448       # dynamic shared memory a block may opt into
 # conv3_fused geometry (csrc/resblock.cu): K walks in chunks of 64 input
 # channels; a 3-stage weight ring; bf16 window rows 72 wide (144 bytes)
 CHUNK, _NSTAGE, _LDW = 64, 3, 72
+# every channel count the kernels take is a multiple of WIDTH_UNIT: one
+# 16-byte row unit of bf16, what cp.async and the vector loads move; a last
+# K chunk or N tile narrower than the kernel's is zero-filled and masked
+WIDTH_UNIT = 8
 _ALIGN = 1024            # slack for aligning the swizzled tiles to 1024 bytes
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -137,18 +141,30 @@ def _conv3_smem(mw: int, bn: int, splits: int, in_bytes: int) -> int:
     return _ALIGN + max(body, bm * bn * 4 if splits > 1 else 0)
 
 
+def n_chunks(c: int) -> int:
+    """K chunks of 64 channels over ``c`` (the last one zero-filled past ``c``)."""
+    return -(-c // CHUNK)
+
+
+def tile_fits(c: int, tile: int) -> bool:
+    """A tile width the plans consider for ``c`` channels: one that divides
+    ``c``, or any where ``c`` is not a multiple of 64 (its last tile is then
+    partial whatever the width): the flagship's plans stay as they were."""
+    return c % tile == 0 or c % CHUNK != 0
+
+
 def conv3_candidates(rows: int, t: int, cin: int, cout: int, cin2: int = 0,
                      split_skip: bool = False, in_bytes: int = 2):
     """Every launch of ``conv3_fused`` for this conv that fits the card, as
     (modeled microseconds, ConvPlan), in a fixed order."""
     m = rows * t
-    ntot = 2 * cout if split_skip else cout
-    chunks = (cin // CHUNK, cin2 // CHUNK) if split_skip else (cin // CHUNK + cin2 // CHUNK,)
+    chunks = ((n_chunks(cin), n_chunks(cin2)) if split_skip
+              else (n_chunks(cin) + n_chunks(cin2),))
     out = []
     for (mw, bn), chunk_us in CHUNK_US.items():
-        if cout % bn:
+        if not tile_fits(cout, bn):
             continue
-        mtiles, ntiles = -(-m // (64 * mw)), ntot // bn
+        mtiles, ntiles = -(-m // (64 * mw)), (2 if split_skip else 1) * -(-cout // bn)
         for splits in range(1, min(SPLIT_MAX, *chunks) + 1):
             smem = _conv3_smem(mw, bn, splits, in_bytes)
             if smem > SMEM_MAX:
@@ -290,6 +306,13 @@ def _need(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+def check_widths(fn: str, **widths: int) -> None:
+    """Raise by name unless every channel count is a positive multiple of
+    ``WIDTH_UNIT`` (what the resblock kernels take)."""
+    bad = ", ".join(f"{k}={v}" for k, v in widths.items() if v <= 0 or v % WIDTH_UNIT)
+    _need(not bad, f"{fn}: channel counts must be multiples of {WIDTH_UNIT}, got {bad}")
+
+
 def _check_vec(v, n, device, name):
     _need(v.dtype == torch.float32 and v.is_contiguous() and v.numel() == n
           and v.device == device, f"{name}: need contiguous fp32 ({n},) on {device}")
@@ -340,10 +363,8 @@ def conv3_fused(a, mean, rstd, gamma, beta, w, bias, *, film=None, skip=None,
           and tuple(w.shape) == (cout, 3 * cin),
           "conv3_fused: the CUDA path takes bf16 weights (Cout, 3*Cin); "
           "load the models with compute_dtype='bfloat16'")
-    _need(cin % CHUNK == 0 and cout % 64 == 0,
-          f"conv3_fused: needs Cin % {CHUNK} == 0 and Cout % 64 == 0, "
-          f"got {cin}->{cout}")
-    _need((cin // groups) % 8 == 0, "conv3_fused: C/G must be a multiple of 8")
+    check_widths("conv3_fused", Cin=cin, Cout=cout)
+    _need(cin % groups == 0, "conv3_fused: Cin must divide into groups")
     for v, n, name in ((gamma, cin, "gamma"), (beta, cin, "beta"), (bias, cout, "bias")):
         _check_vec(v, n, dev, name)
     for s, name in ((mean, "mean"), (rstd, "rstd")):
@@ -364,8 +385,9 @@ def conv3_fused(a, mean, rstd, gamma, beta, w, bias, *, film=None, skip=None,
         x2, w2, b2 = skip
         cin2 = x2.shape[-1]
         _need(x2.dtype == torch.bfloat16 and x2.is_contiguous()
-              and tuple(x2.shape) == (b, t, cin2) and cin2 % CHUNK == 0,
+              and tuple(x2.shape) == (b, t, cin2),
               "conv3_fused: skip input must be contiguous bf16 (B, T, Cin2)")
+        check_widths("conv3_fused", Cin2=cin2)
         _need(w2.dtype == torch.bfloat16 and w2.is_contiguous()
               and tuple(w2.shape) == (cout, cin2), "conv3_fused: skip weight (Cout, Cin2) bf16")
         _check_vec(b2, cout, dev, "skip bias")

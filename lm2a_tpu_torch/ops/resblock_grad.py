@@ -47,8 +47,9 @@ import torch
 
 from lm2a_tpu_torch.ops import _build
 from lm2a_tpu_torch.ops.resblock import (
-    _ALIGN, CHUNK, SMEM_MAX, SPLIT_MAX, WAVE_BLOCKS, WGRAD_CHUNK_US, _check_vec,
-    _is_cuda, _need, conv3_fused, conv3_fused_plain, gn_stats, gn_stats_plain, modeled_us,
+    _ALIGN, SMEM_MAX, SPLIT_MAX, WAVE_BLOCKS, WGRAD_CHUNK_US, _check_vec, _is_cuda, _need,
+    check_widths, conv3_fused, conv3_fused_plain, gn_stats, gn_stats_plain, modeled_us,
+    n_chunks, tile_fits,
 )
 
 SMEM_SM, SMEM_RESERVED = 233_472, 1024  # an SM's shared memory; the system's share a block
@@ -64,7 +65,6 @@ PARTS_US, PARTS_US_PER_MB = 4.0, 0.5
 # gradient accumulators plus ~8 live (T, C) fp32 rows within 15 MiB of VMEM.
 BWD_VMEM_BUDGET = 15 * 1024 * 1024
 TT = 64  # frames per partial-sum tile (bucket)
-_BT, _BK = 64, 32  # Cin in tiles of 64; Cout in K chunks of 64, the last one may be 32
 _WG_STAGES = 3  # conv3_wgrad's ring of 64-frame g tiles
 _DG_STAGES, _DG_LDW = 3, 72  # conv3_dgrad's ring; bf16 stride of its g windows
 
@@ -228,10 +228,9 @@ def _check_act(fn, src, mean, rstd, gamma, beta):
     _need(src.dtype in (torch.bfloat16, torch.float32) and src.is_contiguous(),
           f"{fn}: the GroupNorm input must be contiguous bf16 or fp32")
     groups = mean.shape[1]
-    # conv3_wgrad's prologue normalizes 8 channels of one group at a time;
-    # conv3_dgrad's epilogue takes a group per channel
-    _need(c % groups == 0 and (c // groups) % 8 == 0,
-          f"{fn}: C/G must be a multiple of 8")
+    # any C/G: a unit of 8 channels that straddles groups reads each
+    # channel's own statistics
+    _need(c % groups == 0, f"{fn}: C must divide into groups")
     for s, name in ((mean, "mean"), (rstd, "rstd")):
         _check_stats(s, b, groups, src.device, f"{fn} {name}")
     for v, name in ((gamma, "gamma"), (beta, "beta")):
@@ -278,7 +277,7 @@ def dgrad_candidates(b: int, t: int, cin: int, cout: int, taps: int):
     chunks = -(-cout // 64)
     out = []
     for (mw, bn), chunk_us in DGRAD_CHUNK_US.items():
-        if cin % bn:
+        if not tile_fits(cin, bn):
             continue
         smem = _dgrad_smem(mw, bn, taps)
         if smem > SMEM_MAX:
@@ -286,7 +285,7 @@ def dgrad_candidates(b: int, t: int, cin: int, cout: int, taps: int):
         fixed = DGRAD_BLOCK_US[(mw, bn)] + (DGRAD_EPILOGUE_US[(mw, bn)] if taps == 3 else 0.0)
         if taps == 1:
             chunk_us *= DGRAD_TAP1
-        mtiles, ntiles = -(-m // (64 * mw)), cin // bn
+        mtiles, ntiles = -(-m // (64 * mw)), -(-cin // bn)
         per_sm = min(DGRAD_PER_SM[(mw, bn)], SMEM_SM // (smem + SMEM_RESERVED))
         for splits in range(1, min(SPLIT_MAX, chunks) + 1):
             plan = DgradPlan(mw, bn, mtiles, ntiles, splits, smem, chunks)
@@ -317,8 +316,7 @@ def conv3_dgrad(g, w, *, taps: int = 3, pre=None, mean=None, rstd=None, gamma=No
     _need(g.dtype == torch.bfloat16 and g.is_contiguous(), "conv3_dgrad: g must be contiguous bf16")
     _need(w.dtype == torch.bfloat16 and w.is_contiguous() and tuple(w.shape) == (cout, taps * cin)
           and w.device == dev, "conv3_dgrad: w must be contiguous bf16 (Cout, taps*Cin)")
-    _need(cout % _BK == 0 and cin % _BT == 0,
-          f"conv3_dgrad: needs Cout % {_BK} == 0 and Cin % {_BT} == 0, got {cout}->{cin}")
+    check_widths("conv3_dgrad", Cout=cout, Cin=cin)
     _need((taps == 3) == (pre is not None),
           "conv3_dgrad: the kernel takes 3 taps with pre (the SiLU backward) or 1 tap raw")
     nt = n_tiles(t)
@@ -374,9 +372,9 @@ def wgrad_candidates(b: int, t: int, cin: int, cout: int, taps: int, src_bytes: 
     out_mb = taps * cin * cout * 4 / 1e6
     out = []
     for mw, chunk_us in WGRAD_CHUNK_US.items():
-        if cout % (64 * mw):
+        if not tile_fits(cout, 64 * mw):
             continue
-        ntiles, ctiles = cout // (64 * mw), cin // CHUNK
+        ntiles, ctiles = -(-cout // (64 * mw)), n_chunks(cin)
         body = (2 * taps * 64 * 128                         # two sets of tap tiles
                 + _WG_STAGES * 64 * (64 * mw + 8) * 2       # the g ring
                 + _WG_STAGES * rows * (64 * src_bytes + 16))  # the source ring
@@ -414,8 +412,7 @@ def conv3_wgrad(src, g, *, taps: int = 3, mean=None, rstd=None, gamma=None, beta
     _need(g.dtype == torch.bfloat16 and g.is_contiguous(), "conv3_wgrad: g must be contiguous bf16")
     _need(tuple(src.shape) == (b, t, cin) and src.device == dev,
           "conv3_wgrad: src must be (B, T, Cin) on g's device")
-    _need(cin % _BT == 0 and cout % _BT == 0,
-          f"conv3_wgrad: needs Cin and Cout multiples of {_BT}, got {cin}, {cout}")
+    check_widths("conv3_wgrad", Cin=cin, Cout=cout)
     groups = 1
     if mean is None:
         _need(src.dtype == torch.bfloat16 and src.is_contiguous(),
@@ -436,10 +433,12 @@ def conv3_wgrad(src, g, *, taps: int = 3, mean=None, rstd=None, gamma=None, beta
     return dw.sum(0), (db.sum(0) if bias else None)
 
 
-def gn_bwd_plan(c: int) -> int:
+def gn_bwd_plan(c: int, groups: int = 1) -> int:
     """Channels a block of ``gn_bwd`` takes (pure; the wrapper passes it to
-    the kernel, whose grid is (nT, C / cb, B)): 128 where C allows, else 64."""
-    return 128 if c % 128 == 0 else 64
+    the kernel, whose grid is (nT, ceil(C / cb), B)): 128 where C allows,
+    else 64 (a last tile of fewer where C is not a multiple of 64); 64
+    where C/G is not a multiple of 4, the kernel's per-channel-group form."""
+    return 128 if c % 128 == 0 and (c // groups) % 4 == 0 else 64
 
 
 def gn_bwd(dy, pre, mean, rstd, gamma, pieces, *, extra=None, film_scale=None, z1=None,
@@ -454,10 +453,9 @@ def gn_bwd(dy, pre, mean, rstd, gamma, pieces, *, extra=None, film_scale=None, z
     _need(dy.dtype == torch.float32 and dy.is_contiguous(), "gn_bwd: dy must be contiguous fp32")
     _need(tuple(pre.shape) == (b, t, c) and pre.is_contiguous()
           and pre.dtype in (torch.bfloat16, torch.float32), "gn_bwd: pre must be (B, T, C)")
-    _need(c % _BT == 0, f"gn_bwd: needs C % {_BT} == 0")
+    check_widths("gn_bwd", C=c)
     groups = mean.shape[1]
-    _need(c % groups == 0 and (c // groups) % 4 == 0,
-          "gn_bwd: C must divide into groups of a multiple of 4 channels")
+    _need(c % groups == 0, "gn_bwd: C must divide into groups")
     for s, name in ((mean, "mean"), (rstd, "rstd")):
         _check_stats(s, b, groups, dev, f"gn_bwd {name}")
     _check_vec(gamma, c, dev, "gn_bwd gamma")
@@ -484,7 +482,7 @@ def gn_bwd(dy, pre, mean, rstd, gamma, pieces, *, extra=None, film_scale=None, z
                   P(dy), P(pre), int(pre.dtype == torch.float32), P(mean), P(rstd),
                   P(gamma), P(pieces), P(extra), P(film_scale), P(z1), P(out),
                   int(out_dtype == torch.float32), P(part_out), b, t, c, groups, nt,
-                  gn_bwd_plan(c), _build.stream_ptr(dev))
+                  gn_bwd_plan(c, groups), _build.stream_ptr(dev))
     return out, part_out
 
 

@@ -1,5 +1,6 @@
-"""Adan with folded gradient clipping and the EMA (port of
-``lm2a_tpu/training/adan.py``, the ``fused_opt=True`` form).
+"""Adan with gradient clipping and the EMA (port of
+``lm2a_tpu/training/adan.py`` and of ``make_optimizer`` in
+``lm2a_tpu/training/train_step.py``).
 
 State: first-moment EMA ``m``, gradient-difference EMA ``v``, EMA of
 ``(g + (1-b2)(g - g_prev))^2`` as ``n``, and ``prev_grad``, each keyed like
@@ -19,8 +20,14 @@ at each read. Two routes, one state layout:
 - ``'pallas'``: the CUDA kernel of ``ops.adan.AdanEma`` (one
   launch for every leaf on the card), the same arithmetic.
 
-The unfolded ``fused_opt=False`` chain and the raveled ``flat_adan`` of the
-JAX package are not ported.
+``fused_opt=False`` is the JAX package's chained form,
+``optax.chain(clip_by_global_norm, adan)``. Its arithmetic is the folded
+form's, bit for bit (the JAX package's own comment on the two forms), so it
+takes the plain route's update; what differs is the state's place in a
+checkpoint, index 1 of the chain's tuple (``AdanState.chained``:
+``.opt_state[1].m[...]``). The CUDA route refuses it, as the JAX package's
+Pallas updater does. The raveled ``flat_adan`` of the JAX package (measured
+and rejected there, reached by no CLI) is not ported.
 """
 
 from __future__ import annotations
@@ -48,16 +55,19 @@ class AdanState:
     v: Dict[str, torch.Tensor] = field(default_factory=dict)
     n: Dict[str, torch.Tensor] = field(default_factory=dict)
     prev_grad: Dict[str, torch.Tensor] = field(default_factory=dict)
+    # the chained form's layout: the state at index 1 of (clip state, Adan state)
+    chained: bool = False
 
 
 def init_adan_state(params: Dict[str, torch.Tensor],
-                    state_dtype: Optional[torch.dtype] = None) -> AdanState:
+                    state_dtype: Optional[torch.dtype] = None,
+                    chained: bool = False) -> AdanState:
     """Zero moments shaped like ``params`` (fp32 unless ``state_dtype``)."""
     def zeros():
         return {k: torch.zeros(p.shape, dtype=state_dtype or p.dtype, device=p.device)
                 for k, p in params.items()}
 
-    return AdanState(0, zeros(), zeros(), zeros(), zeros())
+    return AdanState(0, zeros(), zeros(), zeros(), zeros(), chained)
 
 
 def make_lr_schedule(base_lr: float, decay_steps: Tuple[int, ...] = (),
@@ -101,13 +111,18 @@ def cosine_decay_schedule(init_value: float, decay_steps: int,
 
 class Adan:
     """The optimizer of the train step: clip + Adan + EMA over named
-    parameters, in place, on either route."""
+    parameters, in place, on either route. ``fused=False`` is the chained
+    form's state layout (see the module docstring), on the plain route only."""
 
     def __init__(self, lr_schedule: Callable[[int], np.float32], *, weight_decay: float = 0.0,
                  grad_clip: float = 0.0, ema_decay: float = 0.999,
-                 state_dtype: Optional[torch.dtype] = None, backend: str = "xla"):
+                 state_dtype: Optional[torch.dtype] = None, backend: str = "xla",
+                 fused: bool = True):
         if backend not in ("xla", "pallas"):
             raise ValueError(f"opt_backend must be 'xla' or 'pallas', got {backend!r}")
+        if not fused and backend == "pallas":
+            raise ValueError("opt_backend='pallas' needs fused_opt=1 (bare AdanState layout)")
+        self.fused = fused
         self.lr_schedule = lr_schedule
         self.weight_decay, self.grad_clip = weight_decay, float(grad_clip or 0.0)
         self.ema_decay = ema_decay
@@ -115,8 +130,14 @@ class Adan:
         self.backend = backend
         self._kernel = AdanEma(BETAS, EPS, self.grad_clip)
 
+    @property
+    def chained(self) -> bool:
+        """The chain's state layout: unfused and clipping (with no clip the
+        JAX package's optimizer is Adan alone, the bare layout)."""
+        return not self.fused and self.grad_clip > 0
+
     def init(self, params: Dict[str, torch.Tensor]) -> AdanState:
-        return init_adan_state(params, self.state_dtype)
+        return init_adan_state(params, self.state_dtype, self.chained)
 
     def host_scalars(self, step: int) -> np.ndarray:
         """The 8 scalars of the step after ``step`` completed steps, on the

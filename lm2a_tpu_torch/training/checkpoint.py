@@ -6,7 +6,9 @@
 
 Keys: ``.step``, ``.params['unet'][...]['kernel']`` (and ``'cond_proj'``),
 ``.ema_params[...]``, ``.opt_state.step`` and
-``.opt_state.{m,v,n,prev_grad}[...]``, each leaf in the flax layout (Dense
+``.opt_state.{m,v,n,prev_grad}[...]`` (``.opt_state[1].step`` and
+``.opt_state[1].{m,...}[...]`` for the chained ``fused_opt=False`` form,
+whose clip state holds no leaf), each leaf in the flax layout (Dense
 kernel ``(in, out)``, Conv kernel ``(K, Cin, Cout)``, GroupNorm ``scale``);
 bf16 optimizer state stored as its uint16 bit pattern. ``save_checkpoint``
 fetches the state to the host on the caller's thread and can write the
@@ -78,18 +80,23 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def _opt_key(state: TrainState) -> str:
+    """The Adan state's collection: ``opt_state``, or index 1 of the chain."""
+    return "opt_state[1]" if state.opt.chained else "opt_state"
+
+
 def _trees(state: TrainState) -> Dict[str, Dict[str, torch.Tensor]]:
     params = state.params()
     trees = {"params": params, "ema_params": state.ema}
     for k in STATE_KEYS:
-        trees[f"opt_state.{k}"] = getattr(state.opt, k)
+        trees[f"{_opt_key(state)}.{k}"] = getattr(state.opt, k)
     return trees
 
 
 def state_arrays(state: TrainState) -> Dict[str, np.ndarray]:
     """The whole state as host arrays under the JAX package's keys."""
     arrays = {".step": np.asarray(state.step, np.int32),
-              ".opt_state.step": np.asarray(state.opt.step, np.int32)}
+              f".{_opt_key(state)}.step": np.asarray(state.opt.step, np.int32)}
     for coll, tree in _trees(state).items():
         for name, t in tree.items():
             arrays[keystr(coll, flax_path(name, t.ndim))] = _to_numpy(t)
@@ -209,7 +216,7 @@ def load_state_arrays(state: TrainState, arrays: Mapping[str, np.ndarray]) -> No
                 raise KeyError(f"no leaf {key}")
             _load_into(t, arrays[key], key)
     state.step = int(arrays[".step"])
-    state.opt.step = int(arrays[".opt_state.step"])
+    state.opt.step = int(arrays[f".{_opt_key(state)}.step"])
 
 
 @torch.no_grad()

@@ -30,8 +30,12 @@ keeps the current epoch (a resume re-runs the partial epoch, as in the JAX
 package); the final save records the next epoch unless the run stopped
 early.
 
-Refused with an error (ROADMAP lists them): ``quality_every_epochs`` and
-the ``rbg`` generator.
+With ``quality_every_epochs`` N and a validation split, the sample-quality
+monitor (``training/quality.py``) runs at the end of every N-th epoch,
+after validation, over the EMA as the updates left it, and its mean mel
+metrics go to ``quality_log.csv`` (as the JAX loop logs them).
+
+Refused with an error (ROADMAP lists it): the ``rbg`` generator.
 """
 
 from __future__ import annotations
@@ -72,9 +76,12 @@ class TrainResult:
 
 
 def check_supported(cfg: LM2AConfig) -> None:
+    """Raise for what the port does not run: ``NotImplementedError`` for the
+    TPU's generator, ``ValueError`` for an optimizer ``Adan`` refuses (the
+    CUDA Adan+EMA kernel under the chained ``fused_opt=False`` layout, as
+    the JAX package refuses its Pallas updater there)."""
     tc = cfg.train
-    if tc.quality_every_epochs:
-        raise NotImplementedError("quality_every_epochs (the sample-quality monitor) is not ported")
+    make_optimizer(cfg)
     if tc.rng_impl not in ("", "threefry"):
         raise NotImplementedError(f"rng {tc.rng_impl!r} is TPU-specific; the port draws from "
                                   "torch.Generator")
@@ -114,6 +121,13 @@ def train(cfg: LM2AConfig, npz_dir: str, save_dir: str, val_npz_dir: Optional[st
             print(f"resumed from {path} at step {state.step}")
 
     stats = dict(dataset_mean=dataset_mean, dataset_std=dataset_std)
+    quality = None
+    if tc.quality_every_epochs and val_ds is not None:
+        from lm2a_tpu_torch.training.quality import QualityMonitor
+
+        quality = QualityMonitor(cfg, state.ema, schedule, val_ds, n_clips=tc.quality_clips,
+                                 num_steps=tc.quality_steps, guidance=tc.quality_guidance,
+                                 seed=tc.seed, **stats)
     multistep = make_multistep_train_step(schedule, cfg, optimizer, **stats)
     eval_multi = make_multistep_eval(schedule, cfg, **stats)
     bs = tc.batch_size
@@ -231,6 +245,9 @@ def train(cfg: LM2AConfig, npz_dir: str, save_dir: str, val_npz_dir: Optional[st
                            for off, vbatch in zip(offsets, device_prefetch(vit, dev))]
                 val_loss = float(torch.stack(vlosses).mean())
                 print(f"epoch {epoch} val loss: {val_loss:.6f} ({len(vlosses)} batches)")
+
+        if quality is not None and not stop and (epoch + 1) % tc.quality_every_epochs == 0:
+            logger.log_quality(epoch, step, quality.run())
 
         if pending_loss is not None:
             last_loss = float(pending_loss)

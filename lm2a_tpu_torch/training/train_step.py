@@ -81,17 +81,15 @@ class Draws(NamedTuple):
 def make_optimizer(cfg: LM2AConfig,
                    lr_schedule: Optional[Callable[[int], np.float32]] = None) -> Adan:
     """The Adan of ``cfg.train``; ``lr_schedule`` replaces its step decay
-    (``cli distill``'s cosine rate)."""
+    (``cli distill``'s cosine rate). ``fused_opt=False`` gives the chained
+    form (clip, then Adan; the JAX package's ``optax.chain`` state layout),
+    which ``opt_backend='pallas'`` refuses, as the JAX package does."""
     tc = cfg.train
-    if not tc.fused_opt:
-        raise NotImplementedError(
-            "fused_opt=False (clip chained before Adan, the round-1 state layout) is not "
-            "ported; train with fused_opt=1")
     return Adan(lr_schedule or make_lr_schedule(tc.lr, tc.lr_decay_steps, tc.lr_decay_factors),
                 weight_decay=tc.weight_decay, grad_clip=tc.grad_clip or 0.0,
                 ema_decay=tc.ema_decay,
                 state_dtype=None if tc.opt_dtype in ("", "float32") else dtype_from_str(tc.opt_dtype),
-                backend=tc.opt_backend)
+                backend=tc.opt_backend, fused=bool(tc.fused_opt))
 
 
 def init_train_state(cfg: LM2AConfig, seed: int, device: DeviceLike = None,

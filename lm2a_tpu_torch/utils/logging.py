@@ -3,7 +3,9 @@ TensorBoard (port of ``lm2a_tpu/utils/logging.py``).
 
 ``train_log.csv`` has the JAX package's columns ``epoch, step, train_loss,
 val_loss, time_seconds``; TensorBoard scalars ``train/loss``, ``train/lr``
-and ``val/loss`` are written when ``torch.utils.tensorboard`` imports.
+and ``val/loss`` are written when ``torch.utils.tensorboard`` imports. The
+quality monitor's rows (``training/quality.py``) go to ``quality_log.csv``
+(``epoch, step`` and one column per metric) and ``quality/<metric>`` tags.
 """
 
 from __future__ import annotations
@@ -50,6 +52,22 @@ class TrainLogger:
         self._csv.writerow([epoch, step, train_loss, val_loss, round(seconds, 2)])
         self._csv_file.flush()
 
+    def log_quality(self, epoch: int, step: int, metrics) -> None:
+        """The quality monitor's mean metrics: a row of ``quality_log.csv``
+        (its header written with the first row) and ``quality/*`` tags."""
+        msg = " ".join(f"{k}={v:.4f}" for k, v in metrics.items())
+        print(f"epoch {epoch} quality: {msg}")
+        if self._tb is not None:
+            for k, v in metrics.items():
+                self._tb.add_scalar(f"quality/{k}", v, step)
+        path = os.path.join(self.save_dir, "quality_log.csv")
+        new = not os.path.exists(path)
+        with open(path, "a", newline="") as f:
+            w = csv.writer(f)
+            if new:
+                w.writerow(["epoch", "step"] + list(metrics))
+            w.writerow([epoch, step] + [float(v) for v in metrics.values()])
+
     def close(self) -> None:
         self._csv_file.close()
         if self._tb is not None:
@@ -63,6 +81,9 @@ class NullLogger:
         pass
 
     def log_epoch(self, epoch, step, train_loss, val_loss, seconds) -> None:
+        pass
+
+    def log_quality(self, epoch, step, metrics) -> None:
         pass
 
     def close(self) -> None:

@@ -20,9 +20,10 @@ captures on the card.
 - the launch ledger: a capture's launches recorded against its graph and
   added at each replay, the first call's counted eagerly, exercised with a
   stub C entry and a stub CUDA graph;
-- the backward kernels' width rule (C/G a multiple of 8) takes every block
-  of base width 64 with 8 groups and of the flagship, so the card routes
-  what the JAX gate routes, and the CPU route is the JAX gate's; the DDIM
+- the kernels' width rule (channel counts multiples of 8, any C/G) takes
+  every block of base widths 16, 32, 48, 64 and 96 and of the flagship, so
+  the card routes what the JAX gate routes, and the CPU route is the JAX
+  gate's; a width that is not a multiple of 8 is refused by name; the DDIM
   coefficient table against the JAX chain's per-step scalars, bit for bit.
 """
 
@@ -59,7 +60,7 @@ from lm2a_tpu_torch.inference.longform import with_streaming_attention
 from lm2a_tpu_torch.inference.sample import generate_mel, load_models
 from lm2a_tpu_torch.ops import _build
 from lm2a_tpu_torch.ops import attention as att
-from lm2a_tpu_torch.ops.resblock import CHUNK
+from lm2a_tpu_torch.ops.resblock import check_widths
 from lm2a_tpu_torch.ops.resblock_grad import _check_act, fused_resblock_train, resblock_train_fits
 from lm2a_tpu_torch.training import train_step as pts
 from lm2a_tpu_torch.training.checkpoint import (
@@ -701,14 +702,16 @@ def test_graphed_step_runs_eagerly_on_the_cpu():
 
 def _kernels_take(cin: int, cout: int) -> bool:
     """The widths the forward and backward kernels' wrappers take for a
-    block at ``default_num_groups``: Cin and Cout multiples of 64 (the K
-    chunk) and ``_check_act``'s C/G rule at both GroupNorms (raises else)."""
+    block at ``default_num_groups``: Cin and Cout multiples of 8
+    (``check_widths``) and ``_check_act``'s group rule at both GroupNorms
+    (each raises else)."""
     for c in (cin, cout):
         x = torch.zeros((1, 2, c))
         g = chip_smoke.default_num_groups(c)
         stats = torch.zeros((1, g))
         _check_act("conv3_wgrad", x, stats, stats, torch.ones(c), torch.zeros(c))
-    return cin % CHUNK == 0 and cout % 64 == 0
+    check_widths("conv3_fused", Cin=cin, Cout=cout)
+    return True
 
 
 @pytest.mark.parametrize("geo", chip_smoke.resblock_geometries(ModelConfig(), chip_smoke.MEL_T)
@@ -726,15 +729,17 @@ def test_every_flagship_block_keeps_its_card_route(geo):
 
 def test_card_routes_at_base_64_and_at_the_flagship():
     """Base width 64 routes blocks with C/G = 8 through the JAX gate, and
-    the kernels take them; C/G = 4 (base width 32) is refused by name."""
+    the kernels take them; so do base widths 16, 32, 48 and 96 (C/G 2, 4,
+    6 and 12). A width that is not a multiple of 8 is refused by name."""
     narrow = chip_smoke.resblock_geometries(ModelConfig(base_dim=64), chip_smoke.MEL_T)
     assert any(64 in (cin, cout) and resblock_train_fits(t, cin, cout, skip, 2)
                for _, t, cin, cout, skip, _ in narrow)
     assert all(_kernels_take(cin, cout) for _, t, cin, cout, skip, _ in narrow)
-    stats = torch.zeros((1, 8))
-    with pytest.raises(ValueError, match="C/G must be a multiple of 8"):
-        _check_act("conv3_dgrad", torch.zeros((1, 2, 32)), stats, stats, torch.ones(32),
-                   torch.zeros(32))
+    for base in (16, 32, 48, 96):
+        geos = chip_smoke.resblock_geometries(ModelConfig(base_dim=base), chip_smoke.MEL_T)
+        assert all(_kernels_take(cin, cout) for _, t, cin, cout, skip, _ in geos), base
+    with pytest.raises(ValueError, match="multiples of 8, got Cin=36"):
+        check_widths("conv3_dgrad", Cin=36, Cout=64)
 
 
 def test_cpu_route_is_the_jax_gate_at_c_over_g_8():

@@ -152,7 +152,14 @@ def emulate_conv3(act, w, plan, t):
     m_all, cin = act.shape
     cout = w.shape[0]
     out = torch.zeros(m_all, cout)
-    nch = cin // rb.CHUNK
+    nch = rb.n_chunks(cin)
+    # channels past Cin, up to the last chunk's 64, are zeros (zero-filled
+    # window and weight tile)
+    kp = nch * rb.CHUNK
+    act = torch.nn.functional.pad(act, (0, kp - cin))
+    w = torch.cat([torch.nn.functional.pad(w[:, k * cin:(k + 1) * cin], (0, kp - cin))
+                   for k in range(3)], dim=1)
+    cin = kp
     for mt in range(plan.mtiles):
         m0 = mt * plan.bm
         q = torch.arange(m0 - 1, m0 + plan.bm + 1)
@@ -232,3 +239,53 @@ def test_wgrad_tiling_emulation(b, t, taps):
     got = emulate_wgrad(act.reshape(b * t, cin), g.float().reshape(b * t, cout), plan, t, taps)
     want, _ = rg.conv3_wgrad_plain(act.to(torch.bfloat16), g, taps=taps)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+
+
+# ---------------------------------------------------------------- narrow base widths
+
+def _narrow_convs():
+    """Both convs of every block of base widths 16, 32, 48 and 96 (channel
+    counts 16·k: K chunks and N tiles narrower than 64)."""
+    out = []
+    for base in (16, 32, 48, 96):
+        geos = chip_smoke.resblock_geometries(ModelConfig(base_dim=base), 64)
+        out += [(base, *c) for c in _convs(geos)]
+    return out
+
+
+NARROW_CASES = [(rows, *c) for rows in (1, 2, 4, 16) for c in _narrow_convs()]
+
+
+@pytest.mark.parametrize("rows,base,name,t,cin,cout,cin2,split", NARROW_CASES,
+                         ids=[f"r{c[0]}-b{c[1]}-{c[2]}" for c in NARROW_CASES])
+def test_conv3_plan_at_narrow_widths(rows, base, name, t, cin, cout, cin2, split):
+    """Every output channel in ceil(Cout / BN) N tiles (twice with a kept-apart
+    skip), every input channel in ceil(Cin / 64) K chunks (the last one
+    zero-filled past Cin), each chunk taken by one rank of the split."""
+    p = rb.conv3_plan(rows, t, cin, cout, cin2, split)
+    assert p.mtiles * p.bm >= rows * t > (p.mtiles - 1) * p.bm
+    assert p.ntiles == (2 if split else 1) * -(-cout // p.bn)
+    want = (rb.n_chunks(cin), rb.n_chunks(cin2)) if split else (rb.n_chunks(cin) + rb.n_chunks(cin2),)
+    assert p.chunks == want
+    for chunks in p.chunks:
+        _assert_k_split(chunks, p.splits)
+    assert p.smem <= rb.SMEM_MAX
+    w = rg.wgrad_plan(rows, t, cin, cout, 3)
+    assert w.ntiles == -(-cout // (64 * w.mw)) and w.ctiles == -(-cin // 64)
+    _assert_k_split(w.chunks, w.splits * w.parts)
+
+
+@pytest.mark.parametrize("rows,t", [(2, 37), (3, 65), (1, 64)])
+@pytest.mark.parametrize("cin", [16, 48, 96, 136])
+def test_conv3_tiling_emulation_at_narrow_widths(rows, t, cin):
+    """A last K chunk narrower than 64 channels, zero-filled in the window
+    and the weight tile as the kernel fills it, gives the plain conv3."""
+    gen = torch.Generator().manual_seed(rows * t + cin)
+    cout = 48
+    act = _round_bf16(torch.randn((rows, t, cin), generator=gen))
+    w = _round_bf16(torch.randn((cout, 3 * cin), generator=gen) * cin ** -0.5)
+    plan = rb.conv3_plan(rows, t, cin, cout)
+    got = emulate_conv3(act.reshape(rows * t, cin), w, plan, t)
+    ap = torch.nn.functional.pad(act, (0, 0, 1, 1))
+    want = torch.cat([ap[:, :-2], ap[:, 1:-1], ap[:, 2:]], dim=-1) @ w.t()
+    torch.testing.assert_close(got.reshape(rows, t, cout), want, atol=1e-4, rtol=1e-5)

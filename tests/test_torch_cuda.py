@@ -50,8 +50,13 @@ against the same steps run eagerly (the same bits and launches); a capture
 in which a wrapper refuses its plan raising, the step never running eagerly
 instead; the training route at C/G = 8 on the backward kernels (``cli
 train`` and one train and one distill step against the CPU within
-``chip_smoke.ROUTE_TOL``); and base width 32, whose widths the kernels do
-not take, refused by name on the card.
+``chip_smoke.ROUTE_TOL``). Narrow base widths: every block of base widths
+16, 32, 48 and 96 (C/G 2, 4, 6, 12; K chunks and N tiles narrower than the
+kernels' 64) through ``gn_stats``, ``conv3_fused``, ``conv3_dgrad``,
+``conv3_wgrad`` and ``gn_bwd`` against their plain versions, attention at
+head dims 2 and 4 (``HEAD_DIMS``), a base-32 fused-attention forward and
+chain, one ``cli train --fused_resblock_grad`` step at base width 32
+against the CPU, and a width off the 8-channel unit refused by name.
 
 Tolerances are those of ``chip_smoke.py``: 1e-2 absolute + relative on bf16
 outputs (one bf16 ulp, where the kernel's and torch's SiLU round an operand
@@ -406,6 +411,12 @@ def test_attention_refuses_what_it_cannot_take(dev):
         att.attention_core(q48, k48, v48)
     with pytest.raises(ValueError, match="hd contiguous"):  # hd at stride 2
         att.attention_core(torch.cat([q, q], dim=-1)[..., ::2], k, v)
+    q2, k2, v2 = _attn_inputs(dev, 1, 3, 16, 16, 2, seed=0)  # H*hd = 6: no whole 8-channel unit
+    with pytest.raises(ValueError, match="H\\*hd a multiple of 8"):
+        att.attention_core(q2, k2, v2)
+    q2, k2, v2 = _attn_inputs(dev, 1, 4, 16, 16, 2, seed=0, layout="contiguous")
+    with pytest.raises(ValueError, match="heads side by side"):
+        att.attention_core(q2, k2, v2)
     assert not _build.LAUNCHES
 
 
@@ -587,10 +598,10 @@ def test_training_kernels_refuse_what_they_cannot_take(dev):
     _build.reset_launches()
     with pytest.raises(ValueError, match="bf16"):
         rg.conv3_dgrad(g.float(), w)
-    with pytest.raises(ValueError, match="Cout % 32"):
-        rg.conv3_dgrad(g[..., :48].contiguous(), w[:48])
-    with pytest.raises(ValueError, match="multiples of 64"):
-        rg.conv3_wgrad(g[..., :32].contiguous(), g)
+    with pytest.raises(ValueError, match="multiples of 8, got Cout=44"):
+        rg.conv3_dgrad(g[..., :44].contiguous(), w[:44])
+    with pytest.raises(ValueError, match="multiples of 8, got Cin=36"):
+        rg.conv3_wgrad(g[..., :36].contiguous(), g)
     leaf = tuple(torch.zeros(5, device=dev) for _ in range(7))
     scal = torch.zeros(8, device=dev)
     with pytest.raises(ValueError, match="fp32"):
@@ -767,9 +778,10 @@ def _attn_plans(b, h, t, s, hd):
 def test_attention_every_plan_at_ragged_lengths(dev, monkeypatch, hd, t, s):
     """Ragged T and S (the last key tile masked), split-KV and no-split plans
     forced through the plan function, and the same bits from two launches."""
-    q, k, v = _attn_inputs(dev, 2, 3, t, s, hd, seed=3 * hd + t + s)
+    h = 3 if hd >= 8 else 4  # hd 2 and 4: H*hd in whole 8-channel units
+    q, k, v = _attn_inputs(dev, 2, h, t, s, hd, seed=3 * hd + t + s)
     want = att.attention_core_plain(q, k, v)
-    plans = _attn_plans(2, 3, t, s, hd)
+    plans = _attn_plans(2, h, t, s, hd)
     assert any(p.split > 1 for p in plans) == (s > 64)
     for plan in plans:
         monkeypatch.setattr(att, "attention_plan", lambda *a, plan=plan: plan)
@@ -1377,6 +1389,17 @@ def test_train_and_distill_at_c_over_g_8(dev, tmp_path):
     all its blocks), and one train step and one distill step from one state
     match the CPU within ``chip_smoke.ROUTE_TOL`` (loss, each gradient
     leaf, the whole gradient)."""
+    _train_and_distill_route(dev, tmp_path, 64)
+
+
+def test_train_and_distill_at_base_width_32(dev, tmp_path):
+    """The same at base width 32 (C/G 4 in its 32-channel blocks, K chunks
+    of 32): every block on the forward and backward kernels, one train and
+    one distill step within ``chip_smoke.ROUTE_TOL`` of the CPU."""
+    _train_and_distill_route(dev, tmp_path, 32)
+
+
+def _train_and_distill_route(dev, tmp_path, base):
     from lm2a_tpu_torch.diffusion.schedule import make_schedule
     from lm2a_tpu_torch.ops import resblock_grad as rg
     from lm2a_tpu_torch.training import distill
@@ -1386,9 +1409,9 @@ def test_train_and_distill_at_c_over_g_8(dev, tmp_path):
     )
 
     cfg = dataclasses.replace(DISTILL_CFG, model=dataclasses.replace(DISTILL_CFG.model,
-                                                                     base_dim=64))
+                                                                     base_dim=base))
     geos = chip_smoke.resblock_geometries(cfg.model, 64)
-    assert any(64 in (cin, cout) for _, _, cin, cout, _, _ in geos)
+    assert any(base in (cin, cout) for _, _, cin, cout, _, _ in geos)
     assert all(rg.resblock_train_fits(t, cin, cout, skip, 2) for _, t, cin, cout, skip, _ in geos)
 
     clips = str(tmp_path / "clips")
@@ -1396,7 +1419,7 @@ def test_train_and_distill_at_c_over_g_8(dev, tmp_path):
     chip_smoke.run_cli(["pack", "--npz_dir", clips, "--out_dir", str(tmp_path / "pack")])
     _build.reset_launches()
     chip_smoke.run_cli(["train", "--npz_dir", str(tmp_path / "pack"), "--save_dir",
-                        str(tmp_path / "run"), "--batch_size", "2", "--base_dim", "64",
+                        str(tmp_path / "run"), "--batch_size", "2", "--base_dim", str(base),
                         "--dim_mults", "1,2", "--cond_dim", "16", "--time_emb_dim", "32",
                         "--num_res_blocks", "1", "--mid_blocks", "1", "--attn_heads", "2",
                         "--epochs", "1", "--fused_resblock_grad", "--opt_backend", "pallas",
@@ -1448,30 +1471,105 @@ def test_train_and_distill_at_c_over_g_8(dev, tmp_path):
         assert num ** 0.5 <= tol["grad_rel_l2"] * gsum, kind
 
 
-def test_base_width_32_is_refused_on_the_card(dev, tmp_path):
-    """Base width 32 (Cin 32, C/G = 4): the kernels do not take these
-    widths (an open item of ROADMAP Queue 3), so sampling and a fused train
-    block raise by name on the card, and nothing runs the plain version in
-    their place."""
-    from lm2a_tpu_torch.inference.sample import generate_mel, load_models
+# ---------------------------------------------------------------- narrow base widths
+
+NARROW_BASES = (16, 32, 48, 96)  # C/G 2, 4, 6 and 12 at default_num_groups
+
+
+def _narrow_blocks(base):
+    """Each distinct (Cin, Cout, skip, add_residual) of a base-``base`` model
+    (the default dim_mults 1, 2, 4): widths 16·k, partial K chunks and N tiles."""
+    geos = chip_smoke.resblock_geometries(chip_smoke.ModelConfig(base_dim=base), 64)
+    return sorted({g[2:] for g in geos})
+
+
+@pytest.mark.parametrize("base", NARROW_BASES)
+@pytest.mark.parametrize("rows,t", [(2, 37), (4, 65)])
+def test_narrow_widths_forward_kernels(dev, base, rows, t):
+    """``gn_stats`` and ``conv3_fused`` at every block of base widths 16,
+    32, 48 and 96 against their plain versions: the kernels take widths
+    that are multiples of 8 and any C/G, with no plain-version route."""
+    for cin, cout, skip, add_res in _narrow_blocks(base):
+        gen = torch.Generator().manual_seed(base + cin + cout + t)
+        w, x, (fs, fh) = chip_smoke.random_chain(gen, rows, t, cin, cout, skip, dev)
+        _build.reset_launches()
+        got = rb.fused_resblock_chain(x, w, fs, fh, add_residual=add_res)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES == {"gn_stats": 2, "conv3_fused": 2}, (cin, cout)
+        _close(got, rb.resblock_chain_plain(x, w, fs, fh, add_residual=add_res), TOL["chain"])
+        m1, r1 = rb.gn_stats(x, w.groups1)
+        args1 = (x, m1, r1, w.gn1_scale, w.gn1_bias, w.conv1_w, w.conv1_b)
+        for kw in (dict(film=(fs, fh)), dict(film=(fs, fh), save_pre=True)):
+            _close(rb.conv3_fused(*args1, **kw), rb.conv3_fused_plain(*args1, **kw),
+                   TOL["conv3_fused"])
+        _close(rb.gn_stats(x, w.groups1), rb.gn_stats_plain(x, w.groups1), TOL["gn_stats"])
+
+
+@pytest.mark.parametrize("base", NARROW_BASES)
+def test_narrow_widths_backward_kernels(dev, base):
+    """``conv3_dgrad``, ``conv3_wgrad`` and ``gn_bwd`` at every block of the
+    narrow bases, one by one and as a whole block backward, against their
+    plain versions within ``chip_smoke.TOL_REL_L2``."""
+    for cin, cout, skip, _ in _narrow_blocks(base):
+        test_backward_kernels_one_by_one(dev, 2, 37, cin, cout, skip)
+        test_resblock_backward_matches_plain(dev, 3, 65, cin, cout, skip)
+
+
+def test_widths_off_the_8_channel_unit_are_refused_by_name(dev):
+    """A channel count that is not a multiple of 8 (16-byte bf16 rows) is
+    refused by name before any launch (an open item of ROADMAP Queue 3)."""
     from lm2a_tpu_torch.ops import resblock_grad as rg
 
-    models = load_models(_narrow_ckpt(tmp_path, base_dim=32), device=dev)
-    gen = torch.Generator().manual_seed(4)
-    motion, lyrics = (torch.randn((40, c), generator=gen).numpy() for c in (234, 768))
+    gen = torch.Generator().manual_seed(5)
+    w, x, film = chip_smoke.random_chain(gen, 1, 8, 36, 36, False, dev)
+    m, r = rb.gn_stats_plain(x, w.groups1)
     _build.reset_launches()
-    with pytest.raises(ValueError, match="Cin % 64"):
-        generate_mel(models, motion, lyrics, 64, guidance_weight=2.1, method="ddim",
-                     ddim_steps=2, seed=0, batch=1)
-    assert not _build.LAUNCHES.get("conv3_fused")
-    x = torch.randn((2, 16, 32), generator=gen).to(dev, torch.bfloat16)
-    w = [torch.randn((32, 32, 3), generator=gen).to(dev) * 0.05 for _ in range(2)]
-    vec = [torch.randn(32, generator=gen).to(dev) for _ in range(6)]
-    film = [torch.randn((2, 32), generator=gen).to(dev) for _ in range(2)]
-    assert rg.resblock_train_fits(16, 32, 32, False, 2)  # the JAX gate routes it
-    with pytest.raises(ValueError, match="Cin % 64"):
-        rg.fused_resblock_train(x, vec[0], vec[1], w[0], vec[2], *film, vec[3], vec[4], w[1],
-                                vec[5], groups1=8, groups2=8)
+    with pytest.raises(ValueError, match="multiples of 8, got Cin=36"):
+        rb.conv3_fused(x, m.to(dev), r.to(dev), w.gn1_scale, w.gn1_bias, w.conv1_w, w.conv1_b,
+                       film=film)
+    g = torch.zeros((1, 8, 36), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        rg.conv3_dgrad(g, torch.zeros((36, 36), device=dev, dtype=torch.bfloat16), taps=1)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        rg.conv3_wgrad(g, g, taps=1)
+    assert not _build.LAUNCHES
+
+
+def test_base_width_32_fused_attention_on_the_card(dev, tmp_path):
+    """A base-32 checkpoint on the fused attention route at 8 heads (head
+    dims 4, 8 and 16; C/G 4 and 8): one guided forward on the card's
+    kernels against the CPU's plain versions within
+    ``chip_smoke.UNET_REL_L2``, every block on ``gn_stats`` and
+    ``conv3_fused`` and every attention core on the kernel, then a DDIM
+    chain through ``generate_mel`` with finite output."""
+    from lm2a_tpu_torch.diffusion.gaussian import guided_eps
+    from lm2a_tpu_torch.inference.sample import generate_mel, load_models
+
+    ckpt = _narrow_ckpt(tmp_path, base_dim=32, attn_heads=8, fused_attention=True)
+    gen = torch.Generator().manual_seed(21)
+    b, t = 2, 64
+    x = torch.randn((b, t, 80), generator=gen)
+    steps = torch.tensor([10, 700])
+    motion, lyrics = torch.randn((b, t, 234), generator=gen), torch.randn((b, t, 768), generator=gen)
+    eps, launches = {}, {}
+    for d in (torch.device("cpu"), dev):
+        models = load_models(ckpt, device=d)
+        _build.reset_launches()
+        with torch.no_grad():
+            m, l = models.cond_proj(motion.to(d), lyrics.to(d))
+            eps[d.type] = guided_eps(models.denoiser, x.to(d), steps.to(d), m, l, 2.1,
+                                     uncond_fast=True).cpu()
+        launches[d.type] = dict(_build.LAUNCHES)
+    n_blocks = len(chip_smoke.resblock_geometries(models.cfg.model, t))
+    n_attn = len(chip_smoke.attention_sites(models.cfg.model, t))
+    assert launches["cuda"]["gn_stats"] == 2 * n_blocks + 1
+    assert launches["cuda"]["conv3_fused"] == 2 * n_blocks
+    assert launches["cuda"]["attention"] >= 2 * n_attn  # two branches, the CFG constant's too
+    assert torch.isfinite(eps["cuda"]).all()
+    assert chip_smoke.rel_l2(eps["cuda"], eps["cpu"]) <= chip_smoke.UNET_REL_L2
+    mel = generate_mel(models, motion[0].numpy(), lyrics[0].numpy(), t, guidance_weight=2.1,
+                       method="ddim", ddim_steps=4, seed=0, batch=1)[0]
+    assert mel.shape == (1, 80, t) and torch.isfinite(torch.from_numpy(mel)).all()
 
 
 def test_first_divergence_names_the_module_a_replay_departs_at(dev):

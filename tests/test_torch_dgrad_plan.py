@@ -170,3 +170,34 @@ def test_dgrad_tiling_emulation(b, t, mw, bn, splits, cout):
     got1, _ = emulate_dgrad(g.float().reshape(b * t, cout), w1.float(), plan, t, 1)
     want1, _ = rg.conv3_dgrad_plain(g, w1, taps=1)
     assert _rel(got1.reshape(b, t, cin), want1) <= tol
+
+
+NARROW = [(b, t, cin, cout) for b, t in ((2, 37), (1, 65)) for cin, cout in
+          ((16, 16), (16, 32), (48, 48), (48, 96), (96, 96), (144, 48), (32, 40))]
+
+
+@pytest.mark.parametrize("b,t,cin,cout", NARROW, ids=[f"B{c[0]}-T{c[1]}-{c[2]}x{c[3]}" for c in NARROW])
+def test_dgrad_plan_and_emulation_at_narrow_widths(b, t, cin, cout):
+    """Channel counts 16·k (and 40): ceil(Cin / BN) N tiles, a last K chunk
+    of 8 to 56 channels (zero rows past it), C/G 2 to 18 at
+    default_num_groups; the emulated kernel gives the plain version's d_y
+    and partials within ``chip_smoke.TOL_REL_L2``."""
+    p = rg.dgrad_plan(b, t, cin, cout, 3)
+    assert p.ntiles == -(-cin // p.bn) and p.chunks == -(-cout // 64)
+    assert p.mtiles * p.bm >= b * t > (p.mtiles - 1) * p.bm
+    gen = torch.Generator().manual_seed(b * t + cin + cout)
+    groups = chip_smoke.default_num_groups(cin)
+    g = torch.randn((b, t, cout), generator=gen).to(torch.bfloat16)
+    w = (torch.randn((cout, 3 * cin), generator=gen) * cout ** -0.5).to(torch.bfloat16)
+    pre = torch.randn((b, t, cin), generator=gen)
+    mean, rstd = rb.gn_stats_plain(pre, groups)
+    gamma = torch.randn(cin, generator=gen) * 0.1 + 1.0
+    beta = torch.randn(cin, generator=gen) * 0.1
+    xh = rg._xhat(pre, mean, rstd).reshape(b * t, cin)
+    got, gp = emulate_dgrad(g.float().reshape(b * t, cout), w.float(), p, t, 3,
+                            (xh, gamma, beta))
+    want, wp = rg.conv3_dgrad_plain(g, w, taps=3, pre=pre, mean=mean, rstd=rstd, gamma=gamma,
+                                    beta=beta)
+    tol = chip_smoke.TOL_REL_L2["conv3_dgrad"]
+    assert _rel(got.reshape(b, t, cin), want) <= tol
+    assert _rel(gp, rg.bucket_sums(wp)) <= tol

@@ -209,16 +209,19 @@ def _window(c0, cb, cg):  # resblock_bwd.cu gn_bwd_window
 
 
 def emulate_gn_bwd(dy, pre, mean, rstd, gamma, pieces, extra=None, film_scale=None, z1=None):
-    """gn_bwd as its blocks compute it: grid (nT, C / CB, B)."""
+    """gn_bwd as its blocks compute it: grid (nT, ceil(C / CB), B), a last
+    block holding fewer channels where CB does not divide C, each channel's
+    own group's statistics and means."""
     b_, t, c = dy.shape
     groups = mean.shape[1]
     cg, nt = c // groups, rg.n_tiles(t)
-    cb = rg.gn_bwd_plan(c)
-    rp = GB_THREADS // (cb // 4)  # frames at a time: 4 channels a thread
+    cb_plan = rg.gn_bwd_plan(c, groups)
+    rp = GB_THREADS // (cb_plan // 4)  # frames at a time: 4 channels a thread
     out = torch.full_like(dy, float("nan"))
     part = torch.full((3, b_, nt, c), float("nan")) if film_scale is not None else None
     for b in range(b_):
-        for c0 in range(0, c, cb):
+        for c0 in range(0, c, cb_plan):
+            cb = min(cb_plan, c - c0)
             g_lo, w = c0 // cg, _window(c0, cb, cg)
             w0, ngr = g_lo * cg, w // cg
             ns = 1 if w >= GB_THREADS else GB_THREADS // w
@@ -260,9 +263,21 @@ def test_gn_bwd_plan(c):
     assert cb in (64, 128) and c % cb == 0 and (cb == 128 or c % 128)
 
 
+@pytest.mark.parametrize("c", [16, 32, 48, 96, 144, 200])
+def test_gn_bwd_plan_at_narrow_widths(c):
+    """Widths off the 64-channel block: 64-channel blocks, the last one
+    partial; C/G not a multiple of 4 never takes a 128-channel block."""
+    groups = 8
+    cb = rg.gn_bwd_plan(c, groups)
+    assert cb == 64 and -(-c // cb) * cb >= c
+    assert rg.gn_bwd_plan(256, 8) == 128 and rg.gn_bwd_plan(256, 128) == 64  # C/G 2
+
+
 @pytest.mark.parametrize("b,t,c,groups", [
     (2, 37, 128, 8), (1, 130, 192, 8), (2, 64, 256, 8), (1, 70, 2048, 1), (1, 65, 2048, 8),
     (2, 5, 320, 4), (1, 129, 512, 2),
+    # the narrow bases' widths: C/G 2, 4, 6, 12 and last blocks of 16 to 48
+    (2, 37, 16, 8), (1, 70, 32, 8), (2, 65, 48, 8), (1, 40, 96, 8), (2, 9, 144, 8),
 ])
 @pytest.mark.parametrize("mode", ["plain", "extra", "film"])
 def test_gn_bwd_block_emulation(b, t, c, groups, mode):
