@@ -33,7 +33,10 @@ skipped:
    of ``cli distill``'s teacher (its guided forwards at B = 16);
    3c. the attention kernel at every geometry of the fused route: the 9
    cross-attention sites at 6 s (S=516) with 1, 2 and 16 conditioned rows,
-   the CFG constant at T=S=1, and the 150 s single pass (S=T=12920), each
+   the CFG constant at T=S=1, and the 150 s single pass (S=T=12920); the
+   sites of base widths 48 and 96 (head dims 6, 12, 24, 48) and the 7 of
+   the v1 UNet at its defaults (head dims 32 to 192) at 2 (and v1 16)
+   conditioned rows and the CFG constant, each
    launched twice on the same inputs for the same bits (the split-KV combine
    sums in rank order); timed against its plain version, its bound (with the
    MUFU's exp2 floor beside it) and ``F.scaled_dot_product_attention``;
@@ -94,10 +97,13 @@ skipped:
    the rows it draws, its launches; the student through ``cli sample`` with
    no flags (DDIM-50 at guidance 1.0, B-row forwards); one stage-0 step
    timed: wall ms, peak memory, busy share, device ms of the teacher's
-   forwards, the student's forward and backward and the update;
-   4h. the width rule: every block of base widths 16, 32, 48 and 96
-   through the forward and backward kernels and attention at head dims 2
-   and 4, each against its plain version; evaluation: ``cli val
+   forwards, the student's forward and backward and the update; then a
+   ``fused_attention`` copy of 4d's checkpoint as the teacher, one step a
+   stage: every kernel's launches, the attention kernel's among them;
+   4h. the width rule: every block of base widths 12, 16, 20, 32, 48 and
+   96 and an odd-width block (Cin 21, Cout 42) through the forward and
+   backward kernels and attention at head dims 2 and 4, each against its
+   plain version; evaluation: ``cli val
    --max_samples 2`` over the two clips
    (DDPM-1000, guidance 2.1): 31 ``gn_stats`` and 30 ``conv3_fused``
    launches a forward for 1000 forwards a clip, the averages file, each
@@ -114,6 +120,20 @@ skipped:
    evaluate --no-clap``, every key the JAX package writes; a base-32
    ``fused_attention`` checkpoint (head dims 4 to 16) through ``cli
    sample`` on the kernels and its forward against the host;
+   4i. the data pipeline: a seeded raw tree (6 songs, 30 slices of 6 s)
+   through ``cli preprocess --lyrics_backend hashed`` on the card and with
+   ``--device cpu`` (the shards compared: every key but mel the same bits,
+   mel within ``PREPROCESS_MEL_ATOL``; seconds a minute of audio), ``cli
+   split``, ``cli inspect_npz``, ``cli pack`` of the train split, then 2
+   flagship ``cli train`` steps on that pack on the native gatherer (its
+   first batch the numpy gatherer's bits), 4d's launches a step;
+   4j. the v1 UNet at its defaults (88,168,016 parameters) with
+   ``fused_attention``: ``cli train --arch v1 --fused_attention`` (B=16,
+   T=516, ``--opt_backend pallas``) for 4 steps and ``--resume`` for 2, 14
+   attention launches and one ``adan_ema`` a step exactly; one replayed
+   step timed (ms, clips/s, peak memory); ``cli sample`` (DDIM-10, CFG
+   2.1) of the checkpoint, 280 attention launches, its 4-row forward
+   against the host; one ``cli serve`` request;
 5. one protocol chain (B=1, T=516, CFG 2.1, DDPM with ``--ddpm_steps``
    steps), DDIM-2 and DDIM-50, each run once to capture its cache entry and
    then timed as replays, and one vocode, timed; a DDIM-10 chain profiled
@@ -133,9 +153,10 @@ skipped:
    6b. one full-width UNet forward at T=12920 on the fused route against the
    same forward through ``attention_core_plain`` on the card.
 
-The line before the last is a JSON object ``{"kernels": [...]}``; the last
-line is ``{"ok": true, "device": {...}}``. Exits non-zero with no result
-when CUDA is not available. Per-geometry numbers go to ``--out``.
+A ``[phase]`` line gives each phase's wall seconds. The line before the last
+is a JSON object ``{"kernels": [...]}``; the last line is ``{"ok": true,
+"device": {...}}``. Exits non-zero with no result when CUDA is not
+available. Per-geometry numbers go to ``--out``.
 """
 
 from __future__ import annotations
@@ -161,7 +182,7 @@ from lm2a_tpu_torch.checkpoint import save_checkpoint
 from lm2a_tpu_torch.cli import __main__ as cli_main
 from lm2a_tpu_torch.cli import sample as cli_sample
 from lm2a_tpu_torch.cli import towav as cli_towav
-from lm2a_tpu_torch.convert import torch_params_to_jax
+from lm2a_tpu_torch.convert import UNET_CONV_TRANSPOSE, torch_params_to_jax
 from lm2a_tpu_torch.core.config import LM2AConfig, ModelConfig
 from lm2a_tpu_torch.data.schema import Sample, save_sample
 from lm2a_tpu_torch.inference.longform import generate_long, generate_single_pass
@@ -203,6 +224,7 @@ WINDOW_ROWS = 16
 LONG_T = 12920
 LONG_SECONDS = LONG_T * 256 / 22050
 FLAGSHIP_PARAMS = 134_292_816
+V1_PARAMS = 88_168_016  # ModelConfig(arch="v1"), the JAX init's count
 # kernel vs plain, same inputs on the card. bf16 outputs: 1-2 bf16 ulps
 # (2^-8 relative each); the conv operands are the same bf16 values except
 # where the kernel's SiLU (y / (1 + exp(-y))) and torch's (y * sigmoid(y))
@@ -574,6 +596,25 @@ def attention_sites(mc: ModelConfig, mel_t: int):
             if not add_res]
 
 
+def v1_attention_sites(mc: ModelConfig, mel_t: int):
+    """(name, T, C) of the v1 UNet's 7 ``ResBlockV1`` s (every one attends) at
+    mel length ``mel_t``: the down blocks at the stage's input width, the
+    stride-2 downsample (k4, p1) halving T, the mid block, and the up
+    blocks at the upsampled width plus the skip's, at the skip's length."""
+    dims = [mc.base_dim * m for m in mc.dim_mults]
+    prev, t, out, skips = mc.base_dim, mel_t, [], []
+    for i, dim in enumerate(dims):
+        out.append((f"down_{i}_res", t, prev))
+        skips.append((t, prev))
+        t, prev = (t + 2 - 4) // 2 + 1, dim
+    out.append(("mid_res", t, prev))
+    for i, dim in enumerate(reversed(dims)):
+        t, skip_c = skips.pop()
+        prev = dim + skip_c
+        out.append((f"up_{i}_res", t, prev))
+    return out
+
+
 def sm_clock_hz() -> float:
     """The card's maximum SM clock (``nvidia-smi``), in Hz."""
     r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
@@ -585,7 +626,10 @@ def sm_clock_hz() -> float:
 def phase_attention(timer, device, gen):
     """The attention kernel against its plain version and SDPA at every
     geometry of the fused route, and two launches against each other for the
-    same bits (the split-KV combine sums in rank order). Returns per-forward
+    same bits (the split-KV combine sums in rank order): the flagship's, base
+    widths 48's and 96's (head dims 6 to 48: windows over rows whose heads
+    are off the 16-byte unit, tiles padded past hd) and v1's at its defaults
+    (head dims 32 to 192; 192 in two blocks a head). Returns per-forward
     sums keyed by route (``6s_b2``, two clips' conditioned rows, is the main
     path's 4-row forward) and per-geometry rows. Beside the bound (bytes or
     tensor operations, ``bound_ms``) each line prints the exponential floor:
@@ -651,14 +695,23 @@ def phase_attention(timer, device, gen):
         f"{host_us:.1f} us")
     rows_out.append(dict(host_us_per_call=host_us))
     sums = {}
-    # route -> conditioned rows (the CFG doubles each), mel length
-    for route, b, mel_t in (("6s_b1", 1, MEL_T), ("6s_b2", N_CLIPS, MEL_T),
-                            ("6s_b16", WINDOW_ROWS, MEL_T), ("150s_b1", 1, LONG_T)):
+    # route -> conditioned rows (the CFG doubles each), mel length, sites: the
+    # flagship's; the head dims of base widths 48 and 96 (6, 12, 24, 48); v1
+    # at its default widths (head dims 32 to 192)
+    v1_sites = v1_attention_sites(ModelConfig(arch="v1"), MEL_T)
+    routes = [("6s_b1", 1, MEL_T, attention_sites(mc, MEL_T)),
+              ("6s_b2", N_CLIPS, MEL_T, attention_sites(mc, MEL_T)),
+              ("6s_b16", WINDOW_ROWS, MEL_T, attention_sites(mc, MEL_T)),
+              ("150s_b1", 1, LONG_T, attention_sites(mc, LONG_T)),
+              ("base48_6s_b2", N_CLIPS, MEL_T, attention_sites(ModelConfig(base_dim=48), MEL_T)),
+              ("base96_6s_b2", N_CLIPS, MEL_T, attention_sites(ModelConfig(base_dim=96), MEL_T)),
+              ("v1_6s_b2", N_CLIPS, MEL_T, v1_sites), ("v1_6s_b16", WINDOW_ROWS, MEL_T, v1_sites)]
+    for route, b, mel_t, sites in routes:
         k = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, ops=0.0, nbytes=0.0,
                  exp_floor_ms=0.0, err=0.0, launches=0)
         per_hd = {}
         # per site and branch: the conditioned rows, then the CFG constant at T=S=1
-        for _, t, c in attention_sites(mc, mel_t):
+        for _, t, c in sites:
             for g in (one(b, t, mel_t, c), one(1, 1, 1, c)):
                 h = per_hd.setdefault(g["hd"], dict.fromkeys(
                     ("ms", "library_ms", "bound_ms", "exp_floor_ms", "ops"), 0.0))
@@ -1106,7 +1159,8 @@ def write_checkpoint(ckpt_dir: str, cfg: LM2AConfig, seed: int) -> str:
     """Random weights from ``seed`` written in the JAX checkpoint layout."""
     unet = random_init_(build_denoiser(cfg.model), seed)
     proj = random_init_(build_cond_projection(cfg.model), seed + 1)
-    return save_checkpoint(ckpt_dir, 0, torch_params_to_jax(unet.state_dict()),
+    return save_checkpoint(ckpt_dir, 0, torch_params_to_jax(unet.state_dict(),
+                                                            UNET_CONV_TRANSPOSE),
                            torch_params_to_jax(proj.state_dict()), cfg,
                            dataset_mean=FALLBACK_MEL_MEAN, dataset_std=FALLBACK_MEL_STD)
 
@@ -1127,6 +1181,57 @@ def write_clips(clip_dir: str, n: int, seed: int, mel_t: int = MEL_T,
             lyrics=rng.standard_normal((motion_t, 768)).astype(np.float32)))
         paths.append(p)
     return paths
+
+
+# the seeded raw tree of phase 4i and tests/test_torch_data_pipeline.py:
+# (year, song, seconds of audio, first SMPL frame); slices every 6 s, the
+# last of a song shorter than 6 s where the audio ends first
+RAW_SONGS = (("2019", "song_a", 20.5, 0), ("2019", "song_b", 31.0, 10),
+             ("2020", "song_c", 40.0, 0))
+# phase 4i: 30 slices of 6 s, 5 a song, every one full (a pack takes one
+# mel length)
+RAW_SONGS_SMOKE = tuple((year, f"{song}_{i}", 30.5, f0) for i in range(2)
+                        for year, song, f0 in (("2019", "song_a", 0), ("2019", "song_b", 10),
+                                               ("2020", "song_c", 0)))
+
+
+def write_raw_tree(root: str, seed: int, songs=RAW_SONGS, sr: int = 22050, fps: int = 30):
+    """A raw dataset tree ``root/<year>/<song>/{audio.wav, sliced.json,
+    smplfull.json}`` from ``seed``: seeded-noise audio (16-bit PCM), lyric
+    keys "m:ss" every 6 s (and one key that is not a time), SMPL annotations
+    at ``fps`` (72 poses, Th, Rh) from the song's first frame, with a gap of
+    frames missing in each song (held from the last frame) and, where the
+    first frame is above 0, none before it (zero filled)."""
+    rng = np.random.default_rng(seed)
+    for year, song, seconds, first in songs:
+        d = os.path.join(root, year, song)
+        os.makedirs(d, exist_ok=True)
+        n = int(seconds * sr)
+        pcm = np.clip(0.3 * rng.standard_normal(n) * 32767.0, -32768, 32767).astype("<i2")
+        with wave.open(os.path.join(d, "audio.wav"), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(sr)
+            w.writeframes(pcm.tobytes())
+        words = ("dance", "night", "light", "move", "heart", "sky", "run", "fire")
+        sliced = {f"{t // 60}:{t % 60:02d}": " ".join(rng.choice(words, size=4))
+                  for t in range(0, int(seconds), 6)}
+        sliced["intro"] = "la la"
+        frames = int(seconds * fps)
+        gap = range(frames // 3, frames // 3 + 25)
+        smpl = {}
+        for f in range(first, frames):
+            if f in gap:
+                continue
+            smpl[str(f).zfill(6)] = {"annots": [{
+                "poses": [rng.standard_normal(72).round(4).tolist()],
+                "Th": [rng.standard_normal(3).round(4).tolist()],
+                "Rh": [rng.standard_normal(3).round(4).tolist()]}]}
+        with open(os.path.join(d, "sliced.json"), "w") as f:
+            json.dump(sliced, f)
+        with open(os.path.join(d, "smplfull.json"), "w") as f:
+            json.dump(smpl, f)
+    return root
 
 
 def run_slice(ckpt: str, clip_dir: str, out_dir: str, device: str, ddim_steps: int,
@@ -1180,15 +1285,22 @@ def run_serve(ckpt: str, clips, out_dir: str, device: str, ddim_steps: int,
             {"npz": clips[1], "id": "wav", "wav": True},
             {"id": "bad"},
             {"cmd": "quit", "id": "quit"}]
+    return serve_requests(["--ckpt", ckpt, "--method", "ddim", "--ddim_steps", str(ddim_steps),
+                           "--guidance", str(guidance), "--warmup_t", str(warmup_t),
+                           "--out_dir", out_dir, "--device", device], reqs)
+
+
+def serve_requests(args, reqs):
+    """``cli serve <args>`` (the dispatcher, in this process) reading
+    ``reqs`` as JSON lines; the launch counters are reset when the server
+    starts reading them. Returns the replies and the launches."""
 
     class Requests:
         def __iter__(self):
             _build.reset_launches()
             return iter([json.dumps(r) + "\n" for r in reqs])
 
-    argv = ["lm2a_tpu_torch.cli", "serve", "--ckpt", ckpt, "--method", "ddim",
-            "--ddim_steps", str(ddim_steps), "--guidance", str(guidance),
-            "--warmup_t", str(warmup_t), "--out_dir", out_dir, "--device", device]
+    argv = ["lm2a_tpu_torch.cli", "serve", *args]
     out = io.StringIO()
     saved = sys.argv, sys.stdin
     sys.argv, sys.stdin = argv, Requests()
@@ -1244,13 +1356,17 @@ def distill_launches_per_step(mc: ModelConfig, mel_t: int = MEL_T):
     step's on the kernel route without the condition drop and dropout (the
     same launches), and the teacher's two serving forwards (guided or not),
     each ``gn_stats`` twice a block and once for ``out_gn`` and
-    ``conv3_fused`` twice a block. For a teacher with ``fused_attention``
-    off."""
-    need(not mc.fused_attention, "distill_launches_per_step counts the unfused attention route")
+    ``conv3_fused`` twice a block. With ``fused_attention`` (teacher and
+    student alike), every attention core of the teacher's two forwards
+    (guided ones take the doubled batch whole: no CFG constant) and of the
+    student's forward launches the attention kernel: both branches of every
+    site, three forwards a step."""
     per, _ = train_launches_per_step(mc, mel_t)
     n_blocks = len(resblock_geometries(mc, mel_t))
     per["gn_stats"] += 2 * (2 * n_blocks + 1)
     per["conv3_fused"] += 2 * 2 * n_blocks
+    if mc.fused_attention:
+        per["attention"] = 3 * 2 * len(attention_sites(mc, mel_t))
     return per
 
 
@@ -1737,11 +1853,55 @@ def time_distill(ckpt: str, pack: str, device, smi: str, steps: int = 3):
                 kernels=[dict(name=r[0], ms=r[1] / 2, count=r[2] // 2) for r in rows[:40]])
 
 
+def fused_copy(ckpt: str, dst: str) -> str:
+    """A copy of checkpoint ``ckpt`` whose config sets ``fused_attention``."""
+    shutil.copytree(ckpt, dst)
+    with open(ckpt + ".meta.json") as f:
+        meta = json.load(f)
+    meta["config"]["model"]["fused_attention"] = True
+    with open(dst + ".meta.json", "w") as f:
+        json.dump(meta, f)
+    return dst
+
+
+def run_fused_teacher_distill(work: str, teacher: str, pack: str, mc: ModelConfig):
+    """4f: ``cli distill`` from 4d's checkpoint with ``fused_attention`` set
+    in its config (teacher and student on the attention kernel), one step a
+    stage (100 -> 50) at K = 1: the launches of every kernel per step
+    exactly, finite losses."""
+    fused = fused_copy(teacher, os.path.join(work, "fused_teacher", "ckpt_step_8"))
+    fmc = dataclasses.replace(mc, fused_attention=True)
+    per_step = distill_launches_per_step(fmc)
+    tee = Tee(sys.stdout)
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        run_cli(["distill", "--teacher", fused, "--npz_dir", pack, "--save_dir",
+                 os.path.join(work, "fused_run"), "--start_steps", "100", "--student_steps", "50",
+                 "--steps_per_stage", "1", "--steps_per_call", "1", "--save_interval", "1000",
+                 "--batch_size", str(TRAIN_B), "--seed", "0"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    expected = {k: 2 * v for k, v in per_step.items()}
+    losses = [float(c) for *_, c in DISTILL_LOSS_RE.findall(tee.kept.getvalue())]
+    log(f"[distill] fused_attention teacher: cli distill, one step a stage (100 -> 50, K=1, "
+        f"B={TRAIN_B}, flagship, bf16) {secs:.2f} s with set-up; launches {launches} expected "
+        f"{expected}; losses {losses}")
+    need(launches == expected, f"fused-teacher distill: launches {launches} != {expected}")
+    need(len(losses) == 2 and all(np.isfinite(v) for v in losses),
+         f"fused-teacher distill losses {losses}")
+    return dict(seconds=secs, launches=launches, losses=losses)
+
+
 def run_distill(work: str, teacher: str, pack: str, mc: ModelConfig, clip_dir: str,
                 n_blocks: int, smi: str, device):
-    """4f: the distill run and its resume, the student sampled, a step timed."""
+    """4f: the distill run and its resume, the student sampled, a step timed,
+    and two steps from a ``fused_attention`` teacher."""
     t0 = time.perf_counter()
     runs, student = run_distill_cli(work, teacher, pack, mc)
+    runs["fused_teacher"] = run_fused_teacher_distill(work, teacher, pack, mc)
     runs["sample"] = sample_student(student, clip_dir, os.path.join(work, "out"), n_blocks)
     runs["timing"] = time_distill(student, pack, device, smi)
     runs["seconds"] = time.perf_counter() - t0
@@ -1880,6 +2040,69 @@ def run_quality(work: str, pack: str, n_blocks: int):
     return dict(seconds=secs, runs=runs, rows=rows, train_log=os.path.join(save, "train_log.csv"))
 
 
+def card_vs_host_steps(sides, batch, cfg, steps: int, tol, what: str, tag: str, desc: str,
+                       gate_update: bool = True, seed: int = 77):
+    """``steps`` train steps of ``sides`` ({"card": (state, step), "host":
+    (state, step)}, the same state on both) on ``batch`` with the same
+    injected draws: each step's loss, every gradient leaf and the whole
+    gradient within ``tol`` (``ROUTE_TOL``), and with ``gate_update`` the
+    parameters' step and the EMA's change too (else printed only)."""
+    from lm2a_tpu_torch.training.train_step import Draws
+
+    rows = batch["mel"].shape[0]
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for i in range(steps):
+        draws = Draws(torch.randint(0, cfg.diffusion.timesteps, (rows,), generator=gen),
+                      torch.randn(batch["mel"].shape, generator=gen), torch.ones((rows, 1, 1)))
+        res = {}
+        for label, (state, step) in sides.items():
+            d = next(state.unet.parameters()).device
+            # copies: on the host .float().cpu() of an fp32 tensor is the tensor itself
+            before = {k: p.detach().to("cpu", torch.float32, copy=True)
+                      for k, p in state.params().items()}
+            ema_before = {k: e.to("cpu", torch.float32, copy=True) for k, e in state.ema.items()}
+            t0 = time.perf_counter()
+            loss = float(step(state, {k: v.to(d) for k, v in batch.items()}, draws=draws))
+            res[label] = dict(
+                loss=loss, seconds=time.perf_counter() - t0,
+                grads={k: p.grad.detach().to("cpu", torch.float32, copy=True)
+                       for k, p in state.params().items()},
+                step={k: p.detach().to("cpu", torch.float32) - before[k]
+                      for k, p in state.params().items()},
+                ema={k: e.to("cpu", torch.float32) - ema_before[k] for k, e in state.ema.items()})
+        c, h = res["card"], res["host"]
+        loss_rel = abs(c["loss"] - h["loss"]) / abs(h["loss"])
+        gsum = float(torch.sqrt(sum(g.square().sum() for g in h["grads"].values())))
+        num = den = 0.0
+        for name, gh in h["grads"].items():
+            dd = float((c["grads"][name] - gh).norm())
+            n = float(gh.norm())
+            need(dd <= tol["leaf_rel_l2"] * n + tol["leaf_floor"] * gsum,
+                 f"{what}, step {i}: gradient {name} card vs host {dd:.3e} of {n:.3e}")
+            num, den = num + dd * dd, den + n * n
+        grad_rel = (num / den) ** 0.5
+        step_rel, ema_rel = (
+            float(torch.sqrt(sum((c[key][k] - h[key][k]).square().sum() for k in h[key])
+                             / sum(v.square().sum() for v in h[key].values())))
+            for key in ("step", "ema"))
+        log(f"{tag} step {i}: {desc}: loss {c['loss']:.6f} vs {h['loss']:.6f} (relative "
+            f"{loss_rel:.2e}, tolerance {tol['loss_rel']}); gradient rel L2 {grad_rel:.3e} "
+            f"({tol['grad_rel_l2']}); step rel L2 {step_rel:.3e} "
+            + (f"({tol['step_rel_l2']})" if gate_update else "(not held)")
+            + f"; EMA change rel L2 {ema_rel:.3e} "
+            + (f"({tol['ema_change_rel_l2']})" if gate_update else "(not held)")
+            + f"; host step {h['seconds']:.1f} s")
+        need(loss_rel <= tol["loss_rel"] and grad_rel <= tol["grad_rel_l2"]
+             and (not gate_update or (step_rel <= tol["step_rel_l2"]
+                                      and ema_rel <= tol["ema_change_rel_l2"])),
+             f"{what}: the card's step {i} disagrees with the host's")
+        out.append(dict(loss=(c["loss"], h["loss"]), loss_rel=loss_rel, grad_rel_l2=grad_rel,
+                        step_rel_l2=step_rel, ema_change_rel_l2=ema_rel))
+        del res, c, h
+    return out
+
+
 def fused_opt0_steps(work: str, pack: str, ckpt: str, mc: ModelConfig, device,
                      rows: int = 4, steps: int = 2, tol=ROUTE_TOL):
     """4h: ``cli train --fused_opt 0 --opt_backend xla --fused_resblock_grad``
@@ -1891,7 +2114,7 @@ def fused_opt0_steps(work: str, pack: str, ckpt: str, mc: ModelConfig, device,
     from lm2a_tpu_torch.core.config import config_from_dict
     from lm2a_tpu_torch.diffusion.schedule import make_schedule
     from lm2a_tpu_torch.training.checkpoint import load_metadata, load_state_arrays
-    from lm2a_tpu_torch.training.train_step import Draws, init_train_state, make_train_step
+    from lm2a_tpu_torch.training.train_step import init_train_state, make_train_step
 
     save = os.path.join(work, "fused_opt0")
     args = list(TRAIN_ARGS)
@@ -1927,54 +2150,10 @@ def fused_opt0_steps(work: str, pack: str, ckpt: str, mc: ModelConfig, device,
         step = make_train_step(make_schedule(cfg.diffusion, device=d), cfg,
                                dataset_mean=meta["dataset_mean"], dataset_std=meta["dataset_std"])
         sides[label] = (state, step)
-    gen = torch.Generator().manual_seed(77)
-    out = []
-    for i in range(steps):
-        draws = Draws(torch.randint(0, cfg.diffusion.timesteps, (rows,), generator=gen),
-                      torch.randn(batch["mel"].shape, generator=gen), torch.ones((rows, 1, 1)))
-        res = {}
-        for label, (state, step) in sides.items():
-            d = state.unet.in_proj.weight.device
-            # copies: on the host .float().cpu() of an fp32 tensor is the tensor itself
-            before = {k: p.detach().to("cpu", torch.float32, copy=True)
-                      for k, p in state.params().items()}
-            ema_before = {k: e.to("cpu", torch.float32, copy=True) for k, e in state.ema.items()}
-            t0 = time.perf_counter()
-            loss = float(step(state, {k: v.to(d) for k, v in batch.items()}, draws=draws))
-            res[label] = dict(
-                loss=loss, seconds=time.perf_counter() - t0,
-                grads={k: p.grad.detach().to("cpu", torch.float32, copy=True)
-                       for k, p in state.params().items()},
-                step={k: p.detach().to("cpu", torch.float32) - before[k]
-                      for k, p in state.params().items()},
-                ema={k: e.to("cpu", torch.float32) - ema_before[k] for k, e in state.ema.items()})
-        c, h = res["card"], res["host"]
-        loss_rel = abs(c["loss"] - h["loss"]) / abs(h["loss"])
-        gsum = float(torch.sqrt(sum(g.square().sum() for g in h["grads"].values())))
-        num = den = 0.0
-        for name, gh in h["grads"].items():
-            dd = float((c["grads"][name] - gh).norm())
-            n = float(gh.norm())
-            need(dd <= tol["leaf_rel_l2"] * n + tol["leaf_floor"] * gsum,
-                 f"fused_opt 0, step {i}: gradient {name} card vs host {dd:.3e} of {n:.3e}")
-            num, den = num + dd * dd, den + n * n
-        grad_rel = (num / den) ** 0.5
-        step_rel, ema_rel = (
-            float(torch.sqrt(sum((c[key][k] - h[key][k]).square().sum() for k in h[key])
-                             / sum(v.square().sum() for v in h[key].values())))
-            for key in ("step", "ema"))
-        log(f"[eval] fused_opt 0 step {i}: card (kernel blocks, chained clip + Adan) vs host "
-            f"CPU (plain), {rows} rows, from 4d's resumed checkpoint: loss {c['loss']:.6f} vs "
-            f"{h['loss']:.6f} (relative {loss_rel:.2e}, tolerance {tol['loss_rel']}); gradient "
-            f"rel L2 {grad_rel:.3e} ({tol['grad_rel_l2']}); step rel L2 {step_rel:.3e} "
-            f"({tol['step_rel_l2']}); EMA change rel L2 {ema_rel:.3e} "
-            f"({tol['ema_change_rel_l2']}); host step {h['seconds']:.1f} s")
-        need(loss_rel <= tol["loss_rel"] and grad_rel <= tol["grad_rel_l2"]
-             and step_rel <= tol["step_rel_l2"] and ema_rel <= tol["ema_change_rel_l2"],
-             f"fused_opt 0: the card's step {i} disagrees with the host's")
-        out.append(dict(loss=(c["loss"], h["loss"]), loss_rel=loss_rel, grad_rel_l2=grad_rel,
-                        step_rel_l2=step_rel, ema_change_rel_l2=ema_rel))
-        del res, c, h
+    out = card_vs_host_steps(
+        sides, batch, cfg, steps, tol, "fused_opt 0", "[eval] fused_opt 0",
+        f"card (kernel blocks, chained clip + Adan) vs host CPU (plain), {rows} rows, from "
+        "4d's resumed checkpoint")
     log(f"[eval] cli train --fused_opt 0 --opt_backend xla --fused_resblock_grad, {steps} "
         f"steps: {cli_s:.2f} s with set-up; launches {launches} expected {expected}; "
         "checkpoint in the chained layout (.opt_state[1])")
@@ -2086,20 +2265,26 @@ def sample_base32(work: str, clip_dir: str, device, rng):
     return dict(seconds=secs, launches=launches, unet_rel_l2=err)
 
 
-NARROW_BASES = (16, 32, 48, 96)
+NARROW_BASES = (12, 16, 20, 32, 48, 96)
+# a block at an odd width (Cin 21 -> Cout 42 with its skip; C/G 21): rows of
+# 42 and 84 bytes, the masked forms' 2- and 4-byte accesses
+ODD_BLOCKS = ((21, 42, True, False),)
 
 
 def narrow_widths(device, gen, rows: int = MAIN_ROWS, t: int = MEL_T):
     """4h: the width rule on the card. Every distinct block of base widths
-    16, 32, 48 and 96 (C/G 2, 4, 6, 12; K chunks and N tiles narrower than
-    64) through ``gn_stats`` + ``conv3_fused`` against the plain chain (max
-    abs error, ``TOL["chain"]``) and through the backward kernels against
-    their plain versions (relative L2, ``TOL_REL_L2["resblock_bwd"]``), and
-    the attention kernel at head dims 2 and 4 (8 heads, the 6 s sites'
-    shape) against its plain version (max abs, ``TOL["attention"]``)."""
+    12, 16, 20, 32, 48 and 96 (C/G 2 to 12; K chunks and N tiles narrower
+    than 64; at 12 and 20 widths off the 8-channel unit: all through the
+    kernels' masked forms) and an odd-width block (``ODD_BLOCKS``) through ``gn_stats`` +
+    ``conv3_fused`` against the plain chain (max abs error,
+    ``TOL["chain"]``) and through the backward kernels against their plain
+    versions (relative L2, ``TOL_REL_L2["resblock_bwd"]``), and the
+    attention kernel at head dims 2 and 4 (8 heads, the 6 s sites' shape)
+    against its plain version (max abs, ``TOL["attention"]``)."""
     out = {}
-    for base in NARROW_BASES:
-        blocks = sorted({g[2:] for g in resblock_geometries(ModelConfig(base_dim=base), t)})
+    for base in NARROW_BASES + ("odd",):
+        blocks = (list(ODD_BLOCKS) if base == "odd" else
+                  sorted({g[2:] for g in resblock_geometries(ModelConfig(base_dim=base), t)}))
         fwd_err, bwd_rel = 0.0, 0.0
         for cin, cout, skip, add_res in blocks:
             w, x, (fs, fh) = random_chain(gen, rows, t, cin, cout, skip, device)
@@ -2154,6 +2339,423 @@ def run_evaluation(work: str, ckpt: str, clip_dir: str, train: dict, mc: ModelCo
     out["base32"] = sample_base32(work, clip_dir, device, rng)
     out["seconds"] = time.perf_counter() - t0
     log(f"[eval] phase 4h: {out['seconds']:.1f} s in all | {smi}")
+    return out
+
+
+# ---------------------------------------------------------------- phase 4i
+
+# the preprocessed log-mel on the card against the host's (cuFFT against the
+# CPU's FFT, fp32, seeded-noise audio): the rule the CPU tests hold the
+# port's mel to against the JAX package's
+PREPROCESS_MEL_ATOL = 1e-4
+
+
+def capture_cli(argv) -> str:
+    """``run_cli(argv)`` with its standard output kept (and shown)."""
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        run_cli(argv)
+    return tee.kept.getvalue()
+
+
+def compare_shards(a_dir: str, b_dir: str) -> float:
+    """Two ``cli preprocess`` outputs: the same files, every shard key but
+    ``mel`` the same bits, ``motion_stats.npz`` and ``sample_info_list.json``
+    equal; returns the largest ``mel`` difference."""
+    names = sorted(os.listdir(a_dir))
+    need(names == sorted(os.listdir(b_dir)), f"preprocess outputs differ: {names}")
+    worst = 0.0
+    for name in names:
+        a, b = os.path.join(a_dir, name), os.path.join(b_dir, name)
+        if name.endswith(".json"):
+            with open(a) as fa, open(b) as fb:
+                need(json.load(fa) == json.load(fb), f"{name} differs")
+            continue
+        za, zb = np.load(a, allow_pickle=True), np.load(b, allow_pickle=True)
+        need(za.files == zb.files, f"{name}: keys {za.files} != {zb.files}")
+        for k in za.files:
+            need(za[k].shape == zb[k].shape and za[k].dtype == zb[k].dtype, f"{name} {k}")
+            if k == "mel":
+                worst = max(worst, float(np.abs(za[k] - zb[k]).max()))
+            else:
+                need(np.array_equal(za[k], zb[k]), f"{name} {k}: not the same bits")
+    return worst
+
+
+def run_data_pipeline(work: str, mc: ModelConfig, smi: str):
+    """4i: a seeded raw tree (``RAW_SONGS_SMOKE``, 30 slices of 6 s) through
+    ``cli preprocess --lyrics_backend hashed`` on the card and with
+    ``--device cpu`` (the shards compared), ``cli split``, ``cli
+    inspect_npz``, ``cli pack`` of the train split, then 2 steps of flagship
+    ``cli train --fused_resblock_grad --opt_backend pallas`` on that pack on
+    the native gatherer (its first batch the numpy gatherer's bits), the
+    launches per step exactly 4d's."""
+    from lm2a_tpu_torch.data.dataset import BatchIterator, PackedDataset
+
+    t_all = time.perf_counter()
+    raw = write_raw_tree(os.path.join(work, "raw"), seed=11, songs=RAW_SONGS_SMOKE)
+    minutes = sum(secs for _, _, secs, _ in RAW_SONGS_SMOKE) / 60
+    secs, npz = {}, {}
+    for dev in ("cuda", "cpu"):
+        npz[dev] = os.path.join(work, f"npz_{dev}")
+        t0 = time.perf_counter()
+        text = capture_cli(["preprocess", "--root", raw, "--out", npz[dev], "--lyrics_backend",
+                            "hashed", "--device", dev])
+        torch.cuda.synchronize()
+        secs[dev] = time.perf_counter() - t0
+        need(f"wrote samples: {5 * len(RAW_SONGS_SMOKE)}" in text, f"cli preprocess: {text!r}")
+    mel_err = compare_shards(npz["cuda"], npz["cpu"])
+    log(f"[data] cli preprocess of {len(RAW_SONGS_SMOKE)} songs ({minutes:.2f} min of audio, "
+        f"{5 * len(RAW_SONGS_SMOKE)} slices of 6 s, hashed lyrics): card {secs['cuda']:.2f} s "
+        f"({secs['cuda'] / minutes:.2f} s a minute of audio), host CPU {secs['cpu']:.2f} s "
+        f"({secs['cpu'] / minutes:.2f} s a minute); shards card vs host: every key but mel the "
+        f"same bits, mel max abs {mel_err:.3e} (tolerance {PREPROCESS_MEL_ATOL}) | {smi}")
+    need(mel_err <= PREPROCESS_MEL_ATOL, f"preprocess mel card vs host {mel_err:.3e}")
+    split = os.path.join(work, "split")
+    text = capture_cli(["split", "--npz_dir", npz["cuda"], "--out_dir", split])
+    n_train = len([f for f in os.listdir(os.path.join(split, "train")) if f.endswith(".npz")])
+    need(f"Train set: {n_train}" in text and n_train >= TRAIN_B, f"cli split: {text!r}")
+    shard = os.path.join(split, "train", sorted(os.listdir(os.path.join(split, "train")))[0])
+    text = capture_cli(["inspect_npz", shard])
+    need(f"mel: shape=(80, {MEL_T})" in text and "motion: shape=(180, 234)" in text,
+         f"cli inspect_npz: {text!r}")
+    pack = os.path.join(work, "pack")
+    run_cli(["pack", "--npz_dir", os.path.join(split, "train"), "--out_dir", pack])
+    native, plain = PackedDataset(pack), PackedDataset(pack, use_native=False)
+    need(native.gatherer == "native", f"the pack's gatherer is {native.gatherer}")
+    first = [next(iter(BatchIterator(d, TRAIN_B, seed=0))) for d in (native, plain)]
+    need(all(np.array_equal(first[0][k], first[1][k]) for k in first[1]),
+         "the native gatherer's first batch is not the numpy gatherer's")
+    del native, plain
+    per_step, _ = train_launches_per_step(mc)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    text = capture_cli(["train", "--npz_dir", pack, "--save_dir", os.path.join(work, "run"),
+                        *TRAIN_ARGS, "--max_steps", "2", "--save_interval", "1000"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    expected = {k: 2 * v for k, v in per_step.items()}
+    log(f"[data] cli split {n_train} train shards, cli inspect_npz, cli pack; cli train 2 steps "
+        f"(B={TRAIN_B}, flagship, --fused_resblock_grad --opt_backend pallas) on the pack "
+        f"{train_s:.2f} s; gatherer: native (first batch the numpy gatherer's bits); launches "
+        f"{launches} expected {expected}")
+    need("batch gatherer: native" in text, "cli train did not gather with the native gatherer")
+    need(launches == expected, f"pipeline train launches {launches} != {expected}")
+    out = dict(minutes=minutes, preprocess_s=secs, mel_max_abs=mel_err, train_shards=n_train,
+               train_s=train_s, launches=launches, seconds=time.perf_counter() - t_all)
+    log(f"[data] phase 4i: {out['seconds']:.1f} s in all")
+    return out
+
+
+# ---------------------------------------------------------------- phase 4j
+
+V1_ARGS = ["--arch", "v1", "--fused_attention"]
+
+
+def v1_launches_per_step(mc: ModelConfig, mel_t: int = MEL_T):
+    """Kernel launches of one ``cli train --arch v1 --fused_attention`` step:
+    both branches of every block's attention core in the forward (the
+    backward recomputes through the plain core), one ``adan_ema``; v1's
+    convolutions and GroupNorms are plain PyTorch."""
+    return {"attention": 2 * len(v1_attention_sites(mc, mel_t)), "adan_ema": 1}
+
+
+def serve_one(ckpt: str, clip: str, out_dir: str, ddim_steps: int):
+    """``cli serve`` (no warm-up) answering one request and quit; returns the
+    request's reply and the launches."""
+    replies, launches = serve_requests(
+        ["--ckpt", ckpt, "--method", "ddim", "--ddim_steps", str(ddim_steps), "--guidance",
+         "2.1", "--out_dir", out_dir, "--device", "cuda"],
+        [{"npz": clip, "id": "one"}, {"cmd": "quit", "id": "quit"}])
+    need([r.get("id") for r in replies] == ["one", "quit"] and replies[0]["ok"],
+         f"v1 serve replies {replies}")
+    check_mels([replies[0]["out"]], MEL_T)
+    return replies[0], launches
+
+
+def time_v1_step(ckpt: str, pack: str, device, calls: int = 4, windows: int = 5):
+    """One v1 train step (B=16) as ``cli train`` runs it, a CUDA graph replay:
+    ms per step (median of ``windows`` windows of ``calls``), clips/s, peak
+    memory, and one replay's launches."""
+    from lm2a_tpu_torch.core.config import config_from_dict
+    from lm2a_tpu_torch.data.dataset import PackedDataset, upload_dataset
+    from lm2a_tpu_torch.diffusion.schedule import make_schedule
+    from lm2a_tpu_torch.training.checkpoint import load_metadata, restore_checkpoint
+    from lm2a_tpu_torch.training.train_step import StepRunner, init_train_state, make_train_step
+
+    meta = load_metadata(ckpt)
+    cfg = config_from_dict(meta["config"])
+    state = init_train_state(cfg, 0, device)
+    restore_checkpoint(ckpt, state)
+    step = make_train_step(make_schedule(cfg.diffusion, device=device), cfg,
+                           dataset_mean=meta["dataset_mean"], dataset_std=meta["dataset_std"])
+    data = upload_dataset(PackedDataset(pack, use_native=False), device)
+    n = data["mel"].shape[0]
+    runner = StepRunner(step, state, None, TRAIN_B, 1)
+    batches = [{k: v[np.arange(c * TRAIN_B, (c + 1) * TRAIN_B) % n].view((1, TRAIN_B) + v.shape[1:])
+                for k, v in data.items()} for c in range(calls + 1)]
+
+    def call(c):
+        return runner.run(runner.load(batches[c]), 0, [900 + c])
+
+    torch.cuda.reset_peak_memory_stats()
+    call(0)  # the capture
+    _build.reset_launches()
+    call(1)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    wins = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for c in range(1, calls + 1):
+            losses = call(c)
+        torch.cuda.synchronize()
+        wins.append((time.perf_counter() - t0) / calls * 1e3)
+    need(bool(torch.isfinite(losses).all()), "v1 train step: losses not finite")
+    ms = float(np.median(wins))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del runner, data, state
+    torch.cuda.empty_cache()
+    return dict(ms_per_step=ms, windows_ms=wins, clips_per_s=TRAIN_B / ms * 1e3, peak_gib=peak,
+                launches=launches)
+
+
+def run_v1(work: str, pack: str, clip_dir: str, smi: str, device, rng):
+    """4j: v1 at its default widths with ``fused_attention`` (88,168,016
+    parameters): ``cli train --arch v1 --fused_attention`` (B=16, T=516,
+    ``--opt_backend pallas``) for 4 steps with saves every 2, ``--resume``
+    for 2 more, the launches per step exactly; one replayed step timed; ``cli
+    sample`` of the checkpoint (DDIM-10, CFG 2.1, bf16, both clips), its
+    attention launches, the 4-row forward on the card against the host CPU;
+    one ``cli serve`` request."""
+    from lm2a_tpu_torch.training.checkpoint import latest_checkpoint, list_checkpoints
+
+    t_all = time.perf_counter()
+    mc = ModelConfig(arch="v1", fused_attention=True)
+    with torch.device("meta"):
+        n_params = param_count(build_denoiser(mc))
+    need(n_params == V1_PARAMS, f"v1 denoiser has {n_params} params")
+    per_step = v1_launches_per_step(mc)
+    n_sites = len(v1_attention_sites(mc, MEL_T))
+    save = os.path.join(work, "run")
+    out = dict(params=n_params, launches_per_step=per_step)
+    for label, extra, steps, last in (
+            ("train", ["--max_steps", "4", "--save_interval", "2"], 4, 4),
+            ("resume", ["--max_steps", "6", "--save_interval", "2", "--resume"], 2, 6)):
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_cli(["train", "--npz_dir", pack, "--save_dir", save, *TRAIN_ARGS, *V1_ARGS, *extra])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        expected = {k: v * steps for k, v in per_step.items()}
+        found = list_checkpoints(save)
+        log(f"[v1] cli {label} --arch v1 --fused_attention: {steps} steps, B={TRAIN_B}, "
+            f"T={MEL_T}, defaults ({n_params} params), bf16, --opt_backend pallas: {secs:.2f} s "
+            f"with set-up and saves; checkpoints {found}; launches {launches} expected {expected}")
+        need(launches == expected, f"v1 cli {label}: launches {launches} != {expected}")
+        need(found and found[-1] == last and len(found) >= 2,
+             f"v1 cli {label}: checkpoints {found}")
+        out[label] = dict(seconds=secs, launches=launches, checkpoints=found)
+    with open(os.path.join(save, "train_log.csv")) as f:
+        rows = [r.split(",") for r in f.read().splitlines()[1:]]
+    losses = {int(r[1]): float(r[2]) for r in rows if r[4] == ""}
+    need(sorted(losses) == list(range(6)) and all(np.isfinite(v) for v in losses.values()),
+         f"v1 train losses {losses}")
+    ckpt = latest_checkpoint(save)
+    t = out["timing"] = time_v1_step(ckpt, pack, device)
+    log(f"[v1] train step replayed (CUDA graph), B={TRAIN_B}, T={MEL_T}: {t['ms_per_step']:.3f} "
+        f"ms (median of 5 windows of 4; spread {min(t['windows_ms']):.3f}-"
+        f"{max(t['windows_ms']):.3f}), {t['clips_per_s']:.1f} clips/s, peak memory "
+        f"{t['peak_gib']:.2f} GiB; one replay's launches {t['launches']} | {smi}")
+    need(t["launches"] == per_step, f"v1 replay launches {t['launches']} != {per_step}")
+    gen_dir = os.path.join(work, "gen")
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    cli_sample.main(["--all", "--npz_dir", clip_dir, "--ckpt", ckpt, "--out_dir", gen_dir,
+                     "--method", "ddim", "--ddim_steps", "10", "--guidance", "2.1", "--seed", "0",
+                     "--device", "cuda"])
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    expected = {"attention": 4 * n_sites * 10}
+    check_mels([os.path.join(gen_dir, f) for f in sorted(os.listdir(gen_dir))
+                if f.endswith("_gen.npz")], MEL_T)
+    log(f"[v1] cli sample (DDIM-10, CFG 2.1, {N_CLIPS} clips, bf16) {sample_s:.2f} s; launches "
+        f"{launches} expected {expected}")
+    need(launches == expected, f"v1 sample launches {launches} != {expected}")
+    out["sample"] = dict(seconds=sample_s, launches=launches)
+    out["unet_rel_l2"] = unet_card_vs_host(load_models(ckpt, device=device),
+                                           load_models(ckpt, device="cpu"), rng, MAIN_ROWS,
+                                           " v1 at its defaults, fused_attention")
+    t0 = time.perf_counter()
+    reply, launches = serve_one(ckpt, os.path.join(clip_dir, sorted(os.listdir(clip_dir))[0]),
+                                os.path.join(work, "serve"), 10)
+    serve_s = time.perf_counter() - t0
+    expected = {"attention": 4 * n_sites * 10}
+    log(f"[v1] cli serve, one request (DDIM-10, CFG 2.1): {serve_s:.2f} s with load and capture, "
+        f"{reply.get('seconds')} s for the request; launches {launches} expected {expected}")
+    need(launches == expected, f"v1 serve launches {launches} != {expected}")
+    out["serve"] = dict(seconds=serve_s, reply=reply, launches=launches)
+    out.update(v1_more_paths(work, pack, clip_dir, ckpt, mc, device))
+    out["seconds"] = time.perf_counter() - t_all
+    log(f"[v1] phase 4j: {out['seconds']:.1f} s in all | {smi}")
+    return out
+
+
+V1_QUALITY_STEPS, V1_VAL_STEPS, V1_ROUTE_ROWS, V1_ROUTE_STEPS = 10, 4, 2, 2
+
+
+def v1_more_paths(work: str, pack: str, clip_dir: str, ckpt: str, mc: ModelConfig, device):
+    """4j, the rest of v1's paths on the card:
+
+    - ``cli train --arch v1 --fused_attention --steps_per_call 2
+      --device_data`` for one epoch of 4d's pack with a validation pack and
+      ``--quality_every_epochs 1`` (DDIM-``V1_QUALITY_STEPS``): the train
+      steps, the validation batch's forward and the monitor's forwards,
+      each one's attention launches exactly, finite losses;
+    - ``cli val --max_samples 1 --steps V1_VAL_STEPS`` of 4j's checkpoint;
+    - ``cli distill`` with that checkpoint as the teacher, one step a stage
+      (4 -> 2, K=1): 3 forwards a step on the kernel, one ``adan_ema``;
+    - ``V1_ROUTE_STEPS`` train steps from the checkpoint on the card and on
+      the host CPU, the same injected draws on ``V1_ROUTE_ROWS`` rows: the
+      loss and the gradient within ``ROUTE_TOL`` (the parameters' step and
+      the EMA's change printed: the checkpoint is 6 steps in, where Adan's
+      first updates do not scale with the gradient, as
+      ``tests/test_torch_cuda.py``'s distill step notes)."""
+    import csv
+
+    from lm2a_tpu_torch.core.config import config_from_dict
+    from lm2a_tpu_torch.data.dataset import PackedDataset
+    from lm2a_tpu_torch.diffusion.schedule import make_schedule
+    from lm2a_tpu_torch.training import quality
+    from lm2a_tpu_torch.training.checkpoint import (latest_checkpoint, load_metadata,
+                                                    restore_checkpoint)
+    from lm2a_tpu_torch.training.train_step import init_train_state, make_train_step
+
+    n_sites = len(v1_attention_sites(mc, MEL_T))
+    per_step = v1_launches_per_step(mc)
+    out = {}
+
+    # K = 2 device-data steps, validation and the quality monitor
+    val_clips, val_pack, save = (os.path.join(work, d) for d in ("val_clips", "val_pack",
+                                                                  "run_k2"))
+    write_clips(val_clips, TRAIN_B, seed=11)
+    run_cli(["pack", "--npz_dir", val_clips, "--out_dir", val_pack])
+    n_steps = len(PackedDataset(pack, use_native=False)) // TRAIN_B
+    n_val = len(PackedDataset(val_pack, use_native=False)) // TRAIN_B
+    runs = []
+    real_run = quality.QualityMonitor.run
+
+    def counted(self, x_init=None):
+        before = dict(_build.LAUNCHES)
+        r = real_run(self, x_init)
+        runs.append(_launch_delta(before))
+        return r
+
+    quality.QualityMonitor.run = counted
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        run_cli(["train", "--npz_dir", pack, "--val_npz_dir", val_pack, "--save_dir", save,
+                 *TRAIN_ARGS, *V1_ARGS, "--epochs", "1", "--steps_per_call", "2",
+                 "--device_data", "--quality_every_epochs", "1", "--quality_clips",
+                 str(QUALITY_CLIPS), "--quality_steps", str(V1_QUALITY_STEPS)])
+        torch.cuda.synchronize()
+    finally:
+        quality.QualityMonitor.run = real_run
+    secs = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    q_run = {"attention": 4 * n_sites * V1_QUALITY_STEPS}
+    expected = {"attention": 2 * n_sites * (n_steps + n_val) + q_run["attention"],
+                "adan_ema": n_steps}
+    with open(os.path.join(save, "quality_log.csv")) as f:
+        q_rows = list(csv.reader(f))[1:]
+    with open(os.path.join(save, "train_log.csv")) as f:
+        log_rows = list(csv.reader(f))[1:]
+    losses = [float(r[2]) for r in log_rows if r[2]]
+    val_losses = [float(r[3]) for r in log_rows if r[3]]
+    log(f"[v1] cli train --arch v1 --fused_attention --steps_per_call 2 --device_data, one "
+        f"epoch ({n_steps} steps, B={TRAIN_B}) with {n_val} validation batch and "
+        f"--quality_every_epochs 1 (DDIM-{V1_QUALITY_STEPS}, {QUALITY_CLIPS} clips): {secs:.2f} "
+        f"s with set-up; launches {launches} expected {expected}; the monitor's {runs} expected "
+        f"[{q_run}]; losses {losses}; val losses {val_losses}; quality rows {q_rows}")
+    need(runs == [q_run], f"v1 quality monitor launches {runs} != [{q_run}]")
+    need(launches == expected, f"v1 K=2 device-data run: launches {launches} != {expected}")
+    need(len(q_rows) == 1 and all(np.isfinite(float(v)) for v in q_rows[0][2:]),
+         f"v1 quality rows {q_rows}")
+    # a row for each call of K = 2 steps (and one for a single tail step), then the epoch's
+    need(len(losses) == -(-n_steps // 2) + 1 and val_losses
+         and all(np.isfinite(losses + val_losses)),
+         f"v1 K=2 losses {losses}, val losses {val_losses}")
+    out["k2_device_data"] = dict(seconds=secs, launches=launches, monitor=runs, losses=losses,
+                                 quality=q_rows)
+
+    # cli val
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    run_cli(["val", "--ckpt", ckpt, "--npz_dir", clip_dir, "--out_dir",
+             os.path.join(work, "val"), "--max_samples", "1", "--steps", str(V1_VAL_STEPS),
+             "--device", "cuda"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    expected = {"attention": 4 * n_sites * V1_VAL_STEPS}
+    avg = _read_metrics_txt(os.path.join(work, "val", "average_metrics.txt"))
+    log(f"[v1] cli val --max_samples 1 (DDPM-{V1_VAL_STEPS}, CFG 2.1): {secs:.2f} s; launches "
+        f"{launches} expected {expected}; averages {avg}")
+    need(launches == expected, f"v1 cli val: launches {launches} != {expected}")
+    need(avg and all(np.isfinite(list(avg.values()))), f"v1 cli val: averages {avg}")
+    out["val"] = dict(seconds=secs, launches=launches, averages=avg)
+
+    # cli distill with a v1 teacher and student
+    tee = Tee(sys.stdout)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        run_cli(["distill", "--teacher", ckpt, "--npz_dir", pack, "--save_dir",
+                 os.path.join(work, "student"), "--start_steps", "4", "--student_steps", "2",
+                 "--steps_per_stage", "1", "--steps_per_call", "1", "--save_interval", "1000",
+                 "--batch_size", str(TRAIN_B), "--seed", "0", "--device", "cuda"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    expected = {"attention": 2 * 3 * 2 * n_sites, "adan_ema": 2}
+    losses = [float(c) for *_, c in DISTILL_LOSS_RE.findall(tee.kept.getvalue())]
+    student = latest_checkpoint(os.path.join(work, "student"))
+    log(f"[v1] cli distill, v1 teacher and student, one step a stage (4 -> 2, K=1, "
+        f"B={TRAIN_B}): {secs:.2f} s with set-up; launches {launches} expected {expected}; "
+        f"losses {losses}; student {student}")
+    need(launches == expected, f"v1 cli distill: launches {launches} != {expected}")
+    need(len(losses) == 2 and all(np.isfinite(losses)), f"v1 distill losses {losses}")
+    need(student is not None, "v1 cli distill wrote no checkpoint")
+    out["distill"] = dict(seconds=secs, launches=launches, losses=losses)
+
+    # train steps on the card against the host CPU
+    meta = load_metadata(ckpt)
+    cfg = config_from_dict(meta["config"])
+    host = torch.device("cpu")
+    batch = {k: v[:V1_ROUTE_ROWS] for k, v in train_batch(pack, host).items()}
+    sides = {}
+    for label, d in (("card", device), ("host", host)):
+        state = init_train_state(cfg, 0, d)
+        restore_checkpoint(ckpt, state)
+        sides[label] = (state, make_train_step(make_schedule(cfg.diffusion, device=d), cfg,
+                                               dataset_mean=meta["dataset_mean"],
+                                               dataset_std=meta["dataset_std"]))
+    _build.reset_launches()
+    out["route"] = card_vs_host_steps(
+        sides, batch, cfg, V1_ROUTE_STEPS, ROUTE_TOL, "v1 train step", "[v1] train",
+        f"card (attention kernel, adan_ema) vs host CPU (plain), {V1_ROUTE_ROWS} rows, from "
+        "4j's checkpoint", gate_update=False)
+    launches = dict(_build.LAUNCHES)
+    expected = {k: v * V1_ROUTE_STEPS for k, v in per_step.items()}
+    need(launches == expected, f"v1 route steps: launches {launches} != {expected}")
+    del sides
     return out
 
 
@@ -2721,6 +3323,13 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     os.makedirs(args.out, exist_ok=True)
     report = {}
+    phase_s, last = {}, [t_start]
+
+    def mark(phase: str) -> None:  # the wall seconds since the previous mark
+        now = time.perf_counter()
+        phase_s[phase] = now - last[0]
+        last[0] = now
+        log(f"[phase] {phase}: {phase_s[phase]:.1f} s")
 
     # 1. device
     smi = nvidia_smi_line()
@@ -2738,6 +3347,7 @@ def main(argv=None) -> int:
             f.write(f"--- {name}.cu ---\n{text}\n")
     log(f"[build] {len(_build.build_log)} sources built in {build_s:.1f} s "
         f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
+    mark("1-2 device and build")
     for src, text in _build.build_log.items():
         for fn, used, spill in ptxas_summary(text):
             log(f"[build] ptxas {src}.cu {fn}: Used {used} | {spill}")
@@ -2766,8 +3376,10 @@ def main(argv=None) -> int:
     report["attention_sums"] = attn_sums
     per["attention"] = dict(attn_sums["6s_b2"],
                             err=max(k["err"] for k in attn_sums.values()))
+    mark("3-3c")
     # 3d: the training kernels
     per_bwd, report["backward"] = phase_backward(timer, dev, gen)
+    mark("3d backward")
     per.update(per_bwd)
     per["conv3_fused"]["err"] = max([per["conv3_fused"]["err"]] + [
         r["forward_err"][k] for r in report["backward"] for k in ("f", "z1")])
@@ -2775,6 +3387,7 @@ def main(argv=None) -> int:
     per["adan_ema"] = dict(report["adan"]["fp32"],
                            err=max(v["err"] for v in report["adan"].values()))
     del timer
+    mark("3d adan")
 
     # 4. the slice through the CLIs
     work = os.path.join(ROOT, "build", "chip_smoke")
@@ -2858,6 +3471,7 @@ def main(argv=None) -> int:
                                              rng, MAIN_ROWS, " on the fused route")}
     del fused_models
 
+    mark("4-4c")
     # 4d. cli pack + cli train (6 steps, a save every 4) + --resume (2 steps)
     train = run_train(os.path.join(work, "train"), cfg.model)
     for k in ("conv3_dgrad", "conv3_wgrad", "gn_bwd", "adan_ema"):
@@ -2876,18 +3490,32 @@ def main(argv=None) -> int:
     report["train_k2"] = run_train_k2(os.path.join(work, "train"), cfg.model, train["pack"],
                                       train["ckpt"])
     torch.cuda.empty_cache()
+    mark("4d-4g")
     # 4f. cli distill from 4d's checkpoint over 4d's pack, resumed, the student sampled
     report["distill"] = run_distill(os.path.join(work, "distill"), train["ckpt"], train["pack"],
                                     cfg.model, os.path.dirname(clips[0]), n_blocks, smi, dev)
     torch.cuda.empty_cache()
     shutil.rmtree(os.path.join(work, "distill"), ignore_errors=True)
+    mark("4f")
     # 4h. evaluation: cli val, the quality monitor, fused_opt 0, cli evaluate, base 32
     report["evaluation"] = run_evaluation(os.path.join(work, "eval"), ckpt,
                                           os.path.dirname(clips[0]), train, cfg.model, n_blocks,
                                           dev, smi, np.random.default_rng(9))
     torch.cuda.empty_cache()
     shutil.rmtree(os.path.join(work, "eval"), ignore_errors=True)
+    mark("4h")
+    # 4i. the data pipeline: a raw tree through preprocess, split, pack, train
+    report["data_pipeline"] = run_data_pipeline(os.path.join(work, "data"), cfg.model, smi)
+    shutil.rmtree(os.path.join(work, "data"), ignore_errors=True)
+    torch.cuda.empty_cache()
+    mark("4i")
+    # 4j. v1 at its default widths on the fused attention route, over 4d's pack
+    report["v1"] = run_v1(os.path.join(work, "v1"), train["pack"], os.path.dirname(clips[0]),
+                          smi, dev, np.random.default_rng(13))
+    shutil.rmtree(os.path.join(work, "v1"), ignore_errors=True)
     shutil.rmtree(os.path.join(work, "train"), ignore_errors=True)
+    torch.cuda.empty_cache()
+    mark("4j")
 
     # 5. protocol chain and one vocode, timed
     models = load_models(ckpt, device=dev)
@@ -2934,6 +3562,7 @@ def main(argv=None) -> int:
     del voc
 
     report["profile"] = profile_chain(models, motion, lyrics, steps=10)
+    mark("5")
 
     # 5b. long form, timed, and the length where the fused route starts to win
     report["longform"] = run_long_form(models, rng, ddim_steps=10, n_blocks=n_blocks)
@@ -2941,6 +3570,7 @@ def main(argv=None) -> int:
     # 5c. cached chains against eager chains, the cache's captures and memory
     report["graphs"] = graph_vs_eager_chains(models, clips, rng)
     report["sampler_cache"] = sampler_cache_memory(models, "after phases 5-5c")
+    mark("5b-5c")
 
     # 6. references on the host CPU
     cpu_models = load_models(ckpt, device="cpu")
@@ -2956,6 +3586,7 @@ def main(argv=None) -> int:
     need(voc_err <= VOCODER_MAX_ABS, "vocoder disagrees with the host reference")
     # 6b. the long-form forward, attention kernel against the plain core
     unet_err["fused_long"] = unet_kernel_vs_plain_core(models, rng, LONG_T)
+    mark("6")
 
     shutil.rmtree(work, ignore_errors=True)
     kernels = []
@@ -2984,7 +3615,7 @@ def main(argv=None) -> int:
                   fused=dict(launches=fused_launches, seconds=fused_s),
                   sample_s=sample_s, towav_s=towav_s, times=times, unet_rel_l2=unet_err,
                   vocoder_max_abs=voc_err, kernels=kernels, tolerances=TOL,
-                  total_s=time.perf_counter() - t_start)
+                  phase_s=phase_s, total_s=time.perf_counter() - t_start)
     with open(os.path.join(args.out, "report.json"), "w") as f:
         json.dump(report, f, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")

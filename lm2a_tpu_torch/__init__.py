@@ -5,11 +5,13 @@ module tree and names, in plain PyTorch, and replaces each Pallas TPU kernel
 on the ported path with a CUDA kernel written for Hopper (``csrc/``):
 
 - ``core``       configs (jax-free copy) and device resolution
-- ``data``       npz sample schema, datasets, packing, batching, prefetch
-- ``ops``        condition resampling, the fused resblock chain and its
-                 backward, attention, the fused Adan+EMA update, kernel build
-- ``models``     CondProjection, cross-attention, UNet1DUltimate (serving
-                 and training forms)
+- ``data``       npz sample schema, datasets, packing, the native batch
+                 gatherer, batching, prefetch, raw-tree preprocessing, split
+- ``ops``        condition resampling, motion features, the fused resblock
+                 chain and its backward, attention, the fused Adan+EMA
+                 update, kernel build
+- ``models``     CondProjection, cross-attention, UNet1DUltimate and the v1
+                 UNet1D (serving and training forms)
 - ``diffusion``  beta schedule, the training loss, DDPM/DDIM samplers with CFG
 - ``training``   Adan, train/eval steps, full-state checkpoints, the loop,
                  progressive distillation

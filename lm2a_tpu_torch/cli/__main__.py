@@ -3,16 +3,19 @@
   distill            teacher checkpoint -> few-step DDIM student (CFG folded in)
   evaluate           wav-domain metrics over sample_*/{gt,gen}.wav pairs
   graph              histograms from evaluation_results.json (matplotlib)
+  inspect_npz        keys, shapes and stats of an npz shard (optional mel PNG)
   inspect_train_log  summarize (and plot) train_log.csv
   pack               npz split -> memory-mapped training arrays
+  preprocess         raw year/song tree -> normalized npz shards
   sample             checkpoint + npz conditions -> generated mel npz
   serve              persistent JSON-line sampling server (stdin -> stdout)
+  split              npz shards -> train/val/test (seed 42)
   towav              mel npz -> wav (BigVGAN)
   train              train the denoiser (checkpoints in the JAX package's layout)
   val                mel-domain assessment of a checkpoint over a test split
 
-``distill``, ``sample``, ``serve``, ``towav``, ``train`` and ``val`` take
-``--device`` (default ``cuda``).
+``distill``, ``preprocess``, ``sample``, ``serve``, ``towav``, ``train`` and
+``val`` take ``--device`` (default ``cuda``).
 """
 
 import sys
@@ -21,10 +24,13 @@ COMMANDS = {
     "distill": "lm2a_tpu_torch.cli.distill",
     "evaluate": "lm2a_tpu_torch.cli.evaluate",
     "graph": "lm2a_tpu_torch.cli.graph",
+    "inspect_npz": "lm2a_tpu_torch.cli.inspect_npz",
     "inspect_train_log": "lm2a_tpu_torch.cli.inspect_train_log",
     "pack": "lm2a_tpu_torch.cli.pack",
+    "preprocess": "lm2a_tpu_torch.cli.preprocess",
     "sample": "lm2a_tpu_torch.cli.sample",
     "serve": "lm2a_tpu_torch.cli.serve",
+    "split": "lm2a_tpu_torch.cli.split",
     "towav": "lm2a_tpu_torch.cli.towav",
     "train": "lm2a_tpu_torch.cli.train",
     "val": "lm2a_tpu_torch.cli.val",

@@ -6,7 +6,11 @@ wd 1e-4, 500 epochs, T 1000, base 256, mults 1,2,4, EMA 0.999, grad clip
 ``cuda``; ``cpu`` runs the kernels' plain PyTorch versions). Checkpoints
 are the JAX package's full-state layout, so either package resumes the
 other's. ``--fused_resblock_grad`` routes the blocks that pass the JAX
-kernel's gate through the fused chain and its CUDA backward;
+kernel's gate through the fused chain and its CUDA backward (no effect on
+``--arch v1``, whose convolutions the JAX package leaves to XLA);
+``--fused_attention`` (the port's own flag: the JAX CLI leaves the switch to
+the config) puts every attention core on the attention kernel, in the
+steps and in the checkpoints' config, so their serving takes it too;
 ``--opt_backend pallas`` runs the CUDA Adan+EMA kernel (the value keeps the
 JAX name so the config round-trips). On the card every step is a replay of
 one captured CUDA graph of the step. ``--steps_per_call K`` runs K steps a
@@ -88,6 +92,10 @@ def build_parser(p=None):
     p.add_argument("--device_data", action="store_true",
                    help="with --steps_per_call > 1 and a packed split: keep the dataset "
                         "on the device, stage only row indices per call")
+    p.add_argument("--fused_attention", action="store_true",
+                   help="the port's own: every attention core on the attention kernel "
+                        "(ModelConfig.fused_attention), in training and in the checkpoints' "
+                        "serving form")
     p.add_argument("--fused_resblock_grad", action="store_true",
                    help="route fitting residual blocks through the fused chain and "
                         "its CUDA backward kernels")
@@ -123,6 +131,7 @@ def config_from_args(args):
             cond_dim=args.cond_dim, time_emb_dim=args.time_emb_dim,
             num_res_blocks=args.num_res_blocks, mid_blocks=args.mid_blocks,
             attn_heads=args.attn_heads, fused_resblock_grad=args.fused_resblock_grad,
+            fused_attention=args.fused_attention,
         ),
         diffusion=DiffusionConfig(timesteps=args.timesteps),
         train=TrainConfig(

@@ -24,6 +24,9 @@ import torch
 
 # the vocoder's transposed convs are its top-level ``up_<i>`` modules
 BIGVGAN_CONV_TRANSPOSE = re.compile(r"up_\d+").fullmatch
+# the v1 UNet's are its ``up_<i>_upconv`` modules (under any tree prefix);
+# the production UNet has none, so the rule holds for either denoiser
+UNET_CONV_TRANSPOSE = re.compile(r"(?:.*[/.])?up_\d+_upconv").fullmatch
 
 PathPred = Optional[Callable[[str], object]]
 

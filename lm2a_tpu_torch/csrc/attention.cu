@@ -37,13 +37,22 @@
 //    runs the softmax of tile j while the other's products run;
 //  - only the last key tile, where S is ragged, is masked, on a path of its
 //    own;
-//  - head dims 2 and 4 (C/8 at the narrow base-16 and base-32 models): a
-//    head's row of 4 or 8 bytes is below the tensor map's 16-byte stride
-//    unit, so the maps see each row's H*hd channels as H*hd/8 virtual heads
-//    of 8 (hd 8's maps exactly), and a block loads the virtual head that
-//    holds its head, at offset (h*hd) % 8. Q's other columns are zeroed in
-//    registers after the ldmatrix, so the scores see the head's hd values
-//    alone; only the head's hd output columns are stored;
+//  - every head dim from 1 to 256: Q and K are read into tiles of HDQ
+//    channels, hd rounded up to 16, 32, 64, or a multiple of 64 above 64
+//    (the wgmma k16 step and the swizzle's 32-, 64- or 128-byte rows); the
+//    tensor map zero-fills the columns past the head (per-head maps, hd a
+//    multiple of 8) or the kernel zeroes Q's columns outside the head in
+//    registers (window maps), so the scores see the head's hd values alone.
+//    The softmax scale is 1/sqrt of the true hd;
+//  - a head whose row offset h*hd*2 bytes is off the 16-byte unit (hd not a
+//    multiple of 8: 2, 4, 6, 12 at the narrow bases) cannot have a tensor map
+//    of its own: the maps then see each row's H*hd channels as one window,
+//    and a block loads HDQ channels from the 8-channel unit that holds its
+//    head's first channel, the head at offset (h*hd) % 8 in the tile;
+//  - head dims above 128 (v1's 192 at C = 1536): the output accumulator of
+//    64 rows by HDQ would overrun the consumers' registers, so V and O are
+//    split into parts of 128 columns, one block each (grid y = H * parts),
+//    each recomputing the same scores; only the head's columns are stored;
 //  - where the grid is small (the 6 s geometries), the key tiles are split
 //    over the `split` blocks of a thread-block cluster; each keeps (m, l, O)
 //    of its keys, pushes each row's through distributed shared memory to
@@ -71,6 +80,8 @@ constexpr int REGS_PRODUCER = 40, REGS_CONSUMER = 232;  // 40 + 2 * 232 = 3 * 16
 struct AttnArgs {
   bf16* o;
   int T, S;
+  int hd;                      // the true head dim (the tiles hold HDQ channels)
+  int window;                  // 1: window maps over each row's H*hd channels
   long long o_sb, o_sh, o_st;  // element strides; hd stride is 1
   int tiles;                   // key tiles of BN keys
   int split;                   // cluster blocks along x that split the key tiles
@@ -78,16 +89,22 @@ struct AttnArgs {
   int qperm[3], kperm[3], vperm[3];  // the tensor maps' order of (t, h, b)
 };
 
-template <int HD, int BN>
+// HDQ: the channels of a Q and a K tile row (16, 32, 64, 128, 192 or 256);
+// HDV: those of a V tile row and of the O accumulator, VPARTS blocks a head
+template <int HDQ_, int BN>
 struct Geo {
-  static constexpr int HDP = HD < 16 ? 16 : HD;                // contraction, padded to k16
-  static constexpr int ROWB = HDP * 2 > 128 ? 128 : HDP * 2;  // bytes a swizzled row
-  static constexpr int HALVES = HDP * 2 / ROWB;  // hd = 128: two boxes of 64 along hd
-  static constexpr int BOX = ROWB / 2;           // hd values a box row
-  static constexpr int Q_BYTES = BM * HDP * 2;
-  static constexpr int KV_BYTES = BN * HDP * 2;  // one K or one V tile
-  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
-  static constexpr int CO_LD = HDP + 4;  // fp32 row stride of the combine buffer
+  static constexpr int HDQ = HDQ_;
+  static constexpr int HDV = HDQ > 128 ? 128 : HDQ;
+  static constexpr int VPARTS = (HDQ + HDV - 1) / HDV;
+  static constexpr int ROWB = HDQ * 2 > 128 ? 128 : HDQ * 2;  // bytes a swizzled row
+  static constexpr int QBOXES = HDQ * 2 / ROWB;  // boxes of 64 channels along a Q or K row
+  static constexpr int VBOXES = HDV * 2 / ROWB;
+  static constexpr int BOX = ROWB / 2;  // channels a box row
+  static constexpr int Q_BYTES = BM * HDQ * 2;
+  static constexpr int K_BYTES = BN * HDQ * 2;
+  static constexpr int V_BYTES = BN * HDV * 2;
+  static constexpr int STAGE_BYTES = K_BYTES + V_BYTES;
+  static constexpr int CO_LD = HDV + 4;  // fp32 row stride of the combine buffer
   // the split's combine, reusing the ring: O, m and l of CMAX_ROWS rows,
   // then each owned row's weights over the ranks and their sum
   static constexpr int COMBINE_BYTES =
@@ -98,6 +115,14 @@ struct Geo {
            (stages * STAGE_BYTES > COMBINE_BYTES ? stages * STAGE_BYTES : COMBINE_BYTES);
   }
 };
+
+// a Q register (two bf16 of columns c and c + 1 of the tile) with the
+// columns outside [lo, hi) zeroed
+__device__ __forceinline__ uint32_t keep_cols(uint32_t v, int c, int lo, int hi) {
+  const uint32_t m0 = (c >= lo && c < hi) ? 0x0000ffffu : 0u;
+  const uint32_t m1 = (c + 1 >= lo && c + 1 < hi) ? 0xffff0000u : 0u;
+  return v & (m0 | m1);
+}
 
 __device__ __forceinline__ void cluster_arrive() {
   asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
@@ -126,13 +151,16 @@ __device__ __forceinline__ float mask_key(float s, int key, int S) {
   return r;
 }
 
-template <int HD, int BN>
+// EXACT: a per-head map and hd == HDQ (the flagship's 32, 64 and 128, and
+// 16): hd, the scale and the stores are compile-time and Q needs no mask,
+// the code of the kernel before it took other head dims
+template <int HDQ, int BN, bool EXACT>
 __global__ void __launch_bounds__(NTHREADS, 1)
     attention_kernel(const __grid_constant__ CUtensorMap qmap,
                      const __grid_constant__ CUtensorMap kmap,
                      const __grid_constant__ CUtensorMap vmap, const AttnArgs p) {
-  using G = Geo<HD, BN>;
-  constexpr int HDP = G::HDP, ROWB = G::ROWB;
+  using G = Geo<HDQ, BN>;
+  constexpr int HDV = G::HDV, ROWB = G::ROWB;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* qs = smem;
@@ -146,12 +174,15 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   // the warpgroup, warp-uniform as ptxas can see (else it serializes wgmma)
   const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
-  const int split = p.split, stages = p.stages;
+  const int split = p.split, stages = p.stages, hd = EXACT ? HDQ : p.hd;
+  const bool window = !EXACT && p.window;
   const int rank = (int)(blockIdx.x % split), mtile = (int)(blockIdx.x / split);
-  const int h = blockIdx.y, b = blockIdx.z;
-  // hd < 8: the virtual head of 8 channels that holds this head, and the
-  // head's first column in it
-  const int hmap = HD < 8 ? (h * HD) >> 3 : h, hoff = HD < 8 ? (h * HD) & 7 : 0;
+  const int h = (int)blockIdx.y / G::VPARTS, vpart = (int)blockIdx.y % G::VPARTS, b = blockIdx.z;
+  // the maps' head and first channel of this head's tiles: per-head maps
+  // start at the head; a window starts at the 8-channel unit that holds the
+  // head's first channel, the head hoff channels into the tile
+  const int hmap = window ? 0 : h;
+  const int cbase = window ? (h * hd) & ~7 : 0, hoff = window ? (h * hd) & 7 : 0;
   const int t0 = mtile * BM;
   const int j_beg = p.tiles * rank / split, n = p.tiles * (rank + 1) / split - j_beg;
 
@@ -172,23 +203,25 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     if (tid == 0) {
       sm90::mbar_expect_tx(qbar, G::Q_BYTES);
 #pragma unroll
-      for (int hh = 0; hh < G::HALVES; ++hh)
-        tma_box(sm90::smem_u32(qs) + hh * BM * 128, &qmap, qbar, p.qperm, hh * G::BOX, t0, hmap,
-                b);
+      for (int hh = 0; hh < G::QBOXES; ++hh)
+        tma_box(sm90::smem_u32(qs) + hh * BM * 128, &qmap, qbar, p.qperm, cbase + hh * G::BOX,
+                t0, hmap, b);
+      const int vc = cbase + vpart * HDV;  // this block's part of V's columns
       for (int i = 0; i < n; ++i) {
         const int s = i % stages;
         if (i >= stages) sm90::mbar_wait(empty + s, ((i / stages) & 1) ^ 1);
         const int key0 = (j_beg + i) * BN;
         const uint32_t kt = sm90::smem_u32(ring + s * G::STAGE_BYTES);
-        sm90::mbar_expect_tx(kfull + s, G::KV_BYTES);
+        sm90::mbar_expect_tx(kfull + s, G::K_BYTES);
 #pragma unroll
-        for (int hh = 0; hh < G::HALVES; ++hh)
-          tma_box(kt + hh * BN * 128, &kmap, kfull + s, p.kperm, hh * G::BOX, key0, hmap, b);
-        sm90::mbar_expect_tx(vfull + s, G::KV_BYTES);
+        for (int hh = 0; hh < G::QBOXES; ++hh)
+          tma_box(kt + hh * BN * 128, &kmap, kfull + s, p.kperm, cbase + hh * G::BOX, key0, hmap,
+                  b);
+        sm90::mbar_expect_tx(vfull + s, G::V_BYTES);
 #pragma unroll
-        for (int hh = 0; hh < G::HALVES; ++hh)
-          tma_box(kt + G::KV_BYTES + hh * BN * 128, &vmap, vfull + s, p.vperm, hh * G::BOX, key0,
-                  hmap, b);
+        for (int hh = 0; hh < G::VBOXES; ++hh)
+          tma_box(kt + G::K_BYTES + hh * BN * 128, &vmap, vfull + s, p.vperm, vc + hh * G::BOX,
+                  key0, hmap, b);
       }
     }
     if (split > 1) {  // the consumers' two cluster barriers of the combine
@@ -204,41 +237,46 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   sm90::regs_inc<REGS_CONSUMER>();
   const int cw = wg - 1;         // rows 64 * cw .. 64 * cw + 63 of the block
   const int wrow = (warp & 3) * 16 + (lane >> 2);  // this thread's rows wrow, wrow + 8
-  const float scale = 1.4426950408889634f / sqrtf((float)HD);
+  const float scale = 1.4426950408889634f / sqrtf((float)hd);
 
   // Q as the register A operand of every S product: ldmatrix from the
   // swizzled tile, row lane & 15 of the warp's 16, k 0-7 or 8-15 by lane >> 4
-  uint32_t qa[HDP / 16][4];
+  uint32_t qa[HDQ / 16][4];
   sm90::mbar_wait(qbar, 0);
   {
     const int row = cw * 64 + (warp & 3) * 16 + (lane & 15);
 #pragma unroll
-    for (int kk = 0; kk < HDP / 16; ++kk) {
+    for (int kk = 0; kk < HDQ / 16; ++kk) {
       const int hh = kk / (ROWB / 32), chunk = (kk % (ROWB / 32)) * 2 + (lane >> 4);
       sm90::ldmatrix_x4(qa[kk], sm90::smem_u32(qs) + hh * BM * 128 +
                                     sm90::sw_offset<ROWB>(row, chunk));
     }
-    if (HD < 8) {  // the virtual head's other heads: Q's columns outside the head are 0
-      // (registers 2, 3 hold columns 8-15; 0, 1 columns 2 (lane & 3) and + 1)
-      const int c = 2 * (lane & 3);
-      qa[0][2] = qa[0][3] = 0u;
-      if (c < hoff || c >= hoff + HD) qa[0][0] = qa[0][1] = 0u;
+    // Q's columns outside the head are 0 (a window's neighbouring heads; past
+    // hd a per-head map reads zeros already). Registers 0, 1 hold columns
+    // 16 kk + 2 (lane & 3) and + 1, registers 2, 3 the same + 8.
+    if (!EXACT) {
+#pragma unroll
+      for (int kk = 0; kk < HDQ / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          qa[kk][r] =
+              keep_cols(qa[kk][r], 16 * kk + 8 * (r >> 1) + 2 * (lane & 3), hoff, hoff + hd);
     }
   }
 
-  float o[HDP / 2];
+  float o[HDV / 2];
 #pragma unroll
-  for (int e = 0; e < HDP / 2; ++e) o[e] = 0.f;
+  for (int e = 0; e < HDV / 2; ++e) o[e] = 0.f;
   float sc[BN / 2];
   uint32_t pa[BN / 16][4];  // P of the previous tile, the A fragments of P.V
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
 
-  // S = Q K^T of the K tile in stage s: k16 steps along hd
+  // S = Q K^T of the K tile in stage s: k16 steps along the channels
   auto s_gemm = [&](int s) {
     const uint32_t kt = sm90::smem_u32(ring + s * G::STAGE_BYTES);
     sm90::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < HDP / 16; ++kk) {
+    for (int kk = 0; kk < HDQ / 16; ++kk) {
       const int hh = kk / (ROWB / 32), koff = (kk % (ROWB / 32)) * 32;
       sm90::wgmma_rs<BN, 0>(sc, qa[kk], sm90::desc_kmajor<ROWB>(kt + hh * BN * 128 + koff),
                             kk > 0);
@@ -247,11 +285,11 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   };
   // O += P V of the V tile in stage s: k16 steps along its keys, V MN-major
   auto pv = [&](int s) {
-    const uint32_t vt = sm90::smem_u32(ring + s * G::STAGE_BYTES + G::KV_BYTES);
+    const uint32_t vt = sm90::smem_u32(ring + s * G::STAGE_BYTES + G::K_BYTES);
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk)
-      sm90::wgmma_rs<HDP, 1>(o, pa[kk], sm90::desc_mn<ROWB>(vt + kk * 16 * ROWB, BN * 128));
+      sm90::wgmma_rs<HDV, 1>(o, pa[kk], sm90::desc_mn<ROWB>(vt + kk * 16 * ROWB, BN * 128));
     sm90::wgmma_commit();
   };
   // the online softmax of tile i, in place in sc (p, fp32); the rescale of
@@ -288,7 +326,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       l_run[r] = l_run[r] * corr[r] + rs;
     }
 #pragma unroll
-    for (int e = 0; e < HDP / 2; ++e) o[e] *= corr[(e >> 1) & 1];
+    for (int e = 0; e < HDV / 2; ++e) o[e] *= corr[(e >> 1) & 1];
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
       pa[kk][0] = sm90::pack_bf16x2(sc[8 * kk + 0], sc[8 * kk + 1]);
@@ -343,27 +381,30 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
   }
 
-  if (split == 1 && HD < 8) {  // the head's columns hoff .. hoff + HD - 1 of O
-    const int c = 2 * (lane & 3);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = t0 + cw * 64 + wrow + 8 * r;
-      if (row < p.T && c >= hoff && c < hoff + HD)
-        *reinterpret_cast<uint32_t*>(p.o + b * p.o_sb + h * p.o_sh + (long long)row * p.o_st +
-                                     c - hoff) =
-            sm90::pack_bf16x2(o[2 * r] / l_run[r], o[2 * r + 1] / l_run[r]);
-    }
-  } else if (split == 1) {
+  // column c of this block's O is column c + jc of the head; where the head
+  // starts on the tile and hd is a multiple of 8, whole pairs (quads in the
+  // combine) of columns lie inside it and go out 4 (8) bytes at a time, else
+  // one bf16 at a time
+  const int jc = vpart * HDV - hoff;
+  const bool whole = EXACT || (hoff == 0 && hd % 8 == 0);
+  bf16* ob = p.o + b * p.o_sb + h * p.o_sh;
+  if (split == 1) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = t0 + cw * 64 + wrow + 8 * r;
       if (row >= p.T) continue;
-      bf16* orow = p.o + b * p.o_sb + h * p.o_sh + (long long)row * p.o_st + 2 * (lane & 3);
+      bf16* orow = ob + (long long)row * p.o_st;
 #pragma unroll
-      for (int nt = 0; nt < HDP / 8; ++nt)
-        if (8 * nt < HD)
-          *reinterpret_cast<uint32_t*>(orow + 8 * nt) =
-              sm90::pack_bf16x2(o[4 * nt + 2 * r] / l_run[r], o[4 * nt + 2 * r + 1] / l_run[r]);
+      for (int nt = 0; nt < HDV / 8; ++nt) {
+        const int j = jc + 8 * nt + 2 * (lane & 3);
+        const float v0 = o[4 * nt + 2 * r] / l_run[r], v1 = o[4 * nt + 2 * r + 1] / l_run[r];
+        if (whole) {
+          if (j < hd) *reinterpret_cast<uint32_t*>(orow + j) = sm90::pack_bf16x2(v0, v1);
+        } else {
+          if (j >= 0 && j < hd) orow[j] = from_f<bf16>(v0);
+          if (j + 1 >= 0 && j + 1 < hd) orow[j + 1] = from_f<bf16>(v1);
+        }
+      }
     }
   } else {
     // split over the cluster: rank r combines rows [r * rows_per, ...); each
@@ -388,7 +429,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       const int slot = rank * rows_per + row - owner * rows_per;
       float* dst = cluster.map_shared_rank(co, owner) + slot * G::CO_LD + 2 * (lane & 3);
 #pragma unroll
-      for (int nt = 0; nt < HDP / 8; ++nt)
+      for (int nt = 0; nt < HDV / 8; ++nt)
         *reinterpret_cast<float2*>(dst + 8 * nt) =
             make_float2(o[4 * nt + 2 * r], o[4 * nt + 2 * r + 1]);
       if ((lane & 3) == 0) {
@@ -412,25 +453,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       lsum[li] = l;
     }
     sm90::bar_sync(BAR_CONSUMERS, 256);
-    bf16* ob = p.o + b * p.o_sb + h * p.o_sh;
-    for (int e = tc; HD < 8 && e < nr * (HD / 2); e += 256) {  // the head's column pairs
-      const int li = e / (HD / 2), c = 2 * (e % (HD / 2));
-      if (t0 + r_beg + li >= p.T) continue;
-      float2 acc = make_float2(0.f, 0.f);
-      for (int q = 0; q < split; ++q) {  // rank order
-        const float w = wts[li * MAX_SPLIT + q];
-        const float2 v =
-            *reinterpret_cast<const float2*>(co + (q * rows_per + li) * G::CO_LD + hoff + c);
-        acc.x += w * v.x;
-        acc.y += w * v.y;
-      }
-      const float l = lsum[li];
-      *reinterpret_cast<uint32_t*>(ob + (long long)(t0 + r_beg + li) * p.o_st + c) =
-          sm90::pack_bf16x2(acc.x / l, acc.y / l);
-    }
-    for (int e = tc; HD >= 8 && e < nr * (HDP / 4); e += 256) {
-      const int li = e / (HDP / 4), c = 4 * (e % (HDP / 4));
-      if (t0 + r_beg + li >= p.T || c >= HD) continue;
+    for (int e = tc; e < nr * (HDV / 4); e += 256) {  // quads of columns
+      const int li = e / (HDV / 4), c = 4 * (e % (HDV / 4)), j = jc + c;
+      if (t0 + r_beg + li >= p.T || j >= hd || j + 4 <= 0) continue;
       float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
       for (int q = 0; q < split; ++q) {  // rank order
         const float w = wts[li * MAX_SPLIT + q];
@@ -441,8 +466,16 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         acc.w += w * v.w;
       }
       const float l = lsum[li];
-      *reinterpret_cast<uint2*>(ob + (long long)(t0 + r_beg + li) * p.o_st + c) = make_uint2(
-          sm90::pack_bf16x2(acc.x / l, acc.y / l), sm90::pack_bf16x2(acc.z / l, acc.w / l));
+      bf16* orow = ob + (long long)(t0 + r_beg + li) * p.o_st;
+      if (whole) {
+        *reinterpret_cast<uint2*>(orow + j) = make_uint2(
+            sm90::pack_bf16x2(acc.x / l, acc.y / l), sm90::pack_bf16x2(acc.z / l, acc.w / l));
+      } else {
+        const float vals[4] = {acc.x / l, acc.y / l, acc.z / l, acc.w / l};
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (j + u >= 0 && j + u < hd) orow[j + u] = from_f<bf16>(vals[u]);
+      }
     }
   }
 }
@@ -521,13 +554,13 @@ constexpr int ERR_TENSOR_MAP = -1;  // cuTensorMapEncodeTiled refused a view
 constexpr int ERR_REGISTERS = -2;   // the kernel's register budget cannot fund setmaxnreg
 constexpr int ERR_PLAN = -3;        // a launch plan the kernel does not take
 
-template <int HD, int BN>
+template <int HDQ, int BN, bool EXACT>
 int launch(const void* q, const void* k, const void* v, AttnArgs& p, int B, int H,
            const long long (&st)[9], int smem, cudaStream_t s) {
-  using G = Geo<HD, BN>;
+  using G = Geo<HDQ, BN>;
   // less shared memory than the ring (or the combine) takes would overrun it
   if (smem != G::smem(p.stages)) return ERR_PLAN;
-  auto kern = attention_kernel<HD, BN>;
+  auto kern = attention_kernel<HDQ, BN, EXACT>;
   static int ready = 0;  // 1: attributes set; < 0: the refusal
   if (ready == 0) {
     cudaFuncAttributes fa;
@@ -547,16 +580,15 @@ int launch(const void* q, const void* k, const void* v, AttnArgs& p, int B, int 
   if (ready < 0) return ready;
   CUtensorMap qm, km, vm;
   const int mtiles = (p.T + BM - 1) / BM;
-  // hd < 8: H*hd/8 virtual heads of 8 channels, 8 apart (each view's heads
-  // lie side by side, checked by the entry)
-  const int mhd = HD < 8 ? 8 : HD, mh = HD < 8 ? H * HD / 8 : H;
-  const long long vs[3] = {HD < 8 ? 8 : st[1], HD < 8 ? 8 : st[4], HD < 8 ? 8 : st[7]};
-  if (!encode(&qm, p.qperm, q, mhd, p.T, mh, B, st[2], vs[0], st[0], G::BOX, BM, G::ROWB) ||
-      !encode(&km, p.kperm, k, mhd, p.S, mh, B, st[5], vs[1], st[3], G::BOX, BN, G::ROWB) ||
-      !encode(&vm, p.vperm, v, mhd, p.S, mh, B, st[8], vs[2], st[6], G::BOX, BN, G::ROWB))
+  // a window: each row's H*hd channels as one head of H*hd (the heads lie
+  // side by side, checked by the entry)
+  const int mhd = p.window ? H * p.hd : p.hd, mh = p.window ? 1 : H;
+  if (!encode(&qm, p.qperm, q, mhd, p.T, mh, B, st[2], st[1], st[0], G::BOX, BM, G::ROWB) ||
+      !encode(&km, p.kperm, k, mhd, p.S, mh, B, st[5], st[4], st[3], G::BOX, BN, G::ROWB) ||
+      !encode(&vm, p.vperm, v, mhd, p.S, mh, B, st[8], st[7], st[6], G::BOX, BN, G::ROWB))
     return ERR_TENSOR_MAP;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p.split * mtiles, H, B);
+  cfg.gridDim = dim3(p.split * mtiles, H * G::VPARTS, B);
   cfg.blockDim = dim3(NTHREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
@@ -572,12 +604,35 @@ int launch(const void* q, const void* k, const void* v, AttnArgs& p, int B, int 
   return (int)cudaGetLastError();
 }
 
-template <int HD>
+template <int HDQ, bool EXACT>
+int launch_exact(const void* q, const void* k, const void* v, AttnArgs& p, int B, int H,
+                 const long long (&st)[9], int bn, int smem, cudaStream_t s) {
+  if (bn == 64) return launch<HDQ, 64, EXACT>(q, k, v, p, B, H, st, smem, s);
+  // above 128 channels only 64-key tiles: S, P, Q and O together fit the
+  // consumers' registers there
+  if constexpr (HDQ <= 128) {
+    if (bn == 128) return launch<HDQ, 128, EXACT>(q, k, v, p, B, H, st, smem, s);
+  }
+  return ERR_PLAN;
+}
+
+template <int HDQ>
 int launch_bn(const void* q, const void* k, const void* v, AttnArgs& p, int B, int H,
               const long long (&st)[9], int bn, int smem, cudaStream_t s) {
-  if (bn == 64) return launch<HD, 64>(q, k, v, p, B, H, st, smem, s);
-  if (bn == 128) return launch<HD, 128>(q, k, v, p, B, H, st, smem, s);
-  return ERR_PLAN;
+  if constexpr (HDQ <= 128) {
+    if (!p.window && p.hd == HDQ)
+      return launch_exact<HDQ, true>(q, k, v, p, B, H, st, bn, smem, s);
+  }
+  return launch_exact<HDQ, false>(q, k, v, p, B, H, st, bn, smem, s);
+}
+
+// the channels of a Q or K tile row for head dim hd whose heads start
+// `hoff_max` channels at most into their tile: 16, 32, 64, then multiples of 64
+int tile_channels(int hd, int hoff_max) {
+  const int need = hd + hoff_max;
+  if (need <= 16) return 16;
+  if (need <= 32) return 32;
+  return (need + 63) / 64 * 64;
 }
 
 }  // namespace
@@ -586,14 +641,18 @@ extern "C" int lm2a_attention(const void* q, const void* k, const void* v, void*
                               int H, int T, int S, int hd, long long q_sb, long long q_sh,
                               long long q_st, long long k_sb, long long k_sh, long long k_st,
                               long long v_sb, long long v_sh, long long v_st, long long o_sb,
-                              long long o_sh, long long o_st, int bn, int stages, int split,
-                              int smem, void* stream) {
-  if (T < 1 || S < 1) return (int)cudaErrorInvalidValue;
+                              long long o_sh, long long o_st, int hdq, int bn, int stages,
+                              int split, int smem, void* stream) {
+  if (T < 1 || S < 1 || hd < 1 || hd > 256) return (int)cudaErrorInvalidValue;
   if (stages < 3 || stages > MAX_STAGES || split < 1 || split > MAX_SPLIT) return ERR_PLAN;
   AttnArgs p;
   p.o = static_cast<bf16*>(o);
   p.T = T;
   p.S = S;
+  p.hd = hd;
+  // hd off the 8-channel unit: a head's offset h*hd*2 bytes is off the tensor
+  // map's 16-byte unit, so the maps read windows of each row's channels
+  p.window = hd % 8 != 0;
   p.o_sb = o_sb;
   p.o_sh = o_sh;
   p.o_st = o_st;
@@ -603,17 +662,19 @@ extern "C" int lm2a_attention(const void* q, const void* k, const void* v, void*
   if (split > p.tiles) return ERR_PLAN;
   const long long st[9] = {q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // hd < 8: the heads side by side (head stride hd) in whole 8-channel units
-  if (hd < 8 && (q_sh != hd || k_sh != hd || v_sh != hd || (H * hd) % 8))
-    return (int)cudaErrorInvalidValue;
-  switch (hd) {
-    case 2: return launch_bn<2>(q, k, v, p, B, H, st, bn, smem, s);
-    case 4: return launch_bn<4>(q, k, v, p, B, H, st, bn, smem, s);
-    case 8: return launch_bn<8>(q, k, v, p, B, H, st, bn, smem, s);
+  int hoff_max = 0;
+  if (p.window) {  // the heads side by side (head stride hd)
+    if (q_sh != hd || k_sh != hd || v_sh != hd) return (int)cudaErrorInvalidValue;
+    for (int hh = 0; hh < H && hoff_max < 7; ++hh) hoff_max = max(hoff_max, (hh * hd) & 7);
+  }
+  if (hdq != tile_channels(hd, hoff_max)) return ERR_PLAN;
+  switch (hdq) {
     case 16: return launch_bn<16>(q, k, v, p, B, H, st, bn, smem, s);
     case 32: return launch_bn<32>(q, k, v, p, B, H, st, bn, smem, s);
     case 64: return launch_bn<64>(q, k, v, p, B, H, st, bn, smem, s);
     case 128: return launch_bn<128>(q, k, v, p, B, H, st, bn, smem, s);
-    default: return (int)cudaErrorInvalidValue;
+    case 192: return launch_bn<192>(q, k, v, p, B, H, st, bn, smem, s);
+    case 256: return launch_bn<256>(q, k, v, p, B, H, st, bn, smem, s);
+    default: return ERR_PLAN;  // hd plus its offset in the window above 256
   }
 }

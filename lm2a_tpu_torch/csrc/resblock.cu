@@ -46,16 +46,22 @@
 //    summed from distributed shared memory in rank order (the same bits
 //    every run, no atomics, no partial tensor in device memory). A
 //    kept-apart skip doubles N: its tiles are blocks of their own.
-// Widths: Cin, Cin2 and Cout any multiple of 8 (one 16-byte row unit of
-// bf16, what cp.async and the vector loads move) and any C/G. A last K chunk
+// Widths: Cin, Cin2 and Cout any positive count and any C/G. A last K chunk
 // narrower than 64 channels comes in zero-filled (weights and activation
 // window alike), so the wgmma K loop runs over zeros there; a last N tile
 // past Cout loads zero weights and stores nothing; where a thread's 8
 // channels straddle GroupNorm groups (C/G 1, 2, 4, 6, 12, ...) its prologue
 // reads each channel's own statistics. These masks live in the NARROW
-// instantiation alone, which the launch picks from the shape: the
+// form (FORM 1) alone, which the launch picks from the shape: the
 // flagship's widths (multiples of 64 and of BN, C/G a multiple of 8) run
-// the kernel without them.
+// the kernel without them. A width off the 8-channel unit (a row stride off
+// the 16-byte unit cp.async moves: 12, 20, 21, ...) takes the ODD form
+// (FORM 2): each 16-byte unit of a row comes in by the widest access the
+// row's stride allows (sm90::copy16_any: cp.async of 8 or 4 bytes, or 2-byte
+// loads), only its channels inside the tensor, into the same zero-filled
+// shared tiles, so the wgmma K loop and its descriptors are the same; the
+// prologue reads gamma and beta and the epilogue stores one channel at a
+// time.
 // What bounds it now, measured: not the tensor cores (a chunk's 12 wgmmas
 // take a fraction of its ~3 us) but each block's serial chain per chunk of
 // copy issue, barrier, activation and wgmma, and the waves of a grid that
@@ -251,8 +257,11 @@ struct ConvArgs {
 // work, which otherwise outlasts the chunk's tensor-core work.) A conv chunk activates the window of
 // BM+2 frames once (GN+SiLU, bf16) and feeds three taps (12 wgmma k16
 // steps); a skip chunk copies its rows and feeds one.
-template <typename In, typename Out, int MW, int BN, bool NARROW>
+template <typename In, typename Out, int MW, int BN, int FORM>
 __global__ void __launch_bounds__(128 * (MW + 1)) conv3_fused_kernel(const ConvArgs p) {
+  // FORM 0: every width whole tiles; 1 (NARROW): partial K chunks and N
+  // tiles, per-channel groups; 2 (ODD): besides, rows off the 16-byte unit
+  constexpr bool NARROW = FORM >= 1, ODD = FORM == 2;
   using D = ConvGeo<In, MW, BN>;
   constexpr int NT = 128 * (MW + 1), BM = D::BM;  // MW consumers and one helper
   constexpr int ZROW = BM + 2;  // an all-zero window row: taps outside [0, T)
@@ -289,37 +298,56 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_fused_kernel(const ConvA
     // units past Cout (rows) or past Cin (channels) are zero-filled
     if (j < nconv) {
       for (int u = tid; u < 3 * BN * 8; u += NT) {
-        const int tap = u / (BN * 8), r = (u >> 3) % BN, c = u & 7;
-        const bool ok = !NARROW || (wrow0 + r < cout && j * 64 + c * 8 < cin);
-        const bf16* src =
-            p.w + (ok ? (size_t)(wrow0 + r) * 3 * cin + tap * cin + j * 64 + c * 8 : 0);
-        sm90::cp_async16(base + tap * TAP_BYTES + sm90::sw_offset<128>(r, c), src, ok ? 16 : 0);
+        const int tap = u / (BN * 8), r = (u >> 3) % BN, c = u & 7, ch = j * 64 + c * 8;
+        const bool ok = !NARROW || (wrow0 + r < cout && ch < cin);
+        const bf16* src = p.w + (ok ? (size_t)(wrow0 + r) * 3 * cin + tap * cin + ch : 0);
+        const uint32_t dst = base + tap * TAP_BYTES + sm90::sw_offset<128>(r, c);
+        if constexpr (ODD)
+          sm90::copy16_any(dst, src, ok ? 2 * (cin - ch) : 0, sm90::access_bytes(2 * cin));
+        else
+          sm90::cp_async16(dst, src, ok ? 16 : 0);
       }
       const In* a = static_cast<const In*>(p.a);
-      const bool cok = !NARROW || j * 64 + g8 * 8 < cin;
+      const int ch = j * 64 + g8 * 8;
+      const bool cok = !NARROW || ch < cin;
       for (int jr = tid >> 3; jr < BM + 2; jr += NT / 8) {
         const int q = m0 - 1 + jr;
         const bool ok = q >= 0 && q < M && cok;
-        const In* src = a + (ok ? (size_t)q * cin + j * 64 + g8 * 8 : 0);
+        const In* src = a + (ok ? (size_t)q * cin + ch : 0);
         const uint32_t dst = rbase + jr * RAW_LD + g8 * 8 * (int)sizeof(In);
 #pragma unroll
-        for (int h = 0; h < (int)sizeof(In) / 2; ++h)
-          sm90::cp_async16(dst + 16 * h, src + h * 16 / (int)sizeof(In), ok ? 16 : 0);
+        for (int h = 0; h < (int)sizeof(In) / 2; ++h) {
+          if constexpr (ODD) {
+            const int vb = ok ? (cin - ch) * (int)sizeof(In) - 16 * h : 0;
+            sm90::copy16_any(dst + 16 * h, vb > 0 ? src + h * 16 / (int)sizeof(In) : a, vb,
+                             sm90::access_bytes(cin * (int)sizeof(In)));
+          } else
+            sm90::cp_async16(dst + 16 * h, src + h * 16 / (int)sizeof(In), ok ? 16 : 0);
+        }
       }
     } else {
+      const int cin2 = p.cin2;
       for (int u = tid; u < BN * 8; u += NT) {
-        const int r = u >> 3, c = u & 7;
-        const bool ok = !NARROW || (wrow0 + r < cout && (j - nconv) * 64 + c * 8 < p.cin2);
-        const bf16* src =
-            p.w2 + (ok ? (size_t)(wrow0 + r) * p.cin2 + (j - nconv) * 64 + c * 8 : 0);
-        sm90::cp_async16(base + sm90::sw_offset<128>(r, c), src, ok ? 16 : 0);
+        const int r = u >> 3, c = u & 7, ch = (j - nconv) * 64 + c * 8;
+        const bool ok = !NARROW || (wrow0 + r < cout && ch < cin2);
+        const bf16* src = p.w2 + (ok ? (size_t)(wrow0 + r) * cin2 + ch : 0);
+        const uint32_t dst = base + sm90::sw_offset<128>(r, c);
+        if constexpr (ODD)
+          sm90::copy16_any(dst, src, ok ? 2 * (cin2 - ch) : 0, sm90::access_bytes(2 * cin2));
+        else
+          sm90::cp_async16(dst, src, ok ? 16 : 0);
       }
-      const bool cok = !NARROW || (j - nconv) * 64 + g8 * 8 < p.cin2;
+      const int ch = (j - nconv) * 64 + g8 * 8;
+      const bool cok = !NARROW || ch < cin2;
       for (int jr = tid >> 3; jr < BM + 2; jr += NT / 8) {
         const int q = m0 - 1 + jr;
         const bool ok = q >= 0 && q < M && cok;
-        const bf16* src = p.x2 + (ok ? (size_t)q * p.cin2 + (j - nconv) * 64 + g8 * 8 : 0);
-        sm90::cp_async16(rbase + jr * RAW_LD + g8 * 16, src, ok ? 16 : 0);
+        const bf16* src = p.x2 + (ok ? (size_t)q * cin2 + ch : 0);
+        if constexpr (ODD)
+          sm90::copy16_any(rbase + jr * RAW_LD + g8 * 16, src, ok ? 2 * (cin2 - ch) : 0,
+                           sm90::access_bytes(2 * cin2));
+        else
+          sm90::cp_async16(rbase + jr * RAW_LD + g8 * 16, src, ok ? 16 : 0);
       }
     }
   };
@@ -345,13 +373,21 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_fused_kernel(const ConvA
       const int c = j * 64 + g8 * 8, gi = c / cg;
       const bool cok = !NARROW || c < cin, mixed = NARROW && cok && (c + 7) / cg != gi;
       float ga[8], be[8];
+      if constexpr (ODD) {  // the channels inside Cin, one at a time
 #pragma unroll
-      for (int e = 0; e < 8; e += 4) {
-        const float4 z4 = make_float4(0.f, 0.f, 0.f, 0.f);
-        *reinterpret_cast<float4*>(ga + e) =
-            cok ? __ldg(reinterpret_cast<const float4*>(p.gamma + c + e)) : z4;
-        *reinterpret_cast<float4*>(be + e) =
-            cok ? __ldg(reinterpret_cast<const float4*>(p.beta + c + e)) : z4;
+        for (int e = 0; e < 8; ++e) {
+          ga[e] = c + e < cin ? __ldg(p.gamma + c + e) : 0.f;
+          be[e] = c + e < cin ? __ldg(p.beta + c + e) : 0.f;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; e += 4) {
+          const float4 z4 = make_float4(0.f, 0.f, 0.f, 0.f);
+          *reinterpret_cast<float4*>(ga + e) =
+              cok ? __ldg(reinterpret_cast<const float4*>(p.gamma + c + e)) : z4;
+          *reinterpret_cast<float4*>(be + e) =
+              cok ? __ldg(reinterpret_cast<const float4*>(p.beta + c + e)) : z4;
+        }
       }
 #pragma unroll
       for (int it = 0; it < ITER; ++it) {
@@ -374,7 +410,8 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_fused_kernel(const ConvA
             } else {
 #pragma unroll
               for (int e = 0; e < 8; ++e) {
-                const int si = s0 + (c + e) / cg;
+                // ODD: a channel past Cin (zero, gamma and beta 0) reads the last group's
+                const int si = s0 + (ODD ? min((c + e) / cg, p.groups - 1) : (c + e) / cg);
                 v[e] = sm90::silu_fast((v[e] - __ldg(p.mean + si)) * __ldg(p.rstd + si) * ga[e] +
                                        be[e]);
               }
@@ -475,9 +512,33 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_fused_kernel(const ConvA
   sm90::cp_async_wait<0>();
 
   // the epilogue, two neighbouring output channels n, n + 1 at a time (n
-  // even; Cout a multiple of 8, so a pair is wholly inside Cout or past it)
+  // even; Cout a multiple of 8, so a pair is wholly inside Cout or past it),
+  // or in the ODD form one channel at a time
   Out* out = static_cast<Out*>(p.out);
+  auto store1 = [&](int m, int n, float v) {  // ODD: channel n < Cout
+    const size_t o = (size_t)m * cout + n;
+    if (skip_tile) {
+      p.out2[o] = from_f<bf16>(v + __ldg(p.bias2 + n));
+      return;
+    }
+    float h = v + __ldg(p.bias + n);
+    if (p.out_pre) p.out_pre[o] = h;
+    if (p.film_scale) {
+      const int fo = (m / T) * cout + n;
+      h = h * (1.f + __ldg(p.film_scale + fo)) + __ldg(p.film_shift + fo);
+    }
+    if (p.x2 && !p.out2)
+      h += __ldg(p.bias2 + n);
+    else if (p.res)
+      h += to_f(p.res[o]);
+    out[o] = from_f<Out>(h);
+  };
   auto store2 = [&](int m, int n, float v0, float v1) {
+    if constexpr (ODD) {
+      if (n < cout) store1(m, n, v0);
+      if (n + 1 < cout) store1(m, n + 1, v1);
+      return;
+    }
     if (NARROW && n >= cout) return;  // a last N tile's columns past Cout
     if (skip_tile) {
       const float2 b2 = __ldg(reinterpret_cast<const float2*>(p.bias2 + n));
@@ -563,13 +624,12 @@ int launch_gn_vw(const void* x, float* mean, float* rstd, int B, int T, int C, i
 // the plan's grid and shared memory must be this kernel's for the shape: too
 // few M or N tiles would leave output unwritten, a split past the K chunks
 // would give ranks nothing to sum, too little shared memory would overrun
-// the ring. Widths must be multiples of 8 (a 16-byte bf16 row unit).
+// the ring. Any positive widths.
 template <typename In, typename Out, int MW, int BN>
 int launch_conv(const ConvArgs& p, int mtiles, int ntiles, int splits, int smem,
                 cudaStream_t s) {
   using D = ConvGeo<In, MW, BN>;
-  if (p.cin < 8 || p.cin % 8 || p.cin2 % 8 || p.cout < 8 || p.cout % 8 || p.groups < 1 ||
-      p.cin % p.groups)
+  if (p.cin < 1 || p.cin2 < 0 || p.cout < 1 || p.groups < 1 || p.cin % p.groups)
     return (int)cudaErrorInvalidValue;
   const int ntot = (p.out2 ? 2 : 1) * ((p.cout + BN - 1) / BN);
   const int nconv = (p.cin + 63) / 64, nskip = (p.cin2 + 63) / 64;
@@ -577,17 +637,21 @@ int launch_conv(const ConvArgs& p, int mtiles, int ntiles, int splits, int smem,
   if (mtiles != (p.B * p.T + D::BM - 1) / D::BM || ntiles != ntot || splits < 1 ||
       splits > 8 || splits > kmin || smem != D::smem(splits))
     return ERR_PLAN;
-  // the masked instantiation where a K chunk or N tile is partial, or a
-  // thread's 8 channels straddle groups
+  // the masked form where a K chunk or N tile is partial, or a thread's 8
+  // channels straddle groups; the ODD form where a width is off the
+  // 8-channel unit (a row stride off the 16-byte unit)
+  const bool odd = p.cin % 8 || p.cin2 % 8 || p.cout % 8;
   const bool narrow = p.cin % 64 || p.cin2 % 64 || p.cout % BN || (p.cin / p.groups) % 8;
-  static bool attr_set[2] = {false, false};
+  static bool attr_set[3] = {false, false, false};
+  const dim3 grid(mtiles, ntiles, splits);
+  if (odd)
+    return (int)sm90::launch_cluster(conv3_fused_kernel<In, Out, MW, BN, 2>, attr_set[2], grid,
+                                     128 * (MW + 1), smem, splits, s, p);
   if (narrow)
-    return (int)sm90::launch_cluster(conv3_fused_kernel<In, Out, MW, BN, true>, attr_set[1],
-                                     dim3(mtiles, ntiles, splits), 128 * (MW + 1), smem, splits,
-                                     s, p);
-  return (int)sm90::launch_cluster(conv3_fused_kernel<In, Out, MW, BN, false>, attr_set[0],
-                                   dim3(mtiles, ntiles, splits), 128 * (MW + 1), smem, splits,
-                                   s, p);
+    return (int)sm90::launch_cluster(conv3_fused_kernel<In, Out, MW, BN, 1>, attr_set[1], grid,
+                                     128 * (MW + 1), smem, splits, s, p);
+  return (int)sm90::launch_cluster(conv3_fused_kernel<In, Out, MW, BN, 0>, attr_set[0], grid,
+                                   128 * (MW + 1), smem, splits, s, p);
 }
 
 template <typename In, typename Out>

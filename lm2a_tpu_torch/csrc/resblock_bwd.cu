@@ -68,13 +68,17 @@
 // cp.async while all its threads form the group means from coalesced loads
 // of the pieces, then vector stores.
 
-// Widths, as conv3_fused's: every channel count a multiple of 8 (a 16-byte
-// bf16 row unit) and any C/G. A last K chunk or channel tile narrower than
-// 64 (or than the block's N) comes in zero-filled and stores nothing past
-// the tensor; where a unit of channels straddles GroupNorm groups, each
-// channel reads its own group's statistics. The convs' masks live in their
-// NARROW instantiations alone (gn_bwd's per-channel groups in MIX), which
-// the launch picks from the shape: the flagship's widths never take them.
+// Widths, as conv3_fused's: any positive channel count and any C/G. A last
+// K chunk or channel tile narrower than 64 (or than the block's N) comes in
+// zero-filled and stores nothing past the tensor; where a unit of channels
+// straddles GroupNorm groups, each channel reads its own group's
+// statistics; a width off the 8-channel unit (a row stride off the 16-byte
+// unit) reads each 16-byte unit of a row by the widest access its stride
+// allows (sm90::copy16_any), into the same zero-filled shared tiles, and
+// what the unmasked form moves by vectors (gamma, FiLM, z1, the outputs)
+// moves one channel at a time. All of this lives in the MASKED form
+// (gn_bwd's per-channel groups in MIX), which the launch picks from the
+// shape: the flagship's widths never take it.
 
 #include <type_traits>
 
@@ -133,7 +137,7 @@ struct DgradGeo {
   static constexpr int SMEM = 1024 + (RING > EPILOGUE ? RING : EPILOGUE);
 };
 
-template <typename Pre, bool ACT, int TAPS, int MW, int BN_, bool NARROW>
+template <typename Pre, bool ACT, int TAPS, int MW, int BN_, bool MASKED>
 __global__ void __launch_bounds__(128 * (MW + 1)) conv3_dgrad_kernel(const DgradArgs p) {
   using D = DgradGeo<TAPS, MW, BN_>;
   constexpr int NT = 128 * (MW + 1), BM = D::BM;
@@ -163,18 +167,26 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_dgrad_kernel(const Dgrad
     for (int u = tid; u < TAPS * 64 * (BN_ / 8); u += NT) {
       const int tap = u / (64 * (BN_ / 8)), r = (u / (BN_ / 8)) & 63, cc = u % (BN_ / 8);
       if (r >= krows) continue;
-      const bool ok = !NARROW || (r < clen && n0 + cc * 8 < cin);
+      const bool ok = !MASKED || (r < clen && n0 + cc * 8 < cin);
       const bf16* src =
           p.w + (ok ? (size_t)(64 * j + r) * TAPS * cin + tap * cin + n0 + cc * 8 : 0);
-      sm90::cp_async16(base + tap * TAP_BYTES + (cc >> 3) * (64 * 128) +
-                           sm90::sw_offset<128>(r, cc & 7), src, ok ? 16 : 0);
+      const uint32_t dst =
+          base + tap * TAP_BYTES + (cc >> 3) * (64 * 128) + sm90::sw_offset<128>(r, cc & 7);
+      if constexpr (MASKED)
+        sm90::copy16_any(dst, src, ok ? 2 * (cin - n0 - cc * 8) : 0, sm90::access_bytes(2 * cin));
+      else
+        sm90::cp_async16(dst, src, ok ? 16 : 0);
     }
     const uint32_t wbase = base + TAPS * TAP_BYTES;
     for (int u = tid; u < (BM + 2) * 8; u += NT) {
       const int jr = u >> 3, c8 = u & 7, q = m0 - 1 + jr;
       const bool ok = q >= 0 && q < M && 8 * c8 < clen;
       const bf16* src = p.g + (ok ? (size_t)q * cout + 64 * j + c8 * 8 : 0);
-      sm90::cp_async16(wbase + jr * (DG_LDW * 2) + c8 * 16, src, ok ? 16 : 0);
+      if constexpr (MASKED)
+        sm90::copy16_any(wbase + jr * (DG_LDW * 2) + c8 * 16, src, ok ? 2 * (clen - 8 * c8) : 0,
+                         sm90::access_bytes(2 * cout));
+      else
+        sm90::cp_async16(wbase + jr * (DG_LDW * 2) + c8 * 16, src, ok ? 16 : 0);
     }
   };
 
@@ -281,7 +293,7 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_dgrad_kernel(const Dgrad
   constexpr int RSTEP = NT / BN_, EU = 8;
   const int nrow = min(BM, M - m0);
   const int col = tid % BN_, gcc = n0 + col;
-  if (col >= c_beg && col < c_beg + ncols && (!NARROW || gcc < cin)) {
+  if (col >= c_beg && col < c_beg + ncols && (!MASKED || gcc < cin)) {
     if (!ACT) {
       for (int r = tid / BN_; r < nrow; r += RSTEP)
         p.out[(size_t)(m0 + r) * cin + gcc] = red[r * LDR + col];
@@ -322,7 +334,7 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_dgrad_kernel(const Dgrad
     const size_t plane = (size_t)p.B * p.nT * cin;
     for (int u = tid; u < 2 * ncols; u += NT) {
       const int which = u / ncols, c = c_beg + u % ncols, cc = n0 + c;
-      if (NARROW && cc >= cin) continue;  // a last tile's columns past Cin
+      if (MASKED && cc >= cin) continue;  // a last tile's columns past Cin
       const float* src = which == 0 ? red : xs;
       int b = m0 / T, t = m0 - b * T;
       float s = 0.f;
@@ -394,7 +406,7 @@ struct WgradArgs {
   int splits;          // blocks of a cluster along z; gridDim.z = splits * parts
 };
 
-template <typename Src, bool ACT, int TAPS, int MW, bool NARROW>
+template <typename Src, bool ACT, int TAPS, int MW, bool MASKED>
 __global__ void __launch_bounds__(128 * (MW + 1)) conv3_wgrad_kernel(const WgradArgs p) {
   // MW consumer warpgroups and one helper: all share the copies and the
   // activation, the consumers issue the wgmmas and hold the tile
@@ -425,7 +437,7 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_wgrad_kernel(const Wgrad
   __shared__ float gb[128];  // this block's 64 channels of gamma, then beta (0 past Cin)
   if (ACT && tid < 128) {
     const int c = c0 + (tid & 63);
-    gb[tid] = NARROW && c >= cin ? 0.f : tid < 64 ? p.gamma[c] : p.beta[c];
+    gb[tid] = MASKED && c >= cin ? 0.f : tid < 64 ? p.gamma[c] : p.beta[c];
   }
   __syncthreads();
 
@@ -439,21 +451,32 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_wgrad_kernel(const Wgrad
     for (int u = tid; u < 64 * (BMN / 8); u += NT) {
       const int r = u / (BMN / 8), c = u % (BMN / 8);
       const int q = j * 64 + r;
-      const bool ok = q < BT && (!NARROW || n0 + c * 8 < cout);
-      sm90::cp_async16(base + (r * LDG + c * 8) * 2,
-                       p.g + (ok ? (size_t)q * cout + n0 + c * 8 : 0), ok ? 16 : 0);
+      const bool ok = q < BT && (!MASKED || n0 + c * 8 < cout);
+      const bf16* gp = p.g + (ok ? (size_t)q * cout + n0 + c * 8 : 0);
+      if constexpr (MASKED)
+        sm90::copy16_any(base + (r * LDG + c * 8) * 2, gp, ok ? 2 * (cout - n0 - c * 8) : 0,
+                         sm90::access_bytes(2 * cout));
+      else
+        sm90::cp_async16(base + (r * LDG + c * 8) * 2, gp, ok ? 16 : 0);
     }
     const uint32_t rbase = sm90::smem_u32(raw + s * RAW_BYTES);
     const Src* src = static_cast<const Src*>(p.src);
     for (int u = tid; u < ROWS * 8; u += NT) {
       const int rr = u % ROWS, cl = (u / ROWS) * 8;
       const int q = j * 64 + LO + rr;
-      const bool ok = q >= 0 && q < BT && (!NARROW || c0 + cl < cin);
+      const bool ok = q >= 0 && q < BT && (!MASKED || c0 + cl < cin);
       const Src* sp = src + (ok ? (size_t)q * cin + c0 + cl : 0);
 #pragma unroll
-      for (int h = 0; h < (int)sizeof(Src) / 2; ++h)
-        sm90::cp_async16(rbase + rr * RAW_LD + cl * (int)sizeof(Src) + 16 * h,
-                         sp + h * 16 / (int)sizeof(Src), ok ? 16 : 0);
+      for (int h = 0; h < (int)sizeof(Src) / 2; ++h) {
+        const uint32_t dst = rbase + rr * RAW_LD + cl * (int)sizeof(Src) + 16 * h;
+        if constexpr (MASKED) {
+          const int vb = ok ? (cin - c0 - cl) * (int)sizeof(Src) - 16 * h : 0;
+          sm90::copy16_any(dst, vb > 0 ? sp + h * 16 / (int)sizeof(Src) : src, vb,
+                           sm90::access_bytes(cin * (int)sizeof(Src)));
+        } else {
+          sm90::cp_async16(dst, sp + h * 16 / (int)sizeof(Src), ok ? 16 : 0);
+        }
+      }
     }
   };
 
@@ -471,8 +494,8 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_wgrad_kernel(const Wgrad
     u_rr[it] = u < ROWS * 8 ? u % ROWS : -1;
     u_cl[it] = (u / ROWS) * 8;
     const int c = c0 + u_cl[it];
-    u_gi[it] = !NARROW || c < cin ? (ACT ? c / cg : 0) : -1;
-    u_mixed[it] = NARROW && ACT && c < cin && (c + 7) / cg != c / cg;
+    u_gi[it] = !MASKED || c < cin ? (ACT ? c / cg : 0) : -1;
+    u_mixed[it] = MASKED && ACT && c < cin && (c + 7) / cg != c / cg;
   }
 
   // the tap tiles of chunk j: tile k, row c (channel), column jc (frame
@@ -493,7 +516,7 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_wgrad_kernel(const Wgrad
       float v[8];
 #pragma unroll
       for (int e = 0; e < 8; ++e) v[e] = 0.f;
-      if (in && (!NARROW || u_gi[it] >= 0)) {
+      if (in && (!MASKED || u_gi[it] >= 0)) {
         load8(reinterpret_cast<const Src*>(rs_ + rr * RAW_LD) + cl, v);
         if (ACT) {
           const float* ga = gb + cl;
@@ -507,7 +530,9 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_wgrad_kernel(const Wgrad
           } else {
 #pragma unroll
             for (int e = 0; e < 8; ++e) {
-              const int si = b * p.groups + (c0 + cl + e) / cg;
+              // MASKED: a channel past Cin (zero, gamma and beta 0) reads the last group's
+              const int ge = (c0 + cl + e) / cg;
+              const int si = b * p.groups + (MASKED ? min(ge, p.groups - 1) : ge);
               v[e] = sm90::silu_fast((v[e] - __ldg(p.mean + si)) * __ldg(p.rstd + si) * ga[e] +
                                      be[e]);
             }
@@ -613,14 +638,29 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_wgrad_kernel(const Wgrad
     }
   }
   float* out = p.out + (size_t)part * TAPS * cin * cout;
-  // (Cout a multiple of 8: four neighbouring output channels lie wholly
-  // inside Cout or past it)
+  // (unmasked, Cout a multiple of the tile: four neighbouring output
+  // channels lie inside Cout; in the MASKED form each goes out on its own)
   auto store4 = [&](int e, float4 v) {
+    if constexpr (MASKED) {
+      const float vv[4] = {v.x, v.y, v.z, v.w};
+      if (e < NW * BMN) {
+        const int k = (e / BMN) >> 6, c = c0 + ((e / BMN) & 63), n = n0 + e % BMN;
+        if (c < cin)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (n + i < cout) out[((size_t)k * cin + c) * cout + n + i] = vv[i];
+      } else if (do_bias) {
+        const int n = n0 + e - NW * BMN;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (n + i < cout) p.bias_out[(size_t)part * cout + n + i] = vv[i];
+      }
+      return;
+    }
     if (e < NW * BMN) {  // four neighbouring output channels of one (tap, channel)
       const int k = (e / BMN) >> 6, c = c0 + ((e / BMN) & 63), n = n0 + e % BMN;
-      if (!NARROW || (c < cin && n < cout))
-        *reinterpret_cast<float4*>(out + ((size_t)k * cin + c) * cout + n) = v;
-    } else if (do_bias && (!NARROW || n0 + e - NW * BMN < cout)) {
+      *reinterpret_cast<float4*>(out + ((size_t)k * cin + c) * cout + n) = v;
+    } else if (do_bias) {
       *reinterpret_cast<float4*>(p.bias_out + (size_t)part * cout + n0 + e - NW * BMN) = v;
     }
   };
@@ -651,7 +691,7 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_wgrad_kernel(const Wgrad
 // group sums its channels in a fixed order. The pass over the tile gives
 // each thread 4 neighbouring channels and every RP-th frame, and stores by
 // vectors; the FiLM sums go through shared memory and are added in row
-// order. No atomics: two launches give the same bits. The NARROW
+// order. No atomics: two launches give the same bits. The MASKED
 // instantiation (blocks of 64 channels only; the launch picks it from the
 // shape) takes C not a multiple of 64, whose last block stages, reads and
 // stores only its channels, and C/G not a multiple of 4 (C/G 1, 2, 6,
@@ -681,23 +721,29 @@ __host__ __device__ inline int gn_bwd_window(int c0, int cb, int cg) {
   return ((c0 + cb - 1) / cg - c0 / cg + 1) * cg;
 }
 
-// rows [0, nrows) (and, MASK, channels [0, ncols)) of a TT x CB tile of a
-// (rows, C) tensor into shared memory by cp.async, 16 bytes a copy; the
-// rest is zero
-template <int CB, bool MASK, typename E>
+// rows [0, nrows) of a TT x CB tile of a (rows, C) tensor into shared
+// memory by cp.async, 16 bytes a copy (MASKED: channels [0, ncols) only, by
+// the widest access C's row stride allows); the rest is zero
+template <int CB, bool MASKED, typename E>
 __device__ __forceinline__ void gn_bwd_stage(E* dst, const E* src, int nrows, int ncols, int C) {
   constexpr int CH = CB * (int)sizeof(E) / 16;  // copies a row
+  constexpr int VE = 16 / (int)sizeof(E);       // elements a copy
   for (int u = threadIdx.x; u < TT * CH; u += GB_THREADS) {
     const int r = u / CH, k = u - r * CH;
-    const bool ok = r < nrows && (!MASK || k * (16 / (int)sizeof(E)) < ncols);
-    sm90::cp_async16(sm90::smem_u32(dst + r * CB) + 16 * k,
-                     src + (ok ? (size_t)r * C : 0) + k * (16 / (int)sizeof(E)), ok ? 16 : 0);
+    const bool ok = r < nrows && (!MASKED || k * VE < ncols);
+    const E* sp = src + (ok ? (size_t)r * C + k * VE : 0);
+    if constexpr (MASKED)
+      sm90::copy16_any(sm90::smem_u32(dst + r * CB) + 16 * k, sp,
+                       ok ? (ncols - k * VE) * (int)sizeof(E) : 0,
+                       sm90::access_bytes(C * (int)sizeof(E)));
+    else
+      sm90::cp_async16(sm90::smem_u32(dst + r * CB) + 16 * k, sp, ok ? 16 : 0);
   }
 }
 
-template <typename Pre, typename Out, int CB, bool FILM, bool NARROW>
+template <typename Pre, typename Out, int CB, bool FILM, bool MASKED>
 __global__ void __launch_bounds__(GB_THREADS, 3) gn_bwd_kernel(const GnBwdArgs p) {
-  constexpr bool MIX = NARROW;  // a thread's channels may straddle groups
+  constexpr bool MIX = MASKED;  // a thread's channels may straddle groups
   constexpr int CPT = GB_CPT;
   constexpr int TPR = CB / CPT;         // threads a frame
   constexpr int RP = GB_THREADS / TPR;  // frames at a time
@@ -706,7 +752,7 @@ __global__ void __launch_bounds__(GB_THREADS, 3) gn_bwd_kernel(const GnBwdArgs p
   const int tile = blockIdx.x, c0 = blockIdx.y * CB, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int T = p.T, C = p.C, cg = C / p.G, nT = p.nT;
-  const int t0 = tile * TT, nrows = min(TT, T - t0), ncols = NARROW ? min(CB, C - c0) : CB;
+  const int t0 = tile * TT, nrows = min(TT, T - t0), ncols = MASKED ? min(CB, C - c0) : CB;
   const bool has_extra = p.extra != nullptr;
 
   // dynamic shared memory (gn_bwd_smem): the staged tiles (then the FiLM
@@ -719,20 +765,24 @@ __global__ void __launch_bounds__(GB_THREADS, 3) gn_bwd_kernel(const GnBwdArgs p
   float* red = sm;                                       // [3][RP][CB], after the pass
 
   const size_t row0 = ((size_t)b * T + t0) * C + c0;
-  gn_bwd_stage<CB, NARROW>(s_dy, p.dy + row0, nrows, ncols, C);
-  gn_bwd_stage<CB, NARROW>(s_x, static_cast<const Pre*>(p.pre) + row0, nrows, ncols, C);
+  gn_bwd_stage<CB, MASKED>(s_dy, p.dy + row0, nrows, ncols, C);
+  gn_bwd_stage<CB, MASKED>(s_x, static_cast<const Pre*>(p.pre) + row0, nrows, ncols, C);
   sm90::cp_async_commit();
   // the third input, z1 (FiLM) or extra, straight into registers: this
   // thread's frames r0 + i RP and channels, so a block's shared memory
   // leaves room for three or four blocks an SM
   const int r0 = tid / TPR, j0 = (tid % TPR) * CPT, cb = c0 + j0;
-  const bool cok = !NARROW || j0 < ncols;  // this thread's channels lie inside C
+  const bool cok = !MASKED || j0 < ncols;  // this thread's channels lie inside C
   const float* third = FILM ? p.z1 : p.extra;
   float z[ITERS][CPT];
 #pragma unroll
   for (int i = 0; i < ITERS; ++i) {
     const int r = r0 + i * RP;
-    if (third != nullptr && r < nrows && cok) {
+    if (MASKED && third != nullptr && r < nrows && cok) {  // the channels inside C
+#pragma unroll
+      for (int e = 0; e < CPT; ++e)
+        z[i][e] = j0 + e < ncols ? third[row0 + (size_t)r * C + j0 + e] : 0.f;
+    } else if (third != nullptr && r < nrows && cok) {
       load4(third + row0 + (size_t)r * C + j0, z[i]);
     } else {
 #pragma unroll
@@ -791,21 +841,23 @@ __global__ void __launch_bounds__(GB_THREADS, 3) gn_bwd_kernel(const GnBwdArgs p
   float mu[MIX ? CPT : 1], rs[MIX ? CPT : 1];
 #pragma unroll
   for (int e = 0; e < (MIX ? CPT : 1); ++e) {
-    const int ge = cok ? (cb + e) / cg : g_lo;
+    // MASKED: a channel past C (nothing stored) takes the last channel's group
+    const int ge = cok ? (MASKED ? min(cb + e, c0 + ncols - 1) : cb + e) / cg : g_lo;
     mu[e] = __ldg(p.mean + b * p.G + ge);
     rs[e] = __ldg(p.rstd + b * p.G + ge);
   }
 #pragma unroll
   for (int e = 0; e < CPT; ++e) {
-    ga[e] = cok ? __ldg(p.gamma + cb + e) : 0.f;
-    sc[e] = FILM && cok ? 1.f + __ldg(p.film_scale + b * C + cb + e) : 1.f;
+    const bool in = cok && (!MASKED || j0 + e < ncols);
+    ga[e] = in ? __ldg(p.gamma + cb + e) : 0.f;
+    sc[e] = FILM && in ? 1.f + __ldg(p.film_scale + b * C + cb + e) : 1.f;
   }
   sm90::cp_async_wait<0>();
   __syncthreads();  // the group means and every thread's staged rows are in
   float m1[MIX ? CPT : 1], m2[MIX ? CPT : 1];
 #pragma unroll
   for (int e = 0; e < (MIX ? CPT : 1); ++e) {
-    const int ge = cok ? (cb + e) / cg : g_lo;
+    const int ge = cok ? (MASKED ? min(cb + e, c0 + ncols - 1) : cb + e) / cg : g_lo;
     m1[e] = mm[ge - g_lo];
     m2[e] = mm[ngr + ge - g_lo];
   }
@@ -841,7 +893,13 @@ __global__ void __launch_bounds__(GB_THREADS, 3) gn_bwd_kernel(const GnBwdArgs p
         d[e] = dz;
       }
     }
-    store4(out + (size_t)r * C, d);
+    if constexpr (MASKED) {
+#pragma unroll
+      for (int e = 0; e < CPT; ++e)
+        if (j0 + e < ncols) out[(size_t)r * C + e] = from_f<Out>(d[e]);
+    } else {
+      store4(out + (size_t)r * C, d);
+    }
   }
   if constexpr (FILM) {
     __syncthreads();  // every thread's reads of the staged tiles are done
@@ -856,7 +914,7 @@ __global__ void __launch_bounds__(GB_THREADS, 3) gn_bwd_kernel(const GnBwdArgs p
     const size_t plane = (size_t)p.B * nT * C;
     for (int u = tid; u < 3 * CB; u += GB_THREADS) {
       const int w = u / CB, c = u - w * CB;
-      if (NARROW && c >= ncols) continue;
+      if (MASKED && c >= ncols) continue;
       float s = 0.f;
       for (int r = 0; r < RP; ++r) s += red[(w * RP + r) * CB + c];
       p.part_out[w * plane + ((size_t)b * nT + tile) * C + c0 + c] = s;
@@ -880,17 +938,17 @@ int launch_dgrad(const DgradArgs& a, int mtiles, int ntiles, int splits, int sme
   if (mtiles != (a.B * a.T + D::BM - 1) / D::BM || ntiles != (a.cin + BN_ - 1) / BN_ ||
       smem != D::SMEM || splits < 1 || splits > 8 || splits > (a.cout + 63) / 64)
     return ERR_PLAN;
-  // the masked instantiation where an N tile or a K chunk is partial (a
-  // last chunk of 32 needs none: its k16 steps stop at 32)
-  const bool narrow = a.cin % BN_ || a.cout % 32;
+  // the masked form where an N tile or a K chunk is partial (a last chunk
+  // of 32 needs none: its k16 steps stop at 32) or a width is off the
+  // 8-channel unit (and so off those of BN and 32)
+  const bool masked = a.cin % BN_ || a.cout % 32;
   static bool attr_set[2] = {false, false};
-  if (narrow)
+  const dim3 grid(mtiles, ntiles, splits);
+  if (masked)
     return (int)sm90::launch_cluster(conv3_dgrad_kernel<Pre, ACT, TAPS, MW, BN_, true>,
-                                     attr_set[1], dim3(mtiles, ntiles, splits), 128 * (MW + 1),
-                                     smem, splits, s, a);
+                                     attr_set[1], grid, 128 * (MW + 1), smem, splits, s, a);
   return (int)sm90::launch_cluster(conv3_dgrad_kernel<Pre, ACT, TAPS, MW, BN_, false>,
-                                   attr_set[0], dim3(mtiles, ntiles, splits), 128 * (MW + 1),
-                                   smem, splits, s, a);
+                                   attr_set[0], grid, 128 * (MW + 1), smem, splits, s, a);
 }
 
 template <typename Pre, bool ACT, int TAPS>
@@ -910,8 +968,8 @@ extern "C" int lm2a_conv3_dgrad(const void* g, const void* w, const void* pre, i
                                 const float* beta, float* out, float* pieces, int B, int T,
                                 int cin, int cout, int taps, int groups, int nT, int mw, int bn,
                                 int mtiles, int ntiles, int splits, int smem, void* stream) {
-  if (B < 1 || T < 1 || nT != (T + TT - 1) / TT || cin < 8 || cin % 8 || cout < 8 ||
-      cout % 8 || groups < 1 || cin % groups)
+  if (B < 1 || T < 1 || nT != (T + TT - 1) / TT || cin < 1 || cout < 1 || groups < 1 ||
+      cin % groups)
     return (int)cudaErrorInvalidValue;
   DgradArgs a;
   a.g = static_cast<const bf16*>(g);
@@ -956,17 +1014,17 @@ int launch_wgrad(const WgradArgs& a, int ntiles, int ctiles, int parts, int smem
       a.splits < 1 || a.splits > 8 || parts < 1 || parts > WGRAD_PARTS ||
       a.splits * parts > nch || smem != WgradGeo<Src, TAPS, MW>::SMEM)
     return ERR_PLAN;
-  // the masked instantiation where a channel tile is partial or a unit of
-  // 8 channels straddles groups
-  const bool narrow = a.cin % 64 || a.cout % (64 * MW) || (ACT && (a.cin / a.groups) % 8);
+  // the masked form where a channel tile is partial, a unit of 8 channels
+  // straddles groups or a width is off the 8-channel unit (and so off the
+  // 64-channel one)
+  const bool masked = a.cin % 64 || a.cout % (64 * MW) || (ACT && (a.cin / a.groups) % 8);
   static bool attr_set[2] = {false, false};
-  if (narrow)
+  const dim3 grid(ntiles, ctiles, a.splits * parts);
+  if (masked)
     return (int)sm90::launch_cluster(conv3_wgrad_kernel<Src, ACT, TAPS, MW, true>, attr_set[1],
-                                     dim3(ntiles, ctiles, a.splits * parts), 128 * (MW + 1),
-                                     smem, a.splits, s, a);
+                                     grid, 128 * (MW + 1), smem, a.splits, s, a);
   return (int)sm90::launch_cluster(conv3_wgrad_kernel<Src, ACT, TAPS, MW, false>, attr_set[0],
-                                   dim3(ntiles, ctiles, a.splits * parts), 128 * (MW + 1), smem,
-                                   a.splits, s, a);
+                                   grid, 128 * (MW + 1), smem, a.splits, s, a);
 }
 
 template <typename Src, bool ACT, int TAPS>
@@ -998,30 +1056,30 @@ int gn_bwd_smem(int C, int cg, int cb, int pre_bytes) {
 }
 static_assert(3 * GB_THREADS * GB_CPT <= TT * 64, "the FiLM sums' rows fit the d_y tile");
 
-template <typename Pre, typename Out, int CB, bool FILM, bool NARROW>
+template <typename Pre, typename Out, int CB, bool FILM, bool MASKED>
 int launch_gn_bwd(const GnBwdArgs& a, cudaStream_t s) {
   const int smem = gn_bwd_smem(a.C, a.C / a.G, CB, (int)sizeof(Pre));
   static bool attr_set = false;
-  return (int)sm90::launch_cluster(gn_bwd_kernel<Pre, Out, CB, FILM, NARROW>, attr_set,
+  return (int)sm90::launch_cluster(gn_bwd_kernel<Pre, Out, CB, FILM, MASKED>, attr_set,
                                    dim3(a.nT, (a.C + CB - 1) / CB, a.B), GB_THREADS, smem, 1,
                                    s, a);
 }
 
-template <typename Pre, typename Out, int CB, bool NARROW>
+template <typename Pre, typename Out, int CB, bool MASKED>
 int launch_gn_bwd_film(const GnBwdArgs& a, cudaStream_t s) {
-  return a.film_scale != nullptr ? launch_gn_bwd<Pre, Out, CB, true, NARROW>(a, s)
-                                 : launch_gn_bwd<Pre, Out, CB, false, NARROW>(a, s);
+  return a.film_scale != nullptr ? launch_gn_bwd<Pre, Out, CB, true, MASKED>(a, s)
+                                 : launch_gn_bwd<Pre, Out, CB, false, MASKED>(a, s);
 }
 
-// a C that blocks of cb channels do not divide, or C/G not a multiple of
-// GB_CPT (the narrow models' C/G 1, 2, 6, ...), takes the NARROW form, in
-// blocks of 64 channels only
+// a C that blocks of cb channels do not divide (C off the 8-channel unit
+// among them), or C/G not a multiple of GB_CPT (the narrow models' C/G 1, 2,
+// 6, ...), takes the MASKED form, in blocks of 64 channels only
 template <typename Pre, typename Out>
 int launch_gn_bwd_plan(const GnBwdArgs& a, int cb, cudaStream_t s) {
-  const bool narrow = (a.C / a.G) % GB_CPT != 0 || a.C % cb != 0;
-  if (cb == 64) return narrow ? launch_gn_bwd_film<Pre, Out, 64, true>(a, s)
+  const bool masked = (a.C / a.G) % GB_CPT != 0 || a.C % cb != 0;
+  if (cb == 64) return masked ? launch_gn_bwd_film<Pre, Out, 64, true>(a, s)
                               : launch_gn_bwd_film<Pre, Out, 64, false>(a, s);
-  if (cb == 128 && !narrow) return launch_gn_bwd_film<Pre, Out, 128, false>(a, s);
+  if (cb == 128 && !masked) return launch_gn_bwd_film<Pre, Out, 128, false>(a, s);
   return ERR_PLAN;
 }
 
@@ -1032,8 +1090,7 @@ extern "C" int lm2a_conv3_wgrad(const void* src, int src_is_f32, const float* me
                                 const void* g, float* out, float* bias_out, int B, int T,
                                 int cin, int cout, int taps, int groups, int mw, int ntiles,
                                 int ctiles, int splits, int parts, int smem, void* stream) {
-  if (B < 1 || T < 1 || cin < 8 || cin % 8 || cout < 8 || cout % 8 || groups < 1 ||
-      cin % groups)
+  if (B < 1 || T < 1 || cin < 1 || cout < 1 || groups < 1 || cin % groups)
     return (int)cudaErrorInvalidValue;
   WgradArgs a;
   a.src = src;
@@ -1065,9 +1122,9 @@ extern "C" int lm2a_conv3_wgrad(const void* src, int src_is_f32, const float* me
 }
 
 // pieces: conv3_dgrad's (2, 2, B, nT, C) head and tail pieces, read as they
-// are (head + tail per bucket); every pointer 16-byte aligned; C a multiple
-// of 8; extra (GN1) or FiLM (GN2), not both; cb: the plan's channels a
-// block (64, or 128 where it divides C and C/G is a multiple of 4)
+// are (head + tail per bucket); every pointer 16-byte aligned; any C;
+// extra (GN1) or FiLM (GN2), not both; cb: the plan's channels a block (64,
+// or 128 where it divides C and C/G is a multiple of 4)
 extern "C" int lm2a_gn_bwd(const float* dy, const void* pre, int pre_is_f32, const float* mean,
                            const float* rstd, const float* gamma, const float* pieces,
                            const float* extra, const float* film_scale, const float* z1,
@@ -1075,7 +1132,7 @@ extern "C" int lm2a_gn_bwd(const float* dy, const void* pre, int pre_is_f32, con
                            int G, int nT, int cb, void* stream) {
   if (B < 1 || T < 1 || G < 1 || C % G || nT != (T + TT - 1) / TT ||
       (film_scale != nullptr) != (z1 != nullptr) || (film_scale != nullptr) != (part_out != nullptr) ||
-      (film_scale != nullptr && extra != nullptr) || C % 8)
+      (film_scale != nullptr && extra != nullptr))
     return (int)cudaErrorInvalidValue;
   if (cb != 64 && cb != 128) return ERR_PLAN;
   GnBwdArgs a;

@@ -32,6 +32,51 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int sr
                "r"(src_bytes)
                : "memory");
 }
+// 8- and 4-byte global -> shared copies (cp.async.ca takes only these below 16)
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// The widest access a row stride of `stride_bytes` allows: its lowest set
+// bit, at most 16 (a row that starts at a multiple of the stride, read from a
+// multiple of 16 bytes into it, is aligned to that many bytes).
+__device__ __forceinline__ int access_bytes(int stride_bytes) {
+  const int low = stride_bytes & -stride_bytes;
+  return low < 16 ? low : 16;
+}
+
+// conv3_fused's ODD form and the backward kernels' MASKED forms (a row
+// stride off the 16-byte unit among their cases): one 16-byte
+// unit of a row into shared memory at dst, its first `valid` bytes (0 or a
+// multiple of `ab`) from src and the rest zero, by accesses of `ab` bytes
+// (access_bytes): cp.async of 16, 8 or 4 bytes, or 2-byte loads and shared
+// stores. src may be any readable address where `valid` is 0.
+__device__ __forceinline__ void copy16_any(uint32_t dst, const void* src, int valid, int ab) {
+  const char* s = static_cast<const char*>(src);
+  if (ab == 16) {
+    cp_async16(dst, src, valid > 0 ? 16 : 0);
+    return;
+  }
+  for (int o = 0; o < 16; o += ab) {
+    const bool in = o < valid;
+    if (ab == 8) {
+      cp_async8(dst + o, in ? s + o : s, in ? 8 : 0);
+    } else if (ab == 4) {
+      cp_async4(dst + o, in ? s + o : s, in ? 4 : 0);
+    } else {
+      const unsigned short v = in ? *reinterpret_cast<const unsigned short*>(s + o) : 0;
+      asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(dst + o), "h"(v) : "memory");
+    }
+  }
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -4,9 +4,13 @@
    mel time axis: mel transposed to (T, 80), motion and lyrics linearly
    interpolated ('interp') or repeat-padded to T.
 2. :func:`pack_dataset` / :class:`PackedDataset`: a one-time pack of a split
-   into memory-mapped ``.npy`` arrays; a batch is one numpy fancy index per
-   array (the JAX package's ``use_native=False`` path; its C++ gatherer is
-   not used here).
+   into memory-mapped ``.npy`` arrays; a batch is gathered by the native C++
+   gatherer (``data/native_loader.py``, ``native/lm2a_loader.cc``), which
+   runs without the GIL, or, with ``use_native=False`` or where it does not
+   build, by one numpy fancy index per array: the same bits either way.
+   Every iterator below gathers through :meth:`PackedDataset.gather`, so the
+   prefetch threads of :class:`SuperbatchStream` and :func:`device_prefetch`
+   run the native gather too.
 
 :class:`BatchIterator` yields stacked numpy batches, shuffled with
 ``default_rng(seed + epoch)`` and dropping the remainder, so both packages
@@ -106,19 +110,39 @@ def pack_dataset(npz_dir: str, out_dir: str, align_mode: str = "interp") -> str:
 
 
 class PackedDataset:
-    """Memory-mapped packed split; a batch is one fancy index per array."""
+    """Memory-mapped packed split. ``use_native`` gathers batches with the
+    C++ gatherer where it builds; ``gatherer`` names the one in use."""
 
-    def __init__(self, pack_dir: str):
+    def __init__(self, pack_dir: str, use_native: bool = True):
         self.pack_dir = pack_dir
         with open(os.path.join(pack_dir, PACK_META)) as f:
             self.meta = json.load(f)
         for key in KEYS:
             setattr(self, key, np.load(os.path.join(pack_dir, f"{key}.npy"), mmap_mode="r"))
+        self._native = None
+        if use_native:
+            from lm2a_tpu_torch.data.native_loader import NativeGather, build_error
+
+            why = build_error()
+            if why is None:
+                self._native = NativeGather(pack_dir)
+            else:
+                print(f"native gatherer unavailable ({why}); gathering with numpy")
+
+    @property
+    def native(self):
+        return self._native
+
+    @property
+    def gatherer(self) -> str:
+        return "native" if self._native is not None else "numpy"
 
     def __len__(self) -> int:
         return self.mel.shape[0]
 
     def gather(self, idx: np.ndarray) -> Dict[str, np.ndarray]:
+        if self._native is not None:
+            return self._native.gather(np.asarray(idx))
         return {key: np.asarray(getattr(self, key)[idx]) for key in KEYS}
 
 

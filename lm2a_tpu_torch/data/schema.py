@@ -17,6 +17,19 @@ from __future__ import annotations
 from dataclasses import dataclass
 import numpy as np
 
+REQUIRED_KEYS = ("mel", "motion", "lyrics")
+ALL_KEYS = REQUIRED_KEYS + (
+    "sr",
+    "hop_length",
+    "song_name",
+    "time_start",
+    "time_end",
+    "lyric_text",
+    "frame_start",
+    "frame_end",
+)
+
+
 @dataclass
 class Sample:
     mel: np.ndarray  # (80, T)

@@ -138,7 +138,7 @@ def with_streaming_attention(models: LoadedModels, mel_t: int) -> LoadedModels:
     Cross-attention here has S == T, so at long T the plain core holds
     (B, h, T, T) fp32 scores per site; the kernel keeps them on chip. The
     copy's denoiser shares every weight tensor with ``models.denoiser``
-    (``UNet1DUltimate.with_fused_attention``), the caller's ``models`` is
+    (``Denoiser.with_fused_attention``), the caller's ``models`` is
     left as it is, and the distilled metadata is kept: losing it would send
     method and guidance resolution back to DDPM at 2.1. Its sampler cache is
     fresh (its chains run another route, so other graphs), as in the JAX

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from lm2a_tpu_torch.checkpoint import load_metadata, read_params
-from lm2a_tpu_torch.convert import jax_params_to_torch
+from lm2a_tpu_torch.convert import UNET_CONV_TRANSPOSE, jax_params_to_torch
 from lm2a_tpu_torch.core.config import DiffusionConfig, LM2AConfig, config_from_dict
 from lm2a_tpu_torch.core.device import DeviceLike, dtype_from_str, resolve_device
 from lm2a_tpu_torch.core.graphs import new_pool
@@ -101,7 +101,7 @@ def load_models(ckpt_path: str, cfg: Optional[LM2AConfig] = None, prefer_ema: bo
     reference ``torch.save`` file (then ``cfg`` defaults to ``LM2AConfig()``,
     the reference's production geometry, as in the JAX package).
 
-    The denoiser is readied for serving (``UNet1DUltimate.prepare``): on the
+    The denoiser is readied for serving (``Denoiser.prepare``): on the
     card every residual block runs the CUDA chain kernels, which take bf16
     (the default compute dtype, as on the TPU)."""
     dev = resolve_device(device)
@@ -112,7 +112,8 @@ def load_models(ckpt_path: str, cfg: Optional[LM2AConfig] = None, prefer_ema: bo
         meta = load_metadata(ckpt_path)
         cfg = config_from_dict(meta["config"]) if cfg is None else cfg
         unet_flat, proj_flat = read_params(ckpt_path, prefer_ema)
-        unet_sd, proj_sd = jax_params_to_torch(unet_flat), jax_params_to_torch(proj_flat)
+        unet_sd = jax_params_to_torch(unet_flat, UNET_CONV_TRANSPOSE)
+        proj_sd = jax_params_to_torch(proj_flat)
         mean = float(meta.get("dataset_mean", mean))
         std = float(meta.get("dataset_std", std))
         if meta.get("distilled_steps"):

@@ -10,12 +10,14 @@ import torch.nn as nn
 
 from lm2a_tpu_torch.core.config import ModelConfig
 from lm2a_tpu_torch.models.embedding import CondProjection
-from lm2a_tpu_torch.models.unet1d import UNet1DUltimate
+from lm2a_tpu_torch.models.unet1d import Denoiser, UNet1D, UNet1DUltimate
 
 
-def build_denoiser(cfg: ModelConfig) -> UNet1DUltimate:
-    """fp32 parameters; ``UNet1DUltimate.prepare`` readies it for serving,
-    ``forward_train`` trains it."""
+def build_denoiser(cfg: ModelConfig) -> Denoiser:
+    """fp32 parameters; ``Denoiser.prepare`` readies it for serving,
+    ``forward_train`` trains it. ``arch='v1'`` takes no resblock options
+    (``fused_resblock_grad``, ``num_res_blocks``, ``mid_blocks``,
+    ``dropout``), as in the JAX factory."""
     if cfg.arch == "ultimate":
         return UNet1DUltimate(
             in_dim=cfg.in_dim, base_dim=cfg.base_dim, dim_mults=tuple(cfg.dim_mults),
@@ -25,7 +27,11 @@ def build_denoiser(cfg: ModelConfig) -> UNet1DUltimate:
             dropout=cfg.dropout, fused_resblock_grad=cfg.fused_resblock_grad,
         )
     if cfg.arch == "v1":
-        raise NotImplementedError("arch='v1' (UNet1D) is not ported yet")
+        return UNet1D(
+            in_dim=cfg.in_dim, base_dim=cfg.base_dim, dim_mults=tuple(cfg.dim_mults),
+            cond_dim=cfg.cond_dim, time_emb_dim=cfg.time_emb_dim, attn_heads=cfg.attn_heads,
+            fused_attention=cfg.fused_attention,
+        )
     raise ValueError(f"unknown arch {cfg.arch!r}; use 'ultimate' or 'v1'")
 
 

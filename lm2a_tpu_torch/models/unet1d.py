@@ -1,5 +1,10 @@
-"""The production denoiser, channels-last (B, T, C) (port of
-``UNet1DUltimate`` in ``lm2a_tpu/models/unet1d.py``).
+"""The 1-D UNet denoisers, channels-last (B, T, C) (port of
+``lm2a_tpu/models/unet1d.py``): ``UNet1DUltimate``, the production denoiser,
+and ``UNet1D``, the v1 baseline (``ModelConfig.arch='v1'``; see its class).
+Both share one interface (``Denoiser``): the serving form after
+``prepare(dtype)``, ``refresh``, ``with_fused_attention``, the serving
+forward with ``uncond_rows`` and ``forward_train``, so no call site reads
+the architecture.
 
 FiLM timestep modulation, sparse cross-attention (last block of each down
 stage, every mid block, first block of each up stage), stride-2 conv
@@ -66,13 +71,14 @@ class GroupNorm(nn.GroupNorm):
     wrapper; under autograd from its plain version, which autograd can
     differentiate."""
 
-    def __init__(self, channels: int):
-        super().__init__(default_num_groups(channels), channels, eps=GN_EPS)
+    def __init__(self, channels: int, groups: Optional[int] = None, kernel: bool = True):
+        super().__init__(groups or default_num_groups(channels), channels, eps=GN_EPS)
+        self.kernel = kernel  # False: always the plain statistics (v1, as in JAX: no kernel)
 
     def forward(self, x):
         b, t, c = x.shape
         g = self.num_groups
-        if torch.is_grad_enabled() and x.requires_grad:
+        if not self.kernel or (torch.is_grad_enabled() and x.requires_grad):
             mean, rstd = gn_stats_plain(x, g, self.eps)
         else:
             mean, rstd = gn_stats(x.contiguous(), g, self.eps)
@@ -88,11 +94,14 @@ def conv_cl(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
     return conv(x.to(dt).transpose(1, 2)).transpose(1, 2).contiguous()
 
 
-def conv_train(conv: nn.Conv1d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """A Conv1d on a channels-last tensor in ``dtype``, its fp32 weight and
-    bias cast differentiably (flax ``nn.Conv(dtype=...)``)."""
+def conv_train(conv: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A Conv1d (or ConvTranspose1d) on a channels-last tensor in ``dtype``,
+    its fp32 weight and bias cast differentiably (flax ``nn.Conv(dtype=...)``)."""
     w, b = conv.weight.to(dtype), conv.bias.to(dtype)
     x = x.to(dtype)
+    if isinstance(conv, nn.ConvTranspose1d):
+        return F.conv_transpose1d(x.transpose(1, 2), w, b, stride=conv.stride,
+                                  padding=conv.padding).transpose(1, 2)
     if conv.kernel_size == (1,) and conv.stride == (1,):
         return F.linear(x, w[:, :, 0], b)
     return F.conv1d(x.transpose(1, 2), w, b, stride=conv.stride,
@@ -145,6 +154,86 @@ class FiLM(nn.Module):
 
     def forward_train(self, t_emb, dtype):
         return dense(self.to_scale_shift, F.silu(t_emb.to(dtype)), dtype).chunk(2, dim=-1)
+
+
+class Denoiser(nn.Module):
+    """What every call site reads of a denoiser: ``prepare`` (the serving
+    form), ``refresh``, ``with_fused_attention``, ``forward`` (serving, with
+    ``uncond_rows``) and ``forward_train``. A subclass sets
+    ``fused_attention`` and adds its kernel-layout weights through
+    ``_prepare_kernels`` / ``_refresh_kernels``."""
+
+    fused_attention: bool = False
+
+    def attention_modules(self):
+        return [m for m in self.modules() if isinstance(m, CrossAttentionFusion)]
+
+    def _prepare_kernels(self, dtype: torch.dtype) -> None:
+        """Kernel-layout weights from the fp32 parameters (none by default)."""
+
+    def _refresh_kernels(self, src: "Denoiser") -> None:
+        """``_prepare_kernels`` again from ``src``, in place (none by default)."""
+
+    @torch.no_grad()
+    def prepare(self, dtype: torch.dtype) -> "Denoiser":
+        """Serving form: kernel-layout and (off the fused route) folded
+        attention weights from the fp32 parameters, then Linear/Conv weights
+        cast to ``dtype``."""
+        self._prepare_kernels(dtype)
+        if not self.fused_attention:
+            for a in self.attention_modules():
+                a.fold(dtype)
+        for m in self.modules():
+            if isinstance(m, (nn.Linear, nn.Conv1d, nn.ConvTranspose1d)):
+                m.to(dtype)
+        return self
+
+    @torch.no_grad()
+    def refresh(self, src: "Denoiser") -> "Denoiser":
+        """Make this prepared model ``src.prepare(dtype)`` again, in place:
+        ``src`` is the same architecture with fp32 parameters. Every tensor
+        the serving forward reads is written with one ``copy_`` into its own
+        storage, so a captured graph that reads them sees the new values."""
+        for d, s in zip(self.parameters(), src.parameters(), strict=True):
+            d.copy_(s)
+        self._refresh_kernels(src)
+        for d, s in zip(self.attention_modules(), src.attention_modules(), strict=True):
+            if d.folded is not None:
+                for k, t in s.folded_weights(d.folded["wq"].dtype).items():
+                    d.folded[k].copy_(t)
+        return self
+
+    def with_fused_attention(self) -> "Denoiser":
+        """This model on the fused attention route: a copy of the module tree
+        whose parameters, buffers and kernel-layout weights are this model's
+        own tensors (no second copy of the weights); this model is left as
+        it is."""
+
+        def tree(m: nn.Module) -> nn.Module:
+            new = copy.copy(m)
+            new._parameters = dict(m._parameters)
+            new._buffers = dict(m._buffers)
+            new._modules = {k: tree(c) for k, c in m._modules.items()}
+            return new
+
+        new = tree(self)
+        new.fused_attention = True
+        for m in new.attention_modules():
+            m.set_fused(True)
+        return new
+
+
+def attend_uncond(attn: CrossAttentionFusion, h, motion_f, text_f, uncond_rows: int):
+    """Cross-attention where the first ``uncond_rows`` rows are CFG-
+    unconditional (identically zero conditions): their output is a
+    per-channel constant, computed once at (1, 1) shapes and broadcast."""
+    if not uncond_rows:
+        return attn(h, motion_f, text_f)
+    bu, t_len, c = uncond_rows, h.shape[1], h.shape[2]
+    const = attn(h.new_zeros((1, 1, c)), motion_f.new_zeros((1, 1, motion_f.shape[-1])),
+                 text_f.new_zeros((1, 1, text_f.shape[-1])))
+    h_cond = attn(h[bu:], motion_f[bu:], text_f[bu:])
+    return torch.cat([const.expand(bu, t_len, c), h_cond], dim=0)
 
 
 class ResBlockUltimate(nn.Module):
@@ -203,7 +292,7 @@ class ResBlockUltimate(nn.Module):
             return out  # residual added in the kernel's epilogue
         h, xs = out if p.skip_w is not None else (out, x.to(p.conv1_w.dtype))
         if motion_f is not None and text_f is not None:
-            h = self._attention(h, motion_f, text_f, uncond_rows)
+            h = attend_uncond(self.cross_attn, h, motion_f, text_f, uncond_rows)
         return xs + h
 
     def forward_train(self, x, t_emb, motion_f, text_f, dtype: torch.dtype,
@@ -237,18 +326,8 @@ class ResBlockUltimate(nn.Module):
             x = conv_train(skip, x, dtype)
         return x + h
 
-    def _attention(self, h, motion_f, text_f, uncond_rows: int):
-        attn = self.cross_attn
-        if not uncond_rows:
-            return attn(h, motion_f, text_f)
-        bu, t_len, c = uncond_rows, h.shape[1], self.out_channels
-        const = attn(h.new_zeros((1, 1, c)), motion_f.new_zeros((1, 1, motion_f.shape[-1])),
-                     text_f.new_zeros((1, 1, text_f.shape[-1])))
-        h_cond = attn(h[bu:], motion_f[bu:], text_f[bu:])
-        return torch.cat([const.expand(bu, t_len, c), h_cond], dim=0)
 
-
-class UNet1DUltimate(nn.Module):
+class UNet1DUltimate(Denoiser):
     """Epsilon-prediction UNet over (B, T, in_dim) mels; output fp32."""
 
     def __init__(self, in_dim: int = 80, base_dim: int = 256,
@@ -289,58 +368,17 @@ class UNet1DUltimate(nn.Module):
     def resblocks(self):
         return [m for m in self.modules() if isinstance(m, ResBlockUltimate)]
 
-    @torch.no_grad()
-    def prepare(self, dtype: torch.dtype) -> "UNet1DUltimate":
-        """Serving form: chain and (off the fused route) folded attention
-        weights from the fp32 parameters, then Linear/Conv weights cast to
-        ``dtype``."""
+    def _prepare_kernels(self, dtype: torch.dtype) -> None:
         for blk in self.resblocks():
             blk.chain = blk.chain_weights(dtype)
-            if blk.use_attn and not self.fused_attention:
-                blk.cross_attn.fold(dtype)
-        for m in self.modules():
-            if isinstance(m, (nn.Linear, nn.Conv1d)):
-                m.to(dtype)
-        return self
 
-    @torch.no_grad()
-    def refresh(self, src: "UNet1DUltimate") -> "UNet1DUltimate":
-        """Make this prepared model ``src.prepare(dtype)`` again, in place:
-        ``src`` is the same architecture with fp32 parameters. Every tensor
-        the serving forward reads is written with one ``copy_`` into its own
-        storage, so a captured graph that reads them sees the new values."""
-        for d, s in zip(self.parameters(), src.parameters(), strict=True):
-            d.copy_(s)
+    def _refresh_kernels(self, src: "UNet1DUltimate") -> None:
         for d, s in zip(self.resblocks(), src.resblocks(), strict=True):
             fresh = s.chain_weights(d.chain.conv1_w.dtype)
             for f in dataclasses.fields(fresh):
                 t = getattr(fresh, f.name)
                 if isinstance(t, torch.Tensor):
                     getattr(d.chain, f.name).copy_(t)
-            if d.use_attn and d.cross_attn.folded is not None:
-                for k, t in s.cross_attn.folded_weights(d.cross_attn.folded["wq"].dtype).items():
-                    d.cross_attn.folded[k].copy_(t)
-        return self
-
-    def with_fused_attention(self) -> "UNet1DUltimate":
-        """This model on the fused attention route: a copy of the module tree
-        whose parameters, buffers and kernel-layout weights are this model's
-        own tensors (no second copy of the weights); this model is left as
-        it is."""
-
-        def tree(m: nn.Module) -> nn.Module:
-            new = copy.copy(m)
-            new._parameters = dict(m._parameters)
-            new._buffers = dict(m._buffers)
-            new._modules = {k: tree(c) for k, c in m._modules.items()}
-            return new
-
-        new = tree(self)
-        new.fused_attention = True
-        for m in new.modules():
-            if isinstance(m, CrossAttentionFusion):
-                m.set_fused(True)
-        return new
 
     def forward(self, x, t, motion_f=None, text_f=None, uncond_rows: int = 0):
         dt = self.in_proj.weight.dtype
@@ -395,3 +433,102 @@ class UNet1DUltimate(nn.Module):
                 h = block(f"up_{i}_block_{b}", h)
         h = F.silu(self.out_gn(h))
         return conv_train(self.out_proj, h, dtype).float()
+
+
+class ResBlockV1(nn.Module):
+    """v1 block: GN(8)-SiLU-conv3 + time_proj(t_emb) -> GN(8)-SiLU-conv3 ->
+    cross-attention (every block) + x. GroupNorm and convolutions are plain
+    PyTorch, as the JAX package runs them through XLA (no Pallas kernel); the
+    attention core takes the kernel on the fused route."""
+
+    def __init__(self, channels: int, time_emb_dim: int, cond_dim: int = 128,
+                 num_heads: int = 4, fused_attention: bool = False):
+        super().__init__()
+        self.channels = channels
+        self.norm1 = GroupNorm(channels, groups=8, kernel=False)
+        self.conv1 = nn.Conv1d(channels, channels, 3, padding=1)
+        self.time_proj = nn.Linear(time_emb_dim, channels)
+        self.norm2 = GroupNorm(channels, groups=8, kernel=False)
+        self.conv2 = nn.Conv1d(channels, channels, 3, padding=1)
+        self.cross_attn = CrossAttentionFusion(channels, cond_dim, num_heads, fused_attention)
+
+    def forward(self, x, t_emb, motion_f, text_f, uncond_rows: int = 0):
+        h = conv_cl(self.conv1, F.silu(self.norm1(x)))
+        h = h + self.time_proj(t_emb.to(self.time_proj.weight.dtype))[:, None, :]
+        h = conv_cl(self.conv2, F.silu(self.norm2(h)))
+        return x + attend_uncond(self.cross_attn, h, motion_f, text_f, uncond_rows)
+
+    def forward_train(self, x, t_emb, motion_f, text_f, dtype: torch.dtype):
+        h = conv_train(self.conv1, F.silu(self.norm1(x)), dtype)
+        h = h + dense(self.time_proj, t_emb, dtype)[:, None, :]
+        h = conv_train(self.conv2, F.silu(self.norm2(h)), dtype)
+        return x.to(dtype) + self.cross_attn(h, motion_f, text_f, dtype=dtype)
+
+
+class UNet1D(Denoiser):
+    """The v1 baseline UNet (port of ``UNet1D`` in
+    ``lm2a_tpu/models/unet1d.py``; ``ModelConfig.arch='v1'``): additive
+    timestep projection, cross-attention in every block, stride-2 conv
+    downsampling, transposed-conv upsampling (k4, s2, p1: flax's padding
+    (2, 2)) concatenated with the skip, asymmetric up-path widths, a 1x1
+    output head; no dropout. ``fused_resblock_grad`` has no effect here, as
+    in the JAX factory. Output fp32."""
+
+    def __init__(self, in_dim: int = 80, base_dim: int = 128,
+                 dim_mults: Tuple[int, ...] = (1, 2, 4), cond_dim: int = 128,
+                 time_emb_dim: int = 256, attn_heads: int = 4, fused_attention: bool = False):
+        super().__init__()
+        self.fused_attention = fused_attention
+        self.dims = [base_dim * m for m in dim_mults]
+        self.time_embedding = TimestepEmbedding(time_emb_dim)
+        self.input_proj = nn.Conv1d(in_dim, base_dim, 1)
+
+        def block(c):
+            return ResBlockV1(c, time_emb_dim, cond_dim, attn_heads, fused_attention)
+
+        prev, skip_channels = base_dim, []
+        for i, dim in enumerate(self.dims):
+            self.add_module(f"down_{i}_res", block(prev))
+            skip_channels.append(prev)
+            self.add_module(f"down_{i}_downsample", nn.Conv1d(prev, dim, 4, stride=2, padding=1))
+            prev = dim
+        self.mid_res = block(prev)
+        for i, (dim, skip_ch) in enumerate(zip(reversed(self.dims), reversed(skip_channels))):
+            self.add_module(f"up_{i}_upconv", nn.ConvTranspose1d(prev, dim, 4, stride=2,
+                                                                 padding=1))
+            self.add_module(f"up_{i}_res", block(dim + skip_ch))
+            prev = dim + skip_ch
+        self.out_proj = nn.Conv1d(prev, in_dim, 1)
+
+    def _unet(self, x, t_emb, block, conv):
+        h = conv(self.input_proj, x)
+        skips = []
+        for i in range(len(self.dims)):
+            h = block(f"down_{i}_res", h)
+            skips.append(h)
+            h = conv(getattr(self, f"down_{i}_downsample"), h)
+        h = block("mid_res", h)
+        for i in range(len(self.dims)):
+            h = conv(getattr(self, f"up_{i}_upconv"), h)
+            skip = skips.pop()
+            h = torch.cat([_fix_time_len(h, skip.shape[1]), skip], dim=-1)
+            h = block(f"up_{i}_res", h)
+        return conv(self.out_proj, h).float()
+
+    def forward(self, x, t, motion_f=None, text_f=None, uncond_rows: int = 0):
+        dt = self.input_proj.weight.dtype
+        t_emb = self.time_embedding(t)
+        return self._unet(
+            x.to(dt), t_emb,
+            lambda name, h: getattr(self, name)(h, t_emb, motion_f, text_f, uncond_rows),
+            conv_cl)
+
+    def forward_train(self, x, t, motion_f=None, text_f=None, *, dtype: torch.dtype,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Training form on the fp32 parameters, compute in ``dtype``
+        (``generator`` is unused: v1 has no dropout)."""
+        t_emb = self.time_embedding.forward_train(t, dtype)
+        return self._unet(
+            x, t_emb,
+            lambda name, h: getattr(self, name).forward_train(h, t_emb, motion_f, text_f, dtype),
+            lambda conv, h: conv_train(conv, h, dtype))

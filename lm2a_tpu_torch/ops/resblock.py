@@ -39,10 +39,11 @@ SMEM_MAX = 232_448       # dynamic shared memory a block may opt into
 # conv3_fused geometry (csrc/resblock.cu): K walks in chunks of 64 input
 # channels; a 3-stage weight ring; bf16 window rows 72 wide (144 bytes)
 CHUNK, _NSTAGE, _LDW = 64, 3, 72
-# every channel count the kernels take is a multiple of WIDTH_UNIT: one
-# 16-byte row unit of bf16, what cp.async and the vector loads move; a last
-# K chunk or N tile narrower than the kernel's is zero-filled and masked
-WIDTH_UNIT = 8
+# the kernels take every positive channel count: a last K chunk or N tile
+# narrower than the kernel's is zero-filled and masked, and a count off the
+# 8-channel unit (a bf16 row stride off the 16 bytes cp.async moves) is read
+# by the widest access its stride allows (8, 4 or 2 bytes): conv3_fused's
+# ODD form, the backward kernels' masked forms
 _ALIGN = 1024            # slack for aligning the swizzled tiles to 1024 bytes
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -307,10 +308,10 @@ def _need(cond: bool, msg: str) -> None:
 
 
 def check_widths(fn: str, **widths: int) -> None:
-    """Raise by name unless every channel count is a positive multiple of
-    ``WIDTH_UNIT`` (what the resblock kernels take)."""
-    bad = ", ".join(f"{k}={v}" for k, v in widths.items() if v <= 0 or v % WIDTH_UNIT)
-    _need(not bad, f"{fn}: channel counts must be multiples of {WIDTH_UNIT}, got {bad}")
+    """Raise by name unless every channel count is positive (what the
+    resblock kernels take)."""
+    bad = ", ".join(f"{k}={v}" for k, v in widths.items() if v <= 0)
+    _need(not bad, f"{fn}: channel counts must be positive, got {bad}")
 
 
 def _check_vec(v, n, device, name):

@@ -9,7 +9,9 @@ Keys: ``.step``, ``.params['unet'][...]['kernel']`` (and ``'cond_proj'``),
 ``.opt_state.{m,v,n,prev_grad}[...]`` (``.opt_state[1].step`` and
 ``.opt_state[1].{m,...}[...]`` for the chained ``fused_opt=False`` form,
 whose clip state holds no leaf), each leaf in the flax layout (Dense
-kernel ``(in, out)``, Conv kernel ``(K, Cin, Cout)``, GroupNorm ``scale``);
+kernel ``(in, out)``, Conv kernel ``(K, Cin, Cout)``, ConvTranspose kernel
+``(K, Cin, Cout)`` flipped along K (the v1 UNet's ``up_<i>_upconv``),
+GroupNorm ``scale``);
 bf16 optimizer state stored as its uint16 bit pattern. ``save_checkpoint``
 fetches the state to the host on the caller's thread and can write the
 archive on a background thread (``CheckpointWriter``); the tmp-dir + rename
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from lm2a_tpu_torch.checkpoint import STATE_FILE, checkpoint_path, load_metadata
+from lm2a_tpu_torch.convert import UNET_CONV_TRANSPOSE
 from lm2a_tpu_torch.core.config import LM2AConfig, config_to_dict
 from lm2a_tpu_torch.training.adan import STATE_KEYS
 from lm2a_tpu_torch.training.train_step import TrainState
@@ -55,26 +58,33 @@ def keystr(collection: str, path: Tuple[str, ...]) -> str:
     return f".{collection}" + "".join(f"['{p}']" for p in path)
 
 
-def to_flax_layout(t: torch.Tensor) -> torch.Tensor:
-    """Linear (out, in) -> (in, out); Conv1d (Cout, Cin, K) -> (K, Cin, Cout)."""
+def _transposed(name: str) -> bool:
+    """Whether the state leaf ``name`` is a ConvTranspose1d weight."""
+    return UNET_CONV_TRANSPOSE(name.rsplit(".", 1)[0]) is not None
+
+
+def to_flax_layout(t: torch.Tensor, name: str = "") -> torch.Tensor:
+    """Linear (out, in) -> (in, out); Conv1d (Cout, Cin, K) -> (K, Cin, Cout);
+    ConvTranspose1d (Cin, Cout, K) -> (K, Cin, Cout) flipped along K."""
     if t.ndim == 2:
         return t.t()
     if t.ndim == 3:
-        return t.permute(2, 1, 0)
+        return t.permute(2, 0, 1).flip(0) if _transposed(name) else t.permute(2, 1, 0)
     return t
 
 
-def from_flax_layout(a: torch.Tensor) -> torch.Tensor:
+def from_flax_layout(a: torch.Tensor, name: str = "") -> torch.Tensor:
     if a.ndim == 2:
         return a.t()
     if a.ndim == 3:
-        return a.permute(2, 1, 0)
+        return a.flip(0).permute(1, 2, 0) if _transposed(name) else a.permute(2, 1, 0)
     return a
 
 
-def _to_numpy(t: torch.Tensor) -> np.ndarray:
+def _to_numpy(t: torch.Tensor, name: str) -> np.ndarray:
     # always a copy: the arrays outlive the step (an async write reads them later)
-    t = to_flax_layout(t.detach()).to("cpu", memory_format=torch.contiguous_format, copy=True)
+    t = to_flax_layout(t.detach(), name).to("cpu", memory_format=torch.contiguous_format,
+                                            copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
     return t.numpy()
@@ -99,7 +109,7 @@ def state_arrays(state: TrainState) -> Dict[str, np.ndarray]:
               f".{_opt_key(state)}.step": np.asarray(state.opt.step, np.int32)}
     for coll, tree in _trees(state).items():
         for name, t in tree.items():
-            arrays[keystr(coll, flax_path(name, t.ndim))] = _to_numpy(t)
+            arrays[keystr(coll, flax_path(name, t.ndim))] = _to_numpy(t, name)
     return arrays
 
 
@@ -186,7 +196,7 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, cfg: LM2AConfig, *, epoch:
     return path
 
 
-def _load_into(dst: torch.Tensor, a: np.ndarray, key: str) -> None:
+def _load_into(dst: torch.Tensor, a: np.ndarray, key: str, name: str) -> None:
     a = np.asarray(a)
     if a.dtype.kind not in "biufc" and a.dtype.itemsize == 2:  # an in-memory bfloat16 array
         a = a.view(np.uint16)
@@ -198,10 +208,10 @@ def _load_into(dst: torch.Tensor, a: np.ndarray, key: str) -> None:
         src = torch.from_numpy(np.require(a, requirements="W"))
         if src.dtype != dst.dtype:
             raise ValueError(f"checkpoint leaf {key} is {src.dtype}, the state wants {dst.dtype}")
-    src = from_flax_layout(src)
+    src = from_flax_layout(src, name)
     if tuple(src.shape) != tuple(dst.shape):
         raise ValueError(f"checkpoint leaf {key} has shape {tuple(a.shape)}, the state "
-                         f"expects {tuple(to_flax_layout(dst).shape)}")
+                         f"expects {tuple(to_flax_layout(dst, name).shape)}")
     dst.copy_(src)
 
 
@@ -214,7 +224,7 @@ def load_state_arrays(state: TrainState, arrays: Mapping[str, np.ndarray]) -> No
             key = keystr(coll, flax_path(name, t.ndim))
             if key not in arrays:
                 raise KeyError(f"no leaf {key}")
-            _load_into(t, arrays[key], key)
+            _load_into(t, arrays[key], key, name)
     state.step = int(arrays[".step"])
     state.opt.step = int(arrays[f".{_opt_key(state)}.step"])
 
@@ -229,7 +239,7 @@ def load_ema(path: str, state: TrainState) -> Dict[str, torch.Tensor]:
             key = keystr("ema_params", flax_path(name, t.ndim))
             if key not in z.files:
                 raise KeyError(f"{path}: no leaf {key}")
-            _load_into(t, z[key], key)
+            _load_into(t, z[key], key, name)
     return ema
 
 

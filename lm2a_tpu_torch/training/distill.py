@@ -8,7 +8,7 @@ forward per step on the serving grid (``ddim_time_grid``) at guidance 1.0.
 
 Routes on the card:
 
-- the teacher is a separate ``UNet1DUltimate`` + ``CondProjection`` built
+- the teacher is a separate denoiser (``Denoiser``) + ``CondProjection`` built
   from copies of EMA tensors and readied for serving (``prepare``): its two
   guided forwards a step run ``forward`` under ``torch.no_grad()``, every
   residual block through ``gn_stats`` and ``conv3_fused`` (and attention
@@ -42,7 +42,7 @@ from lm2a_tpu_torch.diffusion.gaussian import ddim_time_grid, guided_eps
 from lm2a_tpu_torch.diffusion.schedule import Schedule
 from lm2a_tpu_torch.models.embedding import CondProjection
 from lm2a_tpu_torch.models.factory import build_cond_projection, build_denoiser
-from lm2a_tpu_torch.models.unet1d import UNet1DUltimate
+from lm2a_tpu_torch.models.unet1d import Denoiser
 from lm2a_tpu_torch.training.adan import Adan
 from lm2a_tpu_torch.training.train_step import TrainState, make_update_step, step_generator
 
@@ -91,7 +91,7 @@ class DistillDraws(NamedTuple):
 class Teacher:
     """The frozen teacher: serving-form modules holding their own weights."""
 
-    unet: UNet1DUltimate
+    unet: Denoiser
     cond_proj: CondProjection
 
 

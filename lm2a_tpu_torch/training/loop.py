@@ -98,7 +98,7 @@ def train(cfg: LM2AConfig, npz_dir: str, save_dir: str, val_npz_dir: Optional[st
 
     if dataset_mean is None or dataset_std is None:
         if os.path.exists(os.path.join(npz_dir, PACK_META)):
-            mel = PackedDataset(npz_dir).mel
+            mel = PackedDataset(npz_dir, use_native=False).mel
             dataset_mean, dataset_std = float(np.mean(mel)), float(np.std(mel))
         else:
             dataset_mean, dataset_std = compute_dataset_stats(npz_dir)
@@ -107,6 +107,7 @@ def train(cfg: LM2AConfig, npz_dir: str, save_dir: str, val_npz_dir: Optional[st
     ds = open_dataset(npz_dir, cfg.data.align_mode)
     val_ds = (open_dataset(val_npz_dir, cfg.data.align_mode)
               if val_npz_dir and os.path.isdir(val_npz_dir) else None)
+    print(f"batch gatherer: {getattr(ds, 'gatherer', 'per-clip npz reads')}")
 
     optimizer = make_optimizer(cfg)
     state = init_train_state(cfg, tc.seed, dev, optimizer)

@@ -16,7 +16,7 @@ kernel-layout chain weights, the compute dtype), the one serving forward
 is a view of the EMA: a denoiser and a condition projection whose
 parameters are the training state's EMA tensors themselves (``ema_view``),
 where the Adan+EMA update writes them in place. Each run first refreshes
-the serving model from that view (``UNet1DUltimate.refresh``: one
+the serving model from that view (``Denoiser.refresh``: one
 ``copy_`` per leaf, into the storage the captured graph reads), so it
 samples the EMA as it stands and nothing is captured again. Noise comes from a ``torch.Generator`` seeded with ``seed + 777``
 at every run (the JAX version's key), or from ``x_init`` (the tests inject

@@ -46,7 +46,7 @@ from lm2a_tpu_torch.diffusion.gaussian import diffusion_loss
 from lm2a_tpu_torch.diffusion.schedule import Schedule
 from lm2a_tpu_torch.models.embedding import CondProjection
 from lm2a_tpu_torch.models.factory import build_cond_projection, build_denoiser, random_init_
-from lm2a_tpu_torch.models.unet1d import UNet1DUltimate
+from lm2a_tpu_torch.models.unet1d import Denoiser
 from lm2a_tpu_torch.ops.adan import N_SCALARS
 from lm2a_tpu_torch.training.adan import Adan, AdanState, make_lr_schedule
 
@@ -59,7 +59,7 @@ class TrainState:
     every parameter and the Adan state, keyed ``"<tree>/<parameter name>"``."""
 
     step: int
-    unet: UNet1DUltimate
+    unet: Denoiser
     cond_proj: CondProjection
     ema: Dict[str, torch.Tensor]
     opt: AdanState
@@ -172,7 +172,7 @@ def make_update_step(loss_builder: Callable, optimizer: Adan):
 
     def one_step(state: TrainState, batch, **kw) -> torch.Tensor:
         scal = optimizer.stage_scalars(state.opt.step, torch.empty(
-            N_SCALARS, dtype=torch.float32, device=state.unet.in_proj.weight.device))
+            N_SCALARS, dtype=torch.float32, device=next(state.unet.parameters()).device))
         loss = device_step(state, batch, scal, **kw)
         state.step += 1
         state.opt.step += 1
@@ -220,7 +220,8 @@ class StepRunner:
 
     def __init__(self, step: Callable, state: TrainState, data: Optional[Dict[str, torch.Tensor]],
                  batch_size: int, k_max: int, *, train: bool = True, device=None):
-        dev = torch.device(device) if device is not None else state.unet.in_proj.weight.device
+        dev = (torch.device(device) if device is not None
+               else next(state.unet.parameters()).device)
         self.step, self.state, self.train = step, state, train
         self.batch_size, self.k_max, self.device = batch_size, k_max, dev
         self.idx = idx = torch.zeros((k_max, batch_size), dtype=torch.long, device=dev)

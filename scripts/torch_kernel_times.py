@@ -4,7 +4,7 @@ kernels of a tree of this repository under this tree's timer, and host times
 of an attention call.
 
     python3 scripts/torch_kernel_times.py [--tree DIR] [--label NAME] [--out FILE]
-                                          [--only resblock,attention,backward,sandwich]
+                                          [--only resblock,attention,backward,sandwich,narrow]
 
 Runs phases 3 and 3b (the resblock forward kernels, ``gn_stats`` and
 ``conv3_fused``, at the 15 flagship blocks at 4 rows, 16 rows and 2 rows of
@@ -20,8 +20,13 @@ also profiles one vocode of ``DIR``'s vocoder with this tree's
 ``profile_vocode`` (device time by group, busy share, launches). An older commit
 unpacked with ``git archive`` into an ignored directory is so timed as this
 tree times itself; run the two in one call (older, newer, newer, older) to
-compare them. ``--only`` names the phases to run (all by default). With
-the attention phase it also prints
+compare them. ``--only`` names the phases to run (all but ``narrow`` by
+default). ``narrow`` times the resblock kernels at the blocks of the narrow
+base widths 12, 20, 32 and 48 (``NARROW_BASES``), each block at its own T,
+all of them in the kernels' masked forms: one 4-row forward's ``gn_stats``
++ ``conv3_fused`` chains, and one B=16 step's block backwards
+(``conv3_dgrad``, ``conv3_wgrad``, ``gn_bwd`` and the glue between them),
+summed over the blocks. With the attention phase it also prints
 
 - the host time of one ``attention_core`` call at each 6 s site (two clips'
   conditioned rows, the main path's call): 200 calls enqueued back to back,
@@ -61,6 +66,38 @@ def load_tree(tree: str):
         if getattr(node, "name", None) in ("Timer", "profile_vocode"):
             exec(ast.get_source_segment(src, node), cs.__dict__)
     return cs
+
+
+NARROW_BASES = (12, 20, 32, 48)
+
+
+def narrow_times(cs, timer, dev, gen, bases=NARROW_BASES):
+    """{base: (blocks, forward ms, backward ms)}: the device ms of every block
+    of ``ModelConfig(base_dim=base)`` at its own T through the forward chain
+    (``cs.MAIN_ROWS`` rows) and the block backward (``cs.TRAIN_B`` rows), on
+    the kernels of the loaded tree."""
+    import torch
+
+    rb = importlib.import_module("lm2a_tpu_torch.ops.resblock")
+    rg = importlib.import_module("lm2a_tpu_torch.ops.resblock_grad")
+    out = {}
+    for base in bases:
+        blocks = cs.resblock_geometries(cs.ModelConfig(base_dim=base), cs.MEL_T)
+        fwd = bwd = 0.0
+        for _, t, cin, cout, skip, add_res in blocks:
+            w, x, (fs, fh) = cs.random_chain(gen, cs.MAIN_ROWS, t, cin, cout, skip, dev)
+            fwd += timer.ms(lambda: rb.fused_resblock_chain(x, w, fs, fh, add_residual=add_res))
+            w, x, (fs, fh) = cs.random_chain(gen, cs.TRAIN_B, t, cin, cout, skip, dev)
+            h, _, saved = rg.chain_forward(x, fs, fh, w.gn1_scale, w.gn1_bias, w.conv1_w,
+                                           w.conv1_b, w.gn2_scale, w.gn2_bias, w.conv2_w,
+                                           w.conv2_b, w.skip_w, w.skip_b, w.groups1, w.groups2)
+            gh = torch.randn(h.shape, generator=gen).to(dev, torch.bfloat16)
+            gx = torch.randn(h.shape, generator=gen).to(dev, torch.bfloat16) if skip else None
+            args = (saved, w.gn1_scale, w.gn1_bias, w.conv1_w, w.gn2_scale, w.gn2_bias,
+                    w.conv2_w, w.skip_w, gh, gx)
+            bwd += timer.ms(lambda: rg.chain_backward(*args))
+        out[base] = dict(blocks=len(blocks), forward_ms=fwd, backward_ms=bwd)
+    return out
 
 
 def attention_host_us(cs, att, dev, gen, reps: int = 200):
@@ -141,10 +178,11 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "kernel_times.json"))
     ap.add_argument("--only", default="resblock,attention,backward,sandwich",
                     help="comma-separated phases: resblock (3, 3b), attention (3c), backward "
-                         "(3d), sandwich (3's sandwich and a profiled vocode)")
+                         "(3d), sandwich (3's sandwich and a profiled vocode), narrow (the "
+                         "resblock kernels at the narrow bases' blocks)")
     args = ap.parse_args(argv)
     phases = set(args.only.split(","))
-    if not phases <= {"resblock", "attention", "backward", "sandwich"}:
+    if not phases <= {"resblock", "attention", "backward", "sandwich", "narrow"}:
         raise SystemExit(f"unknown phases in --only {args.only}")
     tree = os.path.abspath(args.tree)
     cs = load_tree(tree)
@@ -204,6 +242,12 @@ def main(argv=None) -> int:
         mel = np.random.default_rng(6).standard_normal((1, 80, cs.MEL_T)).astype(np.float32)
         report["vocode_profile"] = cs.profile_vocode(cs.Vocoder(device=dev, seed=0), mel,
                                                      f" ({args.label})")
+    if "narrow" in phases:
+        report["narrow"] = narrow_times(cs, timer, dev, gen)
+        for base, k in report["narrow"].items():
+            print(f"[times] {args.label}: base {base}, {k['blocks']} blocks at their own T: "
+                  f"forward chains ({cs.MAIN_ROWS} rows) {k['forward_ms']:.4f} ms, block "
+                  f"backwards (B={cs.TRAIN_B}) {k['backward_ms']:.4f} ms", flush=True)
     if "attention" in phases:
         host = attention_host_us(cs, att, dev, gen)
         enc, enc_call, marshal = encode_us(dev)

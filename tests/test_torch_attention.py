@@ -63,6 +63,14 @@ def _plain(q, k, v, dtype=torch.float32):
     (2, 2, 516, 516, 32),  # the clip's mel length
     (1, 4, 33, 33, 64),    # another head dim
     (1, 2, 20, 13, 32),    # keys shorter than queries
+    # head dims off the powers of two: base 48's and 96's 6, 12, 24 and 48,
+    # v1's 96 and 192 at its default widths
+    (1, 8, 40, 37, 6),
+    (1, 8, 40, 37, 12),
+    (1, 8, 40, 37, 24),
+    (1, 8, 40, 37, 48),
+    (1, 2, 40, 37, 96),
+    (1, 2, 40, 37, 192),
 ])
 def test_plain_matches_jax_kernel_and_reference(b, h, t, s, hd):
     q, k, v = _qkv(b + h + t, b, h, t, s, hd)

@@ -4,7 +4,8 @@ split-KV rule, on the CPU.
 The plan is pure Python, so it is checked here at every geometry of the
 fused route (the 9 cross-attention sites at 6 s with 1, 2 and 16
 conditioned rows, the CFG constant at T = S = 1, the 150 s single pass) and
-at T, S in {1, 37, 1023, 1025} for every head dim: every query row in one
+at T, S in {1, 37, 1023, 1025} for a spread of head dims from 1 to 256
+(``HEAD_DIMS``: every tile width, windows and per-head maps): every query row in one
 block, every key tile taken by exactly one rank of the split, clusters
 within the portable size, a ring of at least 3 stages, shared memory within
 the card's opt-in limit and large enough for the Q tile, the ring and the
@@ -37,6 +38,10 @@ from lm2a_tpu_torch.ops import resblock as rb
 from _torch_port_util import one_torch_thread  # noqa: F401
 
 HEADS = ModelConfig().attn_heads
+# every tile width (16 to 256), window maps (hd off the 8-channel unit) and
+# per-head maps, the head dims of base 48 and 96 (6, 12, 24, 48) and of v1 at
+# its default widths (96, 192)
+HEAD_DIMS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 100, 128, 136, 192, 250, 256)
 
 
 def _sites(mel_t):
@@ -48,7 +53,7 @@ FLAGSHIP = sorted({(b, HEADS, t, chip_smoke.MEL_T, hd)
                    for t, hd in _sites(chip_smoke.MEL_T)}
                   | {(1, HEADS, 1, 1, hd) for _, hd in _sites(chip_smoke.MEL_T)}
                   | {(1, HEADS, t, chip_smoke.LONG_T, hd) for t, hd in _sites(chip_smoke.LONG_T)})
-EDGE = [(1, 2, t, s, hd) for hd in att.HEAD_DIMS for t in (1, 37, 1023, 1025)
+EDGE = [(1, 2, t, s, hd) for hd in HEAD_DIMS for t in (1, 37, 1023, 1025)
         for s in (1, 37, 1023, 1025)]
 
 
@@ -66,15 +71,22 @@ def test_attention_plan(b, h, t, s, hd):
     # only the last tile may be ragged, and it holds at least one key
     assert (p.tiles - 1) * p.bn < s <= p.tiles * p.bn
     assert att.MIN_STAGES <= p.stages <= att.MAX_STAGES
-    hdp = max(hd, 16)
+    # Q and K tiles hold the head from its offset in the window; V and O
+    # parts of at most 128 channels cover the head
+    hoff = max((i * hd) % 8 for i in range(h)) if hd % 8 else 0
+    assert p.hdq in att.TILE_CHANNELS and p.hdq >= hd + hoff
+    assert p.hdq == min(c for c in att.TILE_CHANNELS if c >= hd + hoff)
+    hdv = min(p.hdq, 128)
+    assert p.vparts * hdv >= hd and p.vparts == -(-p.hdq // hdv)
+    assert p.hdq <= 128 or p.bn == 64  # S, P, Q and O in the consumers' registers
     rows = p.rows + att.MAX_SPLIT  # split * ceil(128 / split) rows at most
-    need = p.rows * hdp * 2 + max(p.stages * 2 * p.bn * hdp * 2,
-                                  (rows * (hdp + 4 + 2) + p.rows // 2 * (att.MAX_SPLIT + 1)) * 4)
+    need = p.rows * p.hdq * 2 + max(p.stages * p.bn * (p.hdq + hdv) * 2,
+                                    (rows * (hdv + 4 + 2) + p.rows // 2 * (att.MAX_SPLIT + 1)) * 4)
     assert need + att._ALIGN <= p.smem <= rb.SMEM_MAX
     cands = att.attention_candidates(b, h, t, s, hd)
     best = min(c for c, _ in cands)
     assert any(q == p and c == best for c, q in cands)
-    assert p.blocks(b, h) == p.split * p.mtiles * h * b
+    assert p.blocks(b, h) == p.split * p.mtiles * h * p.vparts * b
 
 
 def test_attention_plan_splits_the_small_6s_grids():
@@ -131,7 +143,7 @@ def _plans(b, h, t, s, hd):
     return sorted(out, key=lambda p: (p.bn, p.split))
 
 
-@pytest.mark.parametrize("hd", att.HEAD_DIMS)
+@pytest.mark.parametrize("hd", HEAD_DIMS)
 @pytest.mark.parametrize("t,s", [(1, 1), (37, 1023), (1025, 37), (100, 1025)])
 def test_split_kv_emulation(hd, t, s):
     rng = np.random.default_rng(hd * 7 + t + s)

@@ -20,10 +20,11 @@ captures on the card.
 - the launch ledger: a capture's launches recorded against its graph and
   added at each replay, the first call's counted eagerly, exercised with a
   stub C entry and a stub CUDA graph;
-- the kernels' width rule (channel counts multiples of 8, any C/G) takes
-  every block of base widths 16, 32, 48, 64 and 96 and of the flagship, so
-  the card routes what the JAX gate routes, and the CPU route is the JAX
-  gate's; a width that is not a multiple of 8 is refused by name; the DDIM
+- the kernels' width rule (any positive channel count, any C/G) takes
+  every block of base widths 12, 16, 20, 32, 48, 64 and 96, of an odd
+  width and of the flagship, so the card routes what the JAX gate routes,
+  and the CPU route is the JAX gate's; a width that is not positive is
+  refused by name; the DDIM
   coefficient table against the JAX chain's per-step scalars, bit for bit.
 """
 
@@ -702,7 +703,7 @@ def test_graphed_step_runs_eagerly_on_the_cpu():
 
 def _kernels_take(cin: int, cout: int) -> bool:
     """The widths the forward and backward kernels' wrappers take for a
-    block at ``default_num_groups``: Cin and Cout multiples of 8
+    block at ``default_num_groups``: Cin and Cout positive
     (``check_widths``) and ``_check_act``'s group rule at both GroupNorms
     (each raises else)."""
     for c in (cin, cout):
@@ -729,17 +730,19 @@ def test_every_flagship_block_keeps_its_card_route(geo):
 
 def test_card_routes_at_base_64_and_at_the_flagship():
     """Base width 64 routes blocks with C/G = 8 through the JAX gate, and
-    the kernels take them; so do base widths 16, 32, 48 and 96 (C/G 2, 4,
-    6 and 12). A width that is not a multiple of 8 is refused by name."""
+    the kernels take them; so do base widths 12, 16, 20, 32, 48 and 96 (C/G
+    2 to 12, widths off the 8-channel unit at 12 and 20) and an odd width
+    (Cin 21, Cout 42). A width that is not positive is refused by name."""
     narrow = chip_smoke.resblock_geometries(ModelConfig(base_dim=64), chip_smoke.MEL_T)
     assert any(64 in (cin, cout) and resblock_train_fits(t, cin, cout, skip, 2)
                for _, t, cin, cout, skip, _ in narrow)
     assert all(_kernels_take(cin, cout) for _, t, cin, cout, skip, _ in narrow)
-    for base in (16, 32, 48, 96):
+    for base in (12, 16, 20, 32, 48, 96):
         geos = chip_smoke.resblock_geometries(ModelConfig(base_dim=base), chip_smoke.MEL_T)
         assert all(_kernels_take(cin, cout) for _, t, cin, cout, skip, _ in geos), base
-    with pytest.raises(ValueError, match="multiples of 8, got Cin=36"):
-        check_widths("conv3_dgrad", Cin=36, Cout=64)
+    assert _kernels_take(21, 42)
+    with pytest.raises(ValueError, match="must be positive, got Cin=0"):
+        check_widths("conv3_dgrad", Cin=0, Cout=64)
 
 
 def test_cpu_route_is_the_jax_gate_at_c_over_g_8():

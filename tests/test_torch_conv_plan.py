@@ -244,13 +244,15 @@ def test_wgrad_tiling_emulation(b, t, taps):
 # ---------------------------------------------------------------- narrow base widths
 
 def _narrow_convs():
-    """Both convs of every block of base widths 16, 32, 48 and 96 (channel
-    counts 16·k: K chunks and N tiles narrower than 64)."""
+    """Both convs of every block of base widths 12, 16, 20, 32, 48 and 96
+    (channel counts 12·k, 16·k and 20·k: K chunks and N tiles narrower than
+    64, and at 12 and 20 widths off the 8-channel unit), and an odd-width
+    block (Cin 21, Cout 42, a skip)."""
     out = []
-    for base in (16, 32, 48, 96):
+    for base in (12, 16, 20, 32, 48, 96):
         geos = chip_smoke.resblock_geometries(ModelConfig(base_dim=base), 64)
         out += [(base, *c) for c in _convs(geos)]
-    return out
+    return out + [(21, *c) for c in _convs([("odd_21_42", 64, 21, 42, True, False)])]
 
 
 NARROW_CASES = [(rows, *c) for rows in (1, 2, 4, 16) for c in _narrow_convs()]
@@ -276,7 +278,7 @@ def test_conv3_plan_at_narrow_widths(rows, base, name, t, cin, cout, cin2, split
 
 
 @pytest.mark.parametrize("rows,t", [(2, 37), (3, 65), (1, 64)])
-@pytest.mark.parametrize("cin", [16, 48, 96, 136])
+@pytest.mark.parametrize("cin", [16, 48, 96, 136, 12, 20, 21, 42])
 def test_conv3_tiling_emulation_at_narrow_widths(rows, t, cin):
     """A last K chunk narrower than 64 channels, zero-filled in the window
     and the weight tile as the kernel fills it, gives the plain conv3."""

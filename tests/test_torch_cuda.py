@@ -9,8 +9,9 @@ skips without one. On a machine with a card:
 tests do not use.) ``chip_smoke.py`` holds the kernels at the flagship
 geometries; these take the edges it does not reach: ragged and short time
 tiles, T below the sandwich's halo, fp32 sandwich inputs, every epilogue of
-``conv3_fused`` the chain uses, the attention kernel at every head dim it
-takes, T = S = 1, S around the JAX package's streaming threshold, ragged T
+``conv3_fused`` the chain uses, the attention kernel at head dims from 1
+to 256 (``HEAD_DIMS``: every tile width, window and per-head maps, V in
+two parts above 128), T = S = 1, S around the JAX package's streaming threshold, ragged T
 and S, strided views and batches up to 16; the resblock backward kernels at
 T of 1, 2, 3 and off the 64-frame tile, C/G = 16, the 2048-channel concat
 input, with and without the skip, one by one and as a whole block, and
@@ -54,9 +55,13 @@ train`` and one train and one distill step against the CPU within
 16, 32, 48 and 96 (C/G 2, 4, 6, 12; K chunks and N tiles narrower than the
 kernels' 64) through ``gn_stats``, ``conv3_fused``, ``conv3_dgrad``,
 ``conv3_wgrad`` and ``gn_bwd`` against their plain versions, attention at
-head dims 2 and 4 (``HEAD_DIMS``), a base-32 fused-attention forward and
+head dims 2 to 192, a base-32 fused-attention forward and
 chain, one ``cli train --fused_resblock_grad`` step at base width 32
-against the CPU, and a width off the 8-channel unit refused by name.
+against the CPU; the masked forms at every block of base widths 12 and 20 and
+at an odd width (Cin 21, Cout 42), against their plain versions; v1 (its
+default head dims at a quarter of its width): two train steps against the
+CPU within ``chip_smoke.ROUTE_TOL``, and K = 2 device-data steps as graph
+replays against the same steps eager.
 
 Tolerances are those of ``chip_smoke.py``: 1e-2 absolute + relative on bf16
 outputs (one bf16 ulp, where the kernel's and torch's SiLU round an operand
@@ -73,6 +78,7 @@ with its reason there.
 import contextlib
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -85,6 +91,10 @@ from lm2a_tpu_torch.vocoder import sandwich as sw
 pytestmark = pytest.mark.cuda
 
 TOL = dict(chip_smoke.TOL, snake_sandwich_f32=dict(atol=1e-5, rtol=1e-5))
+# the attention kernel's head dims under test: every tile width (16 to 256),
+# window maps (hd off the 8-channel unit: 1-6, 12, 100, 250) and per-head
+# maps, base 48's and 96's 6, 12, 24, 48 and v1's 96 and 192
+HEAD_DIMS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 100, 128, 136, 192, 250, 256)
 
 
 @pytest.fixture
@@ -376,10 +386,11 @@ def _attn_inputs(dev, b, h, t, s, hd, seed, layout="projections"):
     return make(t), make(s), make(s)
 
 
-@pytest.mark.parametrize("hd", att.HEAD_DIMS)
+@pytest.mark.parametrize("hd", HEAD_DIMS)
 @pytest.mark.parametrize("t,s", [(1, 1), (64, 64), (129, 516), (37, 300)])
 def test_attention_matches_plain(dev, hd, t, s):
-    q, k, v = _attn_inputs(dev, 2, 4, t, s, hd, seed=hd + t + s)
+    h = 4 if hd % 8 == 0 else 8  # windows: H*hd rows on the 16-byte unit
+    q, k, v = _attn_inputs(dev, 2, h, t, s, hd, seed=hd + t + s)
     _build.reset_launches()
     got = att.attention_core(q, k, v)
     torch.cuda.synchronize()
@@ -406,13 +417,13 @@ def test_attention_refuses_what_it_cannot_take(dev):
     _build.reset_launches()
     with pytest.raises(ValueError, match="bf16"):
         att.attention_core(q.float(), k.float(), v.float())
-    q48, k48, v48 = _attn_inputs(dev, 1, 2, 16, 16, 48, seed=0)
-    with pytest.raises(ValueError, match="head dim 48"):
-        att.attention_core(q48, k48, v48)
+    q300, k300, v300 = _attn_inputs(dev, 1, 2, 16, 16, 300, seed=0)
+    with pytest.raises(ValueError, match="head dim 300 outside 1..256"):
+        att.attention_core(q300, k300, v300)
     with pytest.raises(ValueError, match="hd contiguous"):  # hd at stride 2
         att.attention_core(torch.cat([q, q], dim=-1)[..., ::2], k, v)
-    q2, k2, v2 = _attn_inputs(dev, 1, 3, 16, 16, 2, seed=0)  # H*hd = 6: no whole 8-channel unit
-    with pytest.raises(ValueError, match="H\\*hd a multiple of 8"):
+    q2, k2, v2 = _attn_inputs(dev, 1, 3, 16, 16, 2, seed=0)  # rows of H*hd = 6 channels
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
         att.attention_core(q2, k2, v2)
     q2, k2, v2 = _attn_inputs(dev, 1, 4, 16, 16, 2, seed=0, layout="contiguous")
     with pytest.raises(ValueError, match="heads side by side"):
@@ -598,10 +609,10 @@ def test_training_kernels_refuse_what_they_cannot_take(dev):
     _build.reset_launches()
     with pytest.raises(ValueError, match="bf16"):
         rg.conv3_dgrad(g.float(), w)
-    with pytest.raises(ValueError, match="multiples of 8, got Cout=44"):
-        rg.conv3_dgrad(g[..., :44].contiguous(), w[:44])
-    with pytest.raises(ValueError, match="multiples of 8, got Cin=36"):
-        rg.conv3_wgrad(g[..., :36].contiguous(), g)
+    with pytest.raises(ValueError, match="must be positive, got Cout=0"):
+        rg.conv3_dgrad(g[..., :0].contiguous(), w[:0])
+    with pytest.raises(ValueError, match="must be positive, got Cin=0"):
+        rg.conv3_wgrad(g[..., :0].contiguous(), g)
     leaf = tuple(torch.zeros(5, device=dev) for _ in range(7))
     scal = torch.zeros(8, device=dev)
     with pytest.raises(ValueError, match="fp32"):
@@ -773,12 +784,12 @@ def _attn_plans(b, h, t, s, hd):
     return sorted(plans, key=lambda p: (p.bn, p.split))
 
 
-@pytest.mark.parametrize("hd", att.HEAD_DIMS)
+@pytest.mark.parametrize("hd", HEAD_DIMS)
 @pytest.mark.parametrize("t,s", [(1, 37), (37, 1), (65, 129), (129, 1025), (300, 700)])
 def test_attention_every_plan_at_ragged_lengths(dev, monkeypatch, hd, t, s):
     """Ragged T and S (the last key tile masked), split-KV and no-split plans
     forced through the plan function, and the same bits from two launches."""
-    h = 3 if hd >= 8 else 4  # hd 2 and 4: H*hd in whole 8-channel units
+    h = 3 if hd % 8 == 0 else 8  # windows: H*hd rows on the 16-byte unit
     q, k, v = _attn_inputs(dev, 2, h, t, s, hd, seed=3 * hd + t + s)
     want = att.attention_core_plain(q, k, v)
     plans = _attn_plans(2, h, t, s, hd)
@@ -1229,6 +1240,50 @@ def test_distill_step_on_the_card_matches_the_cpu(dev):
         pre = got
 
 
+def test_fused_attention_teacher_distill_step_on_the_card(dev):
+    """One distill step (x0_snr, teacher guidance 2.1, injected draws, bf16)
+    with ``fused_attention`` set (teacher and student on the attention
+    kernel, base width 128: head dims 16 to 64): the card's launches those
+    of ``chip_smoke.distill_launches_per_step``, its loss and whole gradient
+    against the CPU's within ``chip_smoke.ROUTE_TOL``."""
+    from lm2a_tpu_torch.diffusion.schedule import make_schedule
+    from lm2a_tpu_torch.training import distill
+    from lm2a_tpu_torch.training.train_step import init_train_state, make_optimizer
+
+    cfg = dataclasses.replace(DISTILL_CFG, model=dataclasses.replace(DISTILL_CFG.model,
+                                                                     fused_attention=True))
+    b, t = 2, 64
+    gen = torch.Generator().manual_seed(12)
+    batch = {"mel": -4.6 + 1.9 * torch.randn((b, t, 80), generator=gen),
+             "motion": torch.randn((b, t, 234), generator=gen),
+             "lyrics": torch.randn((b, t, 768), generator=gen)}
+    draws = distill.DistillDraws(torch.tensor([1, 3]), torch.randn((b, t, 80), generator=gen))
+    teacher_ema = init_train_state(cfg, 5, "cpu").ema
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        optimizer = make_optimizer(cfg)
+        state = init_train_state(cfg, 0, d, optimizer)
+        ema = {k: v.to(d) for k, v in teacher_ema.items()}
+        distill.start_student(state, ema)
+        step = distill.make_distill_step(make_schedule(cfg.diffusion, device=d), cfg, optimizer,
+                                         4, dataset_mean=-4.6, dataset_std=1.9,
+                                         guidance_weight=2.1, loss_space="x0_snr")
+        teacher = distill.build_teacher(cfg, ema)
+        assert teacher.unet.fused_attention
+        _build.reset_launches()
+        loss = float(step(state, teacher, {k: v.to(d) for k, v in batch.items()}, draws=draws))
+        out[d.type] = dict(loss=loss, launches=dict(_build.LAUNCHES), grads=[
+            p.grad.detach().float().cpu().clone() for p in state.params().values()])
+    assert out["cpu"]["launches"] == {}
+    assert out["cuda"]["launches"] == chip_smoke.distill_launches_per_step(cfg.model, t)
+    tol = chip_smoke.ROUTE_TOL
+    k, p = out["cuda"], out["cpu"]
+    assert np.isfinite(k["loss"]) and abs(k["loss"] - p["loss"]) <= tol["loss_rel"] * abs(p["loss"])
+    gsum = float(torch.sqrt(sum(g.square().sum() for g in p["grads"])))
+    diff = float(torch.sqrt(sum((a - g).square().sum() for a, g in zip(k["grads"], p["grads"]))))
+    assert diff <= tol["grad_rel_l2"] * gsum, (diff, gsum)
+
+
 def test_distill_teacher_forward_at_32_rows(dev):
     """The distill teacher's guided serving forward at 2B = 32 rows (B = 16,
     T = 516) at the flagship's depth and a quarter of its width, same bf16
@@ -1344,6 +1399,87 @@ def test_graphed_train_steps_equal_their_eager_run(dev):
     assert torch.equal(out["graph"][0], out["eager"][0])
     assert out["graph"][2] == out["eager"][2]
     per_step, _ = chip_smoke.train_launches_per_step(cfg.model, 64)
+    assert out["graph"][2] == {k: 4 * v for k, v in per_step.items()}
+    for key, want in out["eager"][1].items():
+        assert (out["graph"][1][key] == want).all(), key
+
+
+# v1 at a quarter of its default width with 2 heads: the default's head dims
+# (32, 32, 64, 128, 192, 96, 64) on the attention kernel
+V1_CFG = dataclasses.replace(
+    chip_smoke.LM2AConfig(), model=chip_smoke.ModelConfig(
+        arch="v1", base_dim=64, cond_dim=32, time_emb_dim=64, attn_heads=2,
+        fused_attention=True),
+    train=dataclasses.replace(chip_smoke.LM2AConfig().train, opt_backend="pallas"))
+
+
+def _v1_batch(n, t, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return {"mel": -4.6 + 1.9 * torch.randn((n, t, 80), generator=gen),
+            "motion": torch.randn((n, t, 234), generator=gen),
+            "lyrics": torch.randn((n, t, 768), generator=gen)}
+
+
+def test_v1_train_steps_on_the_card_match_the_cpu(dev):
+    """Two ``cli train --arch v1 --fused_attention`` steps (bf16, injected
+    draws, 2 rows, T=64) from the same state: the card (the attention
+    kernel's forward at head dims 32 to 192, the plain recompute for its
+    backward, ``adan_ema``) against the CPU (the plain versions): each
+    step's launches, the loss, every gradient leaf and the whole gradient
+    within ``chip_smoke.ROUTE_TOL`` (``chip_smoke.card_vs_host_steps``; the
+    parameters' step is printed, not held: Adan's first updates do not
+    scale with the gradient, as the distill step's test notes)."""
+    from lm2a_tpu_torch.diffusion.schedule import make_schedule
+    from lm2a_tpu_torch.training.checkpoint import load_state_arrays, state_arrays
+    from lm2a_tpu_torch.training.train_step import init_train_state, make_train_step
+
+    cfg, t = V1_CFG, 64
+    host = torch.device("cpu")
+    arrays = state_arrays(init_train_state(cfg, 4, host))
+    sides = {}
+    for label, d in (("card", dev), ("host", host)):
+        state = init_train_state(cfg, 0, d)
+        load_state_arrays(state, arrays)
+        sides[label] = (state, make_train_step(make_schedule(cfg.diffusion, device=d), cfg,
+                                               dataset_mean=-4.6, dataset_std=1.9))
+    _build.reset_launches()
+    out = chip_smoke.card_vs_host_steps(sides, _v1_batch(2, t, 21), cfg, 2, chip_smoke.ROUTE_TOL,
+                                        "v1 train step", "[v1 test]", "card vs CPU",
+                                        gate_update=False)
+    assert len(out) == 2
+    per_step = chip_smoke.v1_launches_per_step(cfg.model, t)
+    assert dict(_build.LAUNCHES) == {k: 2 * v for k, v in per_step.items()}
+
+
+def test_v1_graphed_train_steps_equal_their_eager_run(dev):
+    """Two calls of K = 2 device-data v1 steps (``--steps_per_call 2
+    --device_data``, the attention kernel at v1's head dims, ``adan_ema``):
+    the graphed run (the first step the warm-up, three replays) against the
+    same steps eager from the same state: losses and the whole state the
+    same bits, the same launches, four steps' worth."""
+    from lm2a_tpu_torch.core import graphs
+    from lm2a_tpu_torch.diffusion.schedule import make_schedule
+    from lm2a_tpu_torch.training.checkpoint import state_arrays
+    from lm2a_tpu_torch.training.train_step import init_train_state, make_device_data_multistep
+
+    cfg = V1_CFG
+    data = {k: v.to(dev) for k, v in _v1_batch(6, 64, 22).items()}
+    idx = [[[0, 4], [5, 1]], [[2, 3], [3, 0]]]
+    out = {}
+    for label in ("graph", "eager"):
+        state = init_train_state(cfg, 0, dev)
+        multi = make_device_data_multistep(make_schedule(cfg.diffusion, device=dev), cfg,
+                                           dataset_mean=-4.6, dataset_std=1.9)
+        _build.reset_launches()
+        with graphs.eager_on_card() if label == "eager" else contextlib.nullcontext():
+            losses = [multi(state, data, torch.tensor(i), 7, [2 * c, 2 * c + 1])
+                      for c, i in enumerate(idx)]
+        torch.cuda.synchronize()
+        out[label] = (torch.cat(losses).cpu(), state_arrays(state), dict(_build.LAUNCHES))
+    assert torch.isfinite(out["graph"][0]).all()
+    assert torch.equal(out["graph"][0], out["eager"][0])
+    assert out["graph"][2] == out["eager"][2]
+    per_step = chip_smoke.v1_launches_per_step(cfg.model, 64)
     assert out["graph"][2] == {k: 4 * v for k, v in per_step.items()}
     for key, want in out["eager"][1].items():
         assert (out["graph"][1][key] == want).all(), key
@@ -1515,24 +1651,39 @@ def test_narrow_widths_backward_kernels(dev, base):
         test_resblock_backward_matches_plain(dev, 3, 65, cin, cout, skip)
 
 
-def test_widths_off_the_8_channel_unit_are_refused_by_name(dev):
-    """A channel count that is not a multiple of 8 (16-byte bf16 rows) is
-    refused by name before any launch (an open item of ROADMAP Queue 3)."""
-    from lm2a_tpu_torch.ops import resblock_grad as rg
+def _odd_blocks(which):
+    """Blocks whose widths are off the 8-channel unit: every distinct block
+    of base width 12 or 20 (widths 12·k and 20·k, C/G 3, 5, 6 and 10), or an
+    odd-width pair (Cin 21 -> Cout 42 with a skip, and 42 -> 42 with the
+    residual; C/G 21)."""
+    if which == "odd":
+        return [(21, 42, True, False), (42, 42, False, True)]
+    return _narrow_blocks(int(which[4:]))
 
-    gen = torch.Generator().manual_seed(5)
-    w, x, film = chip_smoke.random_chain(gen, 1, 8, 36, 36, False, dev)
-    m, r = rb.gn_stats_plain(x, w.groups1)
-    _build.reset_launches()
-    with pytest.raises(ValueError, match="multiples of 8, got Cin=36"):
-        rb.conv3_fused(x, m.to(dev), r.to(dev), w.gn1_scale, w.gn1_bias, w.conv1_w, w.conv1_b,
-                       film=film)
-    g = torch.zeros((1, 8, 36), device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="multiples of 8"):
-        rg.conv3_dgrad(g, torch.zeros((36, 36), device=dev, dtype=torch.bfloat16), taps=1)
-    with pytest.raises(ValueError, match="multiples of 8"):
-        rg.conv3_wgrad(g, g, taps=1)
-    assert not _build.LAUNCHES
+
+@pytest.mark.parametrize("which", ["base12", "base20", "odd"])
+def test_widths_off_the_8_channel_unit_run_against_plain(dev, which):
+    """Widths off the 8-channel unit, through the kernels' masked forms:
+    ``gn_stats`` + ``conv3_fused`` (the chain and conv 1's modes) and
+    ``conv3_dgrad``, ``conv3_wgrad``, ``gn_bwd`` (one by one and as a whole
+    block backward) at every such block, against their plain versions
+    (``TOL``, ``chip_smoke.TOL_REL_L2``)."""
+    for cin, cout, skip, add_res in _odd_blocks(which):
+        for rows, t in ((2, 37), (4, 65)):
+            gen = torch.Generator().manual_seed(cin + cout + t)
+            w, x, (fs, fh) = chip_smoke.random_chain(gen, rows, t, cin, cout, skip, dev)
+            _build.reset_launches()
+            got = rb.fused_resblock_chain(x, w, fs, fh, add_residual=add_res)
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES == {"gn_stats": 2, "conv3_fused": 2}, (cin, cout)
+            _close(got, rb.resblock_chain_plain(x, w, fs, fh, add_residual=add_res), TOL["chain"])
+            m1, r1 = rb.gn_stats(x, w.groups1)
+            args1 = (x, m1, r1, w.gn1_scale, w.gn1_bias, w.conv1_w, w.conv1_b)
+            for kw in (dict(film=(fs, fh)), dict(film=(fs, fh), save_pre=True)):
+                _close(rb.conv3_fused(*args1, **kw), rb.conv3_fused_plain(*args1, **kw),
+                       TOL["conv3_fused"])
+        test_backward_kernels_one_by_one(dev, 2, 37, cin, cout, skip)
+        test_resblock_backward_matches_plain(dev, 3, 65, cin, cout, skip)
 
 
 def test_base_width_32_fused_attention_on_the_card(dev, tmp_path):

@@ -173,13 +173,16 @@ def test_dgrad_tiling_emulation(b, t, mw, bn, splits, cout):
 
 
 NARROW = [(b, t, cin, cout) for b, t in ((2, 37), (1, 65)) for cin, cout in
-          ((16, 16), (16, 32), (48, 48), (48, 96), (96, 96), (144, 48), (32, 40))]
+          ((16, 16), (16, 32), (48, 48), (48, 96), (96, 96), (144, 48), (32, 40),
+           # widths off the 8-channel unit: bases 12 and 20, an odd-width block
+           (12, 12), (12, 24), (20, 40), (80, 20), (21, 42), (42, 21))]
 
 
 @pytest.mark.parametrize("b,t,cin,cout", NARROW, ids=[f"B{c[0]}-T{c[1]}-{c[2]}x{c[3]}" for c in NARROW])
 def test_dgrad_plan_and_emulation_at_narrow_widths(b, t, cin, cout):
-    """Channel counts 16·k (and 40): ceil(Cin / BN) N tiles, a last K chunk
-    of 8 to 56 channels (zero rows past it), C/G 2 to 18 at
+    """Channel counts 16·k (and 40, and 12 to 80 off the 8-channel unit):
+    ceil(Cin / BN) N tiles, a last K chunk of 12 to 56 channels (zero rows
+    past it), C/G 1 to 21 at
     default_num_groups; the emulated kernel gives the plain version's d_y
     and partials within ``chip_smoke.TOL_REL_L2``."""
     p = rg.dgrad_plan(b, t, cin, cout, 3)

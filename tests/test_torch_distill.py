@@ -277,6 +277,50 @@ def test_distill_step_matches_jax(setup):
     assert pstate.step == pstate.opt.step == 4
 
 
+@pytest.mark.parametrize("guidance", GUIDANCES)
+def test_fused_attention_teacher_loss_matches_jax(guidance):
+    """A ``fused_attention`` teacher and student at base width 32 (head dims
+    16 and 32): the port's teacher on the serving route through the
+    attention core (its plain version on the CPU), JAX's through its Pallas
+    kernels in interpret mode; the x0_snr loss of one batch within
+    ``TOL_LOSS`` (fp32 on both sides, the kernel's softmax summed in another
+    order)."""
+    model = dataclasses.replace(JCFG.model, base_dim=32, fused_attention=True)
+    jcfg = dataclasses.replace(JCFG, model=model)
+    pcfg = dataclasses.replace(PCFG, model=config_from_dict(jax_config_to_dict(jcfg)).model)
+    student = init_train_state(pcfg, 0, "cpu", make_optimizer(pcfg))
+    teacher_state = init_train_state(pcfg, 5, "cpu")
+    jstate = jax_train_state(state_arrays(student))
+    jteacher = jax_train_state(state_arrays(teacher_state)).ema_params
+    seen = {}
+    real = jts.make_update_step
+
+    def spy(loss_builder, *a, **kw):
+        seen["lb"] = loss_builder
+        return real(loss_builder, *a, **kw)
+
+    jts.make_update_step = spy
+    try:
+        jdistill._distill_one_step(jax_bd(jcfg.model, "float32"), jax_bcp(jcfg.model, "float32"),
+                                   jax_make_schedule(jcfg.diffusion), jcfg,
+                                   jts.make_optimizer(jcfg), N_STUDENT, dataset_mean=MEAN,
+                                   dataset_std=STD, guidance_weight=guidance,
+                                   loss_space="x0_snr")
+    finally:
+        jts.make_update_step = real
+    batch, key = make_batch(3), jax.random.key(KEY)
+    want = float(jax.jit(seen["lb"])(jstate.params, batch, key, jteacher))
+    teacher = distill.build_teacher(pcfg, teacher_state.ema)
+    assert teacher.unet.fused_attention
+    grid = tuple(torch.as_tensor(a) for a in distill.student_time_grid(40, N_STUDENT))
+    with torch.no_grad():
+        got = float(distill.distill_loss(
+            student, teacher, make_schedule(pcfg.diffusion), grid, torch_batch(batch), pcfg,
+            dataset_mean=MEAN, dataset_std=STD, guidance_weight=guidance, x0_clip=2.0,
+            loss_space="x0_snr", draws=jax_draws(key)))
+    assert np.isfinite(got) and abs(got - want) <= TOL_LOSS * abs(want), (got, want)
+
+
 # ---------------------------------------------------------------- the port alone
 
 def test_teacher_is_a_copy_the_student_cannot_reach(setup):

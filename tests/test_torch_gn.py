@@ -263,7 +263,44 @@ def test_gn_bwd_plan(c):
     assert cb in (64, 128) and c % cb == 0 and (cb == 128 or c % 128)
 
 
-@pytest.mark.parametrize("c", [16, 32, 48, 96, 144, 200])
+# (C, G): C/G 1, 3, 5, 6 and 10 at widths off the 8-channel unit (bases 12
+# and 20 at default_num_groups) and an odd width in one group and in 21
+ODD_CG = [(8, 8), (12, 4), (24, 8), (20, 4), (40, 8), (48, 8), (80, 8), (21, 1), (21, 21),
+          (42, 2)]
+
+
+@pytest.mark.parametrize("c,groups", ODD_CG)
+@pytest.mark.parametrize("t", [37, 129])
+def test_gn_plain_at_every_group_width(c, groups, t):
+    """``gn_stats_plain`` and ``gn_bwd_plain`` against the JAX package's
+    ``_gn_fwd_stats`` / ``_gn_bwd`` at C/G 1 to 21 (``REL``)."""
+    cg = c // groups
+    pre, _, gamma, mean, rstd, _ = _gn_bwd_case(t + c + groups, 1, t, c, groups)
+    # dy from a stream of its own (the case's dy is a linear function of pre,
+    # whose gradient through a group of one channel is ~0)
+    dy = torch.tensor(np.random.default_rng(t * c).standard_normal((1, t, c)).astype(np.float32))
+    sums = torch.stack([rg._tile_sums(dy), rg._tile_sums(dy * rg._xhat(pre, mean, rstd))])
+    p_assign = prb._group_matrices(c, groups, jnp.float32)
+    xhat, rstd_c = prb._gn_fwd_stats(jnp.asarray(pre[0].numpy()), p_assign, t * cg)
+    mine = (pre[0] - mean[0].repeat_interleave(cg)) * rstd[0].repeat_interleave(cg)
+    assert _rel(mine.numpy(), np.asarray(xhat)) <= REL
+    pieces = torch.stack([sums, torch.zeros_like(sums)], 1)
+    got, _ = rg.gn_bwd_plain(dy, pre, mean, rstd, gamma, pieces)
+    want = prb._gn_bwd(jnp.asarray(dy[0].numpy()), xhat, rstd_c, jnp.asarray(gamma.numpy()),
+                       p_assign, t * cg)
+    assert _rel(got[0].numpy(), np.asarray(want)) <= REL
+
+
+@pytest.mark.parametrize("c,groups", ODD_CG)
+@pytest.mark.parametrize("b,t", [(2, 516), (16, 258), (4, 12920)])
+@pytest.mark.parametrize("in_bytes", [2, 4])
+def test_gn_stats_plan_at_every_group_width(c, groups, b, t, in_bytes):
+    """The cluster split at C/G 1 to 21: scalars where a run of C/G channels
+    is not whole 16-byte vectors, T covered, the caps held."""
+    test_gn_stats_plan(b, t, c, groups, in_bytes)
+
+
+@pytest.mark.parametrize("c", [16, 32, 48, 96, 144, 200, 12, 20, 21, 42, 80])
 def test_gn_bwd_plan_at_narrow_widths(c):
     """Widths off the 64-channel block: 64-channel blocks, the last one
     partial; C/G not a multiple of 4 never takes a 128-channel block."""
@@ -278,6 +315,9 @@ def test_gn_bwd_plan_at_narrow_widths(c):
     (2, 5, 320, 4), (1, 129, 512, 2),
     # the narrow bases' widths: C/G 2, 4, 6, 12 and last blocks of 16 to 48
     (2, 37, 16, 8), (1, 70, 32, 8), (2, 65, 48, 8), (1, 40, 96, 8), (2, 9, 144, 8),
+    # widths off the 8-channel unit: C/G 3, 5, 10, 21 and 1
+    (2, 37, 12, 4), (1, 40, 20, 4), (2, 65, 80, 8), (2, 65, 21, 1), (1, 9, 42, 2),
+    (1, 70, 21, 21),
 ])
 @pytest.mark.parametrize("mode", ["plain", "extra", "film"])
 def test_gn_bwd_block_emulation(b, t, c, groups, mode):
