@@ -134,6 +134,27 @@ skipped:
    step timed (ms, clips/s, peak memory); ``cli sample`` (DDIM-10, CFG
    2.1) of the checkpoint, 280 attention launches, its 4-row forward
    against the host; one ``cli serve`` request;
+   4k. parallelism (``run_parallel``), each rank a process of this script
+   (``--rank_worker``), the two ranks of a group sharing the card over gloo:
+   ``cli train`` over 4d's pack as two data-parallel processes of 8 rows
+   (B=16 global), one epoch of 4 steps (saved at its end) then ``--resume``
+   to 6, against one process over the same pack and seed: 4d's launches a
+   step a rank, rank 0's checkpoints alone, every loss and the step-6
+   parameters against 4d's run, step 1's all-reduced gradient against a
+   2-step one-process run (``ROUTE_TOL``), each rank's step 1 against Adan's
+   plain update of its own gradient; ms a step a rank; one process on NCCL
+   (``--num_processes 1``) for 2 steps, the 2-step run's bits (this checks
+   the NCCL init and the one-process path: at one process no collective
+   runs); the sequence-parallel DDIM-10 chain at T=5168 (60 s, CFG 2.1) over
+   two processes: its launches a forward a rank, its census, ms a step, at
+   every step's state of the unsharded chain the sharded forward's eps
+   against the unsharded one (``UNET_REL_L2``), and at every GroupNorm site
+   of one forward ``gn_sums`` against ``gn_sums_plain`` and the finished
+   statistics of the all-reduced sums against ``gn_stats_plain`` of the
+   gathered tensor; at TP=2 the second of two flagship train steps against
+   the replicated step bit for bit (gradient, clip norm, every leaf's
+   shard), the state's bytes a rank, and a 6 s DDIM-10 chain through
+   ``make_tp_sampler`` against the replicated chain;
 5. one protocol chain (B=1, T=516, CFG 2.1, DDPM with ``--ddpm_steps``
    steps), DDIM-2 and DDIM-50, each run once to capture its cache entry and
    then timed as replays, and one vocode, timed; a DDIM-10 chain profiled
@@ -262,6 +283,11 @@ TOL["adan_ema"] = dict(atol=0.0, rtol=2e-7)
 # (15 blocks of bf16 roundings in another order), the vocoder in fp32 on both
 UNET_REL_L2 = 2e-2
 VOCODER_MAX_ABS = 1e-3
+# gn_stats's sums form against gn_sums_plain: fp32 sums of the same values
+# in another order differ by at most a few ulps of each partial sum, so the
+# error of a (row, group) sum is held to this share of the sum of the terms'
+# magnitudes (sum |x| for the sum, sum x^2 for the sum of squares)
+GN_SUMS_REL = 1e-5
 
 KERNELS = {
     "gn_stats": dict(route="cuda", source="lm2a_tpu_torch/csrc/resblock.cu",
@@ -1417,6 +1443,667 @@ def run_train(work: str, mc: ModelConfig):
          f"train losses {losses}")
     log(f"[train] losses by step {losses}")
     out.update(losses=losses, pack=pack, ckpt=os.path.join(save, "ckpt_step_8"))
+    return out
+
+
+# 4k: data parallelism, two processes on the one card (gloo: NCCL refuses
+# two ranks on one device), and one process on NCCL
+DP_RANKS = 2
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def rank_worker(spec_path: str) -> int:
+    """One process of 4k (``python3 chip_smoke.py --rank_worker <spec.json>``),
+    its result written to the spec's ``out``: ``job`` "train" runs ``cli
+    train`` with the spec's flags in this process, every step call timed
+    (synchronised), and writes its launches, step times and peak memory;
+    "sp" runs one rank of the sequence-parallel chain (``sp_rank``)."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if spec["job"] == "sp":
+        return sp_rank(spec)
+    if spec["job"] == "tp":
+        return tp_rank(spec)
+    _build.reset_launches()
+    with step_hooks(spec) as seen:
+        run_cli(["train", *spec["argv"]])
+    with open(spec["out"], "w") as f:
+        json.dump(dict(launches=dict(_build.LAUNCHES),
+                       peak_gib=torch.cuda.max_memory_allocated() / 2**30, **seen), f)
+    return 0
+
+
+def state_digest(state) -> str:
+    """sha256 of a train state's tensors (parameters, EMA, Adan state) in
+    name order: the same bits, the same digest."""
+    import hashlib
+
+    from lm2a_tpu_torch.training.adan import STATE_KEYS
+
+    h = hashlib.sha256()
+    trees = [state.params(), state.ema] + [getattr(state.opt, k) for k in STATE_KEYS]
+    for tree in trees:
+        for k in sorted(tree):
+            h.update(tree[k].detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def step_hooks(spec):
+    """Every step of ``cli train`` run inside the block timed (synchronised,
+    ``seen["step_ms"]``); at step ``spec["check_at"]`` (1 = the second) the
+    update against Adan's plain update of its own gradient
+    (``seen["update_err"]``), the step's clipped gradient against the one
+    saved at ``spec["grad_ref"]`` (``seen["grad_rel_l2"]``) or saved there
+    (``spec["grad_save"]``); the state's digest after step
+    ``spec["digest_at"]``."""
+    from lm2a_tpu_torch.training import train_step as ts
+
+    seen, real = {"step_ms": []}, ts.StepRunner.run
+    times = seen["step_ms"]
+
+    def hooked(self, *a, **kw):
+        check = len(times) == spec.get("check_at", -1)
+        if check:
+            before = snapshot(self.state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(self, *a, **kw)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if check:
+            seen["update_err"] = update_err(before, self.state, self.step.optimizer)
+            del before
+            grad = torch.cat([g.detach().float().reshape(-1).cpu() for _, g in
+                              sorted(self.state.opt.prev_grad.items())])
+            if spec.get("grad_save"):
+                np.save(spec["grad_save"], grad.numpy())
+            if spec.get("grad_ref"):
+                seen["grad_rel_l2"] = rel_l2(grad, torch.from_numpy(np.load(spec["grad_ref"])))
+        if len(times) - 1 == spec.get("digest_at", -1):
+            seen["digest"] = state_digest(self.state)
+        return out
+
+    ts.StepRunner.run = hooked
+    try:
+        yield seen
+    finally:
+        ts.StepRunner.run = real
+
+
+def run_ranks(work: str, tag: str, argvs, timeout: float = 300.0):
+    """One ``rank_worker`` process per argv (``cli train`` flags, or a job's
+    spec dict), started together; waits for all, fails if any fails (the
+    others are killed), and returns each one's stdout and result. No
+    process outlives the call."""
+    procs, specs = [], []
+    for r, argv in enumerate(argvs):
+        spec = os.path.join(work, f"{tag}_{r}.json")
+        with open(spec, "w") as f:
+            json.dump(dict(argv, out=spec + ".out") if isinstance(argv, dict)
+                      else dict(job="train", argv=argv, out=spec + ".out"), f)
+        specs.append(spec)
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                       "--rank_worker", spec], cwd=ROOT, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    outs = [None] * len(procs)
+    try:
+        deadline = time.monotonic() + timeout
+        for r, p in enumerate(procs):
+            outs[r] = p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    need(not bad, f"{tag}: ranks {bad} failed:\n" + "\n".join(
+        f"--- rank {r} (rc {procs[r].returncode}) ---\n{(outs[r] or '')[-3000:]}" for r in bad))
+    res = []
+    for spec in specs:
+        with open(spec + ".out") as f:
+            res.append(json.load(f))
+    return outs, res
+
+
+def train_log_losses(save: str):
+    with open(os.path.join(save, "train_log.csv")) as f:
+        rows = [r.split(",") for r in f.read().splitlines()[1:]]
+    return {int(r[1]): float(r[2]) for r in rows if r[4] == ""}
+
+
+def state_npz(path: str):
+    with np.load(os.path.join(path, "state.npz")) as z:
+        return {k: z[k] for k in z.files}
+
+
+def rel_l2_np(got: dict, want: dict, keys) -> float:
+    num = sum(float(np.square(got[k].astype(np.float64) - want[k]).sum()) for k in keys)
+    den = sum(float(np.square(want[k].astype(np.float64)).sum()) for k in keys)
+    return (num / den) ** 0.5
+
+
+@torch.no_grad()
+def update_err(before, state, optimizer) -> float:
+    """The update a step made, from ``before`` (``snapshot`` of the state
+    before it) to ``state``, against Adan's plain update (the kernel's plain
+    version, the JAX expressions) of ``before`` with the step's own
+    all-reduced gradient (its clipped gradient, ``state.opt.prev_grad``, so
+    the plain update runs unclipped); the largest error over parameters, EMA
+    and Adan state in units of ``TOL["adan_ema"]`` (up to one fp32 ulp), so
+    at most 1."""
+    from lm2a_tpu_torch.training.adan import BETAS, EPS
+
+    dev = next(iter(before["params"].values())).device
+    scal = optimizer.stage_scalars(before["opt_step"],
+                                   torch.empty(adan_op.N_SCALARS, device=dev))
+    o = before["opt"]
+    for k, p in before["params"].items():
+        adan_op.adan_ema_plain((state.opt.prev_grad[k], p, before["ema"][k], o["m"][k],
+                                o["v"][k], o["n"][k], o["prev_grad"][k]), scal, betas=BETAS,
+                               eps=EPS, clip=0.0)
+    tol, worst = TOL["adan_ema"], 0.0
+    for a, b in [(before["params"], state.params()), (before["ema"], state.ema)] + [
+            (o[n], getattr(state.opt, n)) for n in ("m", "v", "n")]:
+        for k in a:
+            got, want = a[k].detach().float(), b[k].detach().float()
+            diff = (got - want).abs()
+            ratio = torch.where(diff == 0, torch.zeros_like(diff),
+                                diff / (tol["atol"] + tol["rtol"] * want.abs()))
+            worst = max(worst, float(ratio.max()))
+    return worst
+
+
+def run_parallel_dp(work: str, pack: str, reference: str, ref_losses, mc: ModelConfig,
+                    smi: str, device):
+    """4k, data parallelism: ``cli train`` (B=16 global, flagship width,
+    ``--fused_resblock_grad --opt_backend pallas``) as two processes of 8
+    rows on the one card over gloo, one epoch of 4 steps, then ``--resume``
+    for 2 more, against one process over the same pack and seed: 4d's run
+    (``reference``, its ``ref_losses``; 6 steps, the same batches) for
+    every loss and the step-6 parameters, and a 2-step run here for step 1's
+    all-reduced gradient (taken where both runs' parameters are still alike:
+    later ones are taken at parameters that Adan's first updates, which do
+    not scale with the gradient, have moved apart); each rank's step 1
+    against Adan's plain update of its own gradient; then one process on
+    NCCL for 2 steps against that 2-step run's bits (state digests). The
+    runs save only where ``cli train`` must (an epoch's end, a run's end):
+    a flagship checkpoint is 3.2 GB, and the whole smoke writes to one disk."""
+    os.makedirs(work, exist_ok=True)
+    per_step, _ = train_launches_per_step(mc)
+    ref, dp, nccl = (os.path.join(work, d) for d in ("ref", "dp", "nccl"))
+    grad_ref = os.path.join(work, "grad_step1.npy")
+    common = ["--npz_dir", pack, *TRAIN_ARGS]
+    out = {}
+    t0 = time.perf_counter()
+    with step_hooks(dict(check_at=1, grad_save=grad_ref, digest_at=1)) as ref_seen:
+        run_cli(["train", "--save_dir", ref, *common, "--max_steps", "2"])
+    out["reference_s"] = time.perf_counter() - t0
+    want = {k: v for k, v in ref_losses.items() if k < 6}
+    for label, extra, steps, ckpts in (("train", ["--epochs", "1"], 4, [4]),
+                                       ("resume", ["--max_steps", "6", "--resume"], 2, [4, 6])):
+        port = free_port()
+        t0 = time.perf_counter()
+        logs, res = run_ranks(work, f"dp_{label}", [
+            dict(job="train", check_at=1 if label == "train" else -1, grad_ref=grad_ref,
+                 argv=["--save_dir", dp, *common, *extra, "--coordinator",
+                       f"127.0.0.1:{port}", "--num_processes", str(DP_RANKS), "--process_id",
+                       str(r)])
+            for r in range(DP_RANKS)])
+        secs = time.perf_counter() - t0
+        from lm2a_tpu_torch.training.checkpoint import list_checkpoints
+
+        found = list_checkpoints(dp)
+        expected = {k: v * steps for k, v in per_step.items()}
+        for r, (text, rr) in enumerate(zip(logs, res)):
+            need(f"process {r}/{DP_RANKS}: backend gloo on cuda:0" in text,
+                 f"dp {label} rank {r}: no gloo process line")
+            need(rr["launches"] == expected,
+                 f"dp {label} rank {r}: launches {rr['launches']} != expected {expected}")
+            need(("saved checkpoint:" in text) == (r == 0),
+                 f"dp {label} rank {r}: checkpoints written by a rank other than 0")
+        need(found == ckpts, f"dp {label}: checkpoints {found} != {ckpts}")
+        ms = [float(np.median(rr["step_ms"][1:] or rr["step_ms"])) for rr in res]
+        log(f"[parallel] dp cli {label}: {steps} steps, B={TRAIN_B} over {DP_RANKS} processes "
+            f"of {TRAIN_B // DP_RANKS} rows on one card (gloo), flagship, bf16, eager: "
+            f"{secs:.2f} s with start-up, set-up and saves; ms per step by rank (median, first "
+            f"left out) {[round(m, 2) for m in ms]}, {TRAIN_B / (max(ms) / 1e3):.1f} clips/s; "
+            f"peak GiB by rank {[round(rr['peak_gib'], 2) for rr in res]}; launches a rank "
+            f"{res[0]['launches']} (expected {expected}); checkpoints {found}, rank 0's alone; "
+            f"{smi}")
+        out[label] = dict(seconds=secs, step_ms=[rr["step_ms"] for rr in res],
+                          launches=[rr["launches"] for rr in res], checkpoints=found,
+                          peak_gib=[rr["peak_gib"] for rr in res])
+        if label == "train":
+            out["update_err"] = [rr["update_err"] for rr in res] + [ref_seen["update_err"]]
+            out["grad_rel_l2"] = [rr["grad_rel_l2"] for rr in res]
+    got = train_log_losses(dp)
+    need(sorted(got) == sorted(want) == list(range(6)), f"dp losses {got}, reference {want}")
+    loss_rel = max(abs(got[s] - w) / abs(w) for s, w in want.items())
+    grad_rel = max(out["grad_rel_l2"])
+    a, b = state_npz(os.path.join(dp, "ckpt_step_6")), state_npz(
+        os.path.join(reference, "ckpt_step_6"))
+    param_rel = rel_l2_np(a, b, [k for k in b if k.startswith(".params")])
+    del a, b
+    log(f"[parallel] dp against one process (same pack, seed, global batch): losses by step "
+        f"{[round(got[s], 6) for s in range(6)]} against {[round(want[s], 6) for s in range(6)]}"
+        f", worst relative {loss_rel:.2e} (tolerance {ROUTE_TOL['loss_rel']}); step 1's "
+        f"all-reduced gradient relative L2 by rank {out['grad_rel_l2']} (tolerance "
+        f"{ROUTE_TOL['grad_rel_l2']}); step-6 parameters relative L2 {param_rel:.3e} (tolerance "
+        f"{ROUTE_TOL['leaf_rel_l2']}); step 1's update against Adan's plain update of its own "
+        f"gradient, ranks and the one process: {[round(e, 3) for e in out['update_err']]} of "
+        f"the kernel's tolerance {TOL['adan_ema']}")
+    need(loss_rel <= ROUTE_TOL["loss_rel"], "dp losses disagree with one process")
+    need(grad_rel <= ROUTE_TOL["grad_rel_l2"], "dp step-1 gradient disagrees with one process")
+    need(param_rel <= ROUTE_TOL["leaf_rel_l2"], "dp step-6 parameters disagree with one process")
+    need(max(out["update_err"]) <= 1.0, "dp update is not Adan's of its gradient")
+    out.update(losses=got, reference_losses=want, loss_rel=loss_rel, param_rel_l2=param_rel)
+    # NCCL at one process: the non-distributed run's bits
+    t0 = time.perf_counter()
+    logs, res = run_ranks(work, "nccl", [dict(job="train", digest_at=1, argv=[
+        "--save_dir", nccl, *common, "--max_steps", "2", "--coordinator",
+        f"127.0.0.1:{free_port()}", "--num_processes", "1", "--process_id", "0"])])
+    secs = time.perf_counter() - t0
+    need("process 0/1: backend nccl on cuda:0" in logs[0], "nccl: no NCCL process line")
+    same = res[0]["digest"] == ref_seen["digest"]
+    expected = {k: v * 2 for k, v in per_step.items()}
+    log(f"[parallel] nccl: cli train at --num_processes 1 on NCCL, 2 steps, {secs:.2f} s with "
+        f"start-up: the state after step 1 the non-distributed run's bits (sha256 "
+        f"{res[0]['digest'][:16]} against {ref_seen['digest'][:16]}): {same}; loss "
+        f"{train_log_losses(nccl)} against {[want[0], want[1]]}; launches {res[0]['launches']} "
+        f"(expected {expected})")
+    need(same, "nccl: the state differs from the non-distributed run's")
+    need(res[0]["launches"] == expected, f"nccl: launches {res[0]['launches']}")
+    out["nccl"] = dict(seconds=secs, same_bits=same)
+    for d in (ref, dp, nccl):
+        shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+# the sequence-parallel chain of 4k: 60 s of mel, DDIM-10 at CFG 2.1, B=1
+SP_T, SP_STEPS, SP_RANKS, SP_GUIDANCE = 5168, 10, 2, 2.1
+
+
+def sp_inputs(models, device, t: int = SP_T):
+    """Seeded ``x_init`` (1, t, 80) and conditions (1, t, cond_dim) in the
+    serving dtype."""
+    rng = np.random.default_rng(21)
+    dt = models.denoiser.in_proj.weight.dtype
+    cd = models.cfg.model.cond_dim
+    x0, mf, tf = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(device)
+                  for s in ((1, t, 80), (1, t, cd), (1, t, cd)))
+    return x0, mf.to(dt), tf.to(dt)
+
+
+def sp_rank(spec) -> int:
+    """One rank of 4k's sequence-parallel chain: joins the gloo group of
+    ``spec["world"]`` processes on the one card, samples the checkpoint's
+    model with the mel's time axis sharded over them, audited (rank 0 saves
+    the gathered sample), then runs the sharded forward at every step's
+    state of the unsharded chain (``spec["reference"]``) against that
+    step's eps."""
+    import torch.distributed as dist
+
+    from lm2a_tpu_torch.core import distributed
+    from lm2a_tpu_torch.diffusion.schedule import make_schedule
+    from lm2a_tpu_torch.parallel.audit import audit
+    from lm2a_tpu_torch.parallel.sequence import (
+        make_sequence_sharded_sampler, sequence_sharded_forward,
+    )
+
+    need(distributed.init_distributed(spec["coordinator"], spec["world"], spec["rank"]),
+         "sp: no process group")
+    print(distributed.describe(), flush=True)
+    mesh = distributed.make_hybrid_mesh(model=spec["world"])
+    dev = distributed.rank_device()
+    models = load_models(spec["ckpt"], device=dev)
+    t, steps = spec["t"], spec["steps"]
+    x0, mf, tf = sp_inputs(models, dev, t)
+    run = make_sequence_sharded_sampler(models.denoiser, make_schedule(models.cfg.diffusion,
+                                                                       device=dev),
+                                        mesh, SP_GUIDANCE, "ddim", num_steps=steps,
+                                        uncond_fast=True)
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = audit(run, None, (1, t, 80), mf, tf, x_init=x0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    x = rep.pop("result")
+    launches = dict(_build.LAUNCHES)
+    # each step of the unsharded chain again, at its own state: the sharded
+    # forward of the step's (doubled) rows against the unsharded forward's eps
+    ref = np.load(spec["reference"])
+    m2, l2 = (torch.cat([torch.zeros_like(c), c]) for c in (mf, tf))
+    lo, hi = run.shard.bounds(t)
+    step_rel = []
+    # the first forward's GroupNorm inputs, every site (stage T, C/G) as the
+    # chain gives them to the sums form, for the kernel-against-plain check
+    sites, real_stats = [], run.shard.stats
+
+    def recording(x, groups, n):
+        sites.append((x.contiguous().clone(), groups, n))
+        return real_stats(x, groups, n)
+
+    with torch.no_grad():
+        for i, (xs, ts, eps) in enumerate(zip(ref["x"], ref["t"], ref["eps"])):
+            run.shard.stats = recording if i == 0 else real_stats
+            xs = torch.from_numpy(xs).to(dev)
+            got = run.shard.gather(sequence_sharded_forward(
+                models.denoiser, run.shard, xs[:, lo:hi].contiguous(),
+                torch.from_numpy(ts).to(dev), m2, l2, t, uncond_rows=1), t).cpu()
+            step_rel.append(rel_l2(got, torch.from_numpy(eps)))
+        run.shard.stats = real_stats
+        gn = sums_kernel_check(run.shard, sites)
+    del sites
+    if spec["rank"] == 0:
+        np.save(spec["out"] + ".npy", x.cpu().numpy())
+    with open(spec["out"], "w") as f:
+        json.dump(dict(launches=launches, census=rep, seconds=secs, rows=[lo, hi],
+                       step_rel_l2=step_rel, gn_sums=gn,
+                       peak_gib=torch.cuda.max_memory_allocated() / 2**30), f)
+    dist.destroy_process_group()
+    return 0
+
+
+@torch.no_grad()
+def sums_kernel_check(shard, sites):
+    """``gn_sums`` (the sums form of ``gn_stats``) on each recorded site's
+    shard rows ``(x, groups, n)`` against ``gn_sums_plain`` (``GN_SUMS_REL``
+    of the terms' magnitudes), and ``gn_finish`` of the sums added over the
+    model axis against ``gn_stats_plain`` of the whole gathered tensor
+    (``TOL["gn_stats"]``). Fails on the first disagreement; returns the worst
+    errors and the sites' (local T, global T, C/G)."""
+    from lm2a_tpu_torch.core import distributed
+
+    worst = dict(sum_rel=0.0, sumsq_rel=0.0, mean_abs=0.0, rstd_abs=0.0)
+    shapes = set()
+    for x, g, n in sites:
+        s, ss = rb.gn_sums(x, g)
+        ps, pss = rb.gn_sums_plain(x, g)
+        mag = rb.gn_sums_plain(x.abs(), g)[0]
+        for key, got, want, scale in (("sum_rel", s, ps, mag), ("sumsq_rel", ss, pss, pss)):
+            err = float(((got - want).abs() / scale.clamp_min(1e-30)).max())
+            need(err <= GN_SUMS_REL, f"sp gn_sums {key} at T={x.shape[1]} of {n}, C/G="
+                 f"{x.shape[-1] // g}: {err:.3e} > {GN_SUMS_REL}")
+            worst[key] = max(worst[key], err)
+        tot = distributed.all_reduce(torch.stack([s, ss]), shard.group)
+        mean, rstd = rb.gn_finish(tot[0], tot[1], n * (x.shape[-1] // g))
+        pm, pr = rb.gn_stats_plain(shard.gather(x, n), g)
+        worst["mean_abs"] = max(worst["mean_abs"], check_close(
+            f"sp gn_finish mean at T={n}", mean, pm, TOL["gn_stats"]))
+        worst["rstd_abs"] = max(worst["rstd_abs"], check_close(
+            f"sp gn_finish rstd at T={n}", rstd, pr, TOL["gn_stats"]))
+        shapes.add((x.shape[1], n, x.shape[-1] // g))
+    return dict(worst, sites=len(sites), shapes=sorted(shapes))
+
+
+def run_parallel_sp(work: str, ckpt: str, n_blocks: int, smi: str, device, t: int = SP_T,
+                    steps: int = SP_STEPS):
+    """4k, sequence parallelism: a flagship-width DDIM-10 chain at T=5168
+    (60 s, CFG 2.1, B=1) over two processes on the one card (gloo), each
+    with 2584 frames, held step by step against the unsharded chain on the
+    card: at every step's state of the unsharded chain (recorded eagerly),
+    the sharded forward's eps against the unsharded forward's, within
+    ``UNET_REL_L2`` (a full-width forward's bf16 bound). The two chains'
+    samples are compared too, but not held: bf16 forwards that differ by
+    1e-3-1e-2 (the sharded one sums its GroupNorm statistics and its convs
+    in other orders) move the first step's x0 prediction, which DDIM divides
+    by sqrt(alpha_bar) of t=999 (about 0.006) and clamps, by the same
+    tenths the unsharded chain moves between bf16 and fp32."""
+    from lm2a_tpu_torch.core import graphs
+    from lm2a_tpu_torch.diffusion.gaussian import ddim_sample
+    from lm2a_tpu_torch.diffusion.schedule import make_schedule
+
+    os.makedirs(work, exist_ok=True)
+    models = load_models(ckpt, device=device)
+    x0, mf, tf = sp_inputs(models, device, t)
+    schedule = make_schedule(models.cfg.diffusion, device=device)
+    rec = {"x": [], "t": [], "eps": []}
+
+    def recorded(x, tt, m, l, uncond_rows=0):
+        eps = models.denoiser(x, tt, m, l, uncond_rows=uncond_rows)
+        for k, v in (("x", x), ("t", tt), ("eps", eps)):
+            rec[k].append(v.detach().cpu().numpy())
+        return eps
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with graphs.eager_on_card():
+        want = ddim_sample(recorded, schedule, (1, t, 80), mf, tf, num_steps=steps,
+                           guidance_weight=SP_GUIDANCE, x_init=x0, uncond_fast=True).cpu()
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    reference = os.path.join(work, "sp_reference.npz")
+    np.savez(reference, **{k: np.stack(v) for k, v in rec.items()})
+    del models
+    torch.cuda.empty_cache()
+    port = free_port()
+    logs, res = run_ranks(work, "sp", [
+        dict(job="sp", ckpt=ckpt, coordinator=f"127.0.0.1:{port}", world=SP_RANKS, rank=r,
+             t=t, steps=steps, reference=reference) for r in range(SP_RANKS)])
+    got = torch.from_numpy(np.load(os.path.join(work, "sp_0.json.out.npy")))
+    err = rel_l2(got, want)
+    per_fwd = {"gn_stats": 2 * n_blocks + 1, "conv3_fused": 2 * n_blocks}
+    expected = {k: v * steps for k, v in per_fwd.items()}
+    for r, rr in enumerate(res):
+        c = rr["census"]["collectives"]
+        log(f"[parallel] sp rank {r} of {SP_RANKS} (gloo, one card): frames {rr['rows']} of "
+            f"{t}, DDIM-{steps} CFG {SP_GUIDANCE} B=1 flagship bf16, eager: "
+            f"{rr['seconds']:.3f} s, {rr['seconds'] / steps * 1e3:.1f} ms a step; launches "
+            f"a forward {({k: v / steps for k, v in rr['launches'].items()})} (expected "
+            f"{per_fwd}); census of the chain {c}, {rr['census']['bytes']} bytes delivered; "
+            f"peak {rr['peak_gib']:.2f} GiB; gn_stats's sums form at the {rr['gn_sums']['sites']}"
+            f" GroupNorm sites of one forward (local T, T, C/G) {rr['gn_sums']['shapes']}: "
+            f"against gn_sums_plain sum {rr['gn_sums']['sum_rel']:.3e}, sum of squares "
+            f"{rr['gn_sums']['sumsq_rel']:.3e} of the terms' magnitudes (tolerance "
+            f"{GN_SUMS_REL}); gn_finish of the all-reduced sums against gn_stats_plain of the "
+            f"gathered tensor, max abs mean {rr['gn_sums']['mean_abs']:.3e}, rstd "
+            f"{rr['gn_sums']['rstd_abs']:.3e} (tolerance {TOL['gn_stats']})")
+        need(rr["gn_sums"]["sites"] == 2 * n_blocks + 1, f"sp rank {r}: gn sites "
+             f"{rr['gn_sums']['sites']}")
+        need(rr["launches"] == expected, f"sp rank {r}: launches {rr['launches']}")
+        need(c.get("collective-permute", 0) >= 1 and c.get("all-gather", 0) >= 1
+             and c.get("all-reduce", 0) >= 1, f"sp rank {r}: census {c}")
+    step_rel = res[0]["step_rel_l2"]
+    log(f"[parallel] sp against the unsharded chain on the card (eager, {ref_s:.3f} s): at each "
+        f"step's state, the sharded forward's eps relative L2 "
+        f"{[f'{e:.3e}' for e in step_rel]} (tolerance {UNET_REL_L2}); the samples after "
+        f"{steps} steps, relative L2 {err:.3e} (not held: see run_parallel_sp), finite "
+        f"{bool(torch.isfinite(got).all())}; {smi}")
+    need(tuple(got.shape) == (1, t, 80) and bool(torch.isfinite(got).all()), "sp: bad sample")
+    need(len(step_rel) == steps and max(step_rel) <= UNET_REL_L2,
+         "sp forwards disagree with the unsharded chain's")
+    return dict(step_rel_l2=step_rel, sample_rel_l2=err, ranks=res, reference_s=ref_s)
+
+
+TP_RANKS, TP_SEED, TP_STEPS = 2, 1234, 10
+
+
+def tp_rank(spec) -> int:
+    """One rank of 4k's tensor-parallel check, on the one card over gloo:
+    two flagship B=16 train steps of the TP state (this rank's shards) and
+    of the replicated state, from the same seed, batch and generators; the
+    second step's whole gradient, clip norm and this rank's shard of every
+    leaf against the replicated ones, bit for bit (the same kernels on the
+    same values), and this rank's part of the step's and EMA change's
+    differences (each replicated leaf on rank 0 alone); then a 6 s DDIM-10 chain through
+    ``make_tp_sampler`` from this rank's shards of the replicated EMA
+    against the replicated EMA's chain."""
+    import torch.distributed as dist
+
+    from lm2a_tpu_torch.core import distributed
+    from lm2a_tpu_torch.diffusion.gaussian import ddim_sample
+    from lm2a_tpu_torch.diffusion.schedule import make_schedule
+    from lm2a_tpu_torch.models.factory import build_denoiser as port_build_denoiser
+    from lm2a_tpu_torch.ops.adan import global_norm
+    from lm2a_tpu_torch.parallel.tensor import (
+        _piece, make_tp_sampler, make_tp_train_step, shard_state_tp,
+    )
+    from lm2a_tpu_torch.training.adan import STATE_KEYS
+    from lm2a_tpu_torch.training.train_step import (
+        init_train_state, make_optimizer, make_train_step,
+    )
+
+    need(distributed.init_distributed(spec["coordinator"], spec["world"], spec["rank"]),
+         "tp: no process group")
+    print(distributed.describe(), flush=True)
+    mesh = distributed.make_hybrid_mesh(model=spec["world"])
+    dev = distributed.rank_device()
+    cfg = LM2AConfig()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, fused_resblock_grad=True),
+                              train=dataclasses.replace(cfg.train, opt_backend="pallas"))
+    schedule = make_schedule(cfg.diffusion, device=dev)
+    batch = train_batch(spec["pack"], dev)
+    stats = dict(dataset_mean=-4.5, dataset_std=2.0)
+    out = {}
+    # the replicated step first, its state kept for the comparison
+    rep = init_train_state(cfg, 0, dev, make_optimizer(cfg))
+    o = rep.opt
+    out["replicated_bytes"] = sum(t.numel() * t.element_size() for t in (
+        *rep.params().values(), *rep.ema.values(),
+        *(v for k in STATE_KEYS for v in getattr(o, k).values())))
+    step = make_train_step(schedule, cfg, dataset_mean=stats["dataset_mean"],
+                           dataset_std=stats["dataset_std"])
+    state = init_train_state(cfg, 0, dev, make_optimizer(cfg))
+    tp_step, shardings = make_tp_train_step(schedule, cfg, make_optimizer(cfg), mesh, state,
+                                            **stats)
+    tps, _ = shard_state_tp(state, mesh)
+    out["tp_bytes"] = tps.state_bytes()
+    # step 0 on both (Adan's first step leaves the parameters where they are:
+    # its moments start frozen and 1 + lr * wd rounds to 1), then step 1,
+    # the one compared
+    for s in (TP_SEED, TP_SEED + 1):
+        if s == TP_SEED + 1:
+            before = {k: p.detach().clone() for k, p in rep.params().items()}
+            ema_before = {k: e.clone() for k, e in rep.ema.items()}
+        out["replicated_loss"] = float(step(rep, batch, generator=torch.Generator(
+            dev).manual_seed(s)))
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out["tp_loss"] = float(tp_step(tps, batch, generator=torch.Generator(dev).manual_seed(s)))
+        torch.cuda.synchronize()
+        out["tp_step_ms"] = (time.perf_counter() - t0) * 1e3
+    out["launches"] = dict(_build.LAUNCHES)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    r, parts, first = tps.index, tps.parts, tps.index == 0
+    # bit for bit: step 1's whole gradient (each TP rank holds it; the TP
+    # step slices it after), the clip's norm of it, then this rank's shard of
+    # every leaf the update wrote against the replicated leaf's piece
+    rep_grads = {k: p.grad for k, p in rep.params().items()}
+    tp_grads = {k: p.grad for k, p in tps.state.params().items()}
+    out["grad_diff"] = sum(int((tp_grads[k] != g).sum()) for k, g in rep_grads.items())
+    out["norm"] = [float(global_norm(list(tp_grads.values()))),
+                   float(global_norm(list(rep_grads.values())))]
+    trees = [("params", tps.params, {k: p.detach() for k, p in rep.params().items()}),
+             ("ema", tps.state.ema, rep.ema)] + [
+        (k, getattr(tps.state.opt, k), getattr(rep.opt, k)) for k in STATE_KEYS]
+    out["leaf_diff"] = {name: sum(int((mine[k] != _piece(whole[k], tps.dims[k], r, parts)).sum())
+                                  for k in mine) for name, mine, whole in trees}
+    sums = dict(step=[0.0, 0.0], ema=[0.0, 0.0])
+    for k, d in tps.dims.items():
+        if d is None and not first:
+            continue
+        for key, new_tp, new_rep, old in (("step", tps.params[k], rep.params()[k], before[k]),
+                                          ("ema", tps.state.ema[k], rep.ema[k], ema_before[k])):
+            dt = new_tp.float() - _piece(old, d, r, parts).float()
+            dr = _piece(new_rep.detach(), d, r, parts).float() - _piece(old, d, r, parts).float()
+            sums[key][0] += float((dt - dr).square().sum())
+            sums[key][1] += float(dr.square().sum())
+    out["sums"] = sums
+    del before, ema_before
+    # the TP sampler over the EMA's shards against the replicated EMA's chain
+    rng = np.random.default_rng(31)
+    x0, mf, tf = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(dev)
+                  for sh in ((1, MEL_T, 80), (1, MEL_T, cfg.model.cond_dim),
+                             (1, MEL_T, cfg.model.cond_dim)))
+    mf, tf = mf.bfloat16(), tf.bfloat16()
+    template = port_build_denoiser(cfg.model).to(dev).eval().requires_grad_(False)
+    run = make_tp_sampler(template, schedule, mesh, dict(template.named_parameters()), 2.1,
+                          "ddim", num_steps=TP_STEPS, uncond_fast=True)
+    # the replicated EMA's shards: the TP step's own EMA is held above, and a
+    # chain would magnify its last-bit differences (see run_parallel_sp)
+    ema = {k.split("/", 1)[1]: _piece(v, tps.dims[k], r, parts).contiguous()
+           for k, v in rep.ema.items() if k.startswith("unet/")}
+    got = run(ema, None, (1, MEL_T, 80), mf, tf, x_init=x0)
+    ref_model = port_build_denoiser(cfg.model).to(dev).eval().requires_grad_(False)
+    ref_model.load_state_dict({k.split("/", 1)[1]: v for k, v in rep.ema.items()
+                               if k.startswith("unet/")})
+    want = ddim_sample(ref_model.prepare(torch.bfloat16), schedule, (1, MEL_T, 80), mf, tf,
+                       num_steps=TP_STEPS, guidance_weight=2.1, x_init=x0, uncond_fast=True)
+    out["sample_rel_l2"] = rel_l2(got.cpu(), want.cpu())
+    out["sample_finite"] = bool(torch.isfinite(got).all())
+    with open(spec["out"], "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_parallel_tp(work: str, pack: str, smi: str):
+    """4k, tensor parallelism: two processes on the one card (gloo), the
+    flagship state sharded over them: one B=16 train step against the
+    replicated step, bit for bit (gradient, clip norm, every leaf's shard;
+    the loss, step and EMA change exactly), a 6 s DDIM-10 chain against the
+    replicated chain (``UNET_REL_L2``), and the state's bytes a rank."""
+    os.makedirs(work, exist_ok=True)
+    port = free_port()
+    _, res = run_ranks(work, "tp", [
+        dict(job="tp", pack=pack, coordinator=f"127.0.0.1:{port}", world=TP_RANKS, rank=r)
+        for r in range(TP_RANKS)])
+    step_rel, ema_rel = ((sum(rr["sums"][k][0] for rr in res)
+                          / sum(rr["sums"][k][1] for rr in res)) ** 0.5 for k in ("step", "ema"))
+    loss_rel = max(abs(rr["tp_loss"] - rr["replicated_loss"]) / abs(rr["replicated_loss"])
+                   for rr in res)
+    log(f"[parallel] tp={TP_RANKS} (gloo, one card): flagship B={TRAIN_B} train step 1, "
+        f"kernel route, against the replicated step (seeds {TP_SEED}, {TP_SEED + 1}): loss "
+        f"{res[0]['tp_loss']:.6f} against {res[0]['replicated_loss']:.6f} (relative "
+        f"{loss_rel:.2e}); step relative L2 {step_rel:.3e}; EMA change relative L2 "
+        f"{ema_rel:.3e} (all three held to 0); ms for the step (gather, forward, "
+        f"backward, update) by rank {[round(rr['tp_step_ms'], 2) for rr in res]}; launches a "
+        f"rank {res[0]['launches']}; parameters, EMA and Adan state a rank "
+        f"{[rr['tp_bytes'] for rr in res]} bytes against {res[0]['replicated_bytes']} "
+        f"replicated ({res[0]['tp_bytes'] / res[0]['replicated_bytes']:.3f}); peak GiB by rank "
+        f"{[round(rr['peak_gib'], 2) for rr in res]}; {smi}")
+    log(f"[parallel] tp step 1 against the replicated step, bit for bit: whole-gradient "
+        f"elements that differ by rank {[rr['grad_diff'] for rr in res]}; clip norm (TP, "
+        f"replicated) by rank {[rr['norm'] for rr in res]}; elements of this rank's shards "
+        f"that differ from the replicated leaves' pieces {[rr['leaf_diff'] for rr in res]}")
+    log(f"[parallel] tp sampler: 6 s DDIM-{TP_STEPS} CFG 2.1 from the replicated EMA's shards "
+        f"against the replicated EMA's chain: relative L2 "
+        f"{[f'{rr['sample_rel_l2']:.3e}' for rr in res]} (tolerance {UNET_REL_L2})")
+    # the same kernels on the same values on one card: the replicated step's
+    # bits, so the check is exact (the route tolerances are for card vs host)
+    need(all(rr["grad_diff"] == 0 and rr["norm"][0] == rr["norm"][1]
+             and not any(rr["leaf_diff"].values()) for rr in res),
+         "tp step 1 is not the replicated step's bits")
+    need(loss_rel == 0.0 and step_rel == 0.0 and ema_rel == 0.0,
+         "tp step disagrees with the replicated")
+    need(all(rr["sample_finite"] and rr["sample_rel_l2"] <= UNET_REL_L2 for rr in res),
+         "tp sampler disagrees with the replicated chain")
+    need(all(rr["tp_bytes"] < rr["replicated_bytes"] for rr in res), "tp: no state saved")
+    return dict(loss_rel=loss_rel, step_rel_l2=step_rel, ema_change_rel_l2=ema_rel, ranks=res)
+
+
+def run_parallel(work: str, train: dict, ckpt: str, mc: ModelConfig, n_blocks: int, smi: str,
+                 device):
+    """4k: parallelism on the card (``train``: 4d's run, the one-process
+    reference of the data-parallel run)."""
+    pack = train["pack"]
+    out = dict(dp=run_parallel_dp(work, pack, os.path.dirname(train["ckpt"]), train["losses"],
+                                  mc, smi, device),
+               sp=run_parallel_sp(work, ckpt, n_blocks, smi, device),
+               tp=run_parallel_tp(work, pack, smi))
+    shutil.rmtree(work, ignore_errors=True)
     return out
 
 
@@ -3313,12 +4000,15 @@ def main(argv=None) -> int:
     ap.add_argument("--ddpm_steps", type=int, default=1000,
                     help="steps of the protocol DDPM chain (the schedule has 1000)")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "chip_smoke"))
+    ap.add_argument("--rank_worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script measures the port "
               "on an NVIDIA GPU only", file=sys.stderr)
         return 1
+    if args.rank_worker:
+        return rank_worker(args.rank_worker)
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     os.makedirs(args.out, exist_ok=True)
@@ -3513,9 +4203,14 @@ def main(argv=None) -> int:
     report["v1"] = run_v1(os.path.join(work, "v1"), train["pack"], os.path.dirname(clips[0]),
                           smi, dev, np.random.default_rng(13))
     shutil.rmtree(os.path.join(work, "v1"), ignore_errors=True)
-    shutil.rmtree(os.path.join(work, "train"), ignore_errors=True)
     torch.cuda.empty_cache()
     mark("4j")
+    # 4k. parallelism: data-parallel cli train across processes, NCCL
+    report["parallel"] = run_parallel(os.path.join(work, "parallel"), train, ckpt, cfg.model,
+                                      n_blocks, smi, dev)
+    shutil.rmtree(os.path.join(work, "train"), ignore_errors=True)
+    torch.cuda.empty_cache()
+    mark("4k")
 
     # 5. protocol chain and one vocode, timed
     models = load_models(ckpt, device=dev)

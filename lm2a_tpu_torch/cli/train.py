@@ -24,9 +24,16 @@ model every N epochs over the validation split (``training/quality.py``;
 (the JAX package's state layout for it), which ``--opt_backend pallas``
 refuses, as the JAX package does.
 
-Refused, not ported: ``--rng rbg`` (a TPU generator) and the multi-host
-flags (``--coordinator``, ``--num_processes``, ``--process_id``,
-``--model_parallel`` > 1).
+``--coordinator host:port --num_processes N --process_id i`` (or the
+``LM2A_COORDINATOR`` / ``LM2A_NUM_PROCESSES`` / ``LM2A_PROCESS_ID``
+variables) run process i of N data-parallel ranks over ``torch.distributed``
+(``core/distributed.py``): NCCL where each rank of a host has its own card,
+gloo on the CPU and where ranks share one card. ``--model_parallel M``
+makes a ``(data, model)`` mesh whose model ranks take the same rows, the
+state replicated, as the JAX CLI's mesh does. ``--batch_size`` is the
+global batch.
+
+Refused, not ported: ``--rng rbg`` (a TPU generator).
 """
 
 import argparse
@@ -107,10 +114,16 @@ def build_parser(p=None):
     p.add_argument("--quality_clips", type=int, default=4)
     p.add_argument("--quality_steps", type=int, default=50)
     p.add_argument("--quality_guidance", type=float, default=2.1)
-    p.add_argument("--coordinator", default=None, help="multi-host: not ported")
-    p.add_argument("--num_processes", type=int, default=None, help="multi-host: not ported")
-    p.add_argument("--process_id", type=int, default=None, help="multi-host: not ported")
-    p.add_argument("--model_parallel", type=int, default=1, help="1 only (not ported)")
+    p.add_argument("--coordinator", default=None,
+                   help="multi-process: coordinator address host:port (or "
+                        "LM2A_COORDINATOR env); joins a torch.distributed group")
+    p.add_argument("--num_processes", type=int, default=None,
+                   help="multi-process: total process count")
+    p.add_argument("--process_id", type=int, default=None,
+                   help="multi-process: this process's id")
+    p.add_argument("--model_parallel", type=int, default=1,
+                   help="model-axis size of the mesh; must divide the ranks of a host "
+                        "on multi-process runs")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p
 
@@ -155,22 +168,38 @@ def config_from_args(args):
 
 def main(args=None):
     args = build_parser().parse_args(args)
-    if (args.coordinator is not None or args.num_processes is not None
-            or args.process_id is not None or args.model_parallel != 1):
-        raise SystemExit("multi-host and model-parallel training are not ported; "
-                         "the port trains on one device")
     cfg = config_from_args(args)
+    from lm2a_tpu_torch.core import distributed
     from lm2a_tpu_torch.training.loop import check_supported, train
 
     try:
         check_supported(cfg)
     except (NotImplementedError, ValueError) as e:
         raise SystemExit(str(e)) from e
-    print("train config:", cfg)
-    res = train(cfg, args.npz_dir, args.save_dir, val_npz_dir=args.val_npz_dir,
-                dataset_mean=args.dataset_mean, dataset_std=args.dataset_std,
-                resume=args.resume, max_steps=args.max_steps,
-                use_tensorboard=not args.no_tensorboard, device=args.device)
+    # join the process group before any device use
+    try:
+        multi = distributed.init_distributed(args.coordinator, args.num_processes,
+                                             args.process_id, device=args.device)
+    except ValueError as e:
+        raise SystemExit(str(e)) from e
+    if multi:
+        print(distributed.describe())
+    try:
+        try:
+            mesh = (distributed.make_hybrid_mesh(model=args.model_parallel)
+                    if multi or args.model_parallel > 1 else None)
+        except ValueError as e:
+            raise SystemExit(str(e)) from e
+        print("train config:", cfg)
+        res = train(cfg, args.npz_dir, args.save_dir, val_npz_dir=args.val_npz_dir,
+                    dataset_mean=args.dataset_mean, dataset_std=args.dataset_std,
+                    resume=args.resume, mesh=mesh, max_steps=args.max_steps,
+                    use_tensorboard=not args.no_tensorboard, device=args.device)
+    finally:
+        if multi:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
     print(f"training done: step={res.final_step} loss={res.final_loss:.6f} "
           f"checkpoints in {res.ckpt_dir}")
 

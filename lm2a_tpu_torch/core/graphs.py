@@ -25,7 +25,8 @@ host-side effects: a replay runs none of its Python.
   batch prefetcher) takes it, so none of its calls lands inside a capture.
 - Inside ``eager_on_card()`` steps run eagerly on the card too: what the
   card's comparisons of replays against eager runs use. No entry point
-  enters it.
+  enters it. A step made with ``eager=True`` always runs eagerly: a step
+  of a multi-process run, whose collectives a graph cannot capture (gloo).
 
 On the CPU a ``GraphedStep`` calls ``fn``: the plain route, as every kernel
 wrapper takes for a CPU tensor.
@@ -92,8 +93,9 @@ class GraphedStep:
     memory the capture reserved) are set after the capture."""
 
     def __init__(self, fn: Callable[[], None], *, device, generators: Sequence = (),
-                 pool=None):
+                 pool=None, eager: bool = False):
         self.fn = fn
+        self.eager = eager
         self.device = torch.device(device)
         self.generators = tuple(g for g in generators if g is not None)
         self.pool = pool
@@ -105,7 +107,7 @@ class GraphedStep:
         self._error: Optional[BaseException] = None
 
     def __call__(self) -> None:
-        if self.device.type != "cuda" or _eager:
+        if self.device.type != "cuda" or _eager or self.eager:
             self.fn()
             return
         if self._error is not None:

@@ -37,7 +37,7 @@
 //    runs the softmax of tile j while the other's products run;
 //  - only the last key tile, where S is ragged, is masked, on a path of its
 //    own;
-//  - every head dim from 1 to 256: Q and K are read into tiles of HDQ
+//  - head dims from 1 to 256: Q and K are read into tiles of HDQ
 //    channels, hd rounded up to 16, 32, 64, or a multiple of 64 above 64
 //    (the wgmma k16 step and the swizzle's 32-, 64- or 128-byte rows); the
 //    tensor map zero-fills the columns past the head (per-head maps, hd a
@@ -53,6 +53,8 @@
 //    64 rows by HDQ would overrun the consumers' registers, so V and O are
 //    split into parts of 128 columns, one block each (grid y = H * parts),
 //    each recomputing the same scores; only the head's columns are stored;
+//  - a head whose tile passes 256 channels (hd above 256) takes the chunked
+//    form below: the scores accumulate over chunks of 128 channels;
 //  - where the grid is small (the 6 s geometries), the key tiles are split
 //    over the `split` blocks of a thread-block cluster; each keeps (m, l, O)
 //    of its keys, pushes each row's through distributed shared memory to
@@ -480,6 +482,211 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   }
 }
 
+// CHUNKED: a head whose tile passes 256 channels (hd above 256, or hd
+// 249-255 at a window offset). Q and K of 64 or more rows by such a head fit
+// neither the consumers' registers nor a ring of useful depth, so the scores
+// of a key tile accumulate over chunks of CHUNK channels: the ring's items
+// are a (Q chunk, K chunk) pair for each chunk, then the tile's part of V (a
+// K chunk's bytes), one stage each. Q comes again with every key tile (L2
+// holds it). The same arithmetic as attention_kernel, without its ping-pong
+// and split: no shipped config reaches these head dims.
+constexpr int CHUNK = 128;
+
+template <int BN>
+struct ChunkGeo {
+  static constexpr int ROWB = 128, BOX = 64;  // two 64-channel boxes a chunk
+  static constexpr int Q_BYTES = BM * CHUNK * 2;
+  static constexpr int K_BYTES = BN * CHUNK * 2;  // a V part takes as much
+  static constexpr int STAGE_BYTES = Q_BYTES + K_BYTES;
+  static constexpr int smem(int stages) { return 1024 + stages * STAGE_BYTES; }
+};
+
+template <int BN>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    attention_chunked_kernel(const __grid_constant__ CUtensorMap qmap,
+                             const __grid_constant__ CUtensorMap kmap,
+                             const __grid_constant__ CUtensorMap vmap, const AttnArgs p,
+                             const int nc) {
+  using G = ChunkGeo<BN>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  __shared__ uint64_t bars[2 * MAX_STAGES];
+  uint64_t* full = bars;
+  uint64_t* empty = bars + MAX_STAGES;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int stages = p.stages, hd = p.hd;
+  const bool window = p.window;
+  const int h = (int)blockIdx.y / nc, vpart = (int)blockIdx.y % nc, b = blockIdx.z;
+  const int hmap = window ? 0 : h;
+  const int cbase = window ? (h * hd) & ~7 : 0, hoff = window ? (h * hd) & 7 : 0;
+  const int t0 = blockIdx.x * BM;
+  const int n = p.tiles, items = n * (nc + 1);  // per key tile: nc chunks, then V
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      sm90::mbar_init(full + s, 1);
+      sm90::mbar_init(empty + s, 8);  // lane 0 of each consumer warp
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ------------------------------------------------------------ producer
+    sm90::regs_dec<REGS_PRODUCER>();
+    if (tid == 0) {
+      for (int it = 0; it < items; ++it) {
+        const int s = it % stages, c = it % (nc + 1), key0 = (it / (nc + 1)) * BN;
+        if (it >= stages) sm90::mbar_wait(empty + s, ((it / stages) & 1) ^ 1);
+        const uint32_t st = sm90::smem_u32(ring + s * G::STAGE_BYTES);
+        if (c < nc) {
+          sm90::mbar_expect_tx(full + s, G::Q_BYTES + G::K_BYTES);
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int ch = cbase + c * CHUNK + hh * G::BOX;
+            tma_box(st + hh * BM * 128, &qmap, full + s, p.qperm, ch, t0, hmap, b);
+            tma_box(st + G::Q_BYTES + hh * BN * 128, &kmap, full + s, p.kperm, ch, key0, hmap,
+                    b);
+          }
+        } else {
+          sm90::mbar_expect_tx(full + s, G::K_BYTES);
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            tma_box(st + G::Q_BYTES + hh * BN * 128, &vmap, full + s, p.vperm,
+                    cbase + vpart * CHUNK + hh * G::BOX, key0, hmap, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------------- consumers
+  sm90::regs_inc<REGS_CONSUMER>();
+  const int cw = wg - 1;
+  const int wrow = (warp & 3) * 16 + (lane >> 2);
+  const int qrow = cw * 64 + (warp & 3) * 16 + (lane & 15);  // ldmatrix's row
+  const float scale = 1.4426950408889634f / sqrtf((float)hd);
+
+  float o[CHUNK / 2];
+#pragma unroll
+  for (int e = 0; e < CHUNK / 2; ++e) o[e] = 0.f;
+  float sc[BN / 2];
+  uint32_t qa[CHUNK / 16][4];
+  uint32_t pa[BN / 16][4];
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+
+  for (int i = 0; i < n; ++i) {
+    // S = sum over the chunks of Q_c K_c^T
+    for (int c = 0; c < nc; ++c) {
+      const int it = i * (nc + 1) + c, s = it % stages;
+      sm90::mbar_wait(full + s, (it / stages) & 1);
+      const uint32_t st = sm90::smem_u32(ring + s * G::STAGE_BYTES);
+#pragma unroll
+      for (int kk = 0; kk < CHUNK / 16; ++kk)
+        sm90::ldmatrix_x4(qa[kk], st + (kk / 4) * BM * 128 +
+                                      sm90::sw_offset<128>(qrow, (kk % 4) * 2 + (lane >> 4)));
+      if (window) {  // a window's neighbouring heads: Q's columns outside the head are 0
+#pragma unroll
+        for (int kk = 0; kk < CHUNK / 16; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            qa[kk][r] = keep_cols(qa[kk][r], c * CHUNK + 16 * kk + 8 * (r >> 1) + 2 * (lane & 3),
+                                  hoff, hoff + hd);
+      }
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < CHUNK / 16; ++kk)
+        sm90::wgmma_rs<BN, 0>(
+            sc, qa[kk],
+            sm90::desc_kmajor<128>(st + G::Q_BYTES + (kk / 4) * BN * 128 + (kk % 4) * 32),
+            c > 0 || kk > 0);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sc);
+      if (lane == 0) sm90::mbar_arrive(empty + s);
+    }
+    // the online softmax of the tile, as attention_kernel's
+    const int key0 = i * BN;
+    if (key0 + BN > p.S) {
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e)
+        sc[e] = mask_key(sc[e], key0 + 8 * (e >> 2) + 2 * (lane & 3) + (e & 1), p.S);
+    }
+    float mx[2] = {m_run[0], m_run[1]}, base[2], corr[2];
+#pragma unroll
+    for (int e = 0; e < BN / 2; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      corr[r] = sm90::ex2((m_run[r] - mx[r]) * scale);
+      base[r] = mx[r] * scale;
+      m_run[r] = mx[r];
+    }
+#pragma unroll
+    for (int e = 0; e < BN / 2; ++e) sc[e] = sm90::ex2(fmaf(sc[e], scale, -base[(e >> 1) & 1]));
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float rs = 0.f;
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e)
+        if (((e >> 1) & 1) == r) rs += sc[e];
+      l_run[r] = l_run[r] * corr[r] + rs;
+    }
+#pragma unroll
+    for (int e = 0; e < CHUNK / 2; ++e) o[e] *= corr[(e >> 1) & 1];
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      pa[kk][0] = sm90::pack_bf16x2(sc[8 * kk + 0], sc[8 * kk + 1]);
+      pa[kk][1] = sm90::pack_bf16x2(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = sm90::pack_bf16x2(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = sm90::pack_bf16x2(sc[8 * kk + 6], sc[8 * kk + 7]);
+    }
+    // O += P V of this block's part of V
+    {
+      const int it = i * (nc + 1) + nc, s = it % stages;
+      sm90::mbar_wait(full + s, (it / stages) & 1);
+      const uint32_t vt = sm90::smem_u32(ring + s * G::STAGE_BYTES + G::Q_BYTES);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        sm90::wgmma_rs<CHUNK, 1>(o, pa[kk], sm90::desc_mn<128>(vt + kk * 16 * 128, BN * 128));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(o);
+      if (lane == 0) sm90::mbar_arrive(empty + s);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+  }
+  // column c of this block's O is column c + jc of the head
+  const int jc = vpart * CHUNK - hoff;
+  const bool whole = hoff == 0 && hd % 8 == 0;
+  bf16* ob = p.o + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = t0 + cw * 64 + wrow + 8 * r;
+    if (row >= p.T) continue;
+    bf16* orow = ob + (long long)row * p.o_st;
+#pragma unroll
+    for (int nt = 0; nt < CHUNK / 8; ++nt) {
+      const int j = jc + 8 * nt + 2 * (lane & 3);
+      const float v0 = o[4 * nt + 2 * r] / l_run[r], v1 = o[4 * nt + 2 * r + 1] / l_run[r];
+      if (whole) {
+        if (j < hd) *reinterpret_cast<uint32_t*>(orow + j) = sm90::pack_bf16x2(v0, v1);
+      } else {
+        if (j >= 0 && j < hd) orow[j] = from_f<bf16>(v0);
+        if (j + 1 >= 0 && j + 1 < hd) orow[j + 1] = from_f<bf16>(v1);
+      }
+    }
+  }
+}
+
 // ------------------------------------------------------------------ host
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -604,6 +811,38 @@ int launch(const void* q, const void* k, const void* v, AttnArgs& p, int B, int 
   return (int)cudaGetLastError();
 }
 
+// the chunked form: BN = 64, no split, grid (mtiles, H * nc, B)
+int launch_chunked(const void* q, const void* k, const void* v, AttnArgs& p, int B, int H,
+                   const long long (&st)[9], int nc, int bn, int smem, cudaStream_t s) {
+  using G = ChunkGeo<64>;
+  if (bn != 64 || p.split != 1 || smem != G::smem(p.stages)) return ERR_PLAN;
+  auto kern = attention_chunked_kernel<64>;
+  static int ready = 0;  // 1: attributes set; < 0: the refusal
+  if (ready == 0) {
+    cudaFuncAttributes fa;
+    cudaError_t e = cudaFuncGetAttributes(&fa, kern);
+    if (e != cudaSuccess) return (int)e;
+    if (fa.numRegs * NTHREADS < 128 * (REGS_PRODUCER + 2 * REGS_CONSUMER)) {
+      ready = ERR_REGISTERS;
+    } else {
+      e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               232448 - (int)fa.sharedSizeBytes);
+      if (e != cudaSuccess) return (int)e;
+      ready = 1;
+    }
+  }
+  if (ready < 0) return ready;
+  CUtensorMap qm, km, vm;
+  const int mhd = p.window ? H * p.hd : p.hd, mh = p.window ? 1 : H;
+  if (!encode(&qm, p.qperm, q, mhd, p.T, mh, B, st[2], st[1], st[0], G::BOX, BM, G::ROWB) ||
+      !encode(&km, p.kperm, k, mhd, p.S, mh, B, st[5], st[4], st[3], G::BOX, 64, G::ROWB) ||
+      !encode(&vm, p.vperm, v, mhd, p.S, mh, B, st[8], st[7], st[6], G::BOX, 64, G::ROWB))
+    return ERR_TENSOR_MAP;
+  const dim3 grid((p.T + BM - 1) / BM, H * nc, B);
+  kern<<<grid, NTHREADS, smem, s>>>(qm, km, vm, p, nc);
+  return (int)cudaGetLastError();
+}
+
 template <int HDQ, bool EXACT>
 int launch_exact(const void* q, const void* k, const void* v, AttnArgs& p, int B, int H,
                  const long long (&st)[9], int bn, int smem, cudaStream_t s) {
@@ -627,12 +866,14 @@ int launch_bn(const void* q, const void* k, const void* v, AttnArgs& p, int B, i
 }
 
 // the channels of a Q or K tile row for head dim hd whose heads start
-// `hoff_max` channels at most into their tile: 16, 32, 64, then multiples of 64
+// `hoff_max` channels at most into their tile: 16, 32, 64, then multiples of
+// 64 to 256, above that multiples of CHUNK (the chunked form)
 int tile_channels(int hd, int hoff_max) {
   const int need = hd + hoff_max;
   if (need <= 16) return 16;
   if (need <= 32) return 32;
-  return (need + 63) / 64 * 64;
+  if (need <= 256) return (need + 63) / 64 * 64;
+  return (need + CHUNK - 1) / CHUNK * CHUNK;
 }
 
 }  // namespace
@@ -643,7 +884,7 @@ extern "C" int lm2a_attention(const void* q, const void* k, const void* v, void*
                               long long v_sb, long long v_sh, long long v_st, long long o_sb,
                               long long o_sh, long long o_st, int hdq, int bn, int stages,
                               int split, int smem, void* stream) {
-  if (T < 1 || S < 1 || hd < 1 || hd > 256) return (int)cudaErrorInvalidValue;
+  if (T < 1 || S < 1 || hd < 1) return (int)cudaErrorInvalidValue;
   if (stages < 3 || stages > MAX_STAGES || split < 1 || split > MAX_SPLIT) return ERR_PLAN;
   AttnArgs p;
   p.o = static_cast<bf16*>(o);
@@ -675,6 +916,7 @@ extern "C" int lm2a_attention(const void* q, const void* k, const void* v, void*
     case 128: return launch_bn<128>(q, k, v, p, B, H, st, bn, smem, s);
     case 192: return launch_bn<192>(q, k, v, p, B, H, st, bn, smem, s);
     case 256: return launch_bn<256>(q, k, v, p, B, H, st, bn, smem, s);
-    default: return ERR_PLAN;  // hd plus its offset in the window above 256
+    default:  // hd plus its offset in the window above 256
+      return launch_chunked(q, k, v, p, B, H, st, hdq / CHUNK, bn, smem, s);
   }
 }

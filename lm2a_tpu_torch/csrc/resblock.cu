@@ -10,6 +10,7 @@
 // four launches of the two functions below:
 //
 //   gn_stats(x)                      -> per (row, group) mean, rstd (fp32)
+//                                       (or, the sums form, sum and sum of squares)
 //   conv3_fused(x;  GN1+SiLU, FiLM)  -> f (fp32 intermediate, as _half1)
 //   gn_stats(f)
 //   conv3_fused(f;  GN2+SiLU, skip GEMM over x, residual) -> out (bf16)
@@ -119,7 +120,10 @@ struct GnStatsArgs {
   float eps;
 };
 
-template <typename In, int VW>
+// SUMS: the sums form for a sequence-sharded tensor (parallel/sequence.py):
+// the fp32 sum and sum of squares of this shard's frames go to mean and rstd
+// as they are, for the caller to add over the shards and finish as below
+template <typename In, int VW, bool SUMS>
 __global__ void __launch_bounds__(GN_THREADS) gn_stats_kernel(const GnStatsArgs p) {
   const int g = blockIdx.x, b = blockIdx.y, S = gridDim.z, rank = blockIdx.z;
   const int T = p.T, C = p.C, G = p.G;
@@ -193,7 +197,10 @@ __global__ void __launch_bounds__(GN_THREADS) gn_stats_kernel(const GnStatsArgs 
       }
     }
   }
-  if (rank == 0 && threadIdx.x == 0) {
+  if (SUMS && rank == 0 && threadIdx.x == 0) {
+    p.mean[b * G + g] = s;
+    p.rstd[b * G + g] = ss;
+  } else if (rank == 0 && threadIdx.x == 0) {
     const float n = (float)T * (float)cg;
     const float m = s / n;
     const float var = ss / n - m * m;
@@ -601,24 +608,24 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_fused_kernel(const ConvA
 
 constexpr int ERR_PLAN = -3;  // a launch plan the kernel does not take (ops/_build.py)
 
-template <typename In, int VW>
+template <typename In, int VW, bool SUMS>
 int launch_gn(const void* x, float* mean, float* rstd, int B, int T, int C, int G, int splits,
               float eps, cudaStream_t s) {
   GnStatsArgs p{x, mean, rstd, T, C, G, eps};
   static bool attr_set = false;
-  return (int)sm90::launch_cluster(gn_stats_kernel<In, VW>, attr_set, dim3(G, B, splits),
+  return (int)sm90::launch_cluster(gn_stats_kernel<In, VW, SUMS>, attr_set, dim3(G, B, splits),
                                    GN_THREADS, 0, splits, s, p);
 }
 
 // 16-byte vectors where every run of a group's channels is whole vectors
 // from a 16-byte boundary, scalars otherwise
-template <typename In>
+template <typename In, bool SUMS>
 int launch_gn_vw(const void* x, float* mean, float* rstd, int B, int T, int C, int G,
                  int splits, float eps, cudaStream_t s) {
   constexpr int VW = 16 / (int)sizeof(In);
   if ((C / G) % VW == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0)
-    return launch_gn<In, VW>(x, mean, rstd, B, T, C, G, splits, eps, s);
-  return launch_gn<In, 1>(x, mean, rstd, B, T, C, G, splits, eps, s);
+    return launch_gn<In, VW, SUMS>(x, mean, rstd, B, T, C, G, splits, eps, s);
+  return launch_gn<In, 1, SUMS>(x, mean, rstd, B, T, C, G, splits, eps, s);
 }
 
 // the plan's grid and shared memory must be this kernel's for the shape: too
@@ -665,14 +672,21 @@ int launch_conv_plan(const ConvArgs& p, int mw, int bn, int mtiles, int ntiles, 
 
 }  // namespace
 
-// splits: the cluster's blocks along T (1 to 8, at most T)
+// splits: the cluster's blocks along T (1 to 8, at most T); sums: the sums
+// form (sum and sum of squares into mean and rstd)
 extern "C" int lm2a_gn_stats(const void* x, int x_is_f32, float* mean, float* rstd,
-                             int B, int T, int C, int G, int splits, float eps, void* stream) {
+                             int B, int T, int C, int G, int splits, float eps, int sums,
+                             void* stream) {
   if (B < 1 || T < 1 || G < 1 || C % G) return (int)cudaErrorInvalidValue;
   if (splits < 1 || splits > GN_SPLIT_MAX || splits > T) return ERR_PLAN;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int e = x_is_f32 ? launch_gn_vw<float>(x, mean, rstd, B, T, C, G, splits, eps, s)
-                         : launch_gn_vw<bf16>(x, mean, rstd, B, T, C, G, splits, eps, s);
+  int e;
+  if (sums)
+    e = x_is_f32 ? launch_gn_vw<float, true>(x, mean, rstd, B, T, C, G, splits, eps, s)
+                 : launch_gn_vw<bf16, true>(x, mean, rstd, B, T, C, G, splits, eps, s);
+  else
+    e = x_is_f32 ? launch_gn_vw<float, false>(x, mean, rstd, B, T, C, G, splits, eps, s)
+                 : launch_gn_vw<bf16, false>(x, mean, rstd, B, T, C, G, splits, eps, s);
   if (e != 0) return e;
   return (int)cudaGetLastError();
 }

@@ -22,6 +22,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from lm2a_tpu_torch.core import draws
 from lm2a_tpu_torch.core.graphs import GraphedStep, stage
 from lm2a_tpu_torch.diffusion.schedule import Schedule, linspace_f32
 
@@ -48,14 +49,13 @@ def diffusion_loss(model_fn: ModelFn, schedule: Schedule, x0: torch.Tensor,
     """Epsilon-prediction MSE with uniform timesteps, the fp32 mean of
     ``(noise - pred)^2``. ``x0`` is z-normalised by the dataset statistics
     inside the loss. ``t`` and ``noise`` are drawn from ``generator`` unless
-    given (the tests inject the JAX package's draws)."""
+    given (the tests inject the JAX package's draws); a ``core.draws.RowShard``
+    draws them at the global batch shape and keeps this rank's rows."""
     b = x0.shape[0]
     if t is None:
-        t = torch.randint(0, schedule.timesteps, (b,), generator=generator,
-                          device=x0.device)
+        t = draws.randint(schedule.timesteps, (b,), generator, x0.device)
     if noise is None:
-        noise = torch.randn(x0.shape, generator=generator, device=x0.device,
-                            dtype=x0.dtype)
+        noise = draws.randn(x0.shape, generator, x0.device, x0.dtype)
     x0n = (x0 - dataset_mean) / dataset_std
     x_t = q_sample(schedule, x0n, t, noise)
     pred = model_fn(x_t, t, motion_f, text_f)
@@ -101,7 +101,7 @@ def guided_eps(model_fn: ModelFn, x, t, motion_f, text_f, guidance_weight,
 
 
 def _randn(shape, generator, device):
-    return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+    return draws.randn(shape, generator, device)
 
 
 def ddim_time_grid(timesteps: int, num_steps: int):
@@ -133,17 +133,19 @@ def ddim_coefficients(alpha_bars: np.ndarray, ts, ts_prev, eta: float) -> np.nda
 class SamplerChain:
     """The static state of one sampler chain geometry (``shape``, method,
     steps) on the schedule's device; see the module docstring. ``pool`` is
-    a CUDA graph memory pool its captures share with other chains."""
+    a CUDA graph memory pool its captures share with other chains; an
+    ``eager`` chain captures nothing (its steps run collectives: the
+    sequence-parallel sampler)."""
 
     def __init__(self, schedule: Schedule, shape: tuple, method: str,
                  num_steps: Optional[int] = None, eta: float = 0.0, x0_clip: float = 2.0,
-                 generator: Optional[torch.Generator] = None, pool=None):
+                 generator: Optional[torch.Generator] = None, pool=None, eager: bool = False):
         if method not in ("ddpm", "ddim"):
             raise ValueError(f"unknown method {method!r}; use 'ddpm' or 'ddim'")
         dev = schedule.betas.device
         self.schedule, self.shape, self.method = schedule, tuple(shape), method
         self.eta, self.x0_clip = float(eta), float(x0_clip)
-        self.device, self.generator, self.pool = dev, generator, pool
+        self.device, self.generator, self.pool, self.eager = dev, generator, pool, eager
         self.x = torch.zeros(self.shape, dtype=torch.float32, device=dev)
         self.i = torch.zeros((1,), dtype=torch.long, device=dev)
         self.gw = torch.ones((), dtype=torch.float32, device=dev)
@@ -200,7 +202,8 @@ class SamplerChain:
         step = self.steps.get(key)
         if step is None:
             step = self.steps[key] = GraphedStep(fn, device=self.device,
-                                                 generators=(self.generator,), pool=self.pool)
+                                                 generators=(self.generator,), pool=self.pool,
+                                                 eager=self.eager)
         return step
 
 

@@ -47,6 +47,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from lm2a_tpu_torch.core import draws
 from lm2a_tpu_torch.models.attention import CrossAttentionFusion
 from lm2a_tpu_torch.models.embedding import TimestepEmbedding, dense
 from lm2a_tpu_torch.ops.resblock import (
@@ -110,11 +111,12 @@ def conv_train(conv: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Te
 
 def dropout(h: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability ``1 - rate`` and scale by
-    its inverse; ``generator=None`` is the deterministic (eval) form."""
+    its inverse; ``generator=None`` is the deterministic (eval) form, a
+    ``core.draws.RowShard`` draws the mask at the global batch shape."""
     if rate == 0.0 or generator is None:
         return h
     keep = 1.0 - rate
-    mask = torch.rand(h.shape, generator=generator, device=h.device) < keep
+    mask = draws.rand(h.shape, generator, h.device) < keep
     return torch.where(mask, h / keep, torch.zeros_like(h))
 
 

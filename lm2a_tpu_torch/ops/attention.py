@@ -15,7 +15,7 @@ unrounded ``p``, the output divided once and rounded to the input dtype.
 about one bf16 ulp of ``p``.
 
 ``attention_core`` launches the kernel for CUDA tensors (bf16, any head dim
-from 1 to ``MAX_HEAD_DIM``) with the launch plan of ``attention_plan`` (the
+from 1 up) with the launch plan of ``attention_plan`` (the
 head's tile channels, keys per tile, ring stages, the split of the key
 tiles over a thread-block cluster) and
 runs the plain version for CPU tensors. Its backward
@@ -43,13 +43,15 @@ STREAMING_S_THRESHOLD = 1024
 # Long-form generation takes the fused route above this many mel frames,
 # as the JAX package does (its break-even on the TPU, kept for parity).
 FUSED_ATTENTION_MIN_T = 12288
-# every head dim from 1 to MAX_HEAD_DIM: a head is read into Q and K tiles of
-# `head_tile(hd, h)` channels (TILE_CHANNELS), V and O in parts of at most
-# 128 channels. A head dim off the 8-channel unit (a row offset h*hd*2 bytes
-# off the tensor maps' 16-byte unit) is read through windows over each
-# row's H*hd channels: its heads must lie side by side (head stride hd).
-MAX_HEAD_DIM = 256
+# every head dim from 1 up: a head is read into Q and K tiles of
+# `head_tile(hd, h)` channels (TILE_CHANNELS to 256, above that multiples of
+# CHUNK: the kernel's chunked form, whose scores accumulate over chunks of
+# CHUNK channels), V and O in parts of at most 128 channels. A head dim off
+# the 8-channel unit (a row offset h*hd*2 bytes off the tensor maps' 16-byte
+# unit) is read through windows over each row's H*hd channels: its heads
+# must lie side by side (head stride hd).
 TILE_CHANNELS = (16, 32, 64, 128, 192, 256)
+CHUNK = 128
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _build.declare("attention", "lm2a_attention",
@@ -75,6 +77,9 @@ _ALIGN = 1024  # slack for aligning the swizzled tiles to 1024 bytes
 # an H100 (PERF.md) at the flagship's 32, 64 and 128 (16 takes 32's), and
 # 192 and 256 (two blocks a head, each with a 128-channel part of V) to the
 # least-squares fit of its ``--set wide`` run.
+# The chunked form (one key tile width, no split) has only its stages to
+# choose, so its constants are 256's, scaled by the chunks: they order
+# nothing.
 BLOCK_US = {16: 3.8, 32: 3.8, 64: 3.9, 128: 6.0, 192: 4.05, 256: 4.24}
 COMBINE_US, COMBINE_US_PER_HD = 0.6, 0.025
 TILE_US = {(16, 64): 0.69, (16, 128): 1.06, (32, 64): 0.69, (32, 128): 1.06,
@@ -87,11 +92,19 @@ def head_tile(hd: int, h: int):
     dim off the 8-channel unit is read through windows that start at the
     8-channel unit holding the head's first channel, (h*hd) % 8 channels
     before it; the tile rounds hd plus the largest such offset up to 16, 32,
-    64 or a multiple of 64 (the csrc's ``tile_channels``)."""
+    64, a multiple of 64 to 256 or a multiple of ``CHUNK`` above (the csrc's
+    ``tile_channels``)."""
     window = hd % 8 != 0
     need = hd + (max((i * hd) % 8 for i in range(min(h, 8))) if window else 0)
+    if need > TILE_CHANNELS[-1]:
+        return -(-need // CHUNK) * CHUNK, window
     hdq = 16 if need <= 16 else 32 if need <= 32 else -(-need // 64) * 64
     return hdq, window
+
+
+def chunked(hdq: int) -> bool:
+    """The kernel's chunked form: Q and K tiles wider than 256 channels."""
+    return hdq > TILE_CHANNELS[-1]
 
 
 @dataclass(frozen=True)
@@ -127,7 +140,10 @@ def v_channels(hdq: int) -> int:
 
 def attention_smem(hdq: int, bn: int, stages: int) -> int:
     """Dynamic shared bytes: the Q tile, the K/V ring and (reusing the
-    ring) the split's fp32 combine buffer of (m, l, O) per row."""
+    ring) the split's fp32 combine buffer of (m, l, O) per row; the chunked
+    form's ring of (Q chunk, K chunk) stages alone."""
+    if chunked(hdq):
+        return _ALIGN + stages * (BM + bn) * CHUNK * 2
     hdv = v_channels(hdq)
     ring = stages * bn * (hdq + hdv) * 2
     # the split's combine: O, m and l of each rank's part of this block's
@@ -144,20 +160,25 @@ def attention_candidates(b: int, h: int, t: int, s: int, hd: int):
     vparts = -(-hdq // v_channels(hdq))
     mtiles = -(-t // BM)
     out = []
+    wide = chunked(hdq)
     for bn in KEY_TILES:
         if hdq > 128 and bn > 64:
             continue
         tiles = -(-s // bn)
+        items = tiles * (hdq // CHUNK + 1) if wide else tiles  # the ring's loads
         stages = MIN_STAGES
-        while (stages < min(MAX_STAGES, max(tiles, MIN_STAGES))
+        while (stages < min(MAX_STAGES, max(items, MIN_STAGES))
                and attention_smem(hdq, bn, stages + 1) <= SMEM_MAX):
             stages += 1
         smem = attention_smem(hdq, bn, stages)
         if smem > SMEM_MAX:
             continue
-        for split in range(1, min(SPLIT_MAX, tiles) + 1):
+        for split in range(1, 1 + (1 if wide else min(SPLIT_MAX, tiles))):
             plan = AttentionPlan(hdq, vparts, bn, stages, split, mtiles, tiles, smem)
-            per_block = BLOCK_US[hdq] + -(-tiles // split) * TILE_US[(hdq, bn)]
+            key = min(hdq, TILE_CHANNELS[-1])
+            per_block = BLOCK_US[key] + -(-tiles // split) * TILE_US[(key, bn)]
+            if wide:
+                per_block *= hdq / key
             if split > 1:
                 per_block += COMBINE_US + COMBINE_US_PER_HD * v_channels(hdq)
             waves = -(-plan.blocks(b, h) // WAVE_BLOCKS[split])
@@ -197,13 +218,11 @@ def _check(q, k, v):
 
     need(q.dtype == k.dtype == v.dtype == torch.bfloat16,
          f"the CUDA kernel takes bf16 q, k, v, got {q.dtype}, {k.dtype}, {v.dtype}")
-    need(1 <= hd <= MAX_HEAD_DIM, f"head dim {hd} outside 1..{MAX_HEAD_DIM}")
+    need(hd >= 1, f"head dim {hd} below 1")
     need(tuple(k.shape) == tuple(v.shape) == (b, h, s, hd),
          f"k, v must be (B, H, S, hd) = ({b}, {h}, S, {hd}), got {tuple(k.shape)}, "
          f"{tuple(v.shape)}")
     need(t >= 1 and s >= 1, f"empty T or S ({t}, {s})")
-    need(head_tile(hd, h)[0] in TILE_CHANNELS,
-         f"head dim {hd} at its window offset needs more than {MAX_HEAD_DIM} tile channels")
     for x, name in ((q, "q"), (k, "k"), (v, "v")):
         st = x.stride()
         need(x.device == q.device, f"{name} on {x.device}, q on {q.device}")

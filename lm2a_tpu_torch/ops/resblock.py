@@ -48,7 +48,7 @@ _ALIGN = 1024            # slack for aligning the swizzled tiles to 1024 bytes
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _build.declare("resblock", "lm2a_gn_stats",
-               [_P, _I, _P, _P, _I, _I, _I, _I, _I, _F, _P])
+               [_P, _I, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P])
 _build.declare("resblock", "lm2a_empty_kernel", [_P])
 _build.declare("resblock", "lm2a_conv3_fused",
                [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
@@ -245,6 +245,13 @@ def gn_stats_plain(x: torch.Tensor, groups: int, eps: float = GN_EPS):
     return mean, torch.rsqrt(var + eps)
 
 
+def gn_sums_plain(x: torch.Tensor, groups: int):
+    """Per (row, group) fp32 sum and sum of squares over T x C/G."""
+    b, t, c = x.shape
+    xf = x.float().reshape(b, t, groups, c // groups)
+    return xf.sum(dim=(1, 3)), (xf * xf).sum(dim=(1, 3))
+
+
 def _gn_silu(a, mean, rstd, gamma, beta):
     b, t, c = a.shape
     g = mean.shape[1]
@@ -319,10 +326,7 @@ def _check_vec(v, n, device, name):
           and v.device == device, f"{name}: need contiguous fp32 ({n},) on {device}")
 
 
-def gn_stats(x: torch.Tensor, groups: int, eps: float = GN_EPS):
-    """GroupNorm statistics of ``x`` (B, T, C): ``(mean, rstd)``, each (B, G) fp32."""
-    if not _is_cuda(x):
-        return gn_stats_plain(x, groups, eps)
+def _gn_launch(x: torch.Tensor, groups: int, eps: float, sums: bool):
     b, t, c = x.shape
     _need(x.dtype in (torch.bfloat16, torch.float32) and x.is_contiguous(),
           "gn_stats: x must be contiguous bf16 or fp32")
@@ -332,8 +336,34 @@ def gn_stats(x: torch.Tensor, groups: int, eps: float = GN_EPS):
     splits = gn_stats_plan(b, t, c, groups, x.element_size())
     _build.launch("resblock", "lm2a_gn_stats", "gn_stats",
                   _build.ptr(x), int(x.dtype == torch.float32), _build.ptr(mean),
-                  _build.ptr(rstd), b, t, c, groups, splits, eps, _build.stream_ptr(x.device))
+                  _build.ptr(rstd), b, t, c, groups, splits, eps, int(sums),
+                  _build.stream_ptr(x.device))
     return mean, rstd
+
+
+def gn_stats(x: torch.Tensor, groups: int, eps: float = GN_EPS):
+    """GroupNorm statistics of ``x`` (B, T, C): ``(mean, rstd)``, each (B, G) fp32."""
+    if not _is_cuda(x):
+        return gn_stats_plain(x, groups, eps)
+    return _gn_launch(x, groups, eps, sums=False)
+
+
+def gn_sums(x: torch.Tensor, groups: int):
+    """The sums form of ``gn_stats`` (the same kernel, counted as
+    ``gn_stats``): the fp32 sum and sum of squares of ``x`` (B, T, C) per
+    (row, group), each (B, G); ``gn_finish`` turns sums over every shard of
+    a sequence-sharded tensor into its statistics."""
+    if not _is_cuda(x):
+        return gn_sums_plain(x, groups)
+    return _gn_launch(x, groups, GN_EPS, sums=True)
+
+
+def gn_finish(s: torch.Tensor, ss: torch.Tensor, n: int, eps: float = GN_EPS):
+    """``(mean, rstd)`` from sums over ``n`` values a (row, group), as the
+    kernel finishes its own: fast variance, fp32."""
+    nf = torch.tensor(float(n), dtype=torch.float32, device=s.device)
+    mean = s / nf
+    return mean, torch.rsqrt(ss / nf - mean * mean + eps)
 
 
 def empty_kernel(device) -> None:

@@ -129,6 +129,9 @@ class Adan:
         self.state_dtype = state_dtype
         self.backend = backend
         self._kernel = AdanEma(BETAS, EPS, self.grad_clip)
+        # the clip's gradient norm over the leaves ``apply`` gets (tensor
+        # parallelism, whose ``apply`` gets shards, gives the whole gradient's)
+        self.norm_fn: Callable[[List[torch.Tensor]], torch.Tensor] = global_norm
 
     @property
     def chained(self) -> bool:
@@ -163,7 +166,7 @@ class Adan:
     def write_gnorm(self, scal: torch.Tensor, grads: List[torch.Tensor]) -> None:
         """Slot 1: the global gradient norm when clipping (else it stays 1.0)."""
         if self.grad_clip > 0:
-            scal[1] = global_norm(grads)
+            scal[1] = self.norm_fn(grads)
 
     @torch.no_grad()
     def apply(self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],

@@ -35,6 +35,16 @@ monitor (``training/quality.py``) runs at the end of every N-th epoch,
 after validation, over the EMA as the updates left it, and its mean mel
 metrics go to ``quality_log.csv`` (as the JAX loop logs them).
 
+Several processes (``core/distributed.py``) train data-parallel over a
+``(data, model)`` mesh (``mesh``, else ``make_hybrid_mesh``), as the JAX
+loop does: every process reads the seed-identical global batch and keeps
+the rows ``local_batch_slice`` gives it, the state starts as rank 0's
+(``put_replicated``), each step averages its gradients over the data axis,
+and only the primary logs and writes checkpoints (then every rank meets at
+a barrier). Such a run takes the per-step path, eagerly on the card; the
+fused and device-resident paths are single-process modes, refused there
+with the JAX package's message.
+
 Refused with an error (ROADMAP lists it): the ``rbg`` generator.
 """
 
@@ -48,8 +58,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from lm2a_tpu_torch.core import distributed as collectives
 from lm2a_tpu_torch.core.config import LM2AConfig
 from lm2a_tpu_torch.core.device import DeviceLike, resolve_device
+from lm2a_tpu_torch.core.mesh import DATA_AXIS, make_mesh
 from lm2a_tpu_torch.data.dataset import (
     PACK_META, BatchIterator, PackedDataset, SuperbatchStream, compute_dataset_stats,
     device_prefetch, open_dataset, superbatch_indices, upload_dataset,
@@ -62,7 +74,7 @@ from lm2a_tpu_torch.training.train_step import (
     init_train_state, make_device_data_eval, make_device_data_multistep, make_multistep_eval,
     make_multistep_train_step, make_optimizer,
 )
-from lm2a_tpu_torch.utils.logging import TrainLogger
+from lm2a_tpu_torch.utils.logging import NullLogger, TrainLogger
 from lm2a_tpu_torch.utils.profiling import StepTimer
 
 VAL_OFFSET = 10_000_000
@@ -87,13 +99,37 @@ def check_supported(cfg: LM2AConfig) -> None:
                                   "torch.Generator")
 
 
+def _local_rows(batches, sl: Optional[slice]):
+    """This rank's rows of each global batch (all of them without a slice)."""
+    for batch in batches:
+        yield batch if sl is None else {k: v[sl] for k, v in batch.items()}
+
+
 def train(cfg: LM2AConfig, npz_dir: str, save_dir: str, val_npz_dir: Optional[str] = None,
           dataset_mean: Optional[float] = None, dataset_std: Optional[float] = None,
-          resume: bool = False, max_steps: Optional[int] = None,
+          resume: bool = False, mesh=None, max_steps: Optional[int] = None,
           use_tensorboard: bool = True, device: DeviceLike = None) -> TrainResult:
     check_supported(cfg)
     tc = cfg.train
     dev = resolve_device(device)
+    multihost = collectives.process_count() > 1
+    if multihost:
+        dev = collectives.rank_device()
+    if mesh is None:
+        mesh = (collectives.make_hybrid_mesh(device=dev) if multihost
+                else make_mesh(device=dev))
+    if multihost and (tc.steps_per_call > 1 or tc.device_data):
+        # the fused-dispatch / device-resident modes hide per-call overhead
+        # on a single host; a multi-process run takes the per-step path
+        raise NotImplementedError(
+            "steps_per_call>1 / --device_data are single-process modes; "
+            "multi-host runs use the standard prefetched path"
+        )
+    n_data = mesh.shape[DATA_AXIS]
+    if tc.batch_size % n_data:
+        raise ValueError(f"batch_size {tc.batch_size} does not split over {n_data} data ranks")
+    rows = (collectives.local_batch_slice(mesh, tc.batch_size)
+            if mesh.size > 1 else None)
     schedule = make_schedule(cfg.diffusion, device=dev)
 
     if dataset_mean is None or dataset_std is None:
@@ -120,6 +156,12 @@ def train(cfg: LM2AConfig, npz_dir: str, save_dir: str, val_npz_dir: Optional[st
             dataset_mean = float(meta.get("dataset_mean", dataset_mean))
             dataset_std = float(meta.get("dataset_std", dataset_std))
             print(f"resumed from {path} at step {state.step}")
+    if multihost:
+        # every process built (or restored) the same state; make it rank 0's
+        o = state.opt
+        collectives.put_replicated(mesh, [*state.params().values(), *state.ema.values(),
+                                          *(t for d in (o.m, o.v, o.n, o.prev_grad)
+                                            for t in d.values())])
 
     stats = dict(dataset_mean=dataset_mean, dataset_std=dataset_std)
     quality = None
@@ -128,9 +170,9 @@ def train(cfg: LM2AConfig, npz_dir: str, save_dir: str, val_npz_dir: Optional[st
 
         quality = QualityMonitor(cfg, state.ema, schedule, val_ds, n_clips=tc.quality_clips,
                                  num_steps=tc.quality_steps, guidance=tc.quality_guidance,
-                                 seed=tc.seed, **stats)
-    multistep = make_multistep_train_step(schedule, cfg, optimizer, **stats)
-    eval_multi = make_multistep_eval(schedule, cfg, **stats)
+                                 seed=tc.seed, mesh=mesh if multihost else None, **stats)
+    multistep = make_multistep_train_step(schedule, cfg, optimizer, mesh=mesh, **stats)
+    eval_multi = make_multistep_eval(schedule, cfg, mesh=mesh, **stats)
     bs = tc.batch_size
     k_fuse = max(1, tc.steps_per_call)
     devdata_step = device_data = devdata_eval = val_data = None
@@ -151,15 +193,21 @@ def train(cfg: LM2AConfig, npz_dir: str, save_dir: str, val_npz_dir: Optional[st
     if k_fuse > 1 and devdata_step is None:
         sb_stream = SuperbatchStream(ds, bs, k_fuse, base_seed=tc.seed, total_epochs=tc.epochs,
                                      start_epoch=start_epoch)
-    logger = TrainLogger(save_dir, use_tensorboard=use_tensorboard)
+    primary = collectives.is_primary()
+    logger = (TrainLogger(save_dir, use_tensorboard=use_tensorboard) if primary
+              else NullLogger())
     timer = StepTimer(report_every=max(tc.log_interval * 10, 100))
     writer = CheckpointWriter()
 
     def ckpt(epoch):
-        path = save_checkpoint(save_dir, state, cfg, epoch=epoch, dataset_mean=dataset_mean,
-                               dataset_std=dataset_std, keep_last=tc.keep_checkpoints,
-                               writer=writer)
-        print("saved checkpoint:", path)
+        # the state is replicated: the primary alone writes it, and the
+        # barrier keeps the others from racing ahead of the write
+        if primary:
+            path = save_checkpoint(save_dir, state, cfg, epoch=epoch,
+                                   dataset_mean=dataset_mean, dataset_std=dataset_std,
+                                   keep_last=tc.keep_checkpoints, writer=writer)
+            print("saved checkpoint:", path)
+        collectives.barrier("ckpt")
 
     def lr_at(s):
         return float(optimizer.lr_schedule(s))
@@ -212,7 +260,7 @@ def train(cfg: LM2AConfig, npz_dir: str, save_dir: str, val_npz_dir: Optional[st
                     break
         else:
             it = BatchIterator(ds, bs, shuffle=True, seed=tc.seed + epoch)
-            for batch in device_prefetch(it, dev):
+            for batch in device_prefetch(_local_rows(it, rows), dev):
                 pending_loss = multistep(state, one(batch), tc.seed, [step])[0]
                 ema_dt = timer.tick()
                 if ema_dt is not None:
@@ -241,7 +289,7 @@ def train(cfg: LM2AConfig, npz_dir: str, save_dir: str, val_npz_dir: Optional[st
                 print(f"epoch {epoch} val loss: {val_loss:.6f} ({n_val} batches, "
                       "device-resident)")
             elif n_val:
-                vit = BatchIterator(val_ds, bs, shuffle=False)
+                vit = _local_rows(BatchIterator(val_ds, bs, shuffle=False), rows)
                 vlosses = [eval_multi(state, one(vbatch), tc.seed, [off])[0]
                            for off, vbatch in zip(offsets, device_prefetch(vit, dev))]
                 val_loss = float(torch.stack(vlosses).mean())

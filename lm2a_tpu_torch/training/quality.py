@@ -21,6 +21,10 @@ the serving model from that view (``Denoiser.refresh``: one
 samples the EMA as it stands and nothing is captured again. Noise comes from a ``torch.Generator`` seeded with ``seed + 777``
 at every run (the JAX version's key), or from ``x_init`` (the tests inject
 the JAX side's).
+
+In a run of several processes every rank generates the same clips, from
+conditions made rank 0's (``put_replicated``, as the JAX monitor puts them
+on the global mesh); only the primary logs them (``training/loop.py``).
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import torch
 
 from lm2a_tpu_torch.core.config import LM2AConfig
 from lm2a_tpu_torch.core.device import dtype_from_str
+from lm2a_tpu_torch.core.distributed import put_replicated
 from lm2a_tpu_torch.core.graphs import new_pool
 from lm2a_tpu_torch.data.dataset import BatchIterator
 from lm2a_tpu_torch.diffusion.gaussian import SamplerChain, ddim_sample
@@ -60,7 +65,7 @@ class QualityMonitor:
 
     def __init__(self, cfg: LM2AConfig, ema: Dict[str, torch.Tensor], schedule: Schedule,
                  val_ds, n_clips: int, num_steps: int, guidance: float,
-                 dataset_mean: float, dataset_std: float, seed: int = 0):
+                 dataset_mean: float, dataset_std: float, seed: int = 0, mesh=None):
         n_clips = min(n_clips, len(val_ds))
         batch = next(iter(BatchIterator(val_ds, n_clips, shuffle=False)))
         self._gt_mel = np.asarray(batch["mel"])  # (K, T, 80), log-mel units
@@ -74,6 +79,8 @@ class QualityMonitor:
         self.serving = copy.deepcopy(self.unet).prepare(self.dtype)
         self._motion = torch.as_tensor(np.asarray(batch["motion"]), device=dev)
         self._lyrics = torch.as_tensor(np.asarray(batch["lyrics"]), device=dev)
+        if mesh is not None:
+            put_replicated(mesh, [self._motion, self._lyrics])
         self.chain = SamplerChain(schedule, self._gt_mel.shape, "ddim", num_steps=self.num_steps,
                                   generator=torch.Generator(device=dev), pool=new_pool(dev))
 

@@ -13,6 +13,14 @@ package's draws instead (``Draws``).
 
 Gradients accumulate into ``.grad`` buffers that are allocated once and
 zeroed each step, so the optimizer kernel's table of pointers is built once.
+They are views of one flat buffer (``TrainState.grads``) whose last slot
+takes the step's loss: under data parallelism (``mesh`` with a data axis
+longer than one) one all-reduce of that buffer, between the backward and
+the optimizer, averages the gradients and the loss over the data axis, as
+the JAX step's psum does. Each rank then draws its step's randomness at the
+global batch shape and keeps its rows (``core/draws.py``), so N ranks take
+one rank's step over the same global batch. Such a step runs eagerly on the
+card: gloo's collectives cannot be captured in a CUDA graph.
 
 The compiled steps (the JAX package's jitted ``make_multistep_train_step``,
 ``make_device_data_multistep`` and ``make_device_data_eval``, and
@@ -34,14 +42,17 @@ form; the streaming forms copy their batches into the buffer first.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, NamedTuple, Optional, Sequence
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from lm2a_tpu_torch.core.config import LM2AConfig
 from lm2a_tpu_torch.core.device import DeviceLike, dtype_from_str, resolve_device
+from lm2a_tpu_torch.core import distributed as collectives
+from lm2a_tpu_torch.core import draws as row_draws
 from lm2a_tpu_torch.core.graphs import GraphedStep, stage
+from lm2a_tpu_torch.core.mesh import DATA_AXIS
 from lm2a_tpu_torch.diffusion.gaussian import diffusion_loss
 from lm2a_tpu_torch.diffusion.schedule import Schedule
 from lm2a_tpu_torch.models.embedding import CondProjection
@@ -63,6 +74,7 @@ class TrainState:
     cond_proj: CondProjection
     ema: Dict[str, torch.Tensor]
     opt: AdanState
+    grads: Optional[torch.Tensor] = None  # the flat gradient buffer, then the loss
 
     def params(self) -> Dict[str, torch.Tensor]:
         return {f"{tree}/{n}": p for tree in TREES
@@ -95,8 +107,8 @@ def make_optimizer(cfg: LM2AConfig,
 def init_train_state(cfg: LM2AConfig, seed: int, device: DeviceLike = None,
                      optimizer: Optional[Adan] = None) -> TrainState:
     """Seeded fp32 parameters (``random_init_``), EMA = parameters, zero
-    Adan state, and a zeroed ``.grad`` buffer on every parameter, on CUDA
-    unless ``device="cpu"``."""
+    Adan state, and a zeroed ``.grad`` buffer on every parameter (views of
+    ``state.grads``), on CUDA unless ``device="cpu"``."""
     dev = resolve_device(device)
     unet = random_init_(build_denoiser(cfg.model), seed).to(dev)
     proj = random_init_(build_cond_projection(cfg.model), seed + 1).to(dev)
@@ -104,8 +116,10 @@ def init_train_state(cfg: LM2AConfig, seed: int, device: DeviceLike = None,
     proj.train()
     state = TrainState(0, unet, proj, {}, AdanState(0))
     params = state.params()
-    for p in params.values():
-        p.grad = torch.zeros_like(p)
+    sizes = [p.numel() for p in params.values()]
+    state.grads = torch.zeros(sum(sizes) + 1, dtype=torch.float32, device=dev)
+    for p, g in zip(params.values(), state.grads.split(sizes + [1])):
+        p.grad = g.view_as(p)
     state.ema = {k: p.detach().clone() for k, p in params.items()}
     state.opt = (optimizer or make_optimizer(cfg)).init(params)
     return state
@@ -126,7 +140,7 @@ def loss_fn(state: TrainState, schedule: Schedule, batch, cfg: LM2AConfig, *,
         if draws is not None and draws.keep is not None:
             keep = draws.keep.to(motion_f.device, motion_f.dtype)
         else:  # one shared mask zeroes both conditions
-            drop = torch.rand((b, 1, 1), generator=generator, device=motion_f.device) < p
+            drop = row_draws.rand((b, 1, 1), generator, motion_f.device) < p
             keep = (~drop).to(motion_f.dtype)
         motion_f = motion_f * keep
         text_f = text_f * keep
@@ -152,13 +166,22 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(step_seed(seed, step))
 
 
-def make_update_step(loss_builder: Callable, optimizer: Adan):
+def data_group(mesh):
+    """The process group of the mesh's data axis, None without one (a mesh
+    of one data rank, or no mesh)."""
+    return None if mesh is None else mesh.group(DATA_AXIS)
+
+
+def make_update_step(loss_builder: Callable, optimizer: Adan, mesh=None):
     """The grad -> optimizer -> EMA update. ``loss_builder(state, batch,
     **kw) -> scalar loss``; returns ``one_step(state, batch, **kw) -> loss``
     (detached), updating ``state`` in place. ``one_step.device_step(state,
     batch, scal, **kw)`` is its device work with the step's Adan scalars
     staged in ``scal``: no host state changes, what a CUDA graph captures;
-    ``one_step`` stages the scalars, runs it and counts the step."""
+    ``one_step`` stages the scalars, runs it and counts the step. Under a
+    ``mesh`` with a data axis, the gradients and the loss are averaged over
+    it in one all-reduce of ``state.grads`` before the update."""
+    group = data_group(mesh)
 
     def device_step(state: TrainState, batch, scal: torch.Tensor, **kw) -> torch.Tensor:
         params = state.params()
@@ -166,6 +189,10 @@ def make_update_step(loss_builder: Callable, optimizer: Adan):
         torch._foreach_zero_(grads)
         loss = loss_builder(state, batch, **kw)
         loss.backward()
+        if group is not None:
+            state.grads[-1:].copy_(loss.detach().float().view(1))
+            collectives.all_reduce(state.grads, group, mean=True)
+            loss = state.grads[-1].clone()
         optimizer.apply(params, {k: p.grad for k, p in params.items()}, state.ema, state.opt,
                         scal)
         return loss.detach()
@@ -184,27 +211,32 @@ def make_update_step(loss_builder: Callable, optimizer: Adan):
 
 
 def make_train_step(schedule: Schedule, cfg: LM2AConfig, optimizer: Optional[Adan] = None,
-                    dataset_mean: float = 0.0, dataset_std: float = 1.0):
-    """``train_step(state, batch, generator=None, draws=None) -> loss``."""
+                    dataset_mean: float = 0.0, dataset_std: float = 1.0, mesh=None):
+    """``train_step(state, batch, generator=None, draws=None) -> loss``; under
+    a ``mesh`` with a data axis, this rank's rows of a data-parallel step."""
 
     def loss_builder(state, batch, generator=None, draws=None):
         return loss_fn(state, schedule, batch, cfg, dataset_mean=dataset_mean,
                        dataset_std=dataset_std, train=True, generator=generator, draws=draws)
 
-    return make_update_step(loss_builder, optimizer or make_optimizer(cfg))
+    return make_update_step(loss_builder, optimizer or make_optimizer(cfg), mesh)
 
 
 def make_eval_step(schedule: Schedule, cfg: LM2AConfig, dataset_mean: float = 0.0,
-                   dataset_std: float = 1.0):
+                   dataset_std: float = 1.0, mesh=None):
     """Validation loss on the current parameters: no condition drop, no
-    dropout. ``eval_step(state, batch, generator=None, draws=None)``."""
+    dropout. ``eval_step(state, batch, generator=None, draws=None)``; under
+    a ``mesh`` with a data axis, averaged over it."""
+    group = data_group(mesh)
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch, generator=None, draws=None) -> torch.Tensor:
-        return loss_fn(state, schedule, batch, cfg, dataset_mean=dataset_mean,
+        loss = loss_fn(state, schedule, batch, cfg, dataset_mean=dataset_mean,
                        dataset_std=dataset_std, train=False, generator=generator,
                        draws=draws)
+        return collectives.all_reduce(loss.float().view(1), group, mean=True)[0]
 
+    eval_step.mesh = mesh
     return eval_step
 
 
@@ -216,10 +248,14 @@ class StepRunner:
     ``loss(state, batch, generator=...)`` (eval, ``train=False``); ``data``
     the (N, T, .) tensors the rows index: a device-resident pack, or None
     for a buffer of ``k_max * batch_size`` rows made at the first ``load``.
+    ``shard`` (this rank's rows, the global rows) makes the step draw at the
+    global batch shape (a data-parallel step); a run of several processes
+    steps eagerly.
     """
 
     def __init__(self, step: Callable, state: TrainState, data: Optional[Dict[str, torch.Tensor]],
-                 batch_size: int, k_max: int, *, train: bool = True, device=None):
+                 batch_size: int, k_max: int, *, train: bool = True, device=None,
+                 shard: Optional[Tuple[slice, int]] = None):
         dev = (torch.device(device) if device is not None
                else next(state.unet.parameters()).device)
         self.step, self.state, self.train = step, state, train
@@ -229,6 +265,7 @@ class StepRunner:
         self.k = k = torch.zeros((1,), dtype=torch.long, device=dev)
         self.losses = losses = torch.zeros((k_max,), dtype=torch.float32, device=dev)
         self.generator = gen = torch.Generator(device=dev)
+        draw = gen if shard is None else row_draws.RowShard(gen, *shard)
         self.data = data = {} if data is None else dict(data)
 
         def device_step() -> None:  # closes over the buffers, not the runner: no cycle
@@ -236,14 +273,15 @@ class StepRunner:
             batch = {key: v.index_select(0, rows) for key, v in data.items()}
             if train:
                 loss = step.device_step(state, batch, scal.index_select(0, k).view(-1),
-                                        generator=gen)
+                                        generator=draw)
             else:
                 with torch.no_grad():
-                    loss = step(state, batch, generator=gen)
+                    loss = step(state, batch, generator=draw)
             losses.index_copy_(0, k, loss.float().view(1))
             k.add_(1)
 
-        self.graphed = GraphedStep(device_step, device=dev, generators=(gen,))
+        self.graphed = GraphedStep(device_step, device=dev, generators=(gen,),
+                                   eager=collectives.process_count() > 1)
 
     def load(self, batches: Dict[str, torch.Tensor]) -> np.ndarray:
         """Copy ``batches`` ((K, B, T, .) or (B, T, .) tensors) into the
@@ -293,16 +331,27 @@ def _runner_for(cache: dict, key, make: Callable[[], StepRunner], k: int) -> Ste
     return r
 
 
-def _streaming(step: Callable, train: bool):
+def _shard(mesh, b: int) -> Optional[Tuple[slice, int]]:
+    """(this rank's rows, the global rows) of a data-parallel step over local
+    batches of ``b`` rows; None without a data axis."""
+    if data_group(mesh) is None:
+        return None
+    n = b * mesh.shape[DATA_AXIS]
+    return collectives.local_batch_slice(mesh, n), n
+
+
+def _streaming(step: Callable, train: bool, mesh=None):
     """``fn(state, batches, seed, offsets) -> (K,) losses`` over stacked
-    batches (dict of (K, B, T, .) tensors) copied into a runner's buffer."""
+    batches (dict of (K, B, T, .) tensors) copied into a runner's buffer;
+    under a data-parallel ``mesh`` B is this rank's rows."""
     cache: dict = {}
 
     def fn(state: TrainState, batches, seed: int, offsets) -> torch.Tensor:
         k, b = batches["mel"].shape[:2]
         shapes = tuple((key, tuple(v.shape[2:])) for key, v in batches.items())
         r = _runner_for(cache, (id(state), b, shapes),
-                        lambda: StepRunner(step, state, None, b, k, train=train), k)
+                        lambda: StepRunner(step, state, None, b, k, train=train,
+                                           shard=_shard(mesh, b)), k)
         return r.run(r.load(batches), seed, offsets)
 
     return fn
@@ -324,14 +373,15 @@ def _resident(step: Callable, train: bool):
 
 def make_multistep_train_step(schedule: Schedule, cfg: LM2AConfig,
                               optimizer: Optional[Adan] = None, dataset_mean: float = 0.0,
-                              dataset_std: float = 1.0):
+                              dataset_std: float = 1.0, mesh=None):
     """``multi(state, batches, seed, offsets) -> losses (K,)``: K optimizer
     steps over stacked batches (dict of (K, B, T, .) tensors), step k
     drawing from ``step_generator(seed, offsets[k])``; each step is
     ``make_train_step``'s math. ``cli train`` runs every streamed step
-    through it, K = 1 included."""
-    return _streaming(make_train_step(schedule, cfg, optimizer, dataset_mean, dataset_std),
-                      train=True)
+    through it, K = 1 included; under a data-parallel ``mesh`` (K = 1) B
+    is this rank's rows of the global batch."""
+    return _streaming(make_train_step(schedule, cfg, optimizer, dataset_mean, dataset_std,
+                                      mesh), train=True, mesh=mesh)
 
 
 def make_device_data_multistep(schedule: Schedule, cfg: LM2AConfig,
@@ -347,12 +397,14 @@ def make_device_data_multistep(schedule: Schedule, cfg: LM2AConfig,
 
 
 def make_multistep_eval(schedule: Schedule, cfg: LM2AConfig, dataset_mean: float = 0.0,
-                        dataset_std: float = 1.0):
+                        dataset_std: float = 1.0, mesh=None):
     """``fn(state, batches, seed, offsets) -> (K,) losses``: validation over
     stacked batches, each scored with ``make_eval_step``'s math from
     ``step_generator(seed, offsets[k])``; the streaming counterpart of
-    ``make_device_data_eval`` (the JAX package jits ``make_eval_step``)."""
-    return _streaming(make_eval_step(schedule, cfg, dataset_mean, dataset_std), train=False)
+    ``make_device_data_eval`` (the JAX package jits ``make_eval_step``).
+    Under a data-parallel ``mesh`` the losses are averaged over it."""
+    return _streaming(make_eval_step(schedule, cfg, dataset_mean, dataset_std, mesh),
+                      train=False, mesh=mesh)
 
 
 def make_device_data_eval(schedule: Schedule, cfg: LM2AConfig, dataset_mean: float = 0.0,

@@ -71,6 +71,9 @@ def _plain(q, k, v, dtype=torch.float32):
     (1, 8, 40, 37, 48),
     (1, 2, 40, 37, 96),
     (1, 2, 40, 37, 192),
+    # head dims above 256: the kernel's chunked form
+    (1, 2, 40, 37, 320),
+    (1, 2, 40, 37, 512),
 ])
 def test_plain_matches_jax_kernel_and_reference(b, h, t, s, hd):
     q, k, v = _qkv(b + h + t, b, h, t, s, hd)

@@ -89,6 +89,34 @@ def test_attention_plan(b, h, t, s, hd):
     assert p.blocks(b, h) == p.split * p.mtiles * h * p.vparts * b
 
 
+# head dims whose tile passes 256 channels: the kernel's chunked form (above
+# 256, and 251-255 at a window offset with 8 heads)
+WIDE = [(h, hd) for hd in (257, 300, 320, 384, 512, 1000) for h in (1, 2, 8)] \
+    + [(8, hd) for hd in range(249, 256)]
+
+
+@pytest.mark.parametrize("h,hd", WIDE, ids=[f"H{h}-hd{hd}" for h, hd in WIDE])
+@pytest.mark.parametrize("t,s", [(1, 1), (37, 1025), (129, 516)])
+def test_attention_plan_chunked(h, hd, t, s):
+    """The chunked form: Q and K tiles of a multiple of CHUNK channels that
+    hold the head from its window offset, one V part of CHUNK channels per
+    chunk, 64-key tiles, no split, a ring of (Q chunk, K chunk) stages that
+    fits the card; every head dim up to 256 keeps its form."""
+    p = att.attention_plan(2, h, t, s, hd)
+    hoff = max((i * hd) % 8 for i in range(h)) if hd % 8 else 0
+    need = hd + hoff
+    assert att.chunked(p.hdq) == (need > 256)
+    if need <= 256:
+        assert p.hdq in att.TILE_CHANNELS
+        return
+    assert p.hdq % att.CHUNK == 0 and p.hdq - att.CHUNK < need <= p.hdq
+    assert p.vparts == p.hdq // att.CHUNK and p.bn == 64 and p.split == 1
+    assert p.tiles == math.ceil(s / 64) and p.mtiles == math.ceil(t / att.BM)
+    assert att.MIN_STAGES <= p.stages <= att.MAX_STAGES
+    assert p.smem == att._ALIGN + p.stages * (att.BM + 64) * att.CHUNK * 2 <= rb.SMEM_MAX
+    assert att.attention_smem(p.hdq, 64, p.stages + 1) > rb.SMEM_MAX  # the deepest ring
+
+
 def test_attention_plan_splits_the_small_6s_grids():
     """At 6 s two clips' conditioned rows give 16-80 blocks without a split;
     the plan splits the keys where that leaves most SMs idle."""

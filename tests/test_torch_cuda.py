@@ -11,7 +11,7 @@ geometries; these take the edges it does not reach: ragged and short time
 tiles, T below the sandwich's halo, fp32 sandwich inputs, every epilogue of
 ``conv3_fused`` the chain uses, the attention kernel at head dims from 1
 to 256 (``HEAD_DIMS``: every tile width, window and per-head maps, V in
-two parts above 128), T = S = 1, S around the JAX package's streaming threshold, ragged T
+two parts above 128) and above (``WIDE_HEAD_DIMS``: the chunked form), T = S = 1, S around the JAX package's streaming threshold, ragged T
 and S, strided views and batches up to 16; the resblock backward kernels at
 T of 1, 2, 3 and off the 64-frame tile, C/G = 16, the 2048-channel concat
 input, with and without the skip, one by one and as a whole block, and
@@ -95,6 +95,10 @@ TOL = dict(chip_smoke.TOL, snake_sandwich_f32=dict(atol=1e-5, rtol=1e-5))
 # window maps (hd off the 8-channel unit: 1-6, 12, 100, 250) and per-head
 # maps, base 48's and 96's 6, 12, 24, 48 and v1's 96 and 192
 HEAD_DIMS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 100, 128, 136, 192, 250, 256)
+# the chunked form (tiles past 256 channels): per-head maps above 256 and
+# windows at 257 and 249-255 with 8 heads, where the head's offset in its
+# 8-channel unit takes the tile past 256
+WIDE_HEAD_DIMS = [(4, hd) for hd in (320, 384, 512)] + [(8, hd) for hd in range(249, 258)]
 
 
 @pytest.fixture
@@ -412,14 +416,28 @@ def test_attention_batches_and_layouts(dev, b, t, s, hd, layout):
     _close(att.attention_core(q, k, v), att.attention_core_plain(q, k, v), TOL["attention"])
 
 
+@pytest.mark.parametrize("h,hd", WIDE_HEAD_DIMS, ids=[f"H{h}-hd{hd}" for h, hd in WIDE_HEAD_DIMS])
+@pytest.mark.parametrize("t,s", [(1, 1), (65, 129), (129, 516), (300, 1025)])
+def test_attention_wide_head_dims_match_plain(dev, h, hd, t, s):
+    """Head dims whose tile passes 256 channels (the chunked form), ragged T
+    and S, one launch, the same bits from two launches."""
+    q, k, v = _attn_inputs(dev, 2, h, t, s, hd, seed=hd + t + s)
+    _build.reset_launches()
+    got = att.attention_core(q, k, v)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {"attention": 1}
+    _close(got, att.attention_core_plain(q, k, v), TOL["attention"])
+    assert torch.equal(got, att.attention_core(q, k, v))
+
+
 def test_attention_refuses_what_it_cannot_take(dev):
     q, k, v = _attn_inputs(dev, 1, 2, 16, 16, 32, seed=0)
     _build.reset_launches()
     with pytest.raises(ValueError, match="bf16"):
         att.attention_core(q.float(), k.float(), v.float())
-    q300, k300, v300 = _attn_inputs(dev, 1, 2, 16, 16, 300, seed=0)
-    with pytest.raises(ValueError, match="head dim 300 outside 1..256"):
-        att.attention_core(q300, k300, v300)
+    q0, k0, v0 = _attn_inputs(dev, 1, 2, 16, 16, 0, seed=0)
+    with pytest.raises(ValueError, match="head dim 0 below 1"):
+        att.attention_core(q0, k0, v0)
     with pytest.raises(ValueError, match="hd contiguous"):  # hd at stride 2
         att.attention_core(torch.cat([q, q], dim=-1)[..., ::2], k, v)
     q2, k2, v2 = _attn_inputs(dev, 1, 3, 16, 16, 2, seed=0)  # rows of H*hd = 6 channels
@@ -429,6 +447,13 @@ def test_attention_refuses_what_it_cannot_take(dev):
     with pytest.raises(ValueError, match="heads side by side"):
         att.attention_core(q2, k2, v2)
     assert not _build.LAUNCHES
+    # what it refused before the chunked form: head dims above 256 (300 at
+    # per-head maps, 253 at a window offset that takes its tile past 256)
+    for h, hd in ((2, 300), (8, 253)):
+        qw, kw, vw = _attn_inputs(dev, 1, h, 16, 16, hd, seed=hd)
+        _close(att.attention_core(qw, kw, vw), att.attention_core_plain(qw, kw, vw),
+               TOL["attention"])
+    assert _build.LAUNCHES == {"attention": 2}
 
 
 # ---------------------------------------------------------------- training kernels
@@ -1026,6 +1051,56 @@ def test_gn_stats_every_cluster_size(dev, monkeypatch, b, t, c, dtype):
     for splits in range(1, 9):
         monkeypatch.setattr(rb, "gn_stats_plan", lambda *a, s=splits: s)
         _close(rb.gn_stats(x, 8), want, TOL["gn_stats"])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t", [1, 64, 2584, 12920])
+@pytest.mark.parametrize("c,groups", [(256, 8), (2048, 32), (40, 4)])
+def test_gn_sums_matches_plain(dev, dtype, t, c, groups):
+    """The sums form of ``gn_stats`` (the sequence-parallel forward's): one
+    launch, its sums finished into the plain statistics and the statistics
+    form's, the same bits twice."""
+    gen = torch.Generator().manual_seed(t + c)
+    x = (1.5 * torch.randn((2, t, c), generator=gen) + 0.3).to(dev, dtype)
+    _build.reset_launches()
+    s, ss = rb.gn_sums(x, groups)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {"gn_stats": 1}
+    ps, pss = rb.gn_sums_plain(x, groups)
+    torch.testing.assert_close(s, ps, rtol=1e-4, atol=1e-2)
+    torch.testing.assert_close(ss, pss, rtol=1e-4, atol=1e-2)
+    n = t * (c // groups)
+    _close(rb.gn_finish(s, ss, n), rb.gn_stats_plain(x, groups), TOL["gn_stats"])
+    _close(rb.gn_finish(s, ss, n), rb.gn_stats(x, groups), TOL["gn_stats"])
+    assert all(torch.equal(a, b) for a, b in zip((s, ss), rb.gn_sums(x, groups)))
+
+
+@pytest.mark.parametrize("t", [516, 5168])
+def test_sequence_sharded_forward_one_shard_is_the_forward(dev, t):
+    """``parallel.sequence``'s forward at one shard (no process group: the
+    statistics from the sums form, every window the whole axis) against the
+    serving forward, bf16, on the kernels, within ``UNET_REL_L2``."""
+    from lm2a_tpu_torch.core.config import ModelConfig
+    from lm2a_tpu_torch.core.mesh import make_mesh
+    from lm2a_tpu_torch.models.factory import build_denoiser, random_init_
+    from lm2a_tpu_torch.parallel.sequence import SeqShard, sequence_sharded_forward
+
+    unet = random_init_(build_denoiser(ModelConfig(base_dim=64)), 3).to(dev).eval()
+    unet = unet.requires_grad_(False).prepare(torch.bfloat16)
+    gen = torch.Generator().manual_seed(t)
+    x = torch.randn((2, t, 80), generator=gen).to(dev)
+    m, l = (torch.randn((2, t, 128), generator=gen).to(dev, torch.bfloat16) for _ in range(2))
+    tt = torch.tensor([500, 500], device=dev)
+    with torch.no_grad():
+        want = unet(x, tt, m, l, uncond_rows=1)
+        _build.reset_launches()
+        got = sequence_sharded_forward(unet, SeqShard(make_mesh(device=dev)), x, tt, m, l, t,
+                                       uncond_rows=1)
+    torch.cuda.synchronize()
+    n_blocks = len(unet.resblocks())
+    assert _build.LAUNCHES == {"gn_stats": 2 * n_blocks + 1, "conv3_fused": 2 * n_blocks}
+    rel = float((got - want).norm() / want.norm())
+    assert rel <= chip_smoke.UNET_REL_L2, rel
 
 
 def test_gn_stats_misaligned_input_and_refused_splits(dev, monkeypatch):

@@ -124,6 +124,10 @@ import lm2a_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(lm2a_tpu_torch.__path__, "lm2a_tpu_torch.")]
 for n in names:
     importlib.import_module(n)
+# the parallelism modules among them
+for n in ("core.mesh", "core.distributed", "core.draws", "parallel", "parallel.audit",
+          "parallel.sequence", "parallel.tensor"):
+    assert "lm2a_tpu_torch." + n in names, n
 import chip_smoke
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "lm2a_tpu")]
 print(len(names))

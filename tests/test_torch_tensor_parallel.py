@@ -1,0 +1,157 @@
+"""Tensor parallelism of the port (``parallel/tensor.py``) on the CPU over
+gloo, against the replicated port and the JAX package's
+``make_tp_train_step``.
+
+- The leaf rule: for every leaf of the small model (UNet and condition
+  projection), the port's rule on the leaf's JAX name and layout gives the
+  JAX package's ``_leaf_spec`` at TP = 2 and 4.
+- Two ranks of the model axis (one row line, the same rows): each holds its
+  shard of every eligible parameter, EMA leaf and Adan moment (the sharded
+  dimension halved, the rest whole), the state's bytes a rank below the
+  replicated state's; two steps with the JAX draws injected give the
+  replicated port's and the JAX TP step's loss, gradients (``prev_grad``),
+  parameters and EMA within ``test_torch_train.py``'s tolerances, the
+  shards put back together; the clip's norm (of the whole gradient each
+  rank holds) is the replicated step's; a DDIM chain of the EMA's
+  shards through ``make_tp_sampler`` is the replicated chain's, fp32.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lm2a_tpu.core.mesh import make_mesh as jax_make_mesh
+from lm2a_tpu.diffusion import make_schedule as jax_make_schedule
+from lm2a_tpu.parallel.tensor import _leaf_spec as jax_leaf_spec
+from lm2a_tpu.parallel.tensor import make_tp_train_step as jax_make_tp_train_step
+from lm2a_tpu.parallel.tensor import shard_state_tp as jax_shard_state_tp
+from lm2a_tpu_torch.core.config import config_to_dict
+from lm2a_tpu_torch.core.mesh import Mesh
+from lm2a_tpu_torch.diffusion.gaussian import ddim_sample
+from lm2a_tpu_torch.diffusion.schedule import make_schedule
+from lm2a_tpu_torch.models.factory import build_denoiser
+from lm2a_tpu_torch.ops.adan import global_norm
+from lm2a_tpu_torch.parallel.tensor import _leaf_spec, jax_leaf, tp_shardings
+from lm2a_tpu_torch.training.checkpoint import flax_path, keystr, state_arrays, to_flax_layout
+from lm2a_tpu_torch.training.train_step import make_train_step
+
+from _torch_port_util import jax_state_arrays, one_torch_thread, port_train_state  # noqa: F401
+from _torch_ranks import spawn
+from test_torch_dp import B, STATE, STEPS, T, _batch, _cfg
+from test_torch_train import MEAN, STD, TOL_LOSS, assert_state_close, jax_draws
+
+TP = 2
+
+
+@pytest.fixture(scope="module")
+def setup():
+    from lm2a_tpu.core.config import config_to_dict as jax_config_to_dict
+    from lm2a_tpu.models.factory import build_cond_projection as jax_bcp
+    from lm2a_tpu.models.factory import build_denoiser as jax_bd
+    from lm2a_tpu.training import init_train_state as jax_init_train_state
+    from lm2a_tpu_torch.core.config import config_from_dict
+
+    cfg = _cfg(0.0)
+    den, cp = jax_bd(cfg.model, "float32"), jax_bcp(cfg.model, "float32")
+    state, tx = jax_init_train_state(den, cp, cfg, jax.random.key(0), seq_len=T)
+    return dict(cfg=cfg, den=den, cp=cp, state=state, tx=tx,
+                port_cfg=config_from_dict(jax_config_to_dict(cfg)))
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_leaf_rule_is_the_jax_rule(setup, tp):
+    flat, _ = jax.tree_util.tree_flatten_with_path(setup["state"].params)
+    want = {tuple(str(e.key) for e in kp): (tuple(jax_leaf_spec(kp, leaf, tp)), np.shape(leaf))
+            for kp, leaf in flat}
+    pstate = port_train_state(setup["port_cfg"], setup["state"])
+    seen = set()
+    for name, p in pstate.params().items():
+        path, jshape, _ = jax_leaf(name, tuple(p.shape))
+        spec, shape = want[path]
+        assert jshape == shape, name
+        assert _leaf_spec(path, jshape, tp) == spec, name
+        seen.add(path)
+    assert seen == set(want)
+
+
+def test_tp_step_and_sampler_match_replicated_and_jax(setup, tmp_path):
+    cfg, port_cfg = setup["cfg"], setup["port_cfg"]
+    state0 = jax_state_arrays(setup["state"])
+    # the JAX TP step over a (data=4, model=2) mesh of the eight virtual devices
+    mesh = jax_make_mesh(model=TP)
+    jstep, _ = jax_make_tp_train_step(setup["den"], setup["cp"],
+                                      jax_make_schedule(cfg.diffusion), cfg, setup["tx"], mesh,
+                                      setup["state"], dataset_mean=MEAN, dataset_std=STD)
+    jstate, _ = jax_shard_state_tp(jax.tree.map(jnp.copy, setup["state"]), mesh)
+    draws, jstates, jlosses = [], [], []
+    for i in range(STEPS):
+        key = jax.random.key(300 + i)
+        jb = {k: jnp.asarray(v) for k, v in _batch(i).items()}
+        with mesh:
+            jstate, loss = jstep(jstate, jb, key)
+        jstates.append(jax_state_arrays(jstate))
+        jlosses.append(float(loss))
+        draws.append(jax_draws(key, jb["mel"], cfg.train.cond_drop_prob, cfg.diffusion.timesteps,
+                               train=True))
+    rng = np.random.default_rng(5)
+    payload = {f"{k}_{i}": v for i in range(STEPS) for k, v in _batch(i).items()}
+    for i, d in enumerate(draws):
+        payload.update({f"t_{i}": d.t.numpy(), f"noise_{i}": d.noise.numpy()})
+        if d.keep is not None:
+            payload[f"keep_{i}"] = d.keep.numpy()
+    payload.update({STATE + k: v for k, v in state0.items()})
+    payload["x_init"] = rng.standard_normal((1, T, 80)).astype(np.float32)
+    payload["cond"] = rng.standard_normal((1, T, port_cfg.model.cond_dim)).astype(np.float32)
+    payload["meta"] = dict(cfg=config_to_dict(port_cfg), batch=B, steps=STEPS, mean=MEAN,
+                           std=STD, model_axis=TP)
+    outs = spawn("tp_step", TP, tmp_path, payload)
+
+    # the replicated port over the same batches and draws
+    one = port_train_state(port_cfg, setup["state"])
+    step = make_train_step(make_schedule(port_cfg.diffusion), port_cfg, dataset_mean=MEAN,
+                           dataset_std=STD)
+    dims = tp_shardings(one.params(), Mesh(np.arange(TP).reshape(1, TP)))
+    for o in outs:  # each rank's shards: the sharded dimension cut TP-fold, the rest whole
+        assert o["dims"] == {k: v for k, v in dims.items()}
+        for k, p in one.params().items():
+            want = list(p.shape)
+            if dims[k] is not None:
+                want[dims[k]] //= TP
+            assert list(o[f"params|0|{k}"].shape) == want, k
+        assert o["state_bytes"] < 0.6 * o["full_bytes"]
+
+    def whole(tree, i):
+        return {k: np.concatenate([o[f"{tree}|{i}|{k}"] for o in outs], axis=dims[k])
+                if dims[k] is not None else outs[0][f"{tree}|{i}|{k}"] for k in dims}
+
+    before, jbefore = state_arrays(one), state0
+    for i in range(STEPS):
+        loss = step(one, {k: torch.tensor(v) for k, v in _batch(i).items()}, draws=draws[i])
+        norm = float(global_norm([p.grad for p in one.params().values()]))
+        for o in outs:
+            assert float(o[f"loss_{i}"]) == pytest.approx(float(loss), rel=TOL_LOSS)
+            assert float(o[f"loss_{i}"]) == pytest.approx(jlosses[i], rel=TOL_LOSS)
+            assert float(o[f"norm_{i}"]) == pytest.approx(norm, rel=1e-5)
+        got = dict(state_arrays(one))  # its v and n: the replicated run's
+        for tree, coll in (("params", "params"), ("ema", "ema_params"),
+                           ("m", "opt_state.m"), ("prev_grad", "opt_state.prev_grad")):
+            for k, v in whole(tree, i).items():
+                key = keystr(coll, flax_path(k, v.ndim))
+                got[key] = to_flax_layout(torch.tensor(v), k).numpy()
+        assert_state_close(got, state_arrays(one), before, before, warm=False) if i == 0 else \
+            assert_state_close(got, state_arrays(one), before_tp, before, warm=True)
+        assert_state_close(got, jstates[i], before_tp if i else jbefore, jbefore, warm=i > 0)
+        before_tp, before, jbefore = got, state_arrays(one), jstates[i]
+
+    # the TP sampler: the EMA's shards against the replicated chain
+    unet = build_denoiser(port_cfg.model)
+    unet.load_state_dict({k.split("/", 1)[1]: e for k, e in one.ema.items()
+                          if k.startswith("unet/")})
+    serving = unet.eval().requires_grad_(False).prepare(torch.float32)
+    cond = torch.tensor(payload["cond"])
+    want = ddim_sample(serving, make_schedule(port_cfg.diffusion), (1, T, 80), cond, cond * 0.5,
+                       num_steps=3, guidance_weight=2.0, x_init=torch.tensor(payload["x_init"]))
+    for o in outs:
+        np.testing.assert_allclose(o["sample"], want.numpy(), rtol=1e-5, atol=1e-5)

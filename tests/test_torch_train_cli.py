@@ -165,9 +165,13 @@ def test_port_resumes_jax_checkpoint(tmp_path):
     # plain update only, and the CUDA kernel refuses it as the JAX package's
     # Pallas updater does
     (["--fused_opt", "0"], "opt_backend='pallas' needs fused_opt=1"),
-    (["--coordinator", "localhost:1"], "multi-host"),
-    (["--model_parallel", "2"], "multi-host"),
-])
+    # the multi-process flags are ported: what is refused is a coordinator
+    # without the world's size and rank, and a model axis wider than the
+    # processes
+    (["--coordinator", "localhost:1"], "needs a coordinator, num_processes and process_id"),
+    (["--model_parallel", "2"], "1 devices not divisible by model=2"),
+], ids=["flags0-TPU", "flags1-opt_backend='pallas' needs fused_opt=1", "flags2-multi-host",
+        "flags3-multi-host"])
 def test_cli_refuses_what_is_not_ported(flags, match, tmp_path):
     with pytest.raises(SystemExit, match=match):
         cli_train.main(["--npz_dir", str(tmp_path), "--save_dir", str(tmp_path / "run"),
