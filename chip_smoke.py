@@ -220,6 +220,7 @@ from lm2a_tpu_torch.ops import adan as adan_op
 from lm2a_tpu_torch.ops import attention as att
 from lm2a_tpu_torch.ops import resblock as rb
 from lm2a_tpu_torch.ops import resblock_grad as rg
+from lm2a_tpu_torch.parallel.sequence import shard_bounds
 from lm2a_tpu_torch.vocoder import sandwich as sw
 from lm2a_tpu_torch.vocoder.bigvgan import BIGVGAN_22KHZ_80BAND
 from lm2a_tpu_torch.vocoder.filters import kaiser_sinc_filter1d
@@ -1120,6 +1121,123 @@ def phase_backward(timer, device, gen, rows: int = TRAIN_B, mel_t: int = MEL_T):
     return per, rows_out
 
 
+# the sequence-parallel train step's shards (4k): T over two ranks of the model axis
+SP_TRAIN_RANKS = 2
+def halo_cases(t: int, parts: int):
+    """(local T, (hl, hr)) of each of ``parts`` ranks over a length-``t``
+    stage, from the bounds ``SeqShard`` cuts, then an inner shard's (1, 1)
+    at the longest local T (a rank of a longer split)."""
+    cases = []
+    for i in range(parts):
+        lo, hi = shard_bounds(t, parts, i)
+        cases.append((hi - lo, (int(i > 0), int(i < parts - 1))))
+    inner = (-(-t // parts), (1, 1))
+    return cases + [inner] * (inner not in cases)
+
+
+def phase_backward_halo(timer, device, gen, rows: int = TRAIN_B, mel_t: int = MEL_T,
+                        parts: int = SP_TRAIN_RANKS):
+    """3d, the sequence-sharded backward: at the local geometry of each of
+    the 7 blocks the training gate routes (B=16, T over ``parts`` ranks:
+    258 or 129 frames a shard; the gate routes no block of the 129-frame
+    stage), each rank's local T with its own halo (``halo_cases``: (0, 1)
+    and (1, 0) over two ranks) and an inner shard's (1, 1), the halo forms
+    of ``conv3_dgrad`` (pre fp32 and bf16) and
+    ``conv3_wgrad`` (the fp32 source with the bias, the bf16 one) and the
+    totals form of ``gn_bwd`` (FiLM; extra with a skip), each against its
+    plain version within ``TOL_REL_L2``, twice for the same bits, and timed
+    beside the unsharded form at the same local T (the same inputs without
+    their halo rows, the pieces for the totals). Returns one row a block
+    and halo."""
+    mc = ModelConfig()
+    out = []
+    for name, t, cin, cout, has_skip, _ in resblock_geometries(mc, mel_t):
+        if not rg.resblock_train_fits(t, cin, cout, has_skip, 2):
+            continue
+        tmax = -(-t // parts)
+        w, x0, _ = random_chain(gen, rows, tmax + 2, cin, cout, has_skip, device)
+        g1, g2 = w.groups1, w.groups2
+        mean1, rstd1 = rb.gn_stats(x0, g1)
+        f0 = torch.randn((rows, tmax + 2, cout), generator=gen).to(device)
+        mean2, rstd2 = rb.gn_stats(f0, g2)
+        z1m = torch.randn((rows, tmax, cout), generator=gen).to(device)
+        sc = (torch.randn((rows, cout), generator=gen) * 0.2).to(device)
+        gh0, dz0 = (torch.randn((rows, tmax + 2, cout), generator=gen).to(device, torch.bfloat16)
+                    for _ in range(2))
+        a1 = dict(mean=mean1, rstd=rstd1, gamma=w.gn1_scale, beta=w.gn1_bias)
+        a2 = dict(mean=mean2, rstd=rstd2, gamma=w.gn2_scale, beta=w.gn2_bias)
+        for tl, halo in halo_cases(t, parts):
+            hl, hr = halo
+            z1 = z1m[:, :tl].contiguous()
+            # each tensor with its halo rows (ext) and without (local), made
+            # before any timing so no copy is timed with a kernel
+            x, f, gh, dz = (v[:, 1:1 + tl].contiguous() for v in (x0, f0, gh0, dz0))
+            xe, fe, ghe, dze = (v[:, 1 - hl:1 + tl + hr].contiguous() for v in (x0, f0, gh0, dz0))
+            d_y2, p2 = rg.conv3_dgrad_plain(ghe, w.conv2_w, pre=f, halo=halo, **a2)
+            d_y1, p1 = rg.conv3_dgrad_plain(dze, w.conv1_w, pre=x, halo=halo, **a1)
+            extra = torch.randn((rows, tl, cin), generator=gen).to(device) if has_skip else None
+            tot2, tot1 = rg.gn_totals(p2, w.gn2_scale, g2), rg.gn_totals(p1, w.gn1_scale, g1)
+            calls = {  # kernel -> [(halo form, the unsharded form at the same local T)]
+                "conv3_dgrad": [
+                    (lambda k: k.dgrad(ghe, w.conv2_w, pre=f, halo=halo, **a2),
+                     lambda k: k.dgrad(gh, w.conv2_w, pre=f, **a2)),
+                    (lambda k: k.dgrad(dze, w.conv1_w, pre=x, halo=halo, **a1),
+                     lambda k: k.dgrad(dz, w.conv1_w, pre=x, **a1))],
+                "conv3_wgrad": [
+                    (lambda k: k.wgrad(fe, gh, bias=True, halo=halo, **a2),
+                     lambda k: k.wgrad(f, gh, bias=True, **a2)),
+                    (lambda k: k.wgrad(xe, dz, halo=halo, **a1),
+                     lambda k: k.wgrad(x, dz, **a1))],
+                "gn_bwd": [
+                    (lambda k: k.gn_bwd(d_y2, f, mean2, rstd2, w.gn2_scale, None, film_scale=sc,
+                                        z1=z1, out_dtype=torch.bfloat16, totals=tot2,
+                                        count=t * (cout // g2)),
+                     lambda k: k.gn_bwd(d_y2, f, mean2, rstd2, w.gn2_scale, p2, film_scale=sc,
+                                        z1=z1, out_dtype=torch.bfloat16)),
+                    (lambda k: k.gn_bwd(d_y1, x, mean1, rstd1, w.gn1_scale, None, extra=extra,
+                                        out_dtype=torch.bfloat16, totals=tot1,
+                                        count=t * (cin // g1)),
+                     lambda k: k.gn_bwd(d_y1, x, mean1, rstd1, w.gn1_scale, p1, extra=extra,
+                                        out_dtype=torch.bfloat16))],
+            }
+            row = dict(name=name, T=t, T_local=tl, cin=cin, cout=cout, skip=has_skip, hl=hl,
+                       hr=hr)
+            for kname, pairs in calls.items():
+                rel, ms, local_ms = 0.0, 0.0, 0.0
+                for i, (form, unsharded) in enumerate(pairs):
+                    got = form(rg.KERNELS)
+                    check_same_bits(f"{name} {kname} halo {halo} [{i}]",
+                                    lambda c=form: c(rg.KERNELS), got)
+                    for j, (a, b) in enumerate(zip(got, form(rg.PLAIN))):
+                        if b is None:
+                            continue
+                        if kname == "conv3_dgrad" and j == 1:  # pieces split by M tile
+                            a, b = rg.bucket_sums(a), rg.bucket_sums(b)
+                        part = kname == "gn_bwd" and j == 1
+                        rel = max(rel, check_rel(
+                            f"{name} {kname} halo {halo} [{i}][{j}]", a, b,
+                            TOL_REL_L2["gn_bwd_partials" if part else kname]))
+                    # in turns, the lesser of two of each: a launch now and then
+                    # lands behind the host and reads ten times its time
+                    turns = [[timer.ms(lambda c=c: c(rg.KERNELS)) for c in (form, unsharded)]
+                             for _ in range(2)]
+                    ms += min(turn[0] for turn in turns)
+                    local_ms += min(turn[1] for turn in turns)
+                row[kname] = dict(rel_l2=rel, ms=ms, unsharded_ms=local_ms)
+            out.append(row)
+            log(f"[backward] halo B={rows} {name:14s} T={t} local {tl} {cin:4d}->{cout:4d} "
+                f"(hl, hr)={halo} | rel L2 dgrad {row['conv3_dgrad']['rel_l2']:.2e} wgrad "
+                f"{row['conv3_wgrad']['rel_l2']:.2e} gn_bwd {row['gn_bwd']['rel_l2']:.2e} | "
+                + " ".join(f"{k} {row[k]['ms']:.4f} ms (unsharded form "
+                           f"{row[k]['unsharded_ms']:.4f})" for k in calls))
+    sums = {k: (sum(r[k]["ms"] for r in out), sum(r[k]["unsharded_ms"] for r in out))
+            for k in ("conv3_dgrad", "conv3_wgrad", "gn_bwd")}
+    log(f"[backward] halo sums over the 7 gated blocks and their 3 halo cases, ms halo form "
+        "against the unsharded form at the same local T: " + ", ".join(
+            f"{k} {a:.4f} against {b:.4f} ({a / b - 1:+.1%})" for k, (a, b) in sums.items()))
+    return dict(rows=out, sums=sums)
+
+
 def flagship_leaves(device, state_dtype, seed):
     """(g, p, ema, m, v, n, prev_grad) for every parameter of the flagship
     denoiser and condition projection, random from ``seed``."""
@@ -1377,6 +1495,21 @@ def train_launches_per_step(mc: ModelConfig, mel_t: int = MEL_T):
             "conv3_wgrad": 2 * n + ns, "gn_bwd": 2 * n, "adan_ema": 1}, n
 
 
+def sp_train_launches_per_step(mc: ModelConfig, mel_t: int = MEL_T):
+    """Kernel launches a rank of one sequence-parallel train step, by form:
+    ``train_launches_per_step``'s, the gated blocks' 3-tap backward in the
+    halo forms (``conv3_dgrad_halo``, ``conv3_wgrad_halo``) and GroupNorm's
+    backward in the totals form (``gn_bwd_totals``); the 1x1 skip's
+    ``conv3_dgrad`` and ``conv3_wgrad`` stay local; ``gn_stats`` counts its
+    sums form, the only one the sharded forward launches."""
+    per, n = train_launches_per_step(mc, mel_t)
+    ns = per["conv3_dgrad"] - 2 * n
+    out = {"gn_stats": per["gn_stats"], "conv3_fused": per["conv3_fused"],
+           "conv3_dgrad_halo": 2 * n, "conv3_dgrad": ns, "conv3_wgrad_halo": 2 * n,
+           "conv3_wgrad": ns, "gn_bwd_totals": per["gn_bwd"], "adan_ema": per["adan_ema"]}
+    return {k: v for k, v in out.items() if v}, n
+
+
 def distill_launches_per_step(mc: ModelConfig, mel_t: int = MEL_T):
     """Kernel launches of one ``cli distill`` step: the student's, a train
     step's on the kernel route without the condition drop and dropout (the
@@ -1473,6 +1606,8 @@ def rank_worker(spec_path: str) -> int:
         return sp_rank(spec)
     if spec["job"] == "tp":
         return tp_rank(spec)
+    if spec["job"] == "sp_train":
+        return sp_train_rank(spec)
     _build.reset_launches()
     with step_hooks(spec) as seen:
         run_cli(["train", *spec["argv"]])
@@ -2094,6 +2229,132 @@ def run_parallel_tp(work: str, pack: str, smi: str):
     return dict(loss_rel=loss_rel, step_rel_l2=step_rel, ema_change_rel_l2=ema_rel, ranks=res)
 
 
+def sp_train_draws(seed: int, b: int, t: int, timesteps: int, p_drop: float):
+    """Timesteps, noise and CFG keep mask of one train step at the global
+    (B, T) shape, seeded on the host (every rank makes the same)."""
+    from lm2a_tpu_torch.training.train_step import Draws
+
+    g = torch.Generator().manual_seed(seed)
+    return Draws(torch.randint(0, timesteps, (b,), generator=g),
+                 torch.randn((b, t, 80), generator=g),
+                 (torch.rand((b, 1, 1), generator=g) >= p_drop).float())
+
+
+def sp_train_rank(spec) -> int:
+    """One rank of 4k's sequence-parallel train step, on the one card over
+    gloo: the flagship at B=16, T=516 (``fused_resblock_grad``, ``opt_backend
+    pallas``), T over ``spec["world"]`` ranks of the model axis; two steps of
+    ``make_sp_train_step`` and of the one-process kernel-route step from
+    the same seed, batch and draws (step 0 moves no parameter: Adan's
+    moments start frozen), step 1 audited, its launches counted and timed:
+    its loss and whole all-reduced gradient, and its update against Adan's
+    plain update of its own gradient (``update_err``)."""
+    import torch.distributed as dist
+
+    from lm2a_tpu_torch.core import distributed
+    from lm2a_tpu_torch.diffusion.schedule import make_schedule
+    from lm2a_tpu_torch.parallel.audit import audit
+    from lm2a_tpu_torch.parallel.sequence import make_sp_train_step
+    from lm2a_tpu_torch.training.train_step import (
+        init_train_state, make_optimizer, make_train_step,
+    )
+
+    need(distributed.init_distributed(spec["coordinator"], spec["world"], spec["rank"]),
+         "sp train: no process group")
+    print(distributed.describe(), flush=True)
+    mesh = distributed.make_hybrid_mesh(model=spec["world"])
+    dev = distributed.rank_device()
+    cfg = LM2AConfig()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, fused_resblock_grad=True),
+                              train=dataclasses.replace(cfg.train, opt_backend="pallas"))
+    schedule = make_schedule(cfg.diffusion, device=dev)
+    batch = train_batch(spec["pack"], dev)
+    b, t = batch["mel"].shape[:2]
+    stats = dict(dataset_mean=-4.5, dataset_std=2.0)
+    one, sp = (init_train_state(cfg, 0, dev, make_optimizer(cfg)) for _ in range(2))
+    one_step = make_train_step(schedule, cfg, **stats)
+    opt = make_optimizer(cfg)
+    sp_step = make_sp_train_step(schedule, cfg, opt, mesh, **stats)
+    out = {}
+    for i in range(2):
+        draws = sp_train_draws(spec["seed"] + i, b, t, cfg.diffusion.timesteps,
+                               cfg.train.cond_drop_prob)
+        out["one_loss"] = float(one_step(one, batch, draws=draws))
+        if i == 1:
+            before = snapshot(sp)
+            _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = audit(sp_step, sp, batch, draws=draws)
+        torch.cuda.synchronize()
+        out["step_ms"] = (time.perf_counter() - t0) * 1e3
+        out["loss"] = float(rep.pop("result"))
+    out["launches"] = dict(_build.LAUNCHES)
+    out["census"] = rep
+    out["update_err"] = update_err(before, sp, opt)
+    del before
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    # step 1's whole gradient (the SP step's all-reduced over the ranks)
+    # against the one-process step's, leaf by leaf as 4e compares routes
+    tol = ROUTE_TOL
+    gsum = float(torch.sqrt(sum(p.grad.float().square().sum() for p in one.params().values())))
+    sp_params = sp.params()
+    num = den = worst = 0.0
+    for k, p in one.params().items():
+        d = float((sp_params[k].grad.float() - p.grad.float()).norm())
+        n = float(p.grad.float().norm())
+        need(d <= tol["leaf_rel_l2"] * n + tol["leaf_floor"] * gsum,
+             f"sp train: gradient {k} relative L2 {d / max(n, 1e-30):.3e} (|grad| {n:.3e})")
+        if n > tol["leaf_floor"] * gsum:
+            worst = max(worst, d / n)
+        num, den = num + d * d, den + n * n
+    out["grad_rel_l2"], out["worst_leaf_rel_l2"] = (num / den) ** 0.5, worst
+    with open(spec["out"], "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_parallel_sp_train(work: str, pack: str, mc: ModelConfig, smi: str):
+    """4k, the sequence-parallel train step on the card: two gloo processes
+    of the model axis (T=516 as 258 frames a rank; the 129-frame stage 65/64)
+    at flagship width, B=16, ``fused_resblock_grad`` and ``opt_backend
+    pallas``, two steps from a seed: step 1's loss and all-reduced gradient
+    against the one-process kernel-route step on the same batch and draws
+    (``ROUTE_TOL``), each rank's update against Adan's plain update of its
+    own gradient, the launches of every kernel form a step a rank (the 7
+    gated blocks on the sharded fused chain: ``sp_train_launches_per_step``),
+    the census and ms a step a rank."""
+    os.makedirs(work, exist_ok=True)
+    port = free_port()
+    _, res = run_ranks(work, "sp_train", [
+        dict(job="sp_train", pack=pack, coordinator=f"127.0.0.1:{port}", world=SP_TRAIN_RANKS,
+             rank=r, seed=TP_SEED) for r in range(SP_TRAIN_RANKS)])
+    expected, _ = sp_train_launches_per_step(mc)
+    tol = ROUTE_TOL
+    for r, rr in enumerate(res):
+        loss_rel = abs(rr["loss"] - rr["one_loss"]) / abs(rr["one_loss"])
+        c = rr["census"]
+        log(f"[parallel] sp train rank {r} of {SP_TRAIN_RANKS} (gloo, one card): flagship B="
+            f"{TRAIN_B} T={MEL_T} bf16, fused_resblock_grad, opt_backend pallas, eager: step 1 "
+            f"{rr['step_ms']:.2f} ms; loss {rr['loss']:.6f} against the one-process step's "
+            f"{rr['one_loss']:.6f} (relative {loss_rel:.2e}, tolerance {tol['loss_rel']}); the "
+            f"all-reduced gradient relative L2 {rr['grad_rel_l2']:.3e} (tolerance "
+            f"{tol['grad_rel_l2']}), worst leaf {rr['worst_leaf_rel_l2']:.3e} (tolerance "
+            f"{tol['leaf_rel_l2']}); the update against Adan's plain update of its own "
+            f"gradient {rr['update_err']:.3f} of {TOL['adan_ema']}; launches a step "
+            f"{rr['launches']} (expected {expected}); census {c['collectives']}, "
+            f"{c['bytes']} bytes delivered; peak {rr['peak_gib']:.2f} GiB; {smi}")
+        need(loss_rel <= tol["loss_rel"] and rr["grad_rel_l2"] <= tol["grad_rel_l2"],
+             f"sp train rank {r}: step 1 disagrees with the one-process step")
+        need(rr["update_err"] <= 1.0, f"sp train rank {r}: the update is not Adan's")
+        need(rr["launches"] == expected, f"sp train rank {r}: launches {rr['launches']} != "
+             f"{expected}")
+        need(c["collectives"].get("collective-permute", 0) >= 1
+             and c["collectives"].get("all-reduce", 0) >= 1, f"sp train rank {r}: census {c}")
+    return dict(ranks=res, step_ms=[rr["step_ms"] for rr in res])
+
+
 def run_parallel(work: str, train: dict, ckpt: str, mc: ModelConfig, n_blocks: int, smi: str,
                  device):
     """4k: parallelism on the card (``train``: 4d's run, the one-process
@@ -2102,7 +2363,14 @@ def run_parallel(work: str, train: dict, ckpt: str, mc: ModelConfig, n_blocks: i
     out = dict(dp=run_parallel_dp(work, pack, os.path.dirname(train["ckpt"]), train["losses"],
                                   mc, smi, device),
                sp=run_parallel_sp(work, ckpt, n_blocks, smi, device),
+               sp_train=run_parallel_sp_train(work, pack, mc, smi),
                tp=run_parallel_tp(work, pack, smi))
+    dp_ms = [float(np.median(m[1:] or m)) for m in out["dp"]["train"]["step_ms"]]
+    sp_chain_ms = [rr["seconds"] / SP_STEPS * 1e3 for rr in out["sp"]["ranks"]]
+    log(f"[parallel] ms a step a rank, two gloo ranks on one card: sp train step "
+        f"{[round(m, 2) for m in out['sp_train']['step_ms']]} (B={TRAIN_B}, T={MEL_T}), sp chain "
+        f"{[round(m, 2) for m in sp_chain_ms]} (DDIM at T={SP_T}, B=1), dp train step "
+        f"{[round(m, 2) for m in dp_ms]} (8 rows a rank); {smi}")
     shutil.rmtree(work, ignore_errors=True)
     return out
 
@@ -4069,6 +4337,7 @@ def main(argv=None) -> int:
     mark("3-3c")
     # 3d: the training kernels
     per_bwd, report["backward"] = phase_backward(timer, dev, gen)
+    report["backward_halo"] = phase_backward_halo(timer, dev, gen)
     mark("3d backward")
     per.update(per_bwd)
     per["conv3_fused"]["err"] = max([per["conv3_fused"]["err"]] + [

@@ -68,6 +68,17 @@
 // cp.async while all its threads form the group means from coalesced loads
 // of the pieces, then vector stores.
 
+// A shard of a sequence-parallel step (ops/resblock_grad.py
+// chain_backward_sharded) takes the halo form of conv3_dgrad (the gradient
+// with one neighbour row at each inner end; conv3_dgrad_halo_kernel) and the
+// totals form of gn_bwd (the group totals of the whole sequence in place of
+// the pieces; gn_bwd_totals_kernel). Each is a kernel of its own around the
+// same body (a compile-time HALO or TOTALS), so the local forms keep their
+// instructions (scripts/torch_sass_diff.py). Its conv3_wgrad is the local
+// kernel on the source with halo rows and the gradient zero-padded to match
+// (the wrapper's halo form): a padded row adds nothing, and the zero row
+// past a global end is the conv's own padding.
+
 // Widths, as conv3_fused's: any positive channel count and any C/G. A last
 // K chunk or channel tile narrower than 64 (or than the block's N) comes in
 // zero-filled and stores nothing past the tensor; where a unit of channels
@@ -123,6 +134,8 @@ struct DgradArgs {
   float* out;          // (B, T, cin): d_y (act) or the raw product
   float* pieces;       // (2, 2, B, nT, cin): head and tail pieces of each bucket's sums
   int B, T, cin, cout, groups, nT;
+  int hl, hr;          // the halo form: g is (B, hl + T + hr, cout), its halo rows the
+                       // neighbours' (hl, hr: 1 where the shard has that neighbour)
 };
 
 template <int TAPS, int MW, int BN_>
@@ -137,11 +150,23 @@ struct DgradGeo {
   static constexpr int SMEM = 1024 + (RING > EPILOGUE ? RING : EPILOGUE);
 };
 
-template <typename Pre, bool ACT, int TAPS, int MW, int BN_, bool MASKED>
-__global__ void __launch_bounds__(128 * (MW + 1)) conv3_dgrad_kernel(const DgradArgs p) {
+// The halo form (HALO, a shard of a sequence-sharded tensor, 3 taps with the
+// SiLU backward): g carries one row of the neighbours' output gradient at
+// each inner end (hl, hr), so the frames t + 1 - k that leave [0, T) read
+// those rows, and only frames outside [-hl, T + hr) are zero. The window is
+// the halo-padded rows from the tile's first frame less one on, so a tile
+// row of batch row b reads window row r + 2 - k + (b - b0)(hl + hr). Its M
+// tiles run over the flattened B*T rows where 2T >= BM (a tile then meets
+// at most 3 batch rows: BM + 6 window rows, inside the window's 1 KB
+// rounding), else over each batch row apart (tpr tiles a row, the last one
+// partial). out, pre and the bucket pieces keep the local rows.
+template <typename Pre, bool ACT, int TAPS, int MW, int BN_, bool MASKED, bool HALO>
+__device__ __forceinline__ void conv3_dgrad_body(const DgradArgs& p) {
   using D = DgradGeo<TAPS, MW, BN_>;
   constexpr int NT = 128 * (MW + 1), BM = D::BM;
-  constexpr int ZROW = BM + 2;
+  constexpr int WROWS = HALO ? BM + 6 : BM + 2;  // window rows loaded
+  constexpr int ZROW = WROWS;
+  static_assert((ZROW + 1) * DG_LDW * 2 <= D::WIN_BYTES, "the zero row lies in the window");
   constexpr int TAP_BYTES = D::TAP_BYTES, WIN_BYTES = D::WIN_BYTES;
   constexpr int STAGE_BYTES = D::STAGE_BYTES, LDR = D::LDR;
   extern __shared__ uint8_t smem_raw[];
@@ -151,7 +176,14 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_dgrad_kernel(const Dgrad
   // the warpgroup, warp-uniform as ptxas can see (else it serializes wgmma)
   const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
   const int T = p.T, cin = p.cin, cout = p.cout, M = p.B * T;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN_;
+  // HALO: the tile starts at frame t0 of batch row b0; rowwise: it holds
+  // frames t0 .. t0 + BM - 1 of that row only (tpr tiles a row)
+  const bool rowwise = HALO && 2 * T < BM;
+  const int tpr = rowwise ? (T + BM - 1) / BM : 1;
+  const int bx = blockIdx.x, rb0 = bx / tpr;
+  const int m0 = rowwise ? rb0 * T + (bx - rb0 * tpr) * BM : blockIdx.x * BM;
+  const int b0 = HALO ? m0 / T : 0, t0 = HALO ? m0 - b0 * T : 0, hh = HALO ? p.hl + p.hr : 0;
+  const int n0 = blockIdx.y * BN_;
   const int nch = (cout + 63) / 64;
   const int S = gridDim.z, rank = blockIdx.z;
   const int ch_beg = nch * rank / S, ch_end = nch * (rank + 1) / S;
@@ -178,9 +210,11 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_dgrad_kernel(const Dgrad
         sm90::cp_async16(dst, src, ok ? 16 : 0);
     }
     const uint32_t wbase = base + TAPS * TAP_BYTES;
-    for (int u = tid; u < (BM + 2) * 8; u += NT) {
-      const int jr = u >> 3, c8 = u & 7, q = m0 - 1 + jr;
-      const bool ok = q >= 0 && q < M && 8 * c8 < clen;
+    for (int u = tid; u < WROWS * 8; u += NT) {
+      // HALO: row q of the halo-padded g (B rows of T + hl + hr)
+      const int jr = u >> 3, c8 = u & 7;
+      const int q = HALO ? b0 * (T + hh) + p.hl + t0 - 1 + jr : m0 - 1 + jr;
+      const bool ok = q >= 0 && q < (HALO ? p.B * (T + hh) : M) && 8 * c8 < clen;
       const bf16* src = p.g + (ok ? (size_t)q * cout + 64 * j + c8 * 8 : 0);
       if constexpr (MASKED)
         sm90::copy16_any(wbase + jr * (DG_LDW * 2) + c8 * 16, src, ok ? 2 * (clen - 8 * c8) : 0,
@@ -191,16 +225,20 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_dgrad_kernel(const Dgrad
   };
 
   // this lane's ldmatrix row for each tap: window row r + 2 - k (frame
-  // t + 1 - k), or the zero row where that frame leaves [0, T) of the
-  // row's batch row or the output row is past M
+  // t + 1 - k; HALO: + (b - b0)(hl + hr)), or the zero row where that frame
+  // leaves [0, T) of the row's batch row (HALO: [-hl, T + hr)) or the
+  // output row is past M (rowwise: past its batch row)
   int arow[TAPS];
   {
     const int r = wg * 64 + (tid_wg >> 5) * 16 + (lane & 15);
-    const int m = m0 + r, t = m % T;
+    const int m = m0 + r, b = !HALO ? 0 : rowwise ? b0 : m / T;
+    const int t = !HALO ? m % T : rowwise ? t0 + r : m - b * T;
 #pragma unroll
     for (int k = 0; k < TAPS; ++k) {
       const int src_t = TAPS == 3 ? t + 1 - k : t;
-      arow[k] = (m < M && src_t >= 0 && src_t < T) ? r + (TAPS == 3 ? 2 - k : 1) : ZROW;
+      const bool in = HALO ? (rowwise ? t < T : m < M) && src_t >= -p.hl && src_t < T + p.hr
+                           : m < M && src_t >= 0 && src_t < T;
+      arow[k] = in ? r + (TAPS == 3 ? 2 - k : 1) + (b - b0) * hh : ZROW;
     }
   }
   const uint32_t acol = (lane >> 4) * 16;  // bytes: k 0-7 or 8-15 of a k16 step
@@ -291,7 +329,7 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_dgrad_kernel(const Dgrad
   // so no integer division is left per element. EU rows a thread at a time,
   // their global loads issued together.
   constexpr int RSTEP = NT / BN_, EU = 8;
-  const int nrow = min(BM, M - m0);
+  const int nrow = rowwise ? min(BM, T - t0) : min(BM, M - m0);
   const int col = tid % BN_, gcc = n0 + col;
   if (col >= c_beg && col < c_beg + ncols && (!MASKED || gcc < cin)) {
     if (!ACT) {
@@ -361,6 +399,16 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_dgrad_kernel(const Dgrad
     }
   }
   if (S > 1) cooperative_groups::this_cluster().sync();  // peers may still read this tile
+}
+
+template <typename Pre, bool ACT, int TAPS, int MW, int BN_, bool MASKED>
+__global__ void __launch_bounds__(128 * (MW + 1)) conv3_dgrad_kernel(const DgradArgs p) {
+  conv3_dgrad_body<Pre, ACT, TAPS, MW, BN_, MASKED, false>(p);
+}
+
+template <typename Pre, int MW, int BN_, bool MASKED>
+__global__ void __launch_bounds__(128 * (MW + 1)) conv3_dgrad_halo_kernel(const DgradArgs p) {
+  conv3_dgrad_body<Pre, true, 3, MW, BN_, MASKED, true>(p);
 }
 
 // ------------------------------------------------------------ conv3_wgrad
@@ -714,6 +762,9 @@ struct GnBwdArgs {
   void* out;            // (B, T, C): dx, or d_z1 = d * (1 + scale)
   float* part_out;      // (3, B, nT, C): bucket sums of d, d * z1, d_z1 (FiLM mode)
   int B, T, C, G, nT;
+  const float* totals;  // the totals form: (2, B, G) group totals of gamma * d_y and
+                        // gamma * d_y * xhat over the whole sequence (pieces unread)
+  int count;            // ... over count values a group (the sequence's n * C/G)
 };
 
 // the channels of the whole groups that channels [c0, c0 + cb) touch
@@ -741,8 +792,11 @@ __device__ __forceinline__ void gn_bwd_stage(E* dst, const E* src, int nrows, in
   }
 }
 
-template <typename Pre, typename Out, int CB, bool FILM, bool MASKED>
-__global__ void __launch_bounds__(GB_THREADS, 3) gn_bwd_kernel(const GnBwdArgs p) {
+// The totals form (TOTALS, a shard of a sequence-sharded tensor): m1 and m2
+// are the caller's (2, B, G) totals, added over the shards, over count
+// values a group; step 1 reads them instead of summing the pieces.
+template <typename Pre, typename Out, int CB, bool FILM, bool MASKED, bool TOTALS>
+__device__ __forceinline__ void gn_bwd_body(const GnBwdArgs& p) {
   constexpr bool MIX = MASKED;  // a thread's channels may straddle groups
   constexpr int CPT = GB_CPT;
   constexpr int TPR = CB / CPT;         // threads a frame
@@ -791,46 +845,54 @@ __global__ void __launch_bounds__(GB_THREADS, 3) gn_bwd_kernel(const GnBwdArgs p
   }
 
   // 1. m1, m2 of the groups [g_lo, g_lo + ngr), channels [w0, w0 + W)
-  const int NS = W >= GB_THREADS ? 1 : GB_THREADS / W;  // slices of the buckets a channel
-  {
-    const size_t plane = (size_t)p.B * nT * C;
-    const float* q = p.pieces + (size_t)b * nT * C + w0;
-    for (int u = tid; u < NS * W; u += GB_THREADS) {
-      const int sl = u / W, c = u - sl * W;
-      const int k1 = nT * (sl + 1) / NS;
-      float a1 = 0.f, a2 = 0.f;
+  if constexpr (TOTALS) {
+    const float inv_n = 1.f / (float)p.count;
+    for (int j = tid; j < ngr; j += GB_THREADS) {
+      mm[j] = p.totals[(size_t)b * p.G + g_lo + j] * inv_n;
+      mm[ngr + j] = p.totals[((size_t)p.B + b) * p.G + g_lo + j] * inv_n;
+    }
+  } else {
+    const int NS = W >= GB_THREADS ? 1 : GB_THREADS / W;  // slices of the buckets a channel
+    {
+      const size_t plane = (size_t)p.B * nT * C;
+      const float* q = p.pieces + (size_t)b * nT * C + w0;
+      for (int u = tid; u < NS * W; u += GB_THREADS) {
+        const int sl = u / W, c = u - sl * W;
+        const int k1 = nT * (sl + 1) / NS;
+        float a1 = 0.f, a2 = 0.f;
 #pragma unroll 4
-      for (int k = nT * sl / NS; k < k1; ++k) {
-        const float* e = q + (size_t)k * C + c;
-        a1 += e[0] + e[plane];              // d_y: head + tail
-        a2 += e[2 * plane] + e[3 * plane];  // d_y * xhat
+        for (int k = nT * sl / NS; k < k1; ++k) {
+          const float* e = q + (size_t)k * C + c;
+          a1 += e[0] + e[plane];              // d_y: head + tail
+          a2 += e[2 * plane] + e[3 * plane];  // d_y * xhat
+        }
+        acc[u] = a1;
+        acc[NS * W + u] = a2;
       }
-      acc[u] = a1;
-      acc[NS * W + u] = a2;
     }
-  }
-  __syncthreads();
-  const float inv_n = 1.f / ((float)T * (float)cg);
-  for (int j = warp; j < ngr; j += GB_THREADS / 32) {
-    float s1 = 0.f, s2 = 0.f;
-    for (int c = j * cg + lane; c < (j + 1) * cg; c += 32) {
-      float a1 = 0.f, a2 = 0.f;
-      for (int sl = 0; sl < NS; ++sl) {
-        a1 += acc[sl * W + c];
-        a2 += acc[(NS + sl) * W + c];
+    __syncthreads();
+    const float inv_n = 1.f / ((float)T * (float)cg);
+    for (int j = warp; j < ngr; j += GB_THREADS / 32) {
+      float s1 = 0.f, s2 = 0.f;
+      for (int c = j * cg + lane; c < (j + 1) * cg; c += 32) {
+        float a1 = 0.f, a2 = 0.f;
+        for (int sl = 0; sl < NS; ++sl) {
+          a1 += acc[sl * W + c];
+          a2 += acc[(NS + sl) * W + c];
+        }
+        const float ga = __ldg(p.gamma + w0 + c);
+        s1 += ga * a1;
+        s2 += ga * a2;
       }
-      const float ga = __ldg(p.gamma + w0 + c);
-      s1 += ga * a1;
-      s2 += ga * a2;
-    }
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
-      s2 += __shfl_xor_sync(0xffffffffu, s2, o);
-    }
-    if (lane == 0) {
-      mm[j] = s1 * inv_n;
-      mm[ngr + j] = s2 * inv_n;
+      for (int o = 16; o > 0; o >>= 1) {
+        s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+        s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+      }
+      if (lane == 0) {
+        mm[j] = s1 * inv_n;
+        mm[ngr + j] = s2 * inv_n;
+      }
     }
   }
 
@@ -922,6 +984,16 @@ __global__ void __launch_bounds__(GB_THREADS, 3) gn_bwd_kernel(const GnBwdArgs p
   }
 }
 
+template <typename Pre, typename Out, int CB, bool FILM, bool MASKED>
+__global__ void __launch_bounds__(GB_THREADS, 3) gn_bwd_kernel(const GnBwdArgs p) {
+  gn_bwd_body<Pre, Out, CB, FILM, MASKED, false>(p);
+}
+
+template <typename Pre, typename Out, int CB, bool FILM, bool MASKED>
+__global__ void __launch_bounds__(GB_THREADS, 3) gn_bwd_totals_kernel(const GnBwdArgs p) {
+  gn_bwd_body<Pre, Out, CB, FILM, MASKED, true>(p);
+}
+
 }  // namespace
 
 namespace {
@@ -932,18 +1004,31 @@ constexpr int ERR_PLAN = -3;  // a launch plan the kernel does not take (ops/_bu
 // smaller grid would leave output rows unwritten, smaller shared memory
 // would overrun the ring
 template <typename Pre, bool ACT, int TAPS, int MW, int BN_>
-int launch_dgrad(const DgradArgs& a, int mtiles, int ntiles, int splits, int smem,
+int launch_dgrad(const DgradArgs& a, bool halo, int mtiles, int ntiles, int splits, int smem,
                  cudaStream_t s) {
   using D = DgradGeo<TAPS, MW, BN_>;
-  if (mtiles != (a.B * a.T + D::BM - 1) / D::BM || ntiles != (a.cin + BN_ - 1) / BN_ ||
+  // M tiles over the flattened rows, or (the halo form where 2T < BM: a
+  // tile would meet more than 3 batch rows) over each batch row apart
+  const int want_m = halo && 2 * a.T < D::BM ? a.B * ((a.T + D::BM - 1) / D::BM)
+                                             : (a.B * a.T + D::BM - 1) / D::BM;
+  if (mtiles != want_m || ntiles != (a.cin + BN_ - 1) / BN_ ||
       smem != D::SMEM || splits < 1 || splits > 8 || splits > (a.cout + 63) / 64)
     return ERR_PLAN;
   // the masked form where an N tile or a K chunk is partial (a last chunk
   // of 32 needs none: its k16 steps stop at 32) or a width is off the
   // 8-channel unit (and so off those of BN and 32)
   const bool masked = a.cin % BN_ || a.cout % 32;
-  static bool attr_set[2] = {false, false};
+  static bool attr_set[4] = {false, false, false, false};
   const dim3 grid(mtiles, ntiles, splits);
+  if constexpr (ACT && TAPS == 3) {
+    if (halo && masked)
+      return (int)sm90::launch_cluster(conv3_dgrad_halo_kernel<Pre, MW, BN_, true>,
+                                       attr_set[3], grid, 128 * (MW + 1), smem, splits, s, a);
+    if (halo)
+      return (int)sm90::launch_cluster(conv3_dgrad_halo_kernel<Pre, MW, BN_, false>,
+                                       attr_set[2], grid, 128 * (MW + 1), smem, splits, s, a);
+  }
+  if (halo) return (int)cudaErrorInvalidValue;  // the halo form takes 3 taps with the SiLU backward
   if (masked)
     return (int)sm90::launch_cluster(conv3_dgrad_kernel<Pre, ACT, TAPS, MW, BN_, true>,
                                      attr_set[1], grid, 128 * (MW + 1), smem, splits, s, a);
@@ -952,24 +1037,29 @@ int launch_dgrad(const DgradArgs& a, int mtiles, int ntiles, int splits, int sme
 }
 
 template <typename Pre, bool ACT, int TAPS>
-int launch_dgrad_plan(const DgradArgs& a, int mw, int bn, int mtiles, int ntiles, int splits,
-                      int smem, cudaStream_t s) {
-  if (mw == 1 && bn == 64) return launch_dgrad<Pre, ACT, TAPS, 1, 64>(a, mtiles, ntiles, splits, smem, s);
-  if (mw == 2 && bn == 64) return launch_dgrad<Pre, ACT, TAPS, 2, 64>(a, mtiles, ntiles, splits, smem, s);
-  if (mw == 1 && bn == 128) return launch_dgrad<Pre, ACT, TAPS, 1, 128>(a, mtiles, ntiles, splits, smem, s);
+int launch_dgrad_plan(const DgradArgs& a, bool halo, int mw, int bn, int mtiles, int ntiles,
+                      int splits, int smem, cudaStream_t s) {
+  if (mw == 1 && bn == 64)
+    return launch_dgrad<Pre, ACT, TAPS, 1, 64>(a, halo, mtiles, ntiles, splits, smem, s);
+  if (mw == 2 && bn == 64)
+    return launch_dgrad<Pre, ACT, TAPS, 2, 64>(a, halo, mtiles, ntiles, splits, smem, s);
+  if (mw == 1 && bn == 128)
+    return launch_dgrad<Pre, ACT, TAPS, 1, 128>(a, halo, mtiles, ntiles, splits, smem, s);
   return ERR_PLAN;
 }
 
 }  // namespace
 
-// modes: 3 taps with the SiLU backward (pre bf16 or fp32), 1 tap raw
+// modes: 3 taps with the SiLU backward (pre bf16 or fp32), 1 tap raw; with
+// halo, the halo form (3 taps with the SiLU backward; hl, hr 0 or 1)
 extern "C" int lm2a_conv3_dgrad(const void* g, const void* w, const void* pre, int pre_is_f32,
                                 const float* mean, const float* rstd, const float* gamma,
                                 const float* beta, float* out, float* pieces, int B, int T,
                                 int cin, int cout, int taps, int groups, int nT, int mw, int bn,
-                                int mtiles, int ntiles, int splits, int smem, void* stream) {
+                                int mtiles, int ntiles, int splits, int smem, int halo, int hl,
+                                int hr, void* stream) {
   if (B < 1 || T < 1 || nT != (T + TT - 1) / TT || cin < 1 || cout < 1 || groups < 1 ||
-      cin % groups)
+      cin % groups || hl < 0 || hl > 1 || hr < 0 || hr > 1 || (!halo && (hl || hr)))
     return (int)cudaErrorInvalidValue;
   DgradArgs a;
   a.g = static_cast<const bf16*>(g);
@@ -987,14 +1077,16 @@ extern "C" int lm2a_conv3_dgrad(const void* g, const void* w, const void* pre, i
   a.cout = cout;
   a.groups = groups;
   a.nT = nT;
+  a.hl = hl;
+  a.hr = hr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int e;
   if (taps == 3 && pre != nullptr && pre_is_f32)
-    e = launch_dgrad_plan<float, true, 3>(a, mw, bn, mtiles, ntiles, splits, smem, s);
+    e = launch_dgrad_plan<float, true, 3>(a, halo, mw, bn, mtiles, ntiles, splits, smem, s);
   else if (taps == 3 && pre != nullptr)
-    e = launch_dgrad_plan<bf16, true, 3>(a, mw, bn, mtiles, ntiles, splits, smem, s);
+    e = launch_dgrad_plan<bf16, true, 3>(a, halo, mw, bn, mtiles, ntiles, splits, smem, s);
   else if (taps == 1 && pre == nullptr)
-    e = launch_dgrad_plan<bf16, false, 1>(a, mw, bn, mtiles, ntiles, splits, smem, s);
+    e = launch_dgrad_plan<bf16, false, 1>(a, halo, mw, bn, mtiles, ntiles, splits, smem, s);
   else
     return (int)cudaErrorInvalidValue;
   if (e != 0) return e;
@@ -1059,10 +1151,13 @@ static_assert(3 * GB_THREADS * GB_CPT <= TT * 64, "the FiLM sums' rows fit the d
 template <typename Pre, typename Out, int CB, bool FILM, bool MASKED>
 int launch_gn_bwd(const GnBwdArgs& a, cudaStream_t s) {
   const int smem = gn_bwd_smem(a.C, a.C / a.G, CB, (int)sizeof(Pre));
-  static bool attr_set = false;
-  return (int)sm90::launch_cluster(gn_bwd_kernel<Pre, Out, CB, FILM, MASKED>, attr_set,
-                                   dim3(a.nT, (a.C + CB - 1) / CB, a.B), GB_THREADS, smem, 1,
-                                   s, a);
+  static bool attr_set[2] = {false, false};
+  const dim3 grid(a.nT, (a.C + CB - 1) / CB, a.B);
+  if (a.totals != nullptr)
+    return (int)sm90::launch_cluster(gn_bwd_totals_kernel<Pre, Out, CB, FILM, MASKED>,
+                                     attr_set[1], grid, GB_THREADS, smem, 1, s, a);
+  return (int)sm90::launch_cluster(gn_bwd_kernel<Pre, Out, CB, FILM, MASKED>, attr_set[0], grid,
+                                   GB_THREADS, smem, 1, s, a);
 }
 
 template <typename Pre, typename Out, int CB, bool MASKED>
@@ -1122,17 +1217,20 @@ extern "C" int lm2a_conv3_wgrad(const void* src, int src_is_f32, const float* me
 }
 
 // pieces: conv3_dgrad's (2, 2, B, nT, C) head and tail pieces, read as they
-// are (head + tail per bucket); every pointer 16-byte aligned; any C;
-// extra (GN1) or FiLM (GN2), not both; cb: the plan's channels a block (64,
-// or 128 where it divides C and C/G is a multiple of 4)
+// are (head + tail per bucket), or (the totals form) null with totals the
+// (2, B, G) group totals over count values a group; every pointer 16-byte
+// aligned; any C; extra (GN1) or FiLM (GN2), not both; cb: the plan's
+// channels a block (64, or 128 where it divides C and C/G is a multiple of 4)
 extern "C" int lm2a_gn_bwd(const float* dy, const void* pre, int pre_is_f32, const float* mean,
                            const float* rstd, const float* gamma, const float* pieces,
                            const float* extra, const float* film_scale, const float* z1,
                            void* out, int out_is_f32, float* part_out, int B, int T, int C,
-                           int G, int nT, int cb, void* stream) {
+                           int G, int nT, int cb, const float* totals, int count,
+                           void* stream) {
   if (B < 1 || T < 1 || G < 1 || C % G || nT != (T + TT - 1) / TT ||
       (film_scale != nullptr) != (z1 != nullptr) || (film_scale != nullptr) != (part_out != nullptr) ||
-      (film_scale != nullptr && extra != nullptr))
+      (film_scale != nullptr && extra != nullptr) || (pieces == nullptr) == (totals == nullptr) ||
+      (totals != nullptr && count < T * (C / G)))
     return (int)cudaErrorInvalidValue;
   if (cb != 64 && cb != 128) return ERR_PLAN;
   GnBwdArgs a;
@@ -1152,6 +1250,8 @@ extern "C" int lm2a_gn_bwd(const float* dy, const void* pre, int pre_is_f32, con
   a.C = C;
   a.G = G;
   a.nT = nT;
+  a.totals = totals;
+  a.count = count;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int e;
   if (pre_is_f32 && out_is_f32)

@@ -297,6 +297,23 @@ class ResBlockUltimate(nn.Module):
             h = attend_uncond(self.cross_attn, h, motion_f, text_f, uncond_rows)
         return xs + h
 
+    def fused_train(self, x, scale, shift, dtype: torch.dtype, shard=None,
+                    n: Optional[int] = None):
+        """The block's fused train chain (``fused_resblock_train``) on ``x``
+        at ``dtype``: ``(h, xs)``, the chain's output and the residual (the
+        skip's output, or ``x`` at ``dtype``), or None where the training
+        gate refuses the geometry. With ``shard``: ``x`` is the shard's rows
+        of a length-``n`` sequence, and the gate reads ``n``."""
+        skip = getattr(self, "skip", None)
+        res = fused_resblock_train(
+            x.to(dtype), self.gn1.weight, self.gn1.bias, self.conv1.weight, self.conv1.bias,
+            scale, shift, self.gn2.weight, self.gn2.bias, self.conv2.weight, self.conv2.bias,
+            skip.weight if skip is not None else None, skip.bias if skip is not None else None,
+            groups1=self.gn1.num_groups, groups2=self.gn2.num_groups, shard=shard, n=n)
+        if res is None:
+            return None
+        return res if skip is not None else (res, x.to(dtype))
+
     def forward_train(self, x, t_emb, motion_f, text_f, dtype: torch.dtype,
                       generator: Optional[torch.Generator], fused_grad: bool):
         """Training form (see the module docstring); ``generator=None``
@@ -305,15 +322,9 @@ class ResBlockUltimate(nn.Module):
         skip = getattr(self, "skip", None)
         attend = self.use_attn and motion_f is not None and text_f is not None
         if fused_grad:
-            res = fused_resblock_train(
-                x.to(dtype), self.gn1.weight, self.gn1.bias, self.conv1.weight,
-                self.conv1.bias, scale, shift, self.gn2.weight, self.gn2.bias,
-                self.conv2.weight, self.conv2.bias,
-                skip.weight if skip is not None else None,
-                skip.bias if skip is not None else None,
-                groups1=self.gn1.num_groups, groups2=self.gn2.num_groups)
+            res = self.fused_train(x, scale, shift, dtype)
             if res is not None:  # the geometry passes the fused-backward gate
-                h, xs = res if skip is not None else (res, x.to(dtype))
+                h, xs = res
                 h = dropout(h, self.dropout, generator)
                 if attend:
                     h = self.cross_attn(h, motion_f, text_f, dtype=dtype)

@@ -21,8 +21,10 @@ tiles over a thread-block cluster) and
 runs the plain version for CPU tensors. Its backward
 recomputes through the plain version, as the JAX custom VJP recomputes
 through ``attention_core_reference``. The inputs may be strided views: the
-kernel reads them through their strides, and the output comes back as a
-``(B, H, T, hd)`` view of a ``(B, T, H, hd)`` tensor, so a caller holding
+kernel reads them through their strides (a layout it cannot read, such as
+rows of H*hd channels off the 16-byte unit, is first copied by
+``pad_rows`` into rows padded to 8 channels), and the output comes back as
+a ``(B, H, T, hd)`` view of a ``(B, T, H, hd)`` tensor, so a caller holding
 channels-last projections needs no transposes.
 """
 
@@ -208,6 +210,30 @@ def attention_core_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
     return out.to(q.dtype)
 
 
+def layout_taken(x: torch.Tensor) -> bool:
+    """Whether the kernel reads the (B, H, T, hd) view ``x`` as it lies: hd
+    contiguous and 16-byte aligned rows, and where hd is off the 8-channel
+    unit (windows over each row's channels) the heads side by side."""
+    st, hd = x.stride(), x.shape[3]
+    if hd % 8:
+        return st[3] == 1 and st[1] == hd and st[0] % 8 == st[2] % 8 == x.data_ptr() % 16 == 0
+    return st[3] == 1 and st[0] % 8 == st[1] % 8 == st[2] % 8 == x.data_ptr() % 16 == 0
+
+
+def pad_rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (B, H, T, hd) in a layout the kernel takes: ``x`` itself where
+    it does (``layout_taken``), else a copy into a zeroed (B, T, C) buffer
+    whose rows hold the heads side by side, C = H*hd rounded up to a
+    multiple of 8 channels, as a (B, H, T, hd) view of its first H*hd."""
+    if layout_taken(x):
+        return x
+    b, h, t, hd = x.shape
+    c = -(-h * hd // 8) * 8
+    out = x.new_zeros((b, t, c)).as_strided((b, h, t, hd), (t * c, hd, c, 1))
+    out.copy_(x)
+    return out
+
+
 def _check(q, k, v):
     b, h, t, hd = q.shape
     s = k.shape[2]
@@ -224,15 +250,7 @@ def _check(q, k, v):
          f"{tuple(v.shape)}")
     need(t >= 1 and s >= 1, f"empty T or S ({t}, {s})")
     for x, name in ((q, "q"), (k, "k"), (v, "v")):
-        st = x.stride()
         need(x.device == q.device, f"{name} on {x.device}, q on {q.device}")
-        if hd % 8:  # windows over each row's channels: the heads side by side
-            need(st[3] == 1 and st[1] == hd and st[0] % 8 == st[2] % 8 == x.data_ptr() % 16 == 0,
-                 f"{name} at head dim {hd} needs its heads side by side (head stride {hd}) "
-                 f"and 16-byte aligned rows, strides {st}, H {h}")
-        else:
-            need(st[3] == 1 and st[0] % 8 == st[1] % 8 == st[2] % 8 == x.data_ptr() % 16 == 0,
-                 f"{name} needs hd contiguous and 16-byte aligned rows, strides {st}")
 
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -241,6 +259,10 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if q.device.type != "cuda":
         raise ValueError(f"attention_core: unsupported device {q.device}")
     _check(q, k, v)
+    # a layout the kernel does not read (rows off the 16-byte unit, heads
+    # apart where hd is off the 8-channel unit, hd strided) is copied into
+    # one it does; the output keeps its shape
+    q, k, v = pad_rows(q), pad_rows(k), pad_rows(v)
     b, h, t, hd = q.shape
     s = k.shape[2]
     plan = attention_plan(b, h, t, s, hd)

@@ -34,6 +34,20 @@ GroupNorm and SiLU in fp32, weight gradients fp32.
 Each kernel wrapper launches its CUDA kernel for a CUDA tensor, runs its
 plain PyTorch version (``*_plain``, the same arithmetic and the same partial
 tiles) for a CPU tensor, and raises for anything else.
+
+A shard of a sequence-parallel step (``parallel/sequence.py``) runs the
+chain on its rows of T (``chain_forward_sharded``,
+``chain_backward_sharded``): the statistics from ``gn_stats``'s sums form
+added over the shards, each conv's input with one neighbour row at each
+inner end, and in the backward the output gradient's rows exchanged the
+same way. For that ``conv3_dgrad`` and ``conv3_wgrad`` have halo forms
+(``halo=(hl, hr)``: the gradient, or the source, carries the halo rows)
+and ``gn_bwd`` a totals form (``totals=``, ``count=``: the group totals of
+the whole sequence, ``gn_totals`` added over the shards). ``conv3_dgrad``'s
+and ``gn_bwd``'s are compile-time forms of their kernels, so the local
+forms keep their code; ``conv3_wgrad``'s is the local kernel on
+zero-padded gradient rows. Each form's launches count under its own name
+(``conv3_dgrad_halo``, ``conv3_wgrad_halo``, ``gn_bwd_totals``).
 """
 
 from __future__ import annotations
@@ -48,8 +62,8 @@ import torch
 from lm2a_tpu_torch.ops import _build
 from lm2a_tpu_torch.ops.resblock import (
     _ALIGN, SMEM_MAX, SPLIT_MAX, WAVE_BLOCKS, WGRAD_CHUNK_US, _check_vec, _is_cuda, _need,
-    check_widths, conv3_fused, conv3_fused_plain, gn_stats, gn_stats_plain, modeled_us,
-    n_chunks, tile_fits,
+    check_widths, conv3_fused, conv3_fused_plain, gn_finish, gn_stats, gn_stats_plain, gn_sums,
+    gn_sums_plain, modeled_us, n_chunks, tile_fits,
 )
 
 SMEM_SM, SMEM_RESERVED = 233_472, 1024  # an SM's shared memory; the system's share a block
@@ -85,12 +99,13 @@ DGRAD_TAP1 = 0.75
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _build.declare("resblock_bwd", "lm2a_conv3_dgrad",
                [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                _I, _I, _I, _I, _I, _I, _P])
+                _I, _I, _I, _I, _I, _I, _I, _I, _I, _P])
 _build.declare("resblock_bwd", "lm2a_conv3_wgrad",
                [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                 _I, _P])
 _build.declare("resblock_bwd", "lm2a_gn_bwd",
-               [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P])
+               [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P,
+                _I, _P])
 
 
 def resblock_train_fits(t: int, cin: int, cout: int, has_skip: bool,
@@ -137,8 +152,15 @@ def _gn_silu_act(src, mean, rstd, gamma, beta, dtype):
 
 # ---------------------------------------------------------------- plain versions
 
+def _halo_pad(v: torch.Tensor, halo) -> torch.Tensor:
+    """(B, hl + T + hr, C) with halo rows -> (B, T + 2, C): a zero row at
+    each end that has no halo row (a global edge: the conv pads there)."""
+    hl, hr = halo
+    return torch.nn.functional.pad(v, (0, 0, 1 - hl, 1 - hr))
+
+
 def conv3_dgrad_plain(g, w, *, taps: int = 3, pre=None, mean=None, rstd=None,
-                      gamma=None, beta=None):
+                      gamma=None, beta=None, halo=None):
     """Input gradient of a SAME conv3 (``taps=3``) or 1x1 conv (``taps=1``).
 
     ``g`` (B, T, Cout) in the compute dtype, ``w`` (Cout, taps*Cin) with
@@ -147,16 +169,23 @@ def conv3_dgrad_plain(g, w, *, taps: int = 3, pre=None, mean=None, rstd=None,
     statistics and affine: ``d_y = d * silu'(y)``, ``y = xhat*gamma + beta``,
     and pieces (2, 2, B, nT, Cin): the tile sums of ``d_y`` and ``d_y *
     xhat``, each as a head piece (here the whole sum) and a tail piece (here
-    zero), as the kernel writes them (``bucket_sums`` adds them)."""
+    zero), as the kernel writes them (``bucket_sums`` adds them).
+
+    The halo form (``halo=(hl, hr)``, 3 taps, a shard of a sequence-sharded
+    tensor): ``g`` is (B, hl + T + hr, Cout), its row ``hl - 1`` the left
+    neighbour's last output gradient row where ``hl`` is 1 and row ``hl + T``
+    the right neighbour's first where ``hr`` is 1; a missing one (a global
+    edge) is zero. ``pre``, ``d`` and the pieces keep the local T rows."""
     cout = g.shape[-1]
     cin = w.shape[1] // taps
     gf, wf = g.float(), w.float()
     if taps == 1:
         d = gf @ wf
     else:
-        m = [gf @ wf[:, k * cin:(k + 1) * cin] for k in range(3)]
-        zero = torch.zeros_like(m[0][:, :1])
-        d = (torch.cat([m[0][:, 1:], zero], 1) + m[1] + torch.cat([zero, m[2][:, :-1]], 1))
+        gp = _halo_pad(gf, halo or (0, 0))  # (B, T + 2, Cout): frames -1 .. T
+        t = gp.shape[1] - 2
+        m = [gp @ wf[:, k * cin:(k + 1) * cin] for k in range(3)]
+        d = m[0][:, 2:] + m[1][:, 1:t + 1] + m[2][:, :t]
     if pre is None:
         return d, None
     xh = _xhat(pre, mean, rstd)
@@ -168,42 +197,59 @@ def conv3_dgrad_plain(g, w, *, taps: int = 3, pre=None, mean=None, rstd=None,
 
 
 def conv3_wgrad_plain(src, g, *, taps: int = 3, mean=None, rstd=None, gamma=None,
-                      beta=None, bias: bool = False):
+                      beta=None, bias: bool = False, halo=None):
     """Weight gradient of a SAME conv3 (or 1x1): ``dW[k] = sum_{b,t}
     a[b, t+k-1]^T g[b, t]`` as (taps*Cin, Cout) fp32 (the JAX kernel layout
     ``(3, Cin, Cout)`` flattened), ``a = silu(gn(src))`` (or ``src`` raw when
     ``mean`` is None) rounded to ``g``'s dtype; with ``bias`` also the fp32
-    column sums of ``g``."""
+    column sums of ``g``. The halo form (``halo=(hl, hr)``, 3 taps): ``src``
+    is (B, hl + T + hr, Cin), its halo rows the neighbours' (normalised with
+    the same statistics), a missing one a zero activation; ``g`` keeps the
+    local T rows."""
     cdt = g.dtype
     a = (src.to(cdt).float() if mean is None
          else _gn_silu_act(src, mean, rstd, gamma, beta, cdt))
     gf = g.float()
-    b, t, cin = a.shape
-    a2 = a.reshape(b * t, cin)
-    g2 = gf.reshape(b * t, -1)
+    b, t, cout = gf.shape
+    cin = a.shape[-1]
+    g2 = gf.reshape(b * t, cout)
     if taps == 1:
-        dw = a2.t() @ g2
+        dw = a.reshape(b * t, cin).t() @ g2
     else:
-        zero = torch.zeros_like(a[:, :1])
-        shifted = (torch.cat([zero, a[:, :-1]], 1), a, torch.cat([a[:, 1:], zero], 1))
-        dw = torch.cat([s.reshape(b * t, cin).t() @ g2 for s in shifted], 0)
+        ap = _halo_pad(a, halo or (0, 0))  # (B, T + 2, Cin): frames -1 .. T
+        dw = torch.cat([ap[:, k:k + t].reshape(b * t, cin).t() @ g2 for k in range(3)], 0)
     return dw, (g2.sum(0) if bias else None)
 
 
+def gn_totals(pieces: torch.Tensor, gamma: torch.Tensor, groups: int) -> torch.Tensor:
+    """(2, B, G) group totals of ``gamma * d_y`` and ``gamma * d_y * xhat``
+    from conv3_dgrad's (2, 2, B, nT, C) pieces: per channel the bucket sums
+    (head + tail) over the tiles, weighted by gamma, then summed over the
+    group's channels. A sequence shard's totals, added over the model axis,
+    are the whole sequence's (``gn_bwd``'s totals form)."""
+    _, _, b, _, c = pieces.shape
+    s = bucket_sums(pieces).sum(2) * gamma  # (2, B, C)
+    return s.view(2, b, groups, c // groups).sum(-1)
+
+
 def gn_bwd_plain(dy, pre, mean, rstd, gamma, pieces, *, extra=None, film_scale=None,
-                 z1=None, out_dtype=torch.float32):
+                 z1=None, out_dtype=torch.float32, totals=None, count=None):
     """GroupNorm input gradient ``rstd * (gamma*dy - m1 - xhat*m2)`` with
     ``m1, m2`` the group means of ``gamma * dy`` and ``gamma * dy * xhat``
     taken from ``pieces`` (conv3_dgrad's (2, 2, B, nT, C) head and tail
     pieces of the tile sums, head + tail per tile), plus ``extra``. With
     ``film_scale`` (GN2): returns ``d_z1 = d_f * (1 + scale)`` and partials
     (3, B, nT, C): tile sums of ``d_f``, ``d_f * z1``, ``d_z1``; else
-    ``(dx, None)``."""
+    ``(dx, None)``. The totals form (a sequence shard): ``pieces`` None,
+    ``totals`` the (2, B, G) group totals of the whole sequence
+    (``gn_totals`` added over the shards) and ``count`` its values a group
+    (``n * C/G``); everything else stays on the local rows."""
     b, t, c = dy.shape
     g = mean.shape[1]
     cg = c // g
-    s = bucket_sums(pieces).sum(2) * gamma  # (2, B, C): gamma * per-row sums
-    m = s.view(2, b, g, cg).sum(-1) / float(t * cg)  # (2, B, G)
+    if totals is None:
+        totals, count = gn_totals(pieces, gamma, g), t * cg
+    m = totals / float(count)  # (2, B, G)
     m = m.repeat_interleave(cg, dim=-1)[:, :, None, :]  # (2, B, 1, C)
     xh = _xhat(pre, mean, rstd)
     rs = rstd.repeat_interleave(cg, dim=-1)[:, None, :]
@@ -270,10 +316,17 @@ def _dgrad_smem(mw: int, bn: int, taps: int) -> int:
     return _ALIGN + max(ring, 2 * bm * (bn + 4) * 4)  # the epilogue's two fp32 tiles
 
 
-def dgrad_candidates(b: int, t: int, cin: int, cout: int, taps: int):
+def m_tiles(b: int, t: int, bm: int, halo: bool) -> int:
+    """Tiles of ``bm`` rows over B*T: over the flattened rows, or (a halo
+    form where 2T < ``bm``: a tile would meet more than 3 batch rows, whose
+    halo rows its window cannot hold) over each batch row apart."""
+    return b * -(-t // bm) if halo and 2 * t < bm else -(-(b * t) // bm)
+
+
+def dgrad_candidates(b: int, t: int, cin: int, cout: int, taps: int, halo: bool = False):
     """Every launch of ``conv3_dgrad`` for this shape that fits the card, as
-    (modeled microseconds, DgradPlan), in a fixed order."""
-    m = b * t
+    (modeled microseconds, DgradPlan), in a fixed order; ``halo``: the halo
+    form's M tiles (``m_tiles``)."""
     chunks = -(-cout // 64)
     out = []
     for (mw, bn), chunk_us in DGRAD_CHUNK_US.items():
@@ -285,7 +338,7 @@ def dgrad_candidates(b: int, t: int, cin: int, cout: int, taps: int):
         fixed = DGRAD_BLOCK_US[(mw, bn)] + (DGRAD_EPILOGUE_US[(mw, bn)] if taps == 3 else 0.0)
         if taps == 1:
             chunk_us *= DGRAD_TAP1
-        mtiles, ntiles = -(-m // (64 * mw)), -(-cin // bn)
+        mtiles, ntiles = m_tiles(b, t, 64 * mw, halo), -(-cin // bn)
         per_sm = min(DGRAD_PER_SM[(mw, bn)], SMEM_SM // (smem + SMEM_RESERVED))
         for splits in range(1, min(SPLIT_MAX, chunks) + 1):
             plan = DgradPlan(mw, bn, mtiles, ntiles, splits, smem, chunks)
@@ -295,22 +348,37 @@ def dgrad_candidates(b: int, t: int, cin: int, cout: int, taps: int):
 
 
 @functools.lru_cache(maxsize=None)
-def dgrad_plan(b: int, t: int, cin: int, cout: int, taps: int) -> DgradPlan:
+def dgrad_plan(b: int, t: int, cin: int, cout: int, taps: int, halo: bool = False) -> DgradPlan:
     """Tile, K split and shared memory of ``conv3_dgrad`` (pure; the wrapper
     passes it to the kernel): the candidate of least modeled time
     (``dgrad_candidates``), the first of equals."""
-    return min(dgrad_candidates(b, t, cin, cout, taps), key=lambda c: c[0])[1]
+    return min(dgrad_candidates(b, t, cin, cout, taps, halo), key=lambda c: c[0])[1]
+
+
+def _check_halo(fn, halo, taps, act, rows, t):
+    """(hl, hr) of a halo form, checked by name; (0, 0) for the local form."""
+    if halo is None:
+        return 0, 0
+    hl, hr = halo
+    _need(taps == 3 and act, f"{fn}: the halo form takes 3 taps with the GroupNorm input")
+    _need(hl in (0, 1) and hr in (0, 1), f"{fn}: halo rows (hl, hr) must be 0 or 1, got {halo}")
+    _need(rows == hl + t + hr and t >= 1,
+          f"{fn}: the halo form's rows must be hl + T + hr = {hl} + {t} + {hr}, got {rows}")
+    return hl, hr
 
 
 def conv3_dgrad(g, w, *, taps: int = 3, pre=None, mean=None, rstd=None, gamma=None,
-                beta=None):
+                beta=None, halo=None):
     """Kernel wrapper of ``conv3_dgrad_plain`` (same arguments; the kernel
-    takes 3 taps with ``pre`` or 1 tap raw)."""
+    takes 3 taps with ``pre`` or 1 tap raw, the halo form 3 taps with
+    ``pre`` and counts as ``conv3_dgrad_halo``)."""
     if not _is_cuda(g):
         return conv3_dgrad_plain(g, w, taps=taps, pre=pre, mean=mean, rstd=rstd,
-                                 gamma=gamma, beta=beta)
+                                 gamma=gamma, beta=beta, halo=halo)
     dev = g.device
-    b, t, cout = g.shape
+    b, rows, cout = g.shape
+    t = pre.shape[1] if halo is not None and pre is not None else rows
+    hl, hr = _check_halo("conv3_dgrad", halo, taps, pre is not None, rows, t)
     _need(taps in (1, 3), "conv3_dgrad: taps must be 1 or 3")
     cin = w.shape[1] // taps
     _need(g.dtype == torch.bfloat16 and g.is_contiguous(), "conv3_dgrad: g must be contiguous bf16")
@@ -328,13 +396,15 @@ def conv3_dgrad(g, w, *, taps: int = 3, pre=None, mean=None, rstd=None, gamma=No
         # each bucket's sums in two pieces: the rows in the block of its
         # first row, and the rest (the next block's M tile)
         pieces = torch.empty((2, 2, b, nt, cin), device=dev, dtype=torch.float32)
-    plan = dgrad_plan(b, t, cin, cout, taps)
+    plan = dgrad_plan(b, t, cin, cout, taps, halo is not None)
     P = _build.ptr
-    _build.launch("resblock_bwd", "lm2a_conv3_dgrad", "conv3_dgrad",
+    _build.launch("resblock_bwd", "lm2a_conv3_dgrad",
+                  "conv3_dgrad" if halo is None else "conv3_dgrad_halo",
                   P(g), P(w), P(pre), int(pre is not None and pre.dtype == torch.float32),
                   P(mean), P(rstd), P(gamma), P(beta), P(out), P(pieces),
                   b, t, cin, cout, taps, groups or 1, nt, plan.mw, plan.bn, plan.mtiles,
-                  plan.ntiles, plan.splits, plan.smem, _build.stream_ptr(dev))
+                  plan.ntiles, plan.splits, plan.smem, int(halo is not None), hl, hr,
+                  _build.stream_ptr(dev))
     return out, pieces
 
 
@@ -400,18 +470,26 @@ def wgrad_plan(b: int, t: int, cin: int, cout: int, taps: int,
 
 
 def conv3_wgrad(src, g, *, taps: int = 3, mean=None, rstd=None, gamma=None, beta=None,
-                bias: bool = False):
-    """Kernel wrapper of ``conv3_wgrad_plain`` (same arguments)."""
+                bias: bool = False, halo=None):
+    """Kernel wrapper of ``conv3_wgrad_plain`` (same arguments). The halo
+    form (3 taps with the GroupNorm statistics) launches the local kernel
+    on ``src`` with its halo rows and ``g`` zero-padded to the same rows: a
+    padded row adds nothing, and the zero row past a global end is the
+    conv's own padding. It counts as ``conv3_wgrad_halo``."""
     if not _is_cuda(g):
         return conv3_wgrad_plain(src, g, taps=taps, mean=mean, rstd=rstd, gamma=gamma,
-                                 beta=beta, bias=bias)
+                                 beta=beta, bias=bias, halo=halo)
     dev = g.device
     b, t, cout = g.shape
     cin = src.shape[-1]
+    hl, hr = _check_halo("conv3_wgrad", halo, taps, mean is not None, src.shape[1], t)
+    if halo is not None:
+        g = torch.nn.functional.pad(g, (0, 0, hl, hr))
+        t = hl + t + hr
     _need(taps in (1, 3), "conv3_wgrad: taps must be 1 or 3")
     _need(g.dtype == torch.bfloat16 and g.is_contiguous(), "conv3_wgrad: g must be contiguous bf16")
     _need(tuple(src.shape) == (b, t, cin) and src.device == dev,
-          "conv3_wgrad: src must be (B, T, Cin) on g's device")
+          "conv3_wgrad: src must be (B, hl + T + hr, Cin) on g's device")
     check_widths("conv3_wgrad", Cin=cin, Cout=cout)
     groups = 1
     if mean is None:
@@ -423,7 +501,8 @@ def conv3_wgrad(src, g, *, taps: int = 3, mean=None, rstd=None, gamma=None, beta
     dw = torch.empty((plan.parts, taps * cin, cout), device=dev, dtype=torch.float32)
     db = torch.empty((plan.parts, cout), device=dev, dtype=torch.float32) if bias else None
     P = _build.ptr
-    _build.launch("resblock_bwd", "lm2a_conv3_wgrad", "conv3_wgrad",
+    _build.launch("resblock_bwd", "lm2a_conv3_wgrad",
+                  "conv3_wgrad" if halo is None else "conv3_wgrad_halo",
                   P(src), int(src.dtype == torch.float32), P(mean), P(rstd), P(gamma),
                   P(beta), P(g), P(dw), P(db), b, t, cin, cout, taps, groups, plan.mw,
                   plan.ntiles, plan.ctiles, plan.splits, plan.parts, plan.smem,
@@ -442,11 +521,13 @@ def gn_bwd_plan(c: int, groups: int = 1) -> int:
 
 
 def gn_bwd(dy, pre, mean, rstd, gamma, pieces, *, extra=None, film_scale=None, z1=None,
-           out_dtype=torch.float32):
-    """Kernel wrapper of ``gn_bwd_plain`` (same arguments)."""
+           out_dtype=torch.float32, totals=None, count=None):
+    """Kernel wrapper of ``gn_bwd_plain`` (same arguments; the totals form
+    counts as ``gn_bwd_totals``)."""
     if not _is_cuda(dy):
         return gn_bwd_plain(dy, pre, mean, rstd, gamma, pieces, extra=extra,
-                            film_scale=film_scale, z1=z1, out_dtype=out_dtype)
+                            film_scale=film_scale, z1=z1, out_dtype=out_dtype, totals=totals,
+                            count=count)
     dev = dy.device
     b, t, c = dy.shape
     nt = n_tiles(t)
@@ -459,9 +540,16 @@ def gn_bwd(dy, pre, mean, rstd, gamma, pieces, *, extra=None, film_scale=None, z
     for s, name in ((mean, "mean"), (rstd, "rstd")):
         _check_stats(s, b, groups, dev, f"gn_bwd {name}")
     _check_vec(gamma, c, dev, "gn_bwd gamma")
-    _need(pieces.dtype == torch.float32 and pieces.is_contiguous()
-          and tuple(pieces.shape) == (2, 2, b, nt, c),
-          "gn_bwd: pieces must be fp32 (2, 2, B, nT, C)")
+    if totals is None:
+        _need(pieces is not None and pieces.dtype == torch.float32 and pieces.is_contiguous()
+              and tuple(pieces.shape) == (2, 2, b, nt, c) and count is None,
+              "gn_bwd: pieces must be fp32 (2, 2, B, nT, C)")
+    else:
+        _need(pieces is None and totals.dtype == torch.float32 and totals.is_contiguous()
+              and tuple(totals.shape) == (2, b, groups) and totals.device == dev,
+              "gn_bwd: the totals form takes fp32 (2, B, G) totals and no pieces")
+        _need(isinstance(count, int) and count >= t * (c // groups),
+              "gn_bwd: the totals form's count is the whole sequence's values a group")
     _need(out_dtype in (torch.bfloat16, torch.float32), "gn_bwd: out_dtype bf16 or fp32")
     if extra is not None:
         _need(extra.dtype == torch.float32 and extra.is_contiguous()
@@ -478,19 +566,21 @@ def gn_bwd(dy, pre, mean, rstd, gamma, pieces, *, extra=None, film_scale=None, z
     _need(all(v.data_ptr() % 16 == 0 for v in (dy, pre, extra, z1) if v is not None),
           "gn_bwd: the (B, T, C) tensors must start on a 16-byte boundary")
     P = _build.ptr
-    _build.launch("resblock_bwd", "lm2a_gn_bwd", "gn_bwd",
+    _build.launch("resblock_bwd", "lm2a_gn_bwd", "gn_bwd" if totals is None else "gn_bwd_totals",
                   P(dy), P(pre), int(pre.dtype == torch.float32), P(mean), P(rstd),
                   P(gamma), P(pieces), P(extra), P(film_scale), P(z1), P(out),
                   int(out_dtype == torch.float32), P(part_out), b, t, c, groups, nt,
-                  gn_bwd_plan(c, groups), _build.stream_ptr(dev))
+                  gn_bwd_plan(c, groups), P(totals), count or 0, _build.stream_ptr(dev))
     return out, part_out
 
 
-# the chain's five functions: the kernel wrappers, or their plain versions
-KERNELS = SimpleNamespace(gn_stats=gn_stats, conv3_fused=conv3_fused, dgrad=conv3_dgrad,
-                          wgrad=conv3_wgrad, gn_bwd=gn_bwd)
-PLAIN = SimpleNamespace(gn_stats=gn_stats_plain, conv3_fused=conv3_fused_plain,
-                        dgrad=conv3_dgrad_plain, wgrad=conv3_wgrad_plain, gn_bwd=gn_bwd_plain)
+# the chain's functions: the kernel wrappers, or their plain versions (gn_sums:
+# gn_stats's sums form, for the sequence-sharded chain)
+KERNELS = SimpleNamespace(gn_stats=gn_stats, gn_sums=gn_sums, conv3_fused=conv3_fused,
+                          dgrad=conv3_dgrad, wgrad=conv3_wgrad, gn_bwd=gn_bwd)
+PLAIN = SimpleNamespace(gn_stats=gn_stats_plain, gn_sums=gn_sums_plain,
+                        conv3_fused=conv3_fused_plain, dgrad=conv3_dgrad_plain,
+                        wgrad=conv3_wgrad_plain, gn_bwd=gn_bwd_plain)
 
 
 # ---------------------------------------------------------------- the chain
@@ -544,23 +634,111 @@ def chain_backward(saved, g1s, g1b, w1, g2s, g2b, w2, sw, gh, gxs, k=KERNELS):
     return out
 
 
+def _shard_stats(k, shard, x, groups: int, n: int):
+    """GroupNorm mean and rstd over all ``n`` rows of a sequence-sharded
+    tensor: ``gn_stats``'s sums form on this shard's rows, added over the
+    model axis, finished as the kernel finishes its own."""
+    s, ss = k.gn_sums(x, groups)
+    sums = shard.all_reduce(torch.stack([s, ss]))
+    return gn_finish(sums[0], sums[1], n * (x.shape[-1] // groups))
+
+
+def chain_forward_sharded(x, film_scale, film_shift, g1s, g1b, w1, b1, g2s, g2b, w2, b2, sw, sb,
+                          groups1: int, groups2: int, shard, n: int, k=KERNELS):
+    """``chain_forward`` on this shard's rows ``x`` (B, T_local, Cin) of a
+    length-``n`` sequence sharded over the model axis. ``shard`` gives
+    ``halo(v, n) -> (v with one neighbour row at each inner end, hl)`` and
+    ``all_reduce(t)`` over the axis. The statistics are the whole
+    sequence's (``_shard_stats``); each conv reads its input with halo rows
+    and the rows computed for the halos are dropped, so ``h``, ``xs``,
+    ``f`` and ``z1`` keep the local rows. ``saved`` also holds the halo
+    tensors and ``(hl, hr)`` for ``chain_backward_sharded``."""
+    film = (film_scale.float().contiguous(), film_shift.float().contiguous())
+    tl = x.shape[1]
+    mean1, rstd1 = _shard_stats(k, shard, x, groups1, n)
+    xe, hl = shard.halo(x, n)
+    hr = xe.shape[1] - hl - tl
+    f, z1 = k.conv3_fused(xe, mean1, rstd1, g1s, g1b, w1, b1, film=film,
+                          out_dtype=torch.float32, save_pre=True)
+    f, z1 = f[:, hl:hl + tl].contiguous(), z1[:, hl:hl + tl].contiguous()
+    mean2, rstd2 = _shard_stats(k, shard, f, groups2, n)
+    fe, _ = shard.halo(f, n)
+    out = k.conv3_fused(fe, mean2, rstd2, g2s, g2b, w2, b2, out_dtype=x.dtype,
+                        **(dict(skip=(xe, sw, sb), split_skip=True) if sw is not None else {}))
+    h, xs = out if sw is not None else (out, None)
+    h = h[:, hl:hl + tl]
+    xs = xs[:, hl:hl + tl] if xs is not None else None
+    return h, xs, (x, f, z1, mean1, rstd1, mean2, rstd2, film[0], xe, fe, (hl, hr))
+
+
+def chain_backward_sharded(saved, g1s, g1b, w1, g2s, g2b, w2, sw, gh, gxs, shard, n: int,
+                           k=KERNELS):
+    """``chain_backward`` on a shard (``chain_forward_sharded``'s saved
+    tensors). The output gradient's rows at the shard's inner ends go to the
+    neighbours, which need them for their own activation rows: each conv's
+    ``dgrad`` reads its gradient with halo rows (the halo form), so this
+    shard gets the whole gradient of its activation rows and of no others;
+    each ``wgrad`` reads the saved input with halo rows. GroupNorm's
+    backward takes the group totals (``gn_totals``) added over the model
+    axis (``gn_bwd``'s totals form). The parameter, norm and FiLM gradients
+    are this shard's part: the caller adds them over the model axis."""
+    x, f, z1, mean1, rstd1, mean2, rstd2, sc, xe, fe, halo = saved
+    cdt = x.dtype
+    gh = gh.to(cdt).contiguous()
+    a1 = dict(mean=mean1, rstd=rstd1, gamma=g1s, beta=g1b)
+    a2 = dict(mean=mean2, rstd=rstd2, gamma=g2s, beta=g2b)
+    out = {}
+    out["dw2"], out["db2"] = k.wgrad(fe, gh, taps=3, bias=True, halo=halo, **a2)
+    gh_e, _ = shard.halo(gh, n)
+    d_y2, p2 = k.dgrad(gh_e, w2, taps=3, pre=f, halo=halo, **a2)
+    groups2, groups1 = mean2.shape[1], mean1.shape[1]
+    tot2 = shard.all_reduce(gn_totals(p2, g2s, groups2))
+    d_z1, q = k.gn_bwd(d_y2, f, mean2, rstd2, g2s, None, film_scale=sc, z1=z1, out_dtype=cdt,
+                       totals=tot2, count=n * (f.shape[-1] // groups2))
+    out["dg2b"], out["dg2s"] = p2.sum((1, 2, 3)).unbind()
+    out["dshift"], out["dscale"], out["db1"] = q[0].sum(1), q[1].sum(1), q[2].sum((0, 1))
+    out["dw1"], _ = k.wgrad(xe, d_z1, taps=3, halo=halo, **a1)
+    dz1_e, _ = shard.halo(d_z1, n)
+    d_y1, p1 = k.dgrad(dz1_e, w1, taps=3, pre=x, halo=halo, **a1)
+    tot1 = shard.all_reduce(gn_totals(p1, g1s, groups1))
+    out["dg1b"], out["dg1s"] = p1.sum((1, 2, 3)).unbind()
+    extra = None
+    if sw is not None:
+        gxs = gxs.to(cdt).contiguous()
+        extra, _ = k.dgrad(gxs, sw, taps=1)
+        out["dsw"], out["dsb"] = k.wgrad(x, gxs, taps=1, bias=True)
+    out["dx"], _ = k.gn_bwd(d_y1, x, mean1, rstd1, g1s, None, extra=extra, out_dtype=cdt,
+                            totals=tot1, count=n * (x.shape[-1] // groups1))
+    return out
+
+
 class _FusedResblockTrain(torch.autograd.Function):
     """The fused chain with its fused backward. Takes the fp32 master
     weights (Conv1d layouts) and does the compute-dtype cast and the
-    kernel relayout itself, so weight gradients come back fp32, unrounded."""
+    kernel relayout itself, so weight gradients come back fp32, unrounded.
+    With ``shard`` (and the sequence's length ``n``): the chain on this
+    shard's rows, its collectives in the forward and the backward
+    (``chain_forward_sharded``, ``chain_backward_sharded``)."""
 
     @staticmethod
     def forward(ctx, x, film_scale, film_shift, g1s, g1b, w1, b1, g2s, g2b, w2, b2, sw, sb,
-                groups1, groups2):
+                groups1, groups2, shard=None, n=None):
         cdt = x.dtype
         x = x.contiguous()
         kw1, kw2 = kernel_layout(w1, cdt), kernel_layout(w2, cdt)
         ksw = kernel_layout(sw, cdt) if sw is not None else None
         vec = [v.detach().float().contiguous() for v in (g1s, g1b, b1, g2s, g2b, b2)]
         sbf = sb.detach().float().contiguous() if sb is not None else None
-        h, xs, saved = chain_forward(x, film_scale, film_shift, vec[0], vec[1], kw1, vec[2],
-                                     vec[3], vec[4], kw2, vec[5], ksw, sbf, groups1, groups2)
+        args = (x, film_scale, film_shift, vec[0], vec[1], kw1, vec[2], vec[3], vec[4], kw2,
+                vec[5], ksw, sbf, groups1, groups2)
+        if shard is None:
+            h, xs, saved = chain_forward(*args)
+        else:
+            h, xs, saved = chain_forward_sharded(*args, shard, n)
+            ctx.halo = saved[-1]
+            saved = saved[:-1]
         ctx.save_for_backward(*saved, vec[0], vec[1], kw1, vec[3], vec[4], kw2, ksw)
+        ctx.n_saved, ctx.shard, ctx.n = len(saved), shard, n
         ctx.dtypes = (film_scale.dtype, film_shift.dtype)
         ctx.has_skip = sw is not None
         ctx.shapes = (w1.shape, w2.shape, sw.shape if sw is not None else None)
@@ -571,8 +749,12 @@ class _FusedResblockTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gh, gxs=None):
         t = ctx.saved_tensors
-        saved, (g1s, g1b, kw1, g2s, g2b, kw2, ksw) = t[:8], t[8:]
-        d = chain_backward(saved, g1s, g1b, kw1, g2s, g2b, kw2, ksw, gh, gxs)
+        saved, (g1s, g1b, kw1, g2s, g2b, kw2, ksw) = t[:ctx.n_saved], t[ctx.n_saved:]
+        if ctx.shard is None:
+            d = chain_backward(saved, g1s, g1b, kw1, g2s, g2b, kw2, ksw, gh, gxs)
+        else:
+            d = chain_backward_sharded(saved + (ctx.halo,), g1s, g1b, kw1, g2s, g2b, kw2, ksw,
+                                       gh, gxs, ctx.shard, ctx.n)
         s1, s2, ss = ctx.shapes
 
         def conv(dw, shape):  # (taps*Cin, Cout) -> Conv1d (Cout, Cin, taps)
@@ -583,27 +765,31 @@ class _FusedResblockTrain(torch.autograd.Function):
         dsb = d["dsb"] if ctx.has_skip else None
         return (d["dx"], d["dscale"].to(ctx.dtypes[0]), d["dshift"].to(ctx.dtypes[1]),
                 d["dg1s"], d["dg1b"], conv(d["dw1"], s1), d["db1"], d["dg2s"], d["dg2b"],
-                conv(d["dw2"], s2), d["db2"], dsw, dsb, None, None)
+                conv(d["dw2"], s2), d["db2"], dsw, dsb, None, None, None, None)
 
 
 def fused_resblock_train(x, gn1_scale, gn1_bias, conv1_w, conv1_b, film_scale, film_shift,
                          gn2_scale, gn2_bias, conv2_w, conv2_b, skip_w=None, skip_b=None,
-                         *, groups1: int, groups2: int):
+                         *, groups1: int, groups2: int, shard=None, n=None):
     """Differentiable fused resblock chain (no residual, no dropout), the
     JAX function's argument order.
 
     ``x`` (B, T, Cin) in the compute dtype, FiLM ``(B, Cout)``, fp32 master
     parameters in Conv1d layouts. Returns ``h`` (no skip) or ``(h, xs)``,
     as ``fused_resblock_chain(add_residual=False)`` does, or None when the
-    geometry fails ``resblock_train_fits`` (the caller runs plain PyTorch)."""
+    geometry fails ``resblock_train_fits`` (the caller runs plain PyTorch).
+    With ``shard``: ``x`` is a shard's rows of a length-``n`` sequence, and
+    the gate reads ``n`` (the shape the JAX kernel sees under GSPMD), so a
+    sharded step routes the blocks the unsharded step routes."""
     b, t, cin = x.shape
     cout = conv1_w.shape[0]
     wsize = 2 if x.dtype == torch.bfloat16 else 4
-    if not resblock_train_fits(t, cin, cout, skip_w is not None, weight_itemsize=wsize):
+    if not resblock_train_fits(t if shard is None else n, cin, cout, skip_w is not None,
+                               weight_itemsize=wsize):
         return None
     return _FusedResblockTrain.apply(x, film_scale, film_shift, gn1_scale, gn1_bias, conv1_w,
                                      conv1_b, gn2_scale, gn2_bias, conv2_w, conv2_b, skip_w,
-                                     skip_b, groups1, groups2)
+                                     skip_b, groups1, groups2, shard, n)
 
 
 def resblock_bwd_plain(x, g1s, g1b, w1, b1, sc, sh, g2s, g2b, w2, skip_w, gh, gxs,

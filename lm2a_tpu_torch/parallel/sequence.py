@@ -29,16 +29,25 @@ rows through the same kernels as an unsharded forward:
   reads all keys and values through the unchanged attention path.
 
 ``make_sp_train_step`` trains with batch rows over the data axis and T over
-the model axis: the training form of the same forward, differentiated
-through collectives that autograd knows (``core.distributed``: a halo's
-backward sends each received row's gradient back to the rank it came
-from, which adds it to that row; the GroupNorm sums' all-reduce and the
-conditions' gather have all-reduces as backward). Every block runs the
-library route there, its GroupNorm and k=3 conv in plain PyTorch: the fused
-train chain and its backward kernels do not take halo rows or outside
-statistics, so a config that asks for them (``fused_resblock_grad``) is
-refused, and so is a batch on the card, where that plain route would copy
-the kernels' work. The step runs on the CPU.
+the model axis: the training form of the same forward. With
+``fused_resblock_grad``, every block that the training gate routes at the
+sequence's global length (the shape the JAX kernel sees under GSPMD, so the
+blocks the unsharded step routes) runs the fused train chain on its shard
+(``ops.resblock_grad.chain_forward_sharded`` and
+``chain_backward_sharded``, through the kernels on the card): the
+statistics from the all-reduced sums as above, the convs' inputs with halo
+rows; in the backward each conv's output gradient is exchanged one row
+forward, so a shard gets the whole gradient of its own activation rows
+(the halo forms of ``conv3_dgrad`` and ``conv3_wgrad``), and GroupNorm's
+backward reads the group totals all-reduced over the model axis (the
+totals form of ``gn_bwd``); that autograd node does its own collectives.
+The other blocks, and every block without ``fused_resblock_grad``, run the
+library route, differentiated through collectives that autograd knows
+(``core.distributed``: a halo's backward sends each received row's gradient
+back to the rank it came from, which adds it to that row; the GroupNorm
+sums' all-reduce and the conditions' gather have all-reduces as backward).
+The steps run eagerly, on the card or the CPU: gloo's collectives cannot be
+captured in a CUDA graph.
 
 ``make_sequence_sharded_sampler(apply_fn, schedule, mesh, ...)`` returns
 ``run(generator, shape, motion_f, text_f, x_init=None, noise_seq=None)``:
@@ -130,8 +139,12 @@ class SeqShard:
     def stats(self, x: torch.Tensor, groups: int, n: int):
         """GroupNorm mean and rstd over all ``n`` rows of a sharded tensor."""
         s, ss = gn_sums(x.contiguous(), groups)
-        sums = distributed.all_reduce(torch.stack([s, ss]), self.group)
+        sums = self.all_reduce(torch.stack([s, ss]))
         return gn_finish(sums[0], sums[1], n * (x.shape[-1] // groups))
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over the model axis, in place."""
+        return distributed.all_reduce(t, self.group)
 
     def gather(self, x: torch.Tensor, n: int) -> torch.Tensor:
         """The whole length-``n`` axis from every shard's rows."""
@@ -308,32 +321,39 @@ def _stage_generator(generator, shard: SeqShard, n: int):
     return RowShard(generator, rows, n, dim=1)
 
 
-def _block_train(blk, shard: SeqShard, x, n: int, t_emb, motion_f, text_f, dtype, generator):
-    """``ResBlockUltimate.forward_train``'s library route on this shard's rows."""
+def _block_train(blk, shard: SeqShard, x, n: int, t_emb, motion_f, text_f, dtype, generator,
+                 fused: bool):
+    """``ResBlockUltimate.forward_train`` on this shard's rows: the fused
+    train chain on the shard where ``fused`` and the gate pass at the global
+    length ``n``, else the library route."""
     scale, shift = blk.film.forward_train(t_emb, dtype)
-    h = shard.conv3_train(blk.conv1, F.silu(shard.group_norm(blk.gn1, x, n)), n, dtype)
-    h = h * (1.0 + scale[:, None, :]) + shift[:, None, :]
-    h = shard.conv3_train(blk.conv2, F.silu(shard.group_norm(blk.gn2, h, n)), n, dtype)
+    skip = getattr(blk, "skip", None)
+    res = blk.fused_train(x, scale, shift, dtype, shard=shard, n=n) if fused else None
+    if res is not None:
+        h, xs = res
+    else:
+        h = shard.conv3_train(blk.conv1, F.silu(shard.group_norm(blk.gn1, x, n)), n, dtype)
+        h = h * (1.0 + scale[:, None, :]) + shift[:, None, :]
+        h = shard.conv3_train(blk.conv2, F.silu(shard.group_norm(blk.gn2, h, n)), n, dtype)
+        xs = conv_train(skip, x, dtype) if skip is not None else x
     h = dropout(h, blk.dropout, _stage_generator(generator, shard, n))
     if blk.use_attn and motion_f is not None and text_f is not None:
         h = blk.cross_attn(h, motion_f, text_f, dtype=dtype)
-    skip = getattr(blk, "skip", None)
-    if skip is not None:
-        x = conv_train(skip, x, dtype)
-    return x + h
+    return xs + h
 
 
 def sequence_sharded_forward_train(unet, shard: SeqShard, x, t, motion_f, text_f, n: int, *,
                                    dtype: torch.dtype, generator=None) -> torch.Tensor:
-    """``UNet1DUltimate.forward_train`` (every block on the library route)
-    on this shard's rows ``x`` of a length-``n`` mel, differentiable through
-    the collectives; ``motion_f`` and ``text_f`` whole. fp32 out."""
+    """``UNet1DUltimate.forward_train`` on this shard's rows ``x`` of a
+    length-``n`` mel (each block as ``_block_train`` routes it),
+    differentiable through the collectives; ``motion_f`` and ``text_f``
+    whole. fp32 out."""
     t_emb = unet.time_embedding.forward_train(t, dtype)
     h = conv_train(unet.in_proj, x, dtype)
 
     def block(name, h, n):
         return _block_train(getattr(unet, name), shard, h, n, t_emb, motion_f, text_f, dtype,
-                            generator)
+                            generator, unet.fused_resblock_grad)
 
     skips = []
     for i in range(len(unet.dims)):
@@ -362,17 +382,13 @@ def make_sp_train_step(schedule: Schedule, cfg, optimizer=None, mesh: Optional[M
     batch, whole in T (each rank keeps its frames); the gradients and the
     loss are summed over the model axis and averaged over the data axis in
     one all-reduce of ``state.grads``. Draws are made (or injected,
-    ``Draws``) at the global shape. CPU tensors only (see the module
-    docstring)."""
+    ``Draws``) at the global shape. Eager, on the batch's device (see the
+    module docstring)."""
     from lm2a_tpu_torch.core.device import dtype_from_str
     from lm2a_tpu_torch.diffusion.gaussian import q_sample
     from lm2a_tpu_torch.ops.adan import N_SCALARS
     from lm2a_tpu_torch.training.train_step import make_optimizer
 
-    if cfg.model.fused_resblock_grad:
-        raise NotImplementedError("make_sp_train_step runs every block on the library route; "
-                                  "the fused train chain takes no halo rows "
-                                  "(fused_resblock_grad)")
     opt = optimizer or make_optimizer(cfg)
     shard = SeqShard(mesh)
     n_data = mesh.shape[DATA_AXIS]
@@ -385,12 +401,6 @@ def make_sp_train_step(schedule: Schedule, cfg, optimizer=None, mesh: Optional[M
     p_drop = cfg.train.cond_drop_prob
 
     def step(state, batch, generator=None, draws=None) -> torch.Tensor:
-        if batch["mel"].device.type != "cpu":
-            raise NotImplementedError(
-                "make_sp_train_step runs GroupNorm and the k=3 convs in plain PyTorch (the "
-                "backward kernels take no halo rows or outside statistics yet); on "
-                f"{batch['mel'].device} that would copy the kernels' work, so it runs on the "
-                "CPU only")
         b, n = batch["mel"].shape[:2]
         rows = distributed.local_batch_slice(mesh, b * n_data)
         lo, hi = shard.bounds(n)

@@ -8,7 +8,9 @@ Each build directory holds the ``lib<source>-<hash>.so`` libraries that
 ``lm2a_tpu_torch/ops/_build.py`` writes. For each source the script dumps
 both libraries with ``cuobjdump -sass``, names each kernel function with the
 per-file hash of its anonymous namespace taken out, drops the instruction
-addresses, and prints how many functions the two builds share and how many
+addresses and the NOP padding after a function's last instruction (its
+alignment in the library, which another function's size can move), and
+prints how many functions the two builds share and how many
 of those have the same instructions: a change that adds a kernel form
 without touching the others leaves every shared function the same. Needs
 the CUDA toolkit's ``cuobjdump``.
@@ -31,6 +33,12 @@ def functions(lib: str):
     res = {}
     for name, body in zip(parts[1::2], parts[2::2]):
         name = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]+", "ANON", name)
+        lines = body.splitlines()
+        # the last instruction that is not padding, and its encoding's second line
+        last = max((i for i, line in enumerate(lines)
+                    if re.match(r"\s*/\*[0-9a-f]+\*/", line) and not re.search(r"\*/\s*NOP\b", line)),
+                   default=len(lines) - 2)
+        body = "\n".join(lines[:last + 2])
         body = "\n".join(line.split("/*")[1] if line.strip().startswith("/*") and "*/" in line
                          else line for line in body.splitlines())
         res[name] = re.sub(r"\s+", " ", body)

@@ -185,8 +185,22 @@ def sp_step(meta, arrays, mesh):
     """``meta["steps"]`` sequence-parallel train steps over this rank's rows
     of global batches (whole in T), randomness injected or from the step
     generator; the state after each step and the first step's census."""
+    from lm2a_tpu_torch.models import unet1d
+    from lm2a_tpu_torch.ops import resblock_grad
     from lm2a_tpu_torch.parallel.sequence import make_sp_train_step
 
+    routed = []
+    if meta.get("gate_budget") is not None:  # record the geometry of every fused block
+        resblock_grad.BWD_VMEM_BUDGET = meta["gate_budget"]
+        fused = unet1d.fused_resblock_train
+
+        def spy(x, *a, **kw):
+            res = fused(x, *a, **kw)
+            if res is not None:
+                routed.append([kw["n"], x.shape[-1], a[2].shape[0], a[10] is not None])
+            return res
+
+        unet1d.fused_resblock_train = spy
     cfg, state = _state(meta, arrays)
     step = make_sp_train_step(make_schedule(cfg.diffusion), cfg, mesh=mesh,
                               dataset_mean=meta["mean"], dataset_std=meta["std"])
@@ -205,7 +219,7 @@ def sp_step(meta, arrays, mesh):
         out[f"loss_{i}"] = np.float32(rep.pop("result"))
         census = census or rep
         out.update({f"{STATE}{i}|{k}": v for k, v in state_arrays(state).items()})
-    return out, {"census": census}
+    return out, {"census": census, "routed": routed}
 
 
 def audit_census(meta, arrays, mesh):

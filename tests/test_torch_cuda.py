@@ -438,15 +438,16 @@ def test_attention_refuses_what_it_cannot_take(dev):
     q0, k0, v0 = _attn_inputs(dev, 1, 2, 16, 16, 0, seed=0)
     with pytest.raises(ValueError, match="head dim 0 below 1"):
         att.attention_core(q0, k0, v0)
-    with pytest.raises(ValueError, match="hd contiguous"):  # hd at stride 2
-        att.attention_core(torch.cat([q, q], dim=-1)[..., ::2], k, v)
-    q2, k2, v2 = _attn_inputs(dev, 1, 3, 16, 16, 2, seed=0)  # rows of H*hd = 6 channels
-    with pytest.raises(ValueError, match="16-byte aligned rows"):
-        att.attention_core(q2, k2, v2)
-    q2, k2, v2 = _attn_inputs(dev, 1, 4, 16, 16, 2, seed=0, layout="contiguous")
-    with pytest.raises(ValueError, match="heads side by side"):
-        att.attention_core(q2, k2, v2)
     assert not _build.LAUNCHES
+    # the layouts it refused before ``pad_rows``: hd at stride 2, rows of
+    # H*hd = 6 channels, heads apart at hd 2; now copied into rows the
+    # kernel reads, and the kernel launched on them
+    q2, k2, v2 = _attn_inputs(dev, 1, 3, 16, 16, 2, seed=0)
+    q4, k4, v4 = _attn_inputs(dev, 1, 4, 16, 16, 2, seed=0, layout="contiguous")
+    for args in ((torch.cat([q, q], dim=-1)[..., ::2], k, v), (q2, k2, v2), (q4, k4, v4)):
+        _close(att.attention_core(*args), att.attention_core_plain(*args), TOL["attention"])
+    assert _build.LAUNCHES == {"attention": 3}
+    _build.reset_launches()
     # what it refused before the chunked form: head dims above 256 (300 at
     # per-head maps, 253 at a window offset that takes its tile past 256)
     for h, hd in ((2, 300), (8, 253)):
@@ -454,6 +455,20 @@ def test_attention_refuses_what_it_cannot_take(dev):
         _close(att.attention_core(qw, kw, vw), att.attention_core_plain(qw, kw, vw),
                TOL["attention"])
     assert _build.LAUNCHES == {"attention": 2}
+
+
+@pytest.mark.parametrize("h,hd", [(3, 5), (5, 3)])
+@pytest.mark.parametrize("t,s", [(1, 1), (37, 129), (516, 516)])
+def test_attention_rows_off_the_16_byte_unit(dev, h, hd, t, s):
+    """Rows of H*hd = 15 channels (30 bytes): the wrapper pads them to 16
+    channels (``pad_rows``) and launches the kernel; the output keeps its
+    shape and matches the plain version on the unpadded inputs."""
+    q, k, v = _attn_inputs(dev, 2, h, t, s, hd, seed=h * t + s)
+    assert not att.layout_taken(q)
+    _build.reset_launches()
+    out = att.attention_core(q, k, v)
+    assert _build.LAUNCHES == {"attention": 1} and out.shape == q.shape
+    _close(out, att.attention_core_plain(q, k, v), TOL["attention"])
 
 
 # ---------------------------------------------------------------- training kernels
@@ -566,6 +581,95 @@ def test_fused_train_chain_autograd(dev):
     assert fs.grad.dtype == torch.bfloat16 and conv2.bias.grad.shape == (cout,)
     for p in (conv1.weight, conv2.weight, skip.weight, x, fs, fh, *vecs):
         assert torch.isfinite(p.grad.float()).all()
+
+
+# each kernel's sequence-sharded form, by the name its launches count under
+HALO_FORMS = {"conv3_dgrad": "conv3_dgrad_halo", "conv3_wgrad": "conv3_wgrad_halo",
+              "gn_bwd": "gn_bwd_totals"}
+
+
+@pytest.mark.parametrize("base", [12, 20, 64])
+@pytest.mark.parametrize("t", [1, 2, 63, 64, 65, 129])
+@pytest.mark.parametrize("parts", [1, 3])
+def test_halo_and_totals_forms_match_plain(dev, base, t, parts):
+    """The sequence-sharded backward's forms on each of ``parts`` shards of
+    ``t`` frames (hl, hr in {0, 1}), a skip block (Cin base -> Cout 2 base):
+    ``conv3_dgrad``'s halo form (pre fp32 and bf16), ``conv3_wgrad``'s halo
+    form (fp32 and bf16 sources, with and without the bias), ``gn_bwd``'s
+    totals form (FiLM and extra), each against its plain version on the same
+    inputs and twice for the same bits, each launch counted under its
+    form's name."""
+    from lm2a_tpu_torch.ops import resblock_grad as rg
+
+    cin, cout, b, n = base, 2 * base, 2, parts * t
+    w, saved, gh, gx = _bwd_inputs(dev, b, n, cin, cout, True, seed=base + 7 * t + parts)
+    x, f, z1, mean1, rstd1, mean2, rstd2, sc = saved
+    a1 = dict(mean=mean1, rstd=rstd1, gamma=w.gn1_scale, beta=w.gn1_bias)
+    a2 = dict(mean=mean2, rstd=rstd2, gamma=w.gn2_scale, beta=w.gn2_bias)
+    dz1 = torch.randn(gh.shape, generator=torch.Generator().manual_seed(t)).to(dev, torch.bfloat16)
+    d_y2, p2 = rg.conv3_dgrad_plain(gh, w.conv2_w, taps=3, pre=f, **a2)
+    d_y1, p1 = rg.conv3_dgrad_plain(dz1, w.conv1_w, taps=3, pre=x, **a1)
+    extra, _ = rg.conv3_dgrad_plain(gx, w.skip_w, taps=1)
+    g1, g2 = mean1.shape[1], mean2.shape[1]
+    tot1, tot2 = rg.gn_totals(p1, w.gn1_scale, g1), rg.gn_totals(p2, w.gn2_scale, g2)
+    for i in range(parts):
+        hl, hr = int(i > 0), int(i < parts - 1)
+        lo, hi = i * t, (i + 1) * t
+        loc = lambda v: v[:, lo:hi].contiguous()  # noqa: E731
+        ext = lambda v: v[:, lo - hl:hi + hr].contiguous()  # noqa: E731
+        halo = (hl, hr)
+        calls = [
+            ("conv3_dgrad", lambda m: m.dgrad(ext(gh), w.conv2_w, taps=3, pre=loc(f), halo=halo,
+                                              **a2)),
+            ("conv3_dgrad", lambda m: m.dgrad(ext(dz1), w.conv1_w, taps=3, pre=loc(x),
+                                              halo=halo, **a1)),
+            ("conv3_wgrad", lambda m: m.wgrad(ext(f), loc(gh), taps=3, bias=True, halo=halo,
+                                              **a2)),
+            ("conv3_wgrad", lambda m: m.wgrad(ext(x), loc(dz1), taps=3, halo=halo, **a1)),
+            ("gn_bwd", lambda m: m.gn_bwd(loc(d_y2), loc(f), mean2, rstd2, w.gn2_scale, None,
+                                          film_scale=sc, z1=loc(z1), out_dtype=torch.bfloat16,
+                                          totals=tot2, count=n * (cout // g2))),
+            ("gn_bwd", lambda m: m.gn_bwd(loc(d_y1), loc(x), mean1, rstd1, w.gn1_scale, None,
+                                          extra=loc(extra), out_dtype=torch.bfloat16,
+                                          totals=tot1, count=n * (cin // g1))),
+        ]
+        for name, call in calls:
+            _build.reset_launches()
+            got = call(rg.KERNELS)
+            assert _build.LAUNCHES == {HALO_FORMS[name]: 1}, name
+            again, want = call(rg.KERNELS), call(rg.PLAIN)
+            for j, (g, a, p) in enumerate(zip(got, again, want)):
+                if p is None:
+                    continue
+                assert torch.equal(g, a), (name, j, "two launches differ")
+                if name == "conv3_dgrad" and j == 1:  # head and tail pieces, split by M tile
+                    g, p = rg.bucket_sums(g), rg.bucket_sums(p)
+                tol = chip_smoke.TOL_REL_L2["gn_bwd_partials" if name == "gn_bwd" and j == 1
+                                            else name]
+                assert torch.isfinite(g.float()).all() and _rel_l2(g, p) <= tol, (name, j, i)
+
+
+def test_halo_and_totals_forms_refuse_what_they_cannot_take(dev):
+    from lm2a_tpu_torch.ops import resblock_grad as rg
+
+    w, saved, gh, gx = _bwd_inputs(dev, 2, 8, 64, 128, True, seed=1)
+    x, f, z1, mean1, rstd1, mean2, rstd2, sc = saved
+    a2 = dict(mean=mean2, rstd=rstd2, gamma=w.gn2_scale, beta=w.gn2_bias)
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="hl \\+ T \\+ hr"):
+        rg.conv3_dgrad(gh, w.conv2_w, taps=3, pre=f, halo=(1, 1), **a2)
+    with pytest.raises(ValueError, match="3 taps"):
+        rg.conv3_dgrad(gx, w.skip_w, taps=1, halo=(0, 0))
+    with pytest.raises(ValueError, match="0 or 1"):
+        rg.conv3_wgrad(torch.cat([f[:, :1]] * 2 + [f], 1), gh, taps=3, halo=(2, 0), **a2)
+    with pytest.raises(ValueError, match="3 taps with the GroupNorm"):
+        rg.conv3_wgrad(x, gx, taps=1, halo=(0, 0))
+    _, p2 = rg.conv3_dgrad_plain(gh, w.conv2_w, taps=3, pre=f, **a2)
+    d_y2 = torch.zeros(f.shape, device=dev)
+    with pytest.raises(ValueError, match="totals form"):
+        rg.gn_bwd(d_y2, f, mean2, rstd2, w.gn2_scale, p2, film_scale=sc, z1=z1,
+                  totals=rg.gn_totals(p2, w.gn2_scale, mean2.shape[1]), count=8 * 16)
+    assert not _build.LAUNCHES
 
 
 ADAN_NUMELS = [1, 3, 4095, 4097, 70001, 3 * 256 * 256]

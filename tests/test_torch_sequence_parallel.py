@@ -232,23 +232,27 @@ def test_sp_train_step_with_dropout_matches_unsharded(tmp_path):
 
 
 def test_sp_train_step_refuses_a_batch_off_the_cpu():
-    """The step runs GroupNorm and the k=3 convs in plain PyTorch: a batch
-    anywhere but the CPU (here the meta device, standing in for the card)
-    is refused before any work, fused_resblock_grad at construction."""
+    """The step takes ``fused_resblock_grad`` (on the card its gated blocks
+    launch the kernels; ``tests/test_torch_sp_fused.py`` holds the step on
+    the CPU). Off the CPU nothing falls back to a plain version: a gated
+    block on a device that is neither the CPU nor the card (here the meta
+    device) reaches the fused chain's kernel wrappers, which refuse it."""
     import dataclasses
 
     from lm2a_tpu.core.config import config_to_dict as jax_config_to_dict
     from lm2a_tpu_torch.core.config import config_from_dict
     from lm2a_tpu_torch.core.mesh import make_mesh
-    from lm2a_tpu_torch.parallel.sequence import make_sp_train_step
+    from lm2a_tpu_torch.models.factory import build_denoiser as port_build_denoiser
+    from lm2a_tpu_torch.parallel.sequence import SeqShard, _block_train, make_sp_train_step
 
     cfg = config_from_dict(jax_config_to_dict(_sp_cfg(0.0)))
-    step = make_sp_train_step(make_schedule(cfg.diffusion), cfg, mesh=make_mesh())
-    batch = {k: torch.empty((2, 32, c), device="meta") for k, c in
-             (("mel", 80), ("motion", 234), ("lyrics", 768))}
-    with pytest.raises(NotImplementedError, match="CPU only"):
-        step(None, batch)
     fused = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
                                                                fused_resblock_grad=True))
-    with pytest.raises(NotImplementedError, match="fused_resblock_grad"):
-        make_sp_train_step(make_schedule(cfg.diffusion), fused, mesh=make_mesh())
+    make_sp_train_step(make_schedule(cfg.diffusion), fused, mesh=make_mesh())
+    unet = port_build_denoiser(fused.model).to("meta")
+    blk = unet.down_0_block_0
+    x = torch.empty((2, 32, blk.in_channels), device="meta")
+    t_emb = torch.empty((2, fused.model.time_emb_dim), device="meta")
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        _block_train(blk, SeqShard(make_mesh()), x, 32, t_emb, None, None, torch.float32, None,
+                     fused=True)
