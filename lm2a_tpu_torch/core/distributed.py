@@ -21,7 +21,9 @@ the JAX package's HLO names (``parallel/audit.py`` reads them). A gather
 is an all-reduce into a zero-filled buffer under every backend. Gloo takes
 CUDA tensors only for broadcast and all-reduce, so under gloo a gather's
 buffer and a halo exchange's rows go through the host; under NCCL the halo
-rows are sent and received on the card.
+rows are sent and received on the card. Tensor parallelism's f and g
+(``tp_copy``, ``tp_reduce``) and ``tp_gather`` are autograd forms of the
+same all-reduce and all-gather, counted as such.
 """
 
 from __future__ import annotations
@@ -403,6 +405,71 @@ def all_gather_grad(x: torch.Tensor, group, sizes: List[int]) -> torch.Tensor:
     """``all_gather`` (dim 1) that autograd differentiates: each rank's
     slice of the gradient, summed over the group."""
     return x if _group_size(group) == 1 else _Gather.apply(x, group, list(sizes))
+
+
+# ---------------------------------------------------------------- tensor parallelism
+# Megatron's pair for the model axis of tensor parallelism, where every rank
+# of a model line computes the same loss (the sequence-parallel forms above
+# sum their backward over the group, which would multiply TP's gradients by
+# the group's size): ``tp_copy`` (f) goes where a replicated tensor enters a
+# split computation, ``tp_reduce`` (g) where a split computation's partial
+# sums leave it; ``tp_gather`` makes a sharded tensor whole for a replicated
+# computation.
+
+
+class _TPCopy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.group), None
+
+
+class _TPReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _TPGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        n = _group_size(group)
+        dist = _dist()
+        ctx.me, ctx.width = dist.get_group_rank(group, dist.get_rank()), x.shape[-1]
+        whole = all_gather(x.movedim(-1, 1).contiguous(), group, [x.shape[-1]] * n)
+        return whole.movedim(1, -1).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.me * ctx.width
+        return g[..., lo:lo + ctx.width].contiguous(), None
+
+
+def tp_copy(x: torch.Tensor, group) -> torch.Tensor:
+    """f: ``x`` as it is; its gradient all-reduced over ``group`` (the
+    split computation after it gives each rank a part of the gradient)."""
+    return x if _group_size(group) == 1 else _TPCopy.apply(x, group)
+
+
+def tp_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """g: the sum of the ranks' partial ``x`` (a new tensor); its gradient
+    passes as it is (every rank holds the whole gradient of the sum)."""
+    return x if _group_size(group) == 1 else _TPReduce.apply(x, group)
+
+
+def tp_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along the last dimension in group order
+    (equal pieces); the gradient of the whole is every rank's, so each
+    keeps its own piece of it."""
+    return x if _group_size(group) == 1 else _TPGather.apply(x, group)
 
 
 def broadcast(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:

@@ -249,6 +249,7 @@ struct ConvArgs {
   bf16* out2;          // (B, T, cout) skip projection kept apart, or null
   float* out_pre;      // (B, T, cout) conv + bias before FiLM (training), or null
   int B, T, cin, cout, cin2, groups;
+  int col_lo, col_hi;  // PART: this rank's output columns [col_lo, col_hi)
 };
 
 // Block: MW consumer warpgroups, BM = 64*MW output rows of the flattened
@@ -264,11 +265,19 @@ struct ConvArgs {
 // work, which otherwise outlasts the chunk's tensor-core work.) A conv chunk activates the window of
 // BM+2 frames once (GN+SiLU, bf16) and feeds three taps (12 wgmma k16
 // steps); a skip chunk copies its rows and feeds one.
+// FORM 3-5 are forms 0-2 in the PART form (tensor parallelism's
+// row-parallel conv 2, parallel/tensor.py): the input channels are this
+// rank's share of the conv's, w its (cout, 3*cin) shard, and the fp32
+// output a partial sum over the ranks; the bias, the residual and the skip
+// (w2 the rank's (col_hi - col_lo, cin2) shard) are added in this rank's
+// columns [col_lo, col_hi) alone, so one all-reduce of the outputs adds each
+// once. A kept-apart skip writes its (B, T, col_hi - col_lo) columns. Forms
+// 0-2 do not read col_lo/col_hi.
 template <typename In, typename Out, int MW, int BN, int FORM>
 __global__ void __launch_bounds__(128 * (MW + 1)) conv3_fused_kernel(const ConvArgs p) {
-  // FORM 0: every width whole tiles; 1 (NARROW): partial K chunks and N
-  // tiles, per-channel groups; 2 (ODD): besides, rows off the 16-byte unit
-  constexpr bool NARROW = FORM >= 1, ODD = FORM == 2;
+  // FORM % 3 == 0: every width whole tiles; 1 (NARROW): partial K chunks and
+  // N tiles, per-channel groups; 2 (ODD): besides, rows off the 16-byte unit
+  constexpr bool NARROW = FORM % 3 >= 1, ODD = FORM % 3 == 2, PART = FORM >= 3;
   using D = ConvGeo<In, MW, BN>;
   constexpr int NT = 128 * (MW + 1), BM = D::BM;  // MW consumers and one helper
   constexpr int ZROW = BM + 2;  // an all-zero window row: taps outside [0, T)
@@ -289,8 +298,14 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_fused_kernel(const ConvA
   const bool skip_tile = p.out2 != nullptr && (int)blockIdx.y >= ntc;
   const int wrow0 = (skip_tile ? (int)blockIdx.y - ntc : (int)blockIdx.y) * BN;
   const int nconv = skip_tile ? 0 : (cin + 63) / 64;
-  const int nskip =
-      skip_tile || (p.x2 != nullptr && p.out2 == nullptr) ? (p.cin2 + 63) / 64 : 0;
+  // PART: the skip's rows are this rank's columns (the conv's from scol0,
+  // a kept-apart tile's from 0); a summed skip's chunks run in the tiles
+  // that meet them
+  const int srows = PART ? p.col_hi - p.col_lo : cout, scol0 = PART && !skip_tile ? p.col_lo : 0;
+  const bool skip_k = PART ? skip_tile || (p.x2 != nullptr && p.out2 == nullptr &&
+                                           wrow0 < p.col_hi && wrow0 + BN > p.col_lo)
+                           : skip_tile || (p.x2 != nullptr && p.out2 == nullptr);
+  const int nskip = skip_k ? (p.cin2 + 63) / 64 : 0;
   const int nch = nconv + nskip;
   const int S = gridDim.z, rank = blockIdx.z;
   const int ch_beg = nch * rank / S, ch_end = nch * (rank + 1) / S;
@@ -336,8 +351,10 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_fused_kernel(const ConvA
       const int cin2 = p.cin2;
       for (int u = tid; u < BN * 8; u += NT) {
         const int r = u >> 3, c = u & 7, ch = (j - nconv) * 64 + c * 8;
-        const bool ok = !NARROW || (wrow0 + r < cout && ch < cin2);
-        const bf16* src = p.w2 + (ok ? (size_t)(wrow0 + r) * cin2 + ch : 0);
+        const int sr = PART ? wrow0 + r - scol0 : wrow0 + r;  // the skip weight's row
+        const bool ok = PART ? sr >= 0 && sr < srows && ch < cin2
+                             : !NARROW || (wrow0 + r < cout && ch < cin2);
+        const bf16* src = p.w2 + (ok ? (size_t)sr * cin2 + ch : 0);
         const uint32_t dst = base + sm90::sw_offset<128>(r, c);
         if constexpr (ODD)
           sm90::copy16_any(dst, src, ok ? 2 * (cin2 - ch) : 0, sm90::access_bytes(2 * cin2));
@@ -522,6 +539,23 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_fused_kernel(const ConvA
   // even; Cout a multiple of 8, so a pair is wholly inside Cout or past it),
   // or in the ODD form one channel at a time
   Out* out = static_cast<Out*>(p.out);
+  // PART: channel n (< srows in a kept-apart skip tile, else < cout)
+  auto store_part = [&](int m, int n, float v) {
+    if (skip_tile) {
+      p.out2[(size_t)m * srows + n] = from_f<bf16>(v + __ldg(p.bias2 + n));
+      return;
+    }
+    const size_t o = (size_t)m * cout + n;
+    float h = v;
+    if (n >= p.col_lo && n < p.col_hi) {
+      h += __ldg(p.bias + n);
+      if (p.x2 && !p.out2)  // the summed skip
+        h += __ldg(p.bias2 + n - p.col_lo);
+      else if (p.res)
+        h += to_f(p.res[o]);
+    }
+    out[o] = from_f<Out>(h);
+  };
   auto store1 = [&](int m, int n, float v) {  // ODD: channel n < Cout
     const size_t o = (size_t)m * cout + n;
     if (skip_tile) {
@@ -541,6 +575,12 @@ __global__ void __launch_bounds__(128 * (MW + 1)) conv3_fused_kernel(const ConvA
     out[o] = from_f<Out>(h);
   };
   auto store2 = [&](int m, int n, float v0, float v1) {
+    if constexpr (PART) {
+      const int nmax = skip_tile ? srows : cout;
+      if (n < nmax) store_part(m, n, v0);
+      if (n + 1 < nmax) store_part(m, n + 1, v1);
+      return;
+    }
     if constexpr (ODD) {
       if (n < cout) store1(m, n, v0);
       if (n + 1 < cout) store1(m, n + 1, v1);
@@ -632,15 +672,19 @@ int launch_gn_vw(const void* x, float* mean, float* rstd, int B, int T, int C, i
 // few M or N tiles would leave output unwritten, a split past the K chunks
 // would give ranks nothing to sum, too little shared memory would overrun
 // the ring. Any positive widths.
-template <typename In, typename Out, int MW, int BN>
+template <typename In, typename Out, int MW, int BN, bool PART>
 int launch_conv(const ConvArgs& p, int mtiles, int ntiles, int splits, int smem,
                 cudaStream_t s) {
   using D = ConvGeo<In, MW, BN>;
   if (p.cin < 1 || p.cin2 < 0 || p.cout < 1 || p.groups < 1 || p.cin % p.groups)
     return (int)cudaErrorInvalidValue;
-  const int ntot = (p.out2 ? 2 : 1) * ((p.cout + BN - 1) / BN);
+  if (PART && (p.col_lo < 0 || p.col_hi <= p.col_lo || p.col_hi > p.cout))
+    return (int)cudaErrorInvalidValue;
+  const int srows = PART ? p.col_hi - p.col_lo : p.cout;
+  const int ntot = (p.cout + BN - 1) / BN + (p.out2 ? (srows + BN - 1) / BN : 0);
   const int nconv = (p.cin + 63) / 64, nskip = (p.cin2 + 63) / 64;
-  const int kmin = p.out2 ? (nconv < nskip ? nconv : nskip) : nconv + nskip;
+  // a PART summed skip runs in some tiles only: the others have the conv's chunks
+  const int kmin = p.out2 ? (nconv < nskip ? nconv : nskip) : PART ? nconv : nconv + nskip;
   if (mtiles != (p.B * p.T + D::BM - 1) / D::BM || ntiles != ntot || splits < 1 ||
       splits > 8 || splits > kmin || smem != D::smem(splits))
     return ERR_PLAN;
@@ -651,22 +695,26 @@ int launch_conv(const ConvArgs& p, int mtiles, int ntiles, int splits, int smem,
   const bool narrow = p.cin % 64 || p.cin2 % 64 || p.cout % BN || (p.cin / p.groups) % 8;
   static bool attr_set[3] = {false, false, false};
   const dim3 grid(mtiles, ntiles, splits);
+  constexpr int F0 = PART ? 3 : 0;  // the PART form's instantiations
   if (odd)
-    return (int)sm90::launch_cluster(conv3_fused_kernel<In, Out, MW, BN, 2>, attr_set[2], grid,
-                                     128 * (MW + 1), smem, splits, s, p);
+    return (int)sm90::launch_cluster(conv3_fused_kernel<In, Out, MW, BN, F0 + 2>, attr_set[2],
+                                     grid, 128 * (MW + 1), smem, splits, s, p);
   if (narrow)
-    return (int)sm90::launch_cluster(conv3_fused_kernel<In, Out, MW, BN, 1>, attr_set[1], grid,
-                                     128 * (MW + 1), smem, splits, s, p);
-  return (int)sm90::launch_cluster(conv3_fused_kernel<In, Out, MW, BN, 0>, attr_set[0], grid,
+    return (int)sm90::launch_cluster(conv3_fused_kernel<In, Out, MW, BN, F0 + 1>, attr_set[1],
+                                     grid, 128 * (MW + 1), smem, splits, s, p);
+  return (int)sm90::launch_cluster(conv3_fused_kernel<In, Out, MW, BN, F0>, attr_set[0], grid,
                                    128 * (MW + 1), smem, splits, s, p);
 }
 
-template <typename In, typename Out>
+template <typename In, typename Out, bool PART = false>
 int launch_conv_plan(const ConvArgs& p, int mw, int bn, int mtiles, int ntiles, int splits,
                      int smem, cudaStream_t s) {
-  if (bn == 64 && mw == 1) return launch_conv<In, Out, 1, 64>(p, mtiles, ntiles, splits, smem, s);
-  if (bn == 64 && mw == 2) return launch_conv<In, Out, 2, 64>(p, mtiles, ntiles, splits, smem, s);
-  if (bn == 128 && mw == 1) return launch_conv<In, Out, 1, 128>(p, mtiles, ntiles, splits, smem, s);
+  if (bn == 64 && mw == 1)
+    return launch_conv<In, Out, 1, 64, PART>(p, mtiles, ntiles, splits, smem, s);
+  if (bn == 64 && mw == 2)
+    return launch_conv<In, Out, 2, 64, PART>(p, mtiles, ntiles, splits, smem, s);
+  if (bn == 128 && mw == 1)
+    return launch_conv<In, Out, 1, 128, PART>(p, mtiles, ntiles, splits, smem, s);
   return ERR_PLAN;
 }
 
@@ -703,7 +751,8 @@ extern "C" int lm2a_conv3_fused(
     const float* film_scale, const float* film_shift, const void* x2,
     const void* w2, const float* bias2, const void* res, void* out, int out_is_f32,
     void* out2, float* out_pre, int B, int T, int cin, int cout, int cin2, int groups,
-    int mw, int bn, int mtiles, int ntiles, int splits, int smem, void* stream) {
+    int col_lo, int col_hi, int mw, int bn, int mtiles, int ntiles, int splits, int smem,
+    void* stream) {
   ConvArgs p;
   p.a = a;
   p.mean = mean;
@@ -727,11 +776,17 @@ extern "C" int lm2a_conv3_fused(
   p.cout = cout;
   p.cin2 = cin2;
   p.groups = groups;
+  p.col_lo = col_lo;
+  p.col_hi = col_hi;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // the chain's two convs: bf16 block input -> fp32 intermediate (conv 1),
-  // fp32 intermediate -> bf16 block output (conv 2)
+  // fp32 intermediate -> bf16 block output (conv 2), and conv 2's PART form
+  // (col_hi > 0): fp32 intermediate -> fp32 partial sum
   int e;
-  if (!a_is_f32 && out_is_f32)
+  if (col_hi > 0) {
+    if (!a_is_f32 || !out_is_f32 || film_scale || out_pre) return (int)cudaErrorInvalidValue;
+    e = launch_conv_plan<float, float, true>(p, mw, bn, mtiles, ntiles, splits, smem, s);
+  } else if (!a_is_f32 && out_is_f32)
     e = launch_conv_plan<bf16, float>(p, mw, bn, mtiles, ntiles, splits, smem, s);
   else if (a_is_f32 && !out_is_f32)
     e = launch_conv_plan<float, bf16>(p, mw, bn, mtiles, ntiles, splits, smem, s);

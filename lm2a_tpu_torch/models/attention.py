@@ -20,6 +20,13 @@ Without it the core is plain matmul + fp32 softmax.
 Passing ``dtype`` to ``forward`` is the training form: the fp32 parameters
 are cast to ``dtype`` at each use, nothing is folded, and the fused route's
 core is differentiable (``attention_core``'s backward is its plain version).
+
+Under tensor parallelism (``parallel/tensor.py``) a rank's q/k/v
+projections hold its share of the heads: ``MultiheadAttention.core`` and
+the folded form take the heads from the projections' widths, and
+``fold`` on a rank's shards collapses its own heads' rows of ``out_proj``
+with ``fuse_proj`` into a partial product, summed over the ranks
+(``_forward_folded(partial=True)``, the bias left to the caller).
 """
 
 from __future__ import annotations
@@ -57,12 +64,12 @@ class MultiheadAttention(nn.Module):
             return lin(x.to(lin.weight.dtype))
         return dense(lin, x, dtype)
 
-    def forward(self, query, key, value, dtype=None):
-        e, h = self.embed_dim, self.num_heads
-        hd = e // h
-        q = self._proj(self.q_proj, query, dtype)
-        k = self._proj(self.k_proj, key, dtype)
-        v = self._proj(self.v_proj, value, dtype)
+    def core(self, q, k, v):
+        """softmax(QK^T / sqrt(hd)) V of projected (B, T, H*hd) queries and
+        (B, S, H*hd) keys and values, (B, T, H*hd) out: H the heads their
+        width holds (all, or a rank's share under tensor parallelism)."""
+        hd = self.embed_dim // self.num_heads
+        h = q.shape[-1] // hd
         q = q.reshape(q.shape[:-1] + (h, hd))
         k = k.reshape(k.shape[:-1] + (h, hd))
         v = v.reshape(v.shape[:-1] + (h, hd))
@@ -73,7 +80,13 @@ class MultiheadAttention(nn.Module):
             scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / _inv_scale(hd, q)
             probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
             out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-        return self._proj(self.out_proj, out.reshape(out.shape[0], -1, e), dtype)
+        return out.reshape(out.shape[0], -1, h * hd)
+
+    def forward(self, query, key, value, dtype=None):
+        q = self._proj(self.q_proj, query, dtype)
+        k = self._proj(self.k_proj, key, dtype)
+        v = self._proj(self.v_proj, value, dtype)
+        return self._proj(self.out_proj, self.core(q, k, v), dtype)
 
 
 class CrossAttentionFusion(nn.Module):
@@ -124,11 +137,13 @@ class CrossAttentionFusion(nn.Module):
             "b_out": bias.to(dtype),
         }
 
-    def _forward_folded(self, mel_hidden, motion_f, text_f):
+    def _forward_folded(self, mel_hidden, motion_f, text_f, partial: bool = False):
+        """The folded form; ``partial``: a rank's heads (its q/k/v shards),
+        its partial sum of the output, no bias."""
         f = self.folded
         dt = f["wq"].dtype
-        e, h = self.mel_dim, self.num_heads
-        hd = e // h
+        hd = self.mel_dim // self.num_heads
+        h = f["wq"].shape[0] // (2 * hd)
         b, t = mel_hidden.shape[:2]
         q = F.linear(mel_hidden.to(dt), f["wq"], f["bq"]).reshape(b, t, 2, h, hd)
         ks, vs = [], []
@@ -142,8 +157,8 @@ class CrossAttentionFusion(nn.Module):
         v = torch.stack(vs, dim=2).reshape(b, s, 2, h, hd)
         scores = torch.einsum("bqnhd,bknhd->bnhqk", q, k) / _inv_scale(hd, q)
         probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
-        core = torch.einsum("bnhqk,bknhd->bqnhd", probs, v).reshape(b, t, 2 * e)
-        return F.linear(core, f["w_out"], f["b_out"])
+        core = torch.einsum("bnhqk,bknhd->bqnhd", probs, v).reshape(b, t, 2 * h * hd)
+        return F.linear(core, f["w_out"], None if partial else f["b_out"])
 
     def forward(self, mel_hidden, motion_f, text_f, dtype=None):
         if dtype is not None:  # training form

@@ -298,18 +298,20 @@ class ResBlockUltimate(nn.Module):
         return xs + h
 
     def fused_train(self, x, scale, shift, dtype: torch.dtype, shard=None,
-                    n: Optional[int] = None):
+                    n: Optional[int] = None, tp=None):
         """The block's fused train chain (``fused_resblock_train``) on ``x``
         at ``dtype``: ``(h, xs)``, the chain's output and the residual (the
         skip's output, or ``x`` at ``dtype``), or None where the training
         gate refuses the geometry. With ``shard``: ``x`` is the shard's rows
-        of a length-``n`` sequence, and the gate reads ``n``."""
+        of a length-``n`` sequence, and the gate reads ``n``. With ``tp``:
+        the chain split over the model axis of tensor parallelism (the
+        parameters this rank's shards, FiLM its channels)."""
         skip = getattr(self, "skip", None)
         res = fused_resblock_train(
             x.to(dtype), self.gn1.weight, self.gn1.bias, self.conv1.weight, self.conv1.bias,
             scale, shift, self.gn2.weight, self.gn2.bias, self.conv2.weight, self.conv2.bias,
             skip.weight if skip is not None else None, skip.bias if skip is not None else None,
-            groups1=self.gn1.num_groups, groups2=self.gn2.num_groups, shard=shard, n=n)
+            groups1=self.gn1.num_groups, groups2=self.gn2.num_groups, shard=shard, n=n, tp=tp)
         if res is None:
             return None
         return res if skip is not None else (res, x.to(dtype))
@@ -393,26 +395,38 @@ class UNet1DUltimate(Denoiser):
                 if isinstance(t, torch.Tensor):
                     getattr(d.chain, f.name).copy_(t)
 
+    def walk(self, h, block, conv, up=None):
+        """The path from the input projection's output to the last up block,
+        shared by every form of the forward: ``block(module, h)`` for each
+        res block, ``conv(module, h)`` for the downsampling convs and the
+        conv after each 2x upsampling; ``up(module, h, skip)``, where given,
+        replaces the upsampling, its conv and ``_fix_time_len``. The skip's
+        channels are joined after."""
+        skips = []
+        for i in range(len(self.dims)):
+            for b in range(self.num_res_blocks):
+                h = block(getattr(self, f"down_{i}_block_{b}"), h)
+            skips.append(h)
+            h = conv(getattr(self, f"down_{i}_downsample"), h)
+        for b in range(self.mid_blocks):
+            h = block(getattr(self, f"mid_block_{b}"), h)
+        for i in range(len(self.dims)):
+            skip, conv_up = skips.pop(), getattr(self, f"up_{i}_upsample")
+            if up is None:
+                h = _fix_time_len(conv(conv_up, upsample_linear_2x_align_corners(h)),
+                                  skip.shape[1])
+            else:
+                h = up(conv_up, h, skip)
+            h = torch.cat([h, skip], dim=-1)
+            for b in range(self.num_res_blocks):
+                h = block(getattr(self, f"up_{i}_block_{b}"), h)
+        return h
+
     def forward(self, x, t, motion_f=None, text_f=None, uncond_rows: int = 0):
         dt = self.in_proj.weight.dtype
         t_emb = self.time_embedding(t)
         h = conv_cl(self.in_proj, x.to(dt))
-
-        skips = []
-        for i in range(len(self.dims)):
-            for b in range(self.num_res_blocks):
-                h = getattr(self, f"down_{i}_block_{b}")(h, t_emb, motion_f, text_f, uncond_rows)
-            skips.append(h)
-            h = conv_cl(getattr(self, f"down_{i}_downsample"), h)
-        for b in range(self.mid_blocks):
-            h = getattr(self, f"mid_block_{b}")(h, t_emb, motion_f, text_f, uncond_rows)
-        for i in range(len(self.dims)):
-            h = upsample_linear_2x_align_corners(h)
-            h = conv_cl(getattr(self, f"up_{i}_upsample"), h)
-            skip = skips.pop()
-            h = torch.cat([_fix_time_len(h, skip.shape[1]), skip], dim=-1)
-            for b in range(self.num_res_blocks):
-                h = getattr(self, f"up_{i}_block_{b}")(h, t_emb, motion_f, text_f, uncond_rows)
+        h = self.walk(h, lambda blk, h: blk(h, t_emb, motion_f, text_f, uncond_rows), conv_cl)
         h = F.silu(self.out_gn(h))
         return conv_cl(self.out_proj, h).float()
 
@@ -424,26 +438,9 @@ class UNet1DUltimate(Denoiser):
         fused = self.fused_resblock_grad
         t_emb = self.time_embedding.forward_train(t, dtype)
         h = conv_train(self.in_proj, x, dtype)
-
-        def block(name, h):
-            return getattr(self, name).forward_train(h, t_emb, motion_f, text_f, dtype,
-                                                     generator, fused)
-
-        skips = []
-        for i in range(len(self.dims)):
-            for b in range(self.num_res_blocks):
-                h = block(f"down_{i}_block_{b}", h)
-            skips.append(h)
-            h = conv_train(getattr(self, f"down_{i}_downsample"), h, dtype)
-        for b in range(self.mid_blocks):
-            h = block(f"mid_block_{b}", h)
-        for i in range(len(self.dims)):
-            h = upsample_linear_2x_align_corners(h)
-            h = conv_train(getattr(self, f"up_{i}_upsample"), h, dtype)
-            skip = skips.pop()
-            h = torch.cat([_fix_time_len(h, skip.shape[1]), skip], dim=-1)
-            for b in range(self.num_res_blocks):
-                h = block(f"up_{i}_block_{b}", h)
+        h = self.walk(h, lambda blk, h: blk.forward_train(h, t_emb, motion_f, text_f, dtype,
+                                                          generator, fused),
+                      lambda conv, h: conv_train(conv, h, dtype))
         h = F.silu(self.out_gn(h))
         return conv_train(self.out_proj, h, dtype).float()
 

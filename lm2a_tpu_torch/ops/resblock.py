@@ -17,6 +17,11 @@ applied in fp32, an fp32 intermediate between the halves.
 Each kernel wrapper (``gn_stats``, ``conv3_fused``) launches its CUDA kernel
 for a CUDA tensor, runs its plain PyTorch version (``*_plain``, same
 arithmetic) for a CPU tensor, and raises for anything else.
+
+Under tensor parallelism conv 2 is row-parallel: ``conv3_fused``'s partial
+form (``part=(lo, hi)``, a compile-time form of the kernel, counted as
+``conv3_fused_part``) writes a rank's fp32 partial sum and adds the bias,
+the residual and the skip in the rank's columns alone.
 """
 
 from __future__ import annotations
@@ -52,7 +57,7 @@ _build.declare("resblock", "lm2a_gn_stats",
 _build.declare("resblock", "lm2a_empty_kernel", [_P])
 _build.declare("resblock", "lm2a_conv3_fused",
                [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P])
+                _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P])
 
 
 # gn_stats (csrc/resblock.cu): threads a block; T split over a cluster of
@@ -155,17 +160,21 @@ def tile_fits(c: int, tile: int) -> bool:
 
 
 def conv3_candidates(rows: int, t: int, cin: int, cout: int, cin2: int = 0,
-                     split_skip: bool = False, in_bytes: int = 2):
+                     split_skip: bool = False, in_bytes: int = 2, part_cols: int = 0):
     """Every launch of ``conv3_fused`` for this conv that fits the card, as
-    (modeled microseconds, ConvPlan), in a fixed order."""
+    (modeled microseconds, ConvPlan), in a fixed order. ``part_cols``: the
+    partial form's columns a rank (its skip's rows), 0 for the other forms."""
     m = rows * t
     chunks = ((n_chunks(cin), n_chunks(cin2)) if split_skip
               else (n_chunks(cin) + n_chunks(cin2),))
+    if part_cols and cin2 and not split_skip:  # the tiles off the rank's columns take no skip
+        chunks = (n_chunks(cin),) + chunks
     out = []
     for (mw, bn), chunk_us in CHUNK_US.items():
         if not tile_fits(cout, bn):
             continue
-        mtiles, ntiles = -(-m // (64 * mw)), (2 if split_skip else 1) * -(-cout // bn)
+        skip_tiles = -(-(part_cols or cout) // bn) if split_skip else 0
+        mtiles, ntiles = -(-m // (64 * mw)), -(-cout // bn) + skip_tiles
         for splits in range(1, min(SPLIT_MAX, *chunks) + 1):
             smem = _conv3_smem(mw, bn, splits, in_bytes)
             if smem > SMEM_MAX:
@@ -178,12 +187,12 @@ def conv3_candidates(rows: int, t: int, cin: int, cout: int, cin2: int = 0,
 
 @functools.lru_cache(maxsize=None)
 def conv3_plan(rows: int, t: int, cin: int, cout: int, cin2: int = 0,
-               split_skip: bool = False, in_bytes: int = 2) -> ConvPlan:
+               split_skip: bool = False, in_bytes: int = 2, part_cols: int = 0) -> ConvPlan:
     """Tile sizes, K split and shared memory of ``conv3_fused`` (pure; the
     wrapper passes the result to the kernel): the candidate of least modeled
     time (``conv3_candidates``), the first of equals. ``in_bytes``: the
     GN+SiLU input's element size (4 for conv 2's fp32 intermediate)."""
-    return min(conv3_candidates(rows, t, cin, cout, cin2, split_skip, in_bytes),
+    return min(conv3_candidates(rows, t, cin, cout, cin2, split_skip, in_bytes, part_cols),
                key=lambda c: c[0])[1]
 
 
@@ -262,21 +271,46 @@ def _gn_silu(a, mean, rstd, gamma, beta):
 
 def conv3_fused_plain(a, mean, rstd, gamma, beta, w, bias, *, film=None,
                       skip=None, residual=None, split_skip=False,
-                      out_dtype=torch.float32, save_pre=False):
+                      out_dtype=torch.float32, save_pre=False, part=None):
     """SAME conv3 over ``silu(groupnorm(a))`` with the kernel's epilogues.
 
     ``film=(scale, shift)`` (B, Cout) fp32; ``skip=(x, w2, b2)`` adds the
     1x1 projection ``x @ w2.T + b2``, returned apart as ``(h, xs)`` when
     ``split_skip``; ``residual`` adds an identity input. ``save_pre`` (the
     training forward) also returns the fp32 conv + bias before FiLM,
-    ``(h, z1)``."""
+    ``(h, z1)``.
+
+    The partial form (``part=(lo, hi)``, tensor parallelism's row-parallel
+    conv 2): ``a`` and ``w`` (Cout, 3*Cin) are a rank's share of the input
+    channels, the fp32 output a partial sum over the ranks; the bias, the
+    residual and the skip (``w2`` the rank's (hi - lo, Cin2) rows, ``b2``
+    its (hi - lo,)) are added in the columns [lo, hi) alone, so the sum
+    over the ranks adds each once. A kept-apart skip's ``xs`` is the rank's
+    (B, T, hi - lo) columns."""
     act = _gn_silu(a, mean, rstd, gamma, beta).to(w.dtype).float()
     ap = torch.nn.functional.pad(act, (0, 0, 1, 1))
     taps = torch.cat([ap[:, :-2], ap[:, 1:-1], ap[:, 2:]], dim=-1)  # (B, T, 3Cin)
+    if part is not None:
+        return _partial(taps @ w.float().t(), bias, skip, residual, split_skip, out_dtype, part)
     h = taps @ w.float().t() + bias
     if save_pre:
         return _film(h, film).to(out_dtype), h
     return _epilogue(h, film, skip, residual, split_skip, out_dtype)
+
+
+def _partial(acc, bias, skip, residual, split_skip, out_dtype, part):
+    lo, hi = part
+    own = acc[..., lo:hi] + bias[lo:hi]
+    xs = None
+    if skip is not None:
+        x, w2, b2 = skip
+        xs = x.to(w2.dtype).float() @ w2.float().t() + b2
+        if not split_skip:
+            own = xs + own
+    elif residual is not None:
+        own = residual[..., lo:hi].float() + own
+    h = torch.cat([acc[..., :lo], own, acc[..., hi:]], -1).to(out_dtype)
+    return (h, xs.to(x.dtype)) if skip is not None and split_skip else h
 
 
 def _film(h, film):
@@ -377,13 +411,14 @@ def empty_kernel(device) -> None:
 
 def conv3_fused(a, mean, rstd, gamma, beta, w, bias, *, film=None, skip=None,
                 residual=None, split_skip=False, out_dtype=torch.float32,
-                save_pre=False):
-    """Kernel wrapper of ``conv3_fused_plain`` (same arguments)."""
+                save_pre=False, part=None):
+    """Kernel wrapper of ``conv3_fused_plain`` (same arguments; the partial
+    form, fp32 -> fp32, counts as ``conv3_fused_part``)."""
     if not _is_cuda(a):
         return conv3_fused_plain(a, mean, rstd, gamma, beta, w, bias, film=film,
                                  skip=skip, residual=residual,
                                  split_skip=split_skip, out_dtype=out_dtype,
-                                 save_pre=save_pre)
+                                 save_pre=save_pre, part=part)
     dev = a.device
     b, t, cin = a.shape
     cout = w.shape[0]
@@ -401,10 +436,18 @@ def conv3_fused(a, mean, rstd, gamma, beta, w, bias, *, film=None, skip=None,
     for s, name in ((mean, "mean"), (rstd, "rstd")):
         _need(s.dtype == torch.float32 and s.is_contiguous()
               and tuple(s.shape) == (b, groups), f"conv3_fused: {name} must be fp32 (B, G)")
-    _need((a.dtype, out_dtype) in ((torch.bfloat16, torch.float32),
-                                   (torch.float32, torch.bfloat16)),
-          "conv3_fused: the CUDA path takes bf16 -> fp32 (conv 1) or fp32 -> bf16 "
-          f"(conv 2), got {a.dtype} -> {out_dtype}")
+    lo, hi = part if part is not None else (0, 0)
+    if part is not None:
+        _need(a.dtype == torch.float32 and out_dtype == torch.float32 and film is None
+              and not save_pre and 0 <= lo < hi <= cout,
+              "conv3_fused: the partial form takes fp32 -> fp32, no FiLM, and columns "
+              f"0 <= lo < hi <= Cout, got {a.dtype} -> {out_dtype}, {part}")
+    else:
+        _need((a.dtype, out_dtype) in ((torch.bfloat16, torch.float32),
+                                       (torch.float32, torch.bfloat16)),
+              "conv3_fused: the CUDA path takes bf16 -> fp32 (conv 1) or fp32 -> bf16 "
+              f"(conv 2), got {a.dtype} -> {out_dtype}")
+    cols = hi - lo if part is not None else cout  # the skip's rows
     fs = fh = x2 = w2 = b2 = res = None
     cin2 = 0
     if film is not None:
@@ -420,8 +463,9 @@ def conv3_fused(a, mean, rstd, gamma, beta, w, bias, *, film=None, skip=None,
               "conv3_fused: skip input must be contiguous bf16 (B, T, Cin2)")
         check_widths("conv3_fused", Cin2=cin2)
         _need(w2.dtype == torch.bfloat16 and w2.is_contiguous()
-              and tuple(w2.shape) == (cout, cin2), "conv3_fused: skip weight (Cout, Cin2) bf16")
-        _check_vec(b2, cout, dev, "skip bias")
+              and tuple(w2.shape) == (cols, cin2),
+              f"conv3_fused: skip weight ({cols}, Cin2) bf16")
+        _check_vec(b2, cols, dev, "skip bias")
         _need(split_skip or film is None,
               "conv3_fused: a summed skip shares conv 2's accumulator, which takes no FiLM")
     elif residual is not None:
@@ -431,17 +475,18 @@ def conv3_fused(a, mean, rstd, gamma, beta, w, bias, *, film=None, skip=None,
     out = torch.empty((b, t, cout), device=dev, dtype=out_dtype)
     _need(not save_pre or (skip is None and residual is None),
           "conv3_fused: save_pre is the conv-1 mode (no skip, no residual)")
-    out2 = (torch.empty((b, t, cout), device=dev, dtype=torch.bfloat16)
+    out2 = (torch.empty((b, t, cols), device=dev, dtype=torch.bfloat16)
             if skip is not None and split_skip else None)
     pre = torch.empty((b, t, cout), device=dev, dtype=torch.float32) if save_pre else None
-    plan = conv3_plan(b, t, cin, cout, cin2, out2 is not None, a.element_size())
+    plan = conv3_plan(b, t, cin, cout, cin2, out2 is not None, a.element_size(),
+                      cols if part is not None else 0)
     P = _build.ptr
     _build.launch(
-        "resblock", "lm2a_conv3_fused", "conv3_fused",
+        "resblock", "lm2a_conv3_fused", "conv3_fused" if part is None else "conv3_fused_part",
         P(a), int(a.dtype == torch.float32), P(mean), P(rstd), P(gamma), P(beta),
         P(w), P(bias), P(fs), P(fh), P(x2), P(w2), P(b2), P(res),
         P(out), int(out_dtype == torch.float32), P(out2), P(pre),
-        b, t, cin, cout, cin2, groups, plan.mw, plan.bn, plan.mtiles, plan.ntiles,
+        b, t, cin, cout, cin2, groups, lo, hi, plan.mw, plan.bn, plan.mtiles, plan.ntiles,
         plan.splits, plan.smem, _build.stream_ptr(dev),
     )
     if pre is not None:

@@ -48,6 +48,14 @@ and ``gn_bwd``'s are compile-time forms of their kernels, so the local
 forms keep their code; ``conv3_wgrad``'s is the local kernel on
 zero-padded gradient rows. Each form's launches count under its own name
 (``conv3_dgrad_halo``, ``conv3_wgrad_halo``, ``gn_bwd_totals``).
+
+A rank of a tensor-parallel step (``parallel/tensor.py``) runs the chain
+split over the model axis (``chain_forward_tp``, ``chain_backward_tp``):
+conv 1 column-parallel on its shard of the output channels, GroupNorm 2 on
+the rank's channels, conv 2 row-parallel through ``conv3_fused``'s partial
+form, and one all-reduce of its fp32 partial sums. Every backward kernel
+writes fp32 and is linear in the gradient it reads, so the local forms run
+on the shards and conv 1's partial input gradients are all-reduced once.
 """
 
 from __future__ import annotations
@@ -712,17 +720,133 @@ def chain_backward_sharded(saved, g1s, g1b, w1, g2s, g2b, w2, sw, gh, gxs, shard
     return out
 
 
+def tp_cols(c: int, tp):
+    """The columns ``[lo, hi)`` of a ``c``-channel tensor that rank
+    ``tp.index`` of ``tp.parts`` holds."""
+    cs = c // tp.parts
+    return tp.index * cs, (tp.index + 1) * cs
+
+
+def _tp_groups(tp, cs: int, groups: int, device):
+    """The group of each of this rank's ``cs`` channels of a
+    ``cs * parts``-channel GroupNorm of ``groups`` groups, and the channels
+    a group."""
+    cg = cs * tp.parts // groups
+    lo, _ = tp_cols(cs * tp.parts, tp)
+    return torch.arange(lo, lo + cs, device=device) // cg, cg
+
+
+def tp_group_stats(k, tp, f, groups: int):
+    """GroupNorm mean and rstd of a rank's channels ``f`` (B, T, C/TP) of a
+    tensor sharded on its channels: the rank's own groups where they divide
+    over the ranks (``gn_stats``), else every channel's group's statistics
+    (B, C/TP), from per-channel sums added into the groups over the model
+    axis (``gn_sums``, one all-reduce, ``gn_finish``)."""
+    b, t, cs = f.shape
+    if groups % tp.parts == 0:
+        return k.gn_stats(f, groups // tp.parts)
+    idx, cg = _tp_groups(tp, cs, groups, f.device)
+    s, ss = k.gn_sums(f, cs)
+    sums = torch.zeros((2, b, groups), dtype=torch.float32, device=f.device)
+    tp.all_reduce(sums.index_add_(2, idx, torch.stack([s, ss])))
+    mean, rstd = gn_finish(sums[0], sums[1], t * cg)
+    return mean[:, idx].contiguous(), rstd[:, idx].contiguous()
+
+
+def _tp_gn2_bwd(k, tp, d_y2, f, mean2, rstd2, g2s, p2, sc, z1, cdt, groups2: int):
+    """GroupNorm 2's backward on a rank's channels: its own groups' pieces,
+    or (groups across ranks) the totals form with every channel's group's
+    totals added over the model axis."""
+    if groups2 % tp.parts == 0:
+        return k.gn_bwd(d_y2, f, mean2, rstd2, g2s, p2, film_scale=sc, z1=z1, out_dtype=cdt)
+    b, t, cs = f.shape
+    idx, cg = _tp_groups(tp, cs, groups2, f.device)
+    tot = torch.zeros((2, b, groups2), dtype=torch.float32, device=f.device)
+    tp.all_reduce(tot.index_add_(2, idx, gn_totals(p2, g2s, cs)))
+    return k.gn_bwd(d_y2, f, mean2, rstd2, g2s, None, film_scale=sc, z1=z1, out_dtype=cdt,
+                    totals=tot[:, :, idx].contiguous(), count=t * cg)
+
+
+def chain_forward_tp(x, film_scale, film_shift, g1s, g1b, w1, b1, g2s, g2b, w2, b2, sw, sb,
+                     groups1: int, groups2: int, tp, k=KERNELS):
+    """``chain_forward`` split over the model axis of tensor parallelism.
+    ``x`` (B, T, Cin) and GroupNorm 1's ``g1s``, ``g1b`` whole; FiLM
+    (B, C/TP), ``b1``, ``g2s``, ``g2b`` this rank's channels; ``w1`` its
+    (C/TP, 3*Cin) shard (column-parallel), ``w2`` its (C, 3*C/TP) shard
+    (row-parallel), ``b2`` whole; the skip ``sw`` (C/TP, Cin), ``sb`` its
+    rows. ``tp`` gives ``index``, ``parts``, ``all_reduce(t)`` (a sum over
+    the axis, in place) and ``gather(x)`` (the ranks' pieces along the last
+    dimension). ``f`` and ``z1`` stay the rank's channels; conv 2's partial
+    sums (each rank adds ``b2`` and its skip columns in its own columns)
+    are all-reduced into the whole ``h``, the skip's columns gathered into
+    the whole ``xs``."""
+    film = (film_scale.float().contiguous(), film_shift.float().contiguous())
+    mean1, rstd1 = k.gn_stats(x, groups1)
+    f, z1 = k.conv3_fused(x, mean1, rstd1, g1s, g1b, w1, b1, film=film,
+                          out_dtype=torch.float32, save_pre=True)
+    mean2, rstd2 = tp_group_stats(k, tp, f, groups2)
+    out = k.conv3_fused(f, mean2, rstd2, g2s, g2b, w2, b2, out_dtype=torch.float32,
+                        part=tp_cols(w2.shape[0], tp),
+                        **(dict(skip=(x, sw, sb), split_skip=True) if sw is not None else {}))
+    h, xs = out if sw is not None else (out, None)
+    h = tp.all_reduce(h).to(x.dtype)
+    if xs is not None:
+        xs = tp.gather(xs)
+    return h, xs, (x, f, z1, mean1, rstd1, mean2, rstd2, film[0])
+
+
+def chain_backward_tp(saved, g1s, g1b, w1, g2s, g2b, w2, sw, gh, gxs, groups2: int, tp,
+                      k=KERNELS):
+    """``chain_backward`` of ``chain_forward_tp``: ``gh`` and ``gxs`` are
+    the whole gradients (every rank of a model line holds them). Conv 2's
+    weight gradient is the shard's (its input channels), its bias's the
+    whole; GroupNorm 2 and conv 1 run on the rank's channels. Conv 1's
+    input gradient ``d_y1`` and its pieces, and the skip's ``extra``, are
+    partial sums over the ranks (each is linear in the gradient its kernel
+    reads): one all-reduce adds them before GroupNorm 1's backward, whose
+    ``dx``, ``dg1s`` and ``dg1b`` are then the whole ones. The other
+    gradients are this rank's shards."""
+    x, f, z1, mean1, rstd1, mean2, rstd2, sc = saved
+    cdt = x.dtype
+    gh = gh.to(cdt).contiguous()
+    out = {}
+    out["dw2"], out["db2"] = k.wgrad(f, gh, taps=3, mean=mean2, rstd=rstd2, gamma=g2s,
+                                     beta=g2b, bias=True)
+    d_y2, p2 = k.dgrad(gh, w2, taps=3, pre=f, mean=mean2, rstd=rstd2, gamma=g2s, beta=g2b)
+    d_z1, q = _tp_gn2_bwd(k, tp, d_y2, f, mean2, rstd2, g2s, p2, sc, z1, cdt, groups2)
+    out["dg2b"], out["dg2s"] = p2.sum((1, 2, 3)).unbind()
+    out["dshift"], out["dscale"], out["db1"] = q[0].sum(1), q[1].sum(1), q[2].sum((0, 1))
+    out["dw1"], _ = k.wgrad(x, d_z1, taps=3, mean=mean1, rstd=rstd1, gamma=g1s, beta=g1b)
+    d_y1, p1 = k.dgrad(d_z1, w1, taps=3, pre=x, mean=mean1, rstd=rstd1, gamma=g1s, beta=g1b)
+    parts = [d_y1, p1]
+    if sw is not None:
+        lo, hi = tp_cols(gxs.shape[-1], tp)
+        gxs = gxs[..., lo:hi].to(cdt).contiguous()
+        extra, _ = k.dgrad(gxs, sw, taps=1)
+        out["dsw"], out["dsb"] = k.wgrad(x, gxs, taps=1, bias=True)
+        parts.append(extra)
+    flat = tp.all_reduce(torch.cat([v.reshape(-1) for v in parts]))
+    d_y1, p1, *extra = (v.view_as(like) for v, like in
+                        zip(flat.split([v.numel() for v in parts]), parts))
+    out["dg1b"], out["dg1s"] = p1.sum((1, 2, 3)).unbind()
+    out["dx"], _ = k.gn_bwd(d_y1, x, mean1, rstd1, g1s, p1, extra=extra[0] if extra else None,
+                            out_dtype=cdt)
+    return out
+
+
 class _FusedResblockTrain(torch.autograd.Function):
     """The fused chain with its fused backward. Takes the fp32 master
     weights (Conv1d layouts) and does the compute-dtype cast and the
     kernel relayout itself, so weight gradients come back fp32, unrounded.
     With ``shard`` (and the sequence's length ``n``): the chain on this
     shard's rows, its collectives in the forward and the backward
-    (``chain_forward_sharded``, ``chain_backward_sharded``)."""
+    (``chain_forward_sharded``, ``chain_backward_sharded``). With ``tp``:
+    the chain split over the model axis of tensor parallelism, the weights
+    this rank's shards (``chain_forward_tp``, ``chain_backward_tp``)."""
 
     @staticmethod
     def forward(ctx, x, film_scale, film_shift, g1s, g1b, w1, b1, g2s, g2b, w2, b2, sw, sb,
-                groups1, groups2, shard=None, n=None):
+                groups1, groups2, shard=None, n=None, tp=None):
         cdt = x.dtype
         x = x.contiguous()
         kw1, kw2 = kernel_layout(w1, cdt), kernel_layout(w2, cdt)
@@ -731,14 +855,16 @@ class _FusedResblockTrain(torch.autograd.Function):
         sbf = sb.detach().float().contiguous() if sb is not None else None
         args = (x, film_scale, film_shift, vec[0], vec[1], kw1, vec[2], vec[3], vec[4], kw2,
                 vec[5], ksw, sbf, groups1, groups2)
-        if shard is None:
+        if tp is not None:
+            h, xs, saved = chain_forward_tp(*args, tp)
+        elif shard is None:
             h, xs, saved = chain_forward(*args)
         else:
             h, xs, saved = chain_forward_sharded(*args, shard, n)
             ctx.halo = saved[-1]
             saved = saved[:-1]
         ctx.save_for_backward(*saved, vec[0], vec[1], kw1, vec[3], vec[4], kw2, ksw)
-        ctx.n_saved, ctx.shard, ctx.n = len(saved), shard, n
+        ctx.n_saved, ctx.shard, ctx.n, ctx.tp, ctx.groups2 = len(saved), shard, n, tp, groups2
         ctx.dtypes = (film_scale.dtype, film_shift.dtype)
         ctx.has_skip = sw is not None
         ctx.shapes = (w1.shape, w2.shape, sw.shape if sw is not None else None)
@@ -750,7 +876,10 @@ class _FusedResblockTrain(torch.autograd.Function):
     def backward(ctx, gh, gxs=None):
         t = ctx.saved_tensors
         saved, (g1s, g1b, kw1, g2s, g2b, kw2, ksw) = t[:ctx.n_saved], t[ctx.n_saved:]
-        if ctx.shard is None:
+        if ctx.tp is not None:
+            d = chain_backward_tp(saved, g1s, g1b, kw1, g2s, g2b, kw2, ksw, gh, gxs, ctx.groups2,
+                                  ctx.tp)
+        elif ctx.shard is None:
             d = chain_backward(saved, g1s, g1b, kw1, g2s, g2b, kw2, ksw, gh, gxs)
         else:
             d = chain_backward_sharded(saved + (ctx.halo,), g1s, g1b, kw1, g2s, g2b, kw2, ksw,
@@ -765,12 +894,12 @@ class _FusedResblockTrain(torch.autograd.Function):
         dsb = d["dsb"] if ctx.has_skip else None
         return (d["dx"], d["dscale"].to(ctx.dtypes[0]), d["dshift"].to(ctx.dtypes[1]),
                 d["dg1s"], d["dg1b"], conv(d["dw1"], s1), d["db1"], d["dg2s"], d["dg2b"],
-                conv(d["dw2"], s2), d["db2"], dsw, dsb, None, None, None, None)
+                conv(d["dw2"], s2), d["db2"], dsw, dsb, None, None, None, None, None)
 
 
 def fused_resblock_train(x, gn1_scale, gn1_bias, conv1_w, conv1_b, film_scale, film_shift,
                          gn2_scale, gn2_bias, conv2_w, conv2_b, skip_w=None, skip_b=None,
-                         *, groups1: int, groups2: int, shard=None, n=None):
+                         *, groups1: int, groups2: int, shard=None, n=None, tp=None):
     """Differentiable fused resblock chain (no residual, no dropout), the
     JAX function's argument order.
 
@@ -780,16 +909,18 @@ def fused_resblock_train(x, gn1_scale, gn1_bias, conv1_w, conv1_b, film_scale, f
     geometry fails ``resblock_train_fits`` (the caller runs plain PyTorch).
     With ``shard``: ``x`` is a shard's rows of a length-``n`` sequence, and
     the gate reads ``n`` (the shape the JAX kernel sees under GSPMD), so a
-    sharded step routes the blocks the unsharded step routes."""
+    sharded step routes the blocks the unsharded step routes. With ``tp``:
+    the weights are this rank's shards (``chain_forward_tp``), and the gate
+    reads the whole widths."""
     b, t, cin = x.shape
-    cout = conv1_w.shape[0]
+    cout = conv2_w.shape[0]
     wsize = 2 if x.dtype == torch.bfloat16 else 4
     if not resblock_train_fits(t if shard is None else n, cin, cout, skip_w is not None,
                                weight_itemsize=wsize):
         return None
     return _FusedResblockTrain.apply(x, film_scale, film_shift, gn1_scale, gn1_bias, conv1_w,
                                      conv1_b, gn2_scale, gn2_bias, conv2_w, conv2_b, skip_w,
-                                     skip_b, groups1, groups2, shard, n)
+                                     skip_b, groups1, groups2, shard, n, tp)
 
 
 def resblock_bwd_plain(x, g1s, g1b, w1, b1, sc, sh, g2s, g2b, w2, skip_w, gh, gxs,

@@ -4,8 +4,9 @@ The JAX package counts the collectives XLA inserted into a compiled step
 from its HLO. PyTorch has no HLO: every collective of the port goes through
 ``core/distributed.py`` (``all_reduce``, ``all_gather``, ``halo_exchange``,
 ``broadcast``), which counts each call and the bytes it delivers to this
-rank under the JAX package's opcode names. ``audit(fn, *args)`` runs one
-call and reads what that layer recorded during it.
+rank under the JAX package's opcode names (tensor parallelism's f and g,
+forward or backward, as the all-reduces they run). ``audit(fn, *args)``
+runs one call and reads what that layer recorded during it.
 """
 
 from __future__ import annotations

@@ -276,6 +276,24 @@ def _upsample_conv(conv, shard: SeqShard, h, n_low: int, n_out: int, dtype=None)
     return out.contiguous()
 
 
+def _walk(unet, shard: SeqShard, h, n: int, block, dtype=None):
+    """``UNet1DUltimate.walk`` on this shard's rows of a length-``n`` mel:
+    ``block(module, h, n)`` at each block's global length. Returns the last
+    up block's rows and their length (``n`` again)."""
+    ns = [n]  # the current global length on top, the skips' lengths below
+
+    def down(conv, h):
+        h, m = _downsample(conv, shard, h, ns[-1], dtype)
+        ns.append(m)
+        return h
+
+    def up(conv, h, skip):
+        m = ns.pop()
+        return _upsample_conv(conv, shard, h, m, ns[-1], dtype)
+
+    return unet.walk(h, lambda blk, h: block(blk, h, ns[-1]), down, up), ns[-1]
+
+
 def sequence_sharded_forward(unet, shard: SeqShard, x, t, motion_f=None, text_f=None,
                              n: Optional[int] = None, uncond_rows: int = 0) -> torch.Tensor:
     """``UNet1DUltimate.forward`` (the prepared serving form) on this shard's
@@ -284,23 +302,8 @@ def sequence_sharded_forward(unet, shard: SeqShard, x, t, motion_f=None, text_f=
     dt = unet.in_proj.weight.dtype
     t_emb = unet.time_embedding(t)
     h = conv_cl(unet.in_proj, x.to(dt))
-    skips = []
-    for i in range(len(unet.dims)):
-        for b in range(unet.num_res_blocks):
-            h = _block(getattr(unet, f"down_{i}_block_{b}"), shard, h, n, t_emb, motion_f,
-                       text_f, uncond_rows)
-        skips.append((h, n))
-        h, n = _downsample(getattr(unet, f"down_{i}_downsample"), shard, h, n)
-    for b in range(unet.mid_blocks):
-        h = _block(getattr(unet, f"mid_block_{b}"), shard, h, n, t_emb, motion_f, text_f,
-                   uncond_rows)
-    for i in range(len(unet.dims)):
-        skip, n_skip = skips.pop()
-        h = _upsample_conv(getattr(unet, f"up_{i}_upsample"), shard, h, n, n_skip)
-        h, n = torch.cat([h, skip], dim=-1), n_skip
-        for b in range(unet.num_res_blocks):
-            h = _block(getattr(unet, f"up_{i}_block_{b}"), shard, h, n, t_emb, motion_f,
-                       text_f, uncond_rows)
+    h, n = _walk(unet, shard, h, n, lambda blk, h, n: _block(blk, shard, h, n, t_emb, motion_f,
+                                                             text_f, uncond_rows))
     gn = unet.out_gn
     bsz, tl, c = h.shape
     g = gn.num_groups
@@ -350,25 +353,9 @@ def sequence_sharded_forward_train(unet, shard: SeqShard, x, t, motion_f, text_f
     whole. fp32 out."""
     t_emb = unet.time_embedding.forward_train(t, dtype)
     h = conv_train(unet.in_proj, x, dtype)
-
-    def block(name, h, n):
-        return _block_train(getattr(unet, name), shard, h, n, t_emb, motion_f, text_f, dtype,
-                            generator, unet.fused_resblock_grad)
-
-    skips = []
-    for i in range(len(unet.dims)):
-        for b in range(unet.num_res_blocks):
-            h = block(f"down_{i}_block_{b}", h, n)
-        skips.append((h, n))
-        h, n = _downsample(getattr(unet, f"down_{i}_downsample"), shard, h, n, dtype)
-    for b in range(unet.mid_blocks):
-        h = block(f"mid_block_{b}", h, n)
-    for i in range(len(unet.dims)):
-        skip, n_skip = skips.pop()
-        h = _upsample_conv(getattr(unet, f"up_{i}_upsample"), shard, h, n, n_skip, dtype)
-        h, n = torch.cat([h, skip], dim=-1), n_skip
-        for b in range(unet.num_res_blocks):
-            h = block(f"up_{i}_block_{b}", h, n)
+    h, n = _walk(unet, shard, h, n,
+                 lambda blk, h, n: _block_train(blk, shard, h, n, t_emb, motion_f, text_f, dtype,
+                                                generator, unet.fused_resblock_grad), dtype)
     h = F.silu(shard.group_norm(unet.out_gn, h, n))
     return conv_train(unet.out_proj, h, dtype).float()
 

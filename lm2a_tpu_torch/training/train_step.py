@@ -128,10 +128,11 @@ def init_train_state(cfg: LM2AConfig, seed: int, device: DeviceLike = None,
 def loss_fn(state: TrainState, schedule: Schedule, batch, cfg: LM2AConfig, *,
             dataset_mean: float, dataset_std: float, train: bool,
             generator: Optional[torch.Generator] = None,
-            draws: Optional[Draws] = None) -> torch.Tensor:
+            draws: Optional[Draws] = None, forward: Optional[Callable] = None) -> torch.Tensor:
     """The diffusion loss of one batch (dict of (B, T, .) tensors ``mel``,
     ``motion``, ``lyrics``). ``train`` adds the CFG condition drop and
-    dropout; the eval form has neither."""
+    dropout; the eval form has neither. ``forward`` replaces the
+    denoiser's ``forward_train`` (the tensor-parallel step's split form)."""
     dt = dtype_from_str(cfg.train.compute_dtype)
     motion_f, text_f = state.cond_proj.forward_train(batch["motion"], batch["lyrics"], dt)
     p = cfg.train.cond_drop_prob
@@ -146,8 +147,8 @@ def loss_fn(state: TrainState, schedule: Schedule, batch, cfg: LM2AConfig, *,
         text_f = text_f * keep
 
     def model_fn(x, t, m, l):
-        return state.unet.forward_train(x, t, m, l, dtype=dt,
-                                        generator=generator if train else None)
+        return (forward or state.unet.forward_train)(x, t, m, l, dtype=dt,
+                                                     generator=generator if train else None)
 
     return diffusion_loss(model_fn, schedule, batch["mel"], motion_f, text_f,
                           dataset_mean=dataset_mean, dataset_std=dataset_std,

@@ -132,16 +132,16 @@ def sp_sampler(meta, arrays, mesh):
 def tp_step(meta, arrays, mesh):
     """``meta["steps"]`` tensor-parallel train steps (injected draws at the
     global shape, this rank's rows) from the given state, this rank's shards
-    and the clip's norm (of the whole gradient the rank holds) after each;
-    then one DDIM chain of the EMA's
-    ``unet`` shards through ``make_tp_sampler``."""
+    and the step's clip norm after each, the first step audited and the
+    split leaves' shapes as its forward reads them; then one DDIM chain of
+    the EMA's ``unet`` shards through ``make_tp_sampler``."""
     from lm2a_tpu_torch.core.mesh import MODEL_AXIS
     from lm2a_tpu_torch.diffusion.schedule import make_schedule
     from lm2a_tpu_torch.models.factory import build_denoiser
+    from lm2a_tpu_torch.parallel import tensor as tp_mod
     from lm2a_tpu_torch.parallel.tensor import (
         make_tp_sampler, make_tp_train_step, shard_state_tp,
     )
-    from lm2a_tpu_torch.ops.adan import global_norm
     from lm2a_tpu_torch.training.train_step import make_optimizer
 
     cfg, state = _state(meta, arrays)
@@ -152,14 +152,26 @@ def tp_step(meta, arrays, mesh):
     tps, _ = shard_state_tp(state, mesh)
     b = meta["batch"]
     sl = distributed.local_batch_slice(mesh, b)
-    out = {}
+    out, shapes, census = {}, {}, None
+    split_forward = tp_mod.tensor_sharded_forward_train
+
+    def spied(*a, **kw):
+        shapes.update({k: list(p.shape) for k, p in tps.state.params().items()
+                       if k in tps.split})
+        return split_forward(*a, **kw)
+
+    tp_mod.tensor_sharded_forward_train = spied
     for i in range(meta["steps"]):
         batch = {k: torch.tensor(arrays[f"{k}_{i}"][sl]) for k in ("mel", "motion", "lyrics")}
         keep = arrays.get(f"keep_{i}")
         draws = Draws(torch.tensor(arrays[f"t_{i}"][sl]), torch.tensor(arrays[f"noise_{i}"][sl]),
                       None if keep is None else torch.tensor(keep[sl]))
-        out[f"loss_{i}"] = np.float32(step(tps, batch, draws=draws))
-        out[f"norm_{i}"] = np.float32(global_norm([p.grad for p in tps.state.params().values()]))
+        if i == 0:
+            census = audit(step, tps, batch, draws=draws)
+            out[f"loss_{i}"] = np.float32(census.pop("result"))
+        else:
+            out[f"loss_{i}"] = np.float32(step(tps, batch, draws=draws))
+        out[f"norm_{i}"] = np.float32(step.norm)
         for tree, d in (("params", tps.params), ("ema", tps.state.ema),
                         ("m", tps.state.opt.m), ("prev_grad", tps.state.opt.prev_grad)):
             out.update({f"{tree}|{i}|{k}": v.detach().numpy().copy() for k, v in d.items()})
@@ -172,7 +184,81 @@ def tp_step(meta, arrays, mesh):
                         x_init=torch.tensor(arrays["x_init"])).numpy()
     return out, {"dims": {k: v for k, v in shardings["params"].items()},
                  "state_bytes": tps.state_bytes(), "full_bytes": full_bytes,
-                 "index": mesh.axis_index(MODEL_AXIS)}
+                 "index": mesh.axis_index(MODEL_AXIS), "split_shapes": shapes,
+                 "split": sorted(tps.split), "census": census["collectives"]}
+
+
+def tp_modules(meta, arrays, mesh):
+    """The split modules of ``parallel/tensor.py`` on this rank, from the
+    whole weights under ``blk|`` (a ``ResBlockUltimate`` with a skip and
+    attention) and ``attn|`` (a ``CrossAttentionFusion``): the block's
+    training form on the fused train chain (``chain_*_tp``) and on the
+    library route, each with the gradients of ``sum(out * cot)``; the
+    split FiLM's scale and shift; the attention site's training form with
+    its gradients, and its folded serving form (with ``uncond_rows=1`` too).
+    A split leaf's gradient is this rank's shard, the others whole."""
+    from lm2a_tpu_torch.core.mesh import MODEL_AXIS
+    from lm2a_tpu_torch.models.attention import CrossAttentionFusion
+    from lm2a_tpu_torch.models.unet1d import ResBlockUltimate
+    from lm2a_tpu_torch.parallel import tensor as T
+
+    parts, r = mesh.shape[MODEL_AXIS], mesh.axis_index(MODEL_AXIS)
+    c, cin, temb, cond, heads = (meta[k] for k in ("c", "cin", "temb", "cond", "heads"))
+    t = lambda k: torch.tensor(arrays[k]).requires_grad_(True)  # noqa: E731
+
+    def split(module, prefix, names):
+        """Load the whole weights, then make the split leaves this rank's shards."""
+        module.load_state_dict({k[len(prefix):]: torch.tensor(v) for k, v in arrays.items()
+                                if k.startswith(prefix)})
+        dims = T.tp_shardings({f"unet/m.{k}": v for k, v in module.named_parameters()}, mesh)
+        done = set()
+        for k, p in module.named_parameters():
+            if k in names:
+                p.data = T._piece(p.data, dims[f"unet/m.{k}"], r, parts).contiguous()
+                done.add(k)
+        return done
+
+    out, info = {}, {}
+    for route in ("fused", "library"):
+        blk = ResBlockUltimate(cin, c, temb, cond, True, heads, dropout=0.0)
+        ids = {id(blk)}
+        names = set(T._BLOCK_SPLIT)
+        if c % parts == 0 and heads % parts == 0:
+            ids.add(id(blk.cross_attn))
+            names |= {"cross_attn." + k for k in T._ATTN_SPLIT}
+        info[f"split_{route}"] = sorted(split(blk, "blk|", names))
+        tp = T.ModelShard(mesh, ids)
+        x, t_emb, m, l = t("x"), t("t_emb"), t("m"), t("l")
+        res = T._block_train(blk, tp, x, t_emb, tp.copy(t_emb), m, l, torch.float32, None,
+                             route == "fused")
+        (res * torch.tensor(arrays["cot"])).sum().backward()
+        out[f"{route}|out"] = res.detach().numpy()
+        for k, v in (("x", x), ("t_emb", t_emb), ("m", m), ("l", l)):
+            out[f"{route}|d_{k}"] = v.grad.numpy()
+        for k, p in blk.named_parameters():
+            out[f"{route}|grad|{k}"] = p.grad.numpy()
+        if route == "fused":
+            with torch.no_grad():
+                cols = (r * c // parts, (r + 1) * c // parts)
+                sc, sh = T._film(blk.film, tp, t_emb, torch.float32, cols)
+            out["film_scale"], out["film_shift"] = sc.numpy(), sh.numpy()
+    attn = CrossAttentionFusion(c, cond, heads)
+    names = {k for k in T._ATTN_SPLIT} if heads % parts == 0 else set()
+    split(attn, "attn|", names)
+    tp = T.ModelShard(mesh, {id(attn)} if names else set())
+    h, m, l = t("h"), t("m"), t("l")
+    res = T.attend(attn, tp, h, m, l, torch.float32)
+    (res * torch.tensor(arrays["cot_attn"])).sum().backward()
+    out["attn|out"] = res.detach().numpy()
+    for k, v in (("h", h), ("m", m), ("l", l)):
+        out[f"attn|d_{k}"] = v.grad.numpy()
+    for k, p in attn.named_parameters():
+        out[f"attn|grad|{k}"] = p.grad.numpy()
+    with torch.no_grad():
+        attn.fold(torch.float32)
+        out["folded|out"] = T.attend(attn, tp, h, m, l).numpy()
+        out["folded|uncond"] = T.attend(attn, tp, h, m, l, uncond_rows=1).numpy()
+    return out, info
 
 
 def state_arrays_tensors(state):
@@ -247,7 +333,7 @@ def audit_census(meta, arrays, mesh):
 
 
 JOBS = {"dp_step": dp_step, "sp_sampler": sp_sampler, "sp_step": sp_step, "tp_step": tp_step,
-        "audit_census": audit_census}
+        "audit_census": audit_census, "tp_modules": tp_modules}
 
 
 def main():

@@ -61,7 +61,11 @@ against the CPU; the masked forms at every block of base widths 12 and 20 and
 at an odd width (Cin 21, Cout 42), against their plain versions; v1 (its
 default head dims at a quarter of its width): two train steps against the
 CPU within ``chip_smoke.ROUTE_TOL``, and K = 2 device-data steps as graph
-replays against the same steps eager.
+replays against the same steps eager. ``conv3_fused``'s partial form
+(tensor parallelism's row-parallel conv 2) on each rank's shard of a
+flagship conv 2, an odd width and groups that straddle ranks, with each
+epilogue, against its plain version and summed over the ranks against the
+whole conv 2.
 
 Tolerances are those of ``chip_smoke.py``: 1e-2 absolute + relative on bf16
 outputs (one bf16 ulp, where the kernel's and torch's SiLU round an operand
@@ -1916,3 +1920,90 @@ def test_first_divergence_names_the_module_a_replay_departs_at(dev):
     assert chip_smoke.first_divergence(net, lambda: net(x)).startswith("none")
     net = torch.nn.Sequential(torch.nn.Linear(8, 8), Departs(), torch.nn.ReLU()).to(dev)
     assert chip_smoke.first_divergence(net, lambda: net(x)).startswith("1 (max abs 1.000e+00)")
+
+
+@pytest.mark.parametrize("cout,parts,b,t", [(1024, 2, 2, 129), (42, 2, 2, 65), (24, 3, 2, 65)],
+                         ids=["flagship-shard", "odd", "groups-straddle"])
+@pytest.mark.parametrize("mode", ["residual", "skip", "split_skip", "none"])
+def test_partial_form_matches_plain(dev, cout, parts, b, t, mode):
+    """``conv3_fused``'s partial form (tensor parallelism's row-parallel conv
+    2) on each rank's input channels and columns: a flagship conv 2 shard
+    (C = 1024, Cin 512 a rank), an odd width (42 over 2: 21 channels a rank,
+    a rank's columns off the 8-channel unit) and GroupNorm groups that
+    straddle ranks (24 channels, 8 groups, 3 ranks: each channel's own
+    group's statistics), with each epilogue (the residual, a summed skip, a
+    kept-apart skip, none): each rank's launch against its plain version
+    and twice for the same bits, counted as ``conv3_fused_part``, and the
+    ranks' sums against the whole conv 2 (plain, fp32 out)."""
+    from lm2a_tpu_torch.ops import resblock_grad as rg
+
+    cin2 = cout // 2
+    groups = chip_smoke.default_num_groups(cout)
+    w, x, film = chip_smoke.random_chain(torch.Generator().manual_seed(cout + t), b, t, cin2,
+                                         cout, mode in ("skip", "split_skip"), dev)
+    f = torch.randn((b, t, cout), generator=torch.Generator().manual_seed(t)).to(dev)
+    m2, r2 = rb.gn_stats(f, groups)
+    kw_whole = dict(out_dtype=torch.float32)
+    if mode in ("skip", "split_skip"):
+        kw_whole.update(skip=(x, w.skip_w, w.skip_b), split_skip=mode == "split_skip")
+    elif mode == "residual":
+        res = torch.randn((b, t, cout), generator=torch.Generator().manual_seed(1)).to(
+            dev, torch.bfloat16)
+        kw_whole.update(residual=res)
+    want = rb.conv3_fused_plain(f, m2, r2, w.gn2_scale, w.gn2_bias, w.conv2_w, w.conv2_b,
+                                **kw_whole)
+    want = want if isinstance(want, tuple) else (want,)
+    cs, total, skips = cout // parts, 0.0, []
+
+    class Rank:
+        index = None
+
+        def __init__(self, i):
+            self.index, self.parts = i, parts
+
+        def all_reduce(self, s):
+            return s
+
+    for i in range(parts):
+        lo, hi = rg.tp_cols(cout, Rank(i))
+        fl = f[..., lo:hi].contiguous()
+        # a rank's statistics: its own groups, or each channel's group's (the sums
+        # over every rank's channels, as the model axis's all-reduce gives them)
+        if groups % parts == 0:
+            ml, rl = rb.gn_stats(fl, groups // parts)
+        else:
+            idx = torch.arange(lo, hi, device=dev) // (cout // groups)
+            ml, rl = m2[:, idx].contiguous(), r2[:, idx].contiguous()
+        w2 = w.conv2_w.view(cout, 3, cout)[:, :, lo:hi].reshape(cout, 3 * cs).contiguous()
+        kw = dict(kw_whole, part=(lo, hi))
+        if "skip" in kw:
+            kw["skip"] = (x, w.skip_w[lo:hi].contiguous(), w.skip_b[lo:hi].contiguous())
+        args = (fl, ml, rl, w.gn2_scale[lo:hi].contiguous(), w.gn2_bias[lo:hi].contiguous(), w2,
+                w.conv2_b)
+        _build.reset_launches()
+        got = rb.conv3_fused(*args, **kw)
+        assert _build.LAUNCHES == {"conv3_fused_part": 1}
+        again, plain = rb.conv3_fused(*args, **kw), rb.conv3_fused_plain(*args, **kw)
+        got, again, plain = ((v,) if not isinstance(v, tuple) else v for v in (got, again, plain))
+        for g, a, p in zip(got, again, plain):
+            assert torch.equal(g, a), "two launches differ"
+            torch.testing.assert_close(g.float(), p.float(), **chip_smoke.TOL["conv3_fused"])
+        total = total + got[0]
+        skips += list(got[1:])
+    torch.testing.assert_close(total, want[0], **chip_smoke.TOL["conv3_fused"])
+    if skips:
+        torch.testing.assert_close(torch.cat(skips, -1).float(), want[1].float(),
+                                   **chip_smoke.TOL["conv3_fused"])
+
+
+def test_partial_form_refuses_what_it_cannot_take(dev):
+    w, x, film = chip_smoke.random_chain(torch.Generator().manual_seed(0), 2, 9, 64, 64, False,
+                                         dev)
+    f = torch.randn((2, 9, 32), device=dev)
+    m, r = rb.gn_stats(f, 4)
+    w2 = w.conv2_w.view(64, 3, 64)[:, :, :32].reshape(64, 96).contiguous()
+    args = (f, m, r, w.gn2_scale[:32].contiguous(), w.gn2_bias[:32].contiguous(), w2, w.conv2_b)
+    with pytest.raises(ValueError, match="partial form"):
+        rb.conv3_fused(*args, out_dtype=torch.bfloat16, part=(0, 32))
+    with pytest.raises(ValueError, match="partial form"):
+        rb.conv3_fused(*args, out_dtype=torch.float32, part=(32, 96))

@@ -5,16 +5,26 @@ gloo, against the replicated port and the JAX package's
 - The leaf rule: for every leaf of the small model (UNet and condition
   projection), the port's rule on the leaf's JAX name and layout gives the
   JAX package's ``_leaf_spec`` at TP = 2 and 4.
-- Two ranks of the model axis (one row line, the same rows): each holds its
-  shard of every eligible parameter, EMA leaf and Adan moment (the sharded
-  dimension halved, the rest whole), the state's bytes a rank below the
-  replicated state's; two steps with the JAX draws injected give the
-  replicated port's and the JAX TP step's loss, gradients (``prev_grad``),
-  parameters and EMA within ``test_torch_train.py``'s tolerances, the
-  shards put back together; the clip's norm (of the whole gradient each
-  rank holds) is the replicated step's; a DDIM chain of the EMA's
-  shards through ``make_tp_sampler`` is the replicated chain's, fp32.
+- Two ranks of the model axis (one row line, the same rows), the compute
+  split over them (the library route): each holds its shard of every
+  eligible parameter, EMA leaf and Adan moment (the sharded dimension
+  halved, the rest whole), the state's bytes a rank below the replicated
+  state's; two steps with the JAX draws injected give the replicated
+  port's and the JAX TP step's loss, gradients (``prev_grad``), parameters
+  and EMA within ``test_torch_train.py``'s tolerances, the shards put back
+  together; the clip's norm (the sharded leaves' sums of squares
+  all-reduced) is the replicated step's within 1e-5; during the step every
+  split weight (conv 1/2, the skip, FiLM, q/k/v/out_proj) has its shard's
+  shape, never the whole; the first step's census is the one
+  ``chip_smoke.tp_census`` derives from the model; a DDIM chain of the
+  EMA's shards through ``make_tp_sampler`` is the replicated chain's, fp32.
+- Four ranks, on the fused train chain (``fused_resblock_grad``; the JAX
+  step on its XLA path, the same math): the same checks. At 2 heads the
+  attention sites do not split over four ranks and run replicated on their
+  gathered weights.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +47,7 @@ from lm2a_tpu_torch.parallel.tensor import _leaf_spec, jax_leaf, tp_shardings
 from lm2a_tpu_torch.training.checkpoint import flax_path, keystr, state_arrays, to_flax_layout
 from lm2a_tpu_torch.training.train_step import make_train_step
 
+import chip_smoke
 from _torch_port_util import jax_state_arrays, one_torch_thread, port_train_state  # noqa: F401
 from _torch_ranks import spawn
 from test_torch_dp import B, STATE, STEPS, T, _batch, _cfg
@@ -77,10 +88,18 @@ def test_leaf_rule_is_the_jax_rule(setup, tp):
 
 
 def test_tp_step_and_sampler_match_replicated_and_jax(setup, tmp_path):
+    check_tp_step(setup, tmp_path, TP, fused=False)
+
+
+def test_tp4_fused_step_and_sampler_match_replicated_and_jax(setup, tmp_path):
+    check_tp_step(setup, tmp_path, 4, fused=True)
+
+
+def check_tp_step(setup, tmp_path, tp: int, fused: bool):
     cfg, port_cfg = setup["cfg"], setup["port_cfg"]
     state0 = jax_state_arrays(setup["state"])
-    # the JAX TP step over a (data=4, model=2) mesh of the eight virtual devices
-    mesh = jax_make_mesh(model=TP)
+    # the JAX TP step over a (data=8/tp, model=tp) mesh of the eight virtual devices
+    mesh = jax_make_mesh(model=tp)
     jstep, _ = jax_make_tp_train_step(setup["den"], setup["cp"],
                                       jax_make_schedule(cfg.diffusion), cfg, setup["tx"], mesh,
                                       setup["state"], dataset_mean=MEAN, dataset_std=STD)
@@ -104,23 +123,30 @@ def test_tp_step_and_sampler_match_replicated_and_jax(setup, tmp_path):
     payload.update({STATE + k: v for k, v in state0.items()})
     payload["x_init"] = rng.standard_normal((1, T, 80)).astype(np.float32)
     payload["cond"] = rng.standard_normal((1, T, port_cfg.model.cond_dim)).astype(np.float32)
-    payload["meta"] = dict(cfg=config_to_dict(port_cfg), batch=B, steps=STEPS, mean=MEAN,
-                           std=STD, model_axis=TP)
-    outs = spawn("tp_step", TP, tmp_path, payload)
+    rank_cfg = dataclasses.replace(port_cfg, model=dataclasses.replace(
+        port_cfg.model, fused_resblock_grad=fused))
+    payload["meta"] = dict(cfg=config_to_dict(rank_cfg), batch=B, steps=STEPS, mean=MEAN,
+                           std=STD, model_axis=tp)
+    outs = spawn("tp_step", tp, tmp_path, payload)
 
     # the replicated port over the same batches and draws
     one = port_train_state(port_cfg, setup["state"])
     step = make_train_step(make_schedule(port_cfg.diffusion), port_cfg, dataset_mean=MEAN,
                            dataset_std=STD)
-    dims = tp_shardings(one.params(), Mesh(np.arange(TP).reshape(1, TP)))
+    dims = tp_shardings(one.params(), Mesh(np.arange(tp).reshape(1, tp)))
+    census, _ = chip_smoke.tp_census(rank_cfg.model, tp, T)
     for o in outs:  # each rank's shards: the sharded dimension cut TP-fold, the rest whole
         assert o["dims"] == {k: v for k, v in dims.items()}
         for k, p in one.params().items():
             want = list(p.shape)
             if dims[k] is not None:
-                want[dims[k]] //= TP
+                want[dims[k]] //= tp
             assert list(o[f"params|0|{k}"].shape) == want, k
-        assert o["state_bytes"] < 0.6 * o["full_bytes"]
+            if k in o["split"]:  # as the step's forward read it: the shard
+                assert o["split_shapes"][k] == want, k
+        assert len(o["split"]) > 0 and set(o["split_shapes"]) == set(o["split"])
+        assert o["census"] == census
+        assert o["state_bytes"] < (0.6 if tp == 2 else 0.35) * o["full_bytes"]
 
     def whole(tree, i):
         return {k: np.concatenate([o[f"{tree}|{i}|{k}"] for o in outs], axis=dims[k])
