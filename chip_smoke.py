@@ -167,7 +167,10 @@ skipped:
    and peak memory a rank beside the replicated step's), and a 6 s DDIM-10
    chain through ``make_tp_sampler`` from the step's EMA shards, each
    step's forward against the replicated forward at the replicated chain's
-   state (``UNET_REL_L2``), its launches and census exactly;
+   state (``UNET_REL_L2``), its launches and census exactly; then the same
+   for the v1 UNet at its defaults with ``fused_attention`` (every
+   ``ResBlockV1``, site and the final conv split: the attention kernel on
+   each rank's 4 of 8 heads, its launches and their heads counted);
 5. one protocol chain (B=1, T=516, CFG 2.1, DDPM with ``--ddpm_steps``
    steps), DDIM-2 and DDIM-50, each run once to capture its cache entry and
    then timed as replays, and one vocode, timed; a DDIM-10 chain profiled
@@ -2195,12 +2198,20 @@ TP_NORM_REL = 1e-5
 
 
 def tp_split_geometry(mc: ModelConfig, parts: int, mel_t: int = MEL_T):
-    """What ``parallel/tensor.py`` splits of ``UNet1DUltimate`` over ``parts``
-    ranks: the resblocks whose width divides (each ``(T, Cin, Cout, skip,
-    add_residual, gated, straddling)``: gated where ``fused_resblock_grad``
-    is on and the training gate routes it at the whole widths, straddling where its GroupNorm 2's
-    groups do not divide over the ranks), the attention sites whose width
-    and heads divide, and whether the final 1x1 conv's input channels do."""
+    """What ``parallel/tensor.py`` splits of the denoiser over ``parts``
+    ranks: the residual blocks whose width divides (each ``(T, Cin, Cout,
+    skip, add_residual, gated, straddling)``: gated where
+    ``fused_resblock_grad`` is on and the training gate routes it at the
+    whole widths, straddling where its GroupNorm 2's groups do not divide
+    over the ranks; v1's ``ResBlockV1`` s, GroupNorm of 8 groups, are never
+    gated), the attention sites whose width and heads divide, and whether
+    the final 1x1 conv's input channels do."""
+    if mc.arch == "v1":
+        v1 = v1_attention_sites(mc, mel_t)
+        blocks = [(t, c, c, False, False, False, 8 % parts != 0) for _, t, c in v1
+                  if c % parts == 0]
+        sites = [c for _, _, c in v1 if c % parts == 0 and mc.attn_heads % parts == 0]
+        return blocks, sites, v1[-1][2] % parts == 0
     blocks = [(t, cin, cout, skip, res, mc.fused_resblock_grad
                and rg.resblock_train_fits(t, cin, cout, skip, 2),
                default_num_groups(cout) % parts != 0)
@@ -2216,7 +2227,12 @@ def tp_launches_per_step(mc: ModelConfig, parts: int = TP_PARTS, mel_t: int = ME
     and conv 2 in the partial form (``conv3_fused_part``), GroupNorm's
     statistics twice (2 ``gn_stats``), and the backward's 6 launches (8 with
     a skip) on the shards; GroupNorm 2's backward in the totals form where
-    its groups straddle ranks; one ``adan_ema`` over the rank's shards."""
+    its groups straddle ranks; one ``adan_ema`` over the rank's shards. v1:
+    ``v1_launches_per_step``'s with ``fused_attention`` (each rank's cores
+    on its heads where the site splits, on all of them where it does not:
+    as many launches), else the one ``adan_ema``."""
+    if mc.arch == "v1":
+        return v1_launches_per_step(mc, mel_t) if mc.fused_attention else {"adan_ema": 1}
     blocks, _, _ = tp_split_geometry(mc, parts, mel_t)
     gated = [b for b in blocks if b[5]]
     n, ns, nst = len(gated), sum(b[3] for b in gated), sum(b[6] for b in gated)
@@ -2236,39 +2252,81 @@ def tp_census(mc: ModelConfig, parts: int = TP_PARTS, mel_t: int = MEL_T):
     time embedding, each split FiLM, each fused chain (conv 1's partial
     input gradients) or library block (GroupNorm 1's output, and the skip's
     input), each split site and the final conv; GroupNorm 2's statistics of
-    a straddling block, forward and backward; the clip norm's. Returns
-    ``(step, forward)``, each ``{op: count}``."""
+    a straddling block, forward and backward; the clip norm's. A v1 block
+    has no FiLM and no skip to exchange: its ``time_proj`` shares conv 1's
+    channels, and f's all-reduce sits at conv 1's input. Returns ``(step,
+    forward)``, each ``{op: count}`` (ops with none left out, as ``audit``
+    gives them)."""
     blocks, sites, out = tp_split_geometry(mc, parts, mel_t)
     n, nf = len(blocks), sum(b[5] for b in blocks)
     nsk, nst = sum(b[3] for b in blocks), sum(b[6] for b in blocks)
     nls = sum(b[3] for b in blocks if not b[5])
     fwd_reduce = n + len(sites) + int(out)
-    step = {"all-gather": 1 + n + nsk,
-            "all-reduce": (fwd_reduce + 2 * nst + int(n > 0) + n + nf + (n - nf) + nls
-                           + len(sites) + int(out) + 1)}
-    forward = {"all-gather": n + sum(b[3] and not b[4] for b in blocks),
+    bwd_blocks = n if mc.arch == "v1" else n + nf + (n - nf) + nls
+    film = 0 if mc.arch == "v1" else n
+    step = {"all-gather": 1 + film + nsk,
+            "all-reduce": (fwd_reduce + 2 * nst + int(n > 0) + bwd_blocks + len(sites)
+                           + int(out) + 1)}
+    forward = {"all-gather": film + sum(b[3] and not b[4] for b in blocks),
                "all-reduce": fwd_reduce + nst}
-    return step, forward
+    return ({k: v for k, v in step.items() if v}, {k: v for k, v in forward.items() if v})
+
+
+TP_ARCHS = ("ultimate", "v1")
+
+
+def tp_config(arch: str) -> LM2AConfig:
+    """4k's tensor-parallel configuration: the flagship with
+    ``fused_resblock_grad``, or the v1 UNet at its defaults with
+    ``fused_attention``; ``opt_backend pallas`` for both."""
+    cfg = LM2AConfig()
+    model = (dataclasses.replace(cfg.model, fused_resblock_grad=True) if arch == "ultimate"
+             else dataclasses.replace(cfg.model, arch="v1", fused_attention=True))
+    return dataclasses.replace(cfg, model=model,
+                               train=dataclasses.replace(cfg.train, opt_backend="pallas"))
 
 
 def tp_rank(spec) -> int:
-    """One rank of 4k's tensor-parallel check, on the one card over gloo: the
-    flagship (``fused_resblock_grad``, ``opt_backend pallas``) at B=16 split
-    over the model axis, two train steps from a seed (step 0 moves no
-    parameter: Adan's moments start frozen), step 1 audited, its launches
-    counted and timed, its update against Adan's plain update of the rank's
-    gradient shard (``update_err``), every split weight's shape a shard's;
-    then the TP sampler (6 s, DDIM-10, CFG 2.1) from the TP step's EMA
-    shards, audited and counted, and each step's forward against the
-    replicated forward at the replicated chain's state (the EMA gathered
-    whole for that reference); then the replicated step on the same seeds
-    and batch, alone in the process: the loss and each leaf's gradient
-    against this rank's shards, and each step's peak memory."""
+    """One rank of 4k's tensor-parallel check, on the one card over gloo:
+    ``tp_rank_arch`` for each of ``spec["archs"]`` in turn, in one process."""
     import torch.distributed as dist
 
-    from lm2a_tpu_torch.core import distributed, graphs
+    from lm2a_tpu_torch.core import distributed
+
+    need(distributed.init_distributed(spec["coordinator"], spec["world"], spec["rank"]),
+         "tp: no process group")
+    print(distributed.describe(), flush=True)
+    mesh = distributed.make_hybrid_mesh(model=spec["world"])
+    dev = distributed.rank_device()
+    batch = train_batch(spec["pack"], dev)
+    out = {}
+    for arch in spec["archs"]:
+        out[arch] = tp_rank_arch(tp_config(arch), mesh, dev, batch)
+        torch.cuda.empty_cache()
+    with open(spec["out"], "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def tp_rank_arch(cfg: LM2AConfig, mesh, dev, batch) -> dict:
+    """One architecture of a rank of 4k's tensor-parallel check (``cfg``,
+    from ``tp_config``) at B=16, its compute split over the model axis:
+    two train steps from a seed (step 0 moves no parameter: Adan's moments
+    start frozen), step 1 audited, its launches counted and timed, its
+    update against Adan's plain update of the rank's gradient shard
+    (``update_err``), every split weight's shape a shard's; then the TP
+    sampler (6 s, DDIM-10, CFG 2.1) from the TP step's EMA shards, audited
+    and counted, and each step's forward against the replicated forward at
+    the replicated chain's state (the EMA gathered whole for that
+    reference); then the replicated step on the same seeds and batch, alone
+    in the process: the loss and each leaf's gradient against this rank's
+    shards, and each step's peak memory. The heads of every attention core
+    call of the TP step and chain are recorded."""
+    from lm2a_tpu_torch.core import graphs
     from lm2a_tpu_torch.diffusion.gaussian import ddim_sample
     from lm2a_tpu_torch.diffusion.schedule import make_schedule
+    from lm2a_tpu_torch.models import attention as att_mod
     from lm2a_tpu_torch.models.factory import build_denoiser as port_build_denoiser
     from lm2a_tpu_torch.ops.adan import global_norm
     from lm2a_tpu_torch.parallel import tensor as tp_mod
@@ -2282,16 +2340,7 @@ def tp_rank(spec) -> int:
         init_train_state, make_optimizer, make_train_step,
     )
 
-    need(distributed.init_distributed(spec["coordinator"], spec["world"], spec["rank"]),
-         "tp: no process group")
-    print(distributed.describe(), flush=True)
-    mesh = distributed.make_hybrid_mesh(model=spec["world"])
-    dev = distributed.rank_device()
-    cfg = LM2AConfig()
-    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, fused_resblock_grad=True),
-                              train=dataclasses.replace(cfg.train, opt_backend="pallas"))
     schedule = make_schedule(cfg.diffusion, device=dev)
-    batch = train_batch(spec["pack"], dev)
     stats = dict(dataset_mean=-4.5, dataset_std=2.0)
     out = {}
     # the TP step, alone in the process's memory
@@ -2305,19 +2354,25 @@ def tp_rank(spec) -> int:
     out["tp_bytes"] = tps.state_bytes()
     shim = SimpleNamespace(step=0, params=lambda: tps.params, ema=tps.state.ema,
                            opt=tps.state.opt)
-    shapes = {}
-    split_forward = tp_mod.tensor_sharded_forward_train
+    shapes, heads = {}, {"step": [], "chain": []}
+    split_forward, core = tp_mod.tensor_sharded_forward_train, att_mod.attention_core
 
     def spied(*a, **kw):  # the split leaves' shapes as the step's forward reads them
         shapes.update({k: tuple(p.shape) for k, p in tps.state.params().items()
                        if k in tps.split})
         return split_forward(*a, **kw)
 
-    tp_mod.tensor_sharded_forward_train = spied
+    def spied_core(q, k, v):  # the heads each attention kernel launch takes
+        heads[phase].append(q.shape[1])
+        return core(q, k, v)
+
+    tp_mod.tensor_sharded_forward_train, att_mod.attention_core = spied, spied_core
     for i, s in enumerate((TP_SEED, TP_SEED + 1)):
         if i == 1:
             before = snapshot(shim)
             _build.reset_launches()
+        phase = "step" if i == 1 else "step0"
+        heads[phase] = []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rep = audit(tp_step, tps, batch, generator=torch.Generator(dev).manual_seed(s))
@@ -2351,11 +2406,15 @@ def tp_rank(spec) -> int:
     ema = {k.split("/", 1)[1]: v for k, v in tps.state.ema.items() if k.startswith("unet/")}
     edims = {k.split("/", 1)[1]: d for k, d in dims.items() if k.startswith("unet/")}
     _build.reset_launches()
+    phase = "chain"
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     chain = audit(run, ema, None, (1, MEL_T, 80), mf, tf, x_init=x0)
     torch.cuda.synchronize()
     out["chain_s"] = time.perf_counter() - t0
+    att_mod.attention_core = core
+    out["heads"] = {k: sorted(set(v)) for k, v in heads.items() if k != "step0"}
+    out["head_calls"] = {k: len(v) for k, v in heads.items() if k != "step0"}
     got = chain.pop("result")
     out["chain_launches"] = dict(_build.LAUNCHES)
     out["chain_census"] = chain
@@ -2407,39 +2466,64 @@ def tp_rank(spec) -> int:
         leaves[k] = [float((got_g - want_g).square().sum()), float(want_g.square().sum()),
                      float(got_g.square().sum())]
     out["leaves"] = leaves
-    with open(spec["out"], "w") as f:
-        json.dump(out, f)
-    dist.destroy_process_group()
-    return 0
+    del rep_state, step, grads
+    return out
 
 
-def run_parallel_tp(work: str, pack: str, mc: ModelConfig, smi: str):
+def tp_chain_launches(mc: ModelConfig):
+    """Kernel launches of 4k's TP DDIM chain (``TP_STEPS`` guided forwards
+    with the CFG constant), a rank: the flagship's resblock kernels (conv 2
+    in the partial form), or v1's attention cores (both branches of every
+    site, at the constant's (1, 1) and on the conditioned row)."""
+    if mc.arch == "v1":
+        return {"attention": 4 * len(v1_attention_sites(mc, MEL_T)) * TP_STEPS}
+    n_blocks = len(resblock_geometries(mc, MEL_T))
+    return {"gn_stats": (2 * n_blocks + 1) * TP_STEPS, "conv3_fused": n_blocks * TP_STEPS,
+            "conv3_fused_part": n_blocks * TP_STEPS}
+
+
+def run_parallel_tp(work: str, pack: str, smi: str):
     """4k, tensor parallelism: two processes on the one card (gloo), the
-    flagship's state and compute split over them (``tp_rank``): step 1's
-    loss within 1e-4 relative of the replicated step's and its whole
-    gradient (the ranks' shards put together) within ``ROUTE_TOL``, its
-    clip norm that of the shards put together (``TP_NORM_REL``) and within
-    the gradient's tolerance of the replicated step's, each
-    rank's update Adan's plain update of its shard, its launches by form
-    and its census exactly the model's (``tp_launches_per_step``,
-    ``tp_census``), no split weight whole during the step, the state's
-    bytes and the peak memory a rank beside the replicated step's; the TP
-    sampler's forwards within ``UNET_REL_L2`` of the replicated forwards at
-    every step of the replicated chain, its launches and census exactly."""
+    state and compute of the flagship and then of the v1 UNet split over
+    them (``tp_rank``): step 1's loss within 1e-4 relative of the
+    replicated step's and its whole gradient (the ranks' shards put
+    together) within ``ROUTE_TOL``, its clip norm that of the shards put
+    together (``TP_NORM_REL``) and within the gradient's tolerance of the
+    replicated step's, each rank's update Adan's plain update of its
+    shard, its launches by form and its census exactly the model's
+    (``tp_launches_per_step``, ``tp_census``; v1's attention launches each
+    on the rank's heads), no split weight whole during the step, the
+    state's bytes and the peak memory a rank beside the replicated step's;
+    the TP sampler's forwards within ``UNET_REL_L2`` of the replicated
+    forwards at every step of the replicated chain, its launches and census
+    exactly."""
     os.makedirs(work, exist_ok=True)
     port = free_port()
     _, res = run_ranks(work, "tp", [
-        dict(job="tp", pack=pack, coordinator=f"127.0.0.1:{port}", world=TP_RANKS, rank=r)
-        for r in range(TP_RANKS)])
+        dict(job="tp", pack=pack, coordinator=f"127.0.0.1:{port}", world=TP_RANKS, rank=r,
+             archs=list(TP_ARCHS)) for r in range(TP_RANKS)], timeout=600.0)
+    out = {}
+    for arch in TP_ARCHS:
+        out[arch] = check_parallel_tp(tp_config(arch).model, [rr[arch] for rr in res], smi)
+    return out
+
+
+def check_parallel_tp(mc: ModelConfig, res, smi: str) -> dict:
+    """``run_parallel_tp``'s checks and lines for one architecture (``mc``,
+    the ranks' results ``res``)."""
     tol = ROUTE_TOL
-    mc = dataclasses.replace(mc, fused_resblock_grad=True)  # as tp_rank trains
+    name = ("flagship" if mc.arch == "ultimate" else "v1") + f" B={TRAIN_B} T={MEL_T} bf16, " + (
+        "fused_resblock_grad" if mc.arch == "ultimate" else "fused_attention")
+    tag = "tp" if mc.arch == "ultimate" else "tp v1"
     expected = tp_launches_per_step(mc, TP_RANKS)
     census, per_fwd = tp_census(mc, TP_RANKS)
-    chain_census = {"all-gather": 1 + TP_STEPS * per_fwd["all-gather"],
+    chain_census = {"all-gather": 1 + TP_STEPS * per_fwd.get("all-gather", 0),
                     "all-reduce": TP_STEPS * per_fwd["all-reduce"]}
-    n_blocks = len(resblock_geometries(mc, MEL_T))
-    chain_launches = {"gn_stats": (2 * n_blocks + 1) * TP_STEPS, "conv3_fused": n_blocks * TP_STEPS,
-                      "conv3_fused_part": n_blocks * TP_STEPS}
+    chain_launches = tp_chain_launches(mc)
+    _, sites, _ = tp_split_geometry(mc, TP_RANKS)
+    n_sites = len(v1_attention_sites(mc, MEL_T)) if mc.arch == "v1" else 0
+    # where every site splits, each attention launch takes the rank's heads
+    want_heads = ([mc.attn_heads // TP_RANKS] if len(sites) == n_sites else None)
     leaves = {}
     for rr in res:
         for k, sums in rr["leaves"].items():
@@ -2451,7 +2535,7 @@ def run_parallel_tp(work: str, pack: str, mc: ModelConfig, smi: str):
     worst = 0.0
     for k, (d, n, _) in leaves.items():
         need(d ** 0.5 <= tol["leaf_rel_l2"] * n ** 0.5 + tol["leaf_floor"] * gsum,
-             f"tp: gradient {k} relative L2 {(d / max(n, 1e-30)) ** 0.5:.3e}")
+             f"{tag}: gradient {k} relative L2 {(d / max(n, 1e-30)) ** 0.5:.3e}")
         if n ** 0.5 > tol["leaf_floor"] * gsum:
             worst = max(worst, (d / n) ** 0.5)
     grad_rel = (sum(d for d, _, _ in leaves.values()) / gsum ** 2) ** 0.5
@@ -2460,10 +2544,15 @@ def run_parallel_tp(work: str, pack: str, mc: ModelConfig, smi: str):
         norm_rel = abs(rr["tp_norm"] - rr["replicated_norm"]) / rr["replicated_norm"]
         own_rel = abs(rr["tp_norm"] - tp_whole) / tp_whole
         c, cc = rr["census"], rr["chain_census"]
-        log(f"[parallel] tp rank {r} of {TP_RANKS} (gloo, one card): flagship B={TRAIN_B} "
-            f"T={MEL_T} bf16, fused_resblock_grad, opt_backend pallas, eager, compute split "
-            f"({rr['split_leaves']} split leaves, every one its shard's shape during the step: "
-            f"{rr['split_shard_shapes']}; {rr['gathered_leaves']} gathered): step 1 "
+        heads = ""
+        if mc.arch == "v1":
+            heads = (f"; attention calls a step {rr['head_calls']['step']} on heads "
+                     f"{rr['heads']['step']}, in the chain {rr['head_calls']['chain']} on heads "
+                     f"{rr['heads']['chain']} (expected {want_heads} of {mc.attn_heads})")
+        log(f"[parallel] {tag} rank {r} of {TP_RANKS} (gloo, one card): {name}, opt_backend "
+            f"pallas, eager, compute split ({rr['split_leaves']} split leaves, every one its "
+            f"shard's shape during the step: {rr['split_shard_shapes']}; "
+            f"{rr['gathered_leaves']} gathered): step 1 "
             f"{rr['tp_step_ms']:.2f} ms; loss {rr['tp_loss']:.6f} against the replicated step's "
             f"{rr['replicated_loss']:.6f} (relative {loss_rel:.2e}, tolerance 1e-4); clip norm "
             f"{rr['tp_norm']:.7f} against the replicated step's {rr['replicated_norm']:.7f} "
@@ -2471,40 +2560,49 @@ def run_parallel_tp(work: str, pack: str, mc: ModelConfig, smi: str):
             f"gradient shards put together {tp_whole:.7f} (relative {own_rel:.2e}, tolerance "
             f"{TP_NORM_REL}); the update against Adan's plain update of its gradient shard "
             f"{rr['update_err']:.3f} of {TOL['adan_ema']}; launches a step {rr['launches']} "
-            f"(expected {expected}); census {c['collectives']} (expected {census}), "
+            f"(expected {expected}){heads}; census {c['collectives']} (expected {census}), "
             f"{c['bytes']} bytes delivered; parameters, EMA and Adan state "
             f"{rr['tp_bytes']} bytes against {rr['replicated_bytes']} replicated "
             f"({rr['tp_bytes'] / rr['replicated_bytes']:.3f}); peak {rr['peak_gib']:.2f} GiB "
             f"against the replicated step's {rr['replicated_peak_gib']:.2f} GiB; {smi}")
-        log(f"[parallel] tp sampler rank {r}: 6 s DDIM-{TP_STEPS} CFG 2.1 B=1 bf16 from the TP "
-            f"step's EMA shards, eager: {rr['chain_s']:.3f} s; launches {rr['chain_launches']} "
+        log(f"[parallel] {tag} sampler rank {r}: 6 s DDIM-{TP_STEPS} CFG 2.1 B=1 bf16 from the "
+            f"TP step's EMA shards, eager: {rr['chain_s']:.3f} s; launches {rr['chain_launches']} "
             f"(expected {chain_launches}); census {cc['collectives']} (expected "
             f"{chain_census}), {cc['bytes']} bytes delivered; each step's forward against "
             f"the replicated forward at the replicated chain's state, relative L2 "
             f"{[f'{e:.3e}' for e in rr['step_rel_l2']]} (tolerance {UNET_REL_L2}); the "
             f"samples, relative L2 {rr['sample_rel_l2']:.3e} (not held: see "
             f"run_parallel_sp), finite {rr['sample_finite']}")
-        need(loss_rel <= 1e-4, f"tp rank {r}: step 1's loss disagrees with the replicated")
+        need(loss_rel <= 1e-4, f"{tag} rank {r}: step 1's loss disagrees with the replicated")
         need(norm_rel <= tol["grad_rel_l2"] and own_rel <= TP_NORM_REL,
-             f"tp rank {r}: clip norm {rr['tp_norm']} against the replicated {rr['replicated_norm']}"
-             f" and the shards' {tp_whole}")
-        need(rr["update_err"] <= 1.0, f"tp rank {r}: the update is not Adan's")
-        need(rr["launches"] == expected, f"tp rank {r}: launches {rr['launches']} != {expected}")
-        need(c["collectives"] == census, f"tp rank {r}: census {c['collectives']} != {census}")
+             f"{tag} rank {r}: clip norm {rr['tp_norm']} against the replicated "
+             f"{rr['replicated_norm']} and the shards' {tp_whole}")
+        need(rr["update_err"] <= 1.0, f"{tag} rank {r}: the update is not Adan's")
+        need(rr["launches"] == expected, f"{tag} rank {r}: launches {rr['launches']} != "
+             f"{expected}")
+        need(c["collectives"] == census, f"{tag} rank {r}: census {c['collectives']} != {census}")
         need(rr["split_shard_shapes"] and rr["split_leaves"] > 0,
-             f"tp rank {r}: a split weight was whole during the step")
+             f"{tag} rank {r}: a split weight was whole during the step")
         need(rr["tp_bytes"] < rr["replicated_bytes"] and
-             rr["peak_gib"] < rr["replicated_peak_gib"], f"tp rank {r}: no memory saved")
+             rr["peak_gib"] < rr["replicated_peak_gib"], f"{tag} rank {r}: no memory saved")
         need(rr["chain_launches"] == chain_launches and cc["collectives"] == chain_census,
-             f"tp sampler rank {r}: launches {rr['chain_launches']}, census {cc['collectives']}")
+             f"{tag} sampler rank {r}: launches {rr['chain_launches']}, census "
+             f"{cc['collectives']}")
+        if mc.arch == "v1":
+            need(want_heads is not None
+                 and rr["heads"] == {"step": want_heads, "chain": want_heads}
+                 and rr["head_calls"] == {"step": expected.get("attention", 0),
+                                          "chain": chain_launches["attention"]},
+                 f"{tag} rank {r}: attention calls {rr['head_calls']} on heads {rr['heads']}")
         need(rr["sample_finite"] and len(rr["step_rel_l2"]) == TP_STEPS
              and max(rr["step_rel_l2"]) <= UNET_REL_L2,
-             f"tp sampler rank {r}: forwards disagree with the replicated chain's")
-    log(f"[parallel] tp step 1 against the replicated step: the whole gradient (the ranks' "
+             f"{tag} sampler rank {r}: forwards disagree with the replicated chain's")
+    log(f"[parallel] {tag} step 1 against the replicated step: the whole gradient (the ranks' "
         f"shards put together) relative L2 {grad_rel:.3e} (tolerance {tol['grad_rel_l2']}), "
         f"worst leaf {worst:.3e} (tolerance {tol['leaf_rel_l2']}, floor {tol['leaf_floor']} of "
         f"|grad|)")
-    need(grad_rel <= tol["grad_rel_l2"], "tp: the gradient disagrees with the replicated step's")
+    need(grad_rel <= tol["grad_rel_l2"], f"{tag}: the gradient disagrees with the replicated "
+         "step's")
     return dict(grad_rel_l2=grad_rel, worst_leaf_rel_l2=worst, ranks=res,
                 step_ms=[rr["tp_step_ms"] for rr in res])
 
@@ -2644,7 +2742,7 @@ def run_parallel(work: str, train: dict, ckpt: str, mc: ModelConfig, n_blocks: i
                                   mc, smi, device),
                sp=run_parallel_sp(work, ckpt, n_blocks, smi, device),
                sp_train=run_parallel_sp_train(work, pack, mc, smi),
-               tp=run_parallel_tp(work, pack, mc, smi))
+               tp=run_parallel_tp(work, pack, smi))
     dp_ms = [float(np.median(m[1:] or m)) for m in out["dp"]["train"]["step_ms"]]
     sp_chain_ms = [rr["seconds"] / SP_STEPS * 1e3 for rr in out["sp"]["ranks"]]
     log(f"[parallel] ms a step a rank, two gloo ranks on one card: sp train step "
@@ -4762,7 +4860,7 @@ def main(argv=None) -> int:
     # 4k. parallelism: data-parallel cli train across processes, NCCL
     report["parallel"] = run_parallel(os.path.join(work, "parallel"), train, ckpt, cfg.model,
                                       n_blocks, smi, dev)
-    launches["conv3_fused_part"] = report["parallel"]["tp"]["ranks"][0]["launches"][
+    launches["conv3_fused_part"] = report["parallel"]["tp"]["ultimate"]["ranks"][0]["launches"][
         "conv3_fused_part"]
     shutil.rmtree(os.path.join(work, "train"), ignore_errors=True)
     torch.cuda.empty_cache()

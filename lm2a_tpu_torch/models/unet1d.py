@@ -3,8 +3,9 @@
 and ``UNet1D``, the v1 baseline (``ModelConfig.arch='v1'``; see its class).
 Both share one interface (``Denoiser``): the serving form after
 ``prepare(dtype)``, ``refresh``, ``with_fused_attention``, the serving
-forward with ``uncond_rows`` and ``forward_train``, so no call site reads
-the architecture.
+forward with ``uncond_rows``, ``forward_train``, and ``run``, the traversal
+both forwards (and tensor parallelism's split forwards) drive through a
+block, a conv and a head callback, so no call site reads the architecture.
 
 FiLM timestep modulation, sparse cross-attention (last block of each down
 stage, every mid block, first block of each up stage), stride-2 conv
@@ -166,6 +167,36 @@ class Denoiser(nn.Module):
     ``_prepare_kernels`` / ``_refresh_kernels``."""
 
     fused_attention: bool = False
+    fused_resblock_grad: bool = False
+
+    def run(self, x, block, conv, head):
+        """The traversal every form of the forward shares, from the input
+        to the output: ``conv(module, h)`` for the input projection and each
+        conv between blocks, ``block(module, h)`` for each residual block,
+        ``head(module, a)`` for the final 1x1 conv on what it reads (the last
+        block's output, through ``out_gn`` and SiLU where the architecture
+        has them). Returns ``head``'s output."""
+        raise NotImplementedError
+
+    def forward(self, x, t, motion_f=None, text_f=None, uncond_rows: int = 0):
+        t_emb = self.time_embedding(t)
+        return self.run(x, lambda blk, h: blk(h, t_emb, motion_f, text_f, uncond_rows),
+                        conv_cl, conv_cl).float()
+
+    def forward_train(self, x, t, motion_f=None, text_f=None, *, dtype: torch.dtype,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Training form on the fp32 parameters, compute in ``dtype``;
+        ``generator`` draws the dropout masks (None: deterministic, the
+        eval step). Output fp32."""
+        t_emb = self.time_embedding.forward_train(t, dtype)
+        fused = self.fused_resblock_grad
+
+        def conv(module, h):
+            return conv_train(module, h, dtype)
+
+        return self.run(x, lambda blk, h: blk.forward_train(h, t_emb, motion_f, text_f, dtype,
+                                                            generator, fused),
+                        conv, conv).float()
 
     def attention_modules(self):
         return [m for m in self.modules() if isinstance(m, CrossAttentionFusion)]
@@ -422,27 +453,9 @@ class UNet1DUltimate(Denoiser):
                 h = block(getattr(self, f"up_{i}_block_{b}"), h)
         return h
 
-    def forward(self, x, t, motion_f=None, text_f=None, uncond_rows: int = 0):
-        dt = self.in_proj.weight.dtype
-        t_emb = self.time_embedding(t)
-        h = conv_cl(self.in_proj, x.to(dt))
-        h = self.walk(h, lambda blk, h: blk(h, t_emb, motion_f, text_f, uncond_rows), conv_cl)
-        h = F.silu(self.out_gn(h))
-        return conv_cl(self.out_proj, h).float()
-
-    def forward_train(self, x, t, motion_f=None, text_f=None, *, dtype: torch.dtype,
-                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Training form on the fp32 parameters, compute in ``dtype``;
-        ``generator`` draws the dropout masks (None: deterministic, the
-        eval step). Output fp32."""
-        fused = self.fused_resblock_grad
-        t_emb = self.time_embedding.forward_train(t, dtype)
-        h = conv_train(self.in_proj, x, dtype)
-        h = self.walk(h, lambda blk, h: blk.forward_train(h, t_emb, motion_f, text_f, dtype,
-                                                          generator, fused),
-                      lambda conv, h: conv_train(conv, h, dtype))
-        h = F.silu(self.out_gn(h))
-        return conv_train(self.out_proj, h, dtype).float()
+    def run(self, x, block, conv, head):
+        h = self.walk(conv(self.in_proj, x), block, conv)
+        return head(self.out_proj, F.silu(self.out_gn(h)))
 
 
 class ResBlockV1(nn.Module):
@@ -468,7 +481,10 @@ class ResBlockV1(nn.Module):
         h = conv_cl(self.conv2, F.silu(self.norm2(h)))
         return x + attend_uncond(self.cross_attn, h, motion_f, text_f, uncond_rows)
 
-    def forward_train(self, x, t_emb, motion_f, text_f, dtype: torch.dtype):
+    def forward_train(self, x, t_emb, motion_f, text_f, dtype: torch.dtype,
+                      generator: Optional[torch.Generator] = None, fused_grad: bool = False):
+        """Training form (no dropout, no fused chain: ``generator`` and
+        ``fused_grad`` are unused)."""
         h = conv_train(self.conv1, F.silu(self.norm1(x)), dtype)
         h = h + dense(self.time_proj, t_emb, dtype)[:, None, :]
         h = conv_train(self.conv2, F.silu(self.norm2(h)), dtype)
@@ -510,35 +526,17 @@ class UNet1D(Denoiser):
             prev = dim + skip_ch
         self.out_proj = nn.Conv1d(prev, in_dim, 1)
 
-    def _unet(self, x, t_emb, block, conv):
+    def run(self, x, block, conv, head):
         h = conv(self.input_proj, x)
         skips = []
         for i in range(len(self.dims)):
-            h = block(f"down_{i}_res", h)
+            h = block(getattr(self, f"down_{i}_res"), h)
             skips.append(h)
             h = conv(getattr(self, f"down_{i}_downsample"), h)
-        h = block("mid_res", h)
+        h = block(self.mid_res, h)
         for i in range(len(self.dims)):
             h = conv(getattr(self, f"up_{i}_upconv"), h)
             skip = skips.pop()
             h = torch.cat([_fix_time_len(h, skip.shape[1]), skip], dim=-1)
-            h = block(f"up_{i}_res", h)
-        return conv(self.out_proj, h).float()
-
-    def forward(self, x, t, motion_f=None, text_f=None, uncond_rows: int = 0):
-        dt = self.input_proj.weight.dtype
-        t_emb = self.time_embedding(t)
-        return self._unet(
-            x.to(dt), t_emb,
-            lambda name, h: getattr(self, name)(h, t_emb, motion_f, text_f, uncond_rows),
-            conv_cl)
-
-    def forward_train(self, x, t, motion_f=None, text_f=None, *, dtype: torch.dtype,
-                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Training form on the fp32 parameters, compute in ``dtype``
-        (``generator`` is unused: v1 has no dropout)."""
-        t_emb = self.time_embedding.forward_train(t, dtype)
-        return self._unet(
-            x, t_emb,
-            lambda name, h: getattr(self, name).forward_train(h, t_emb, motion_f, text_f, dtype),
-            lambda conv, h: conv_train(conv, h, dtype))
+            h = block(getattr(self, f"up_{i}_res"), h)
+        return head(self.out_proj, h)

@@ -25,6 +25,11 @@ its share of every column/row pair, and one all-reduce joins the pair
 - FiLM: ``to_scale_shift`` column-parallel on its 2C outputs, which do not
   line up with conv 1's channels, so its (B, 2C) output is all-gathered and
   each rank takes its channels of the scale and the shift;
+- a ``ResBlockV1`` of the v1 UNet: conv 1, ``time_proj`` (its C outputs
+  line up with conv 1's: no collective) and GroupNorm 2 on the rank's
+  channels, conv 2 (plain PyTorch, as the JAX package runs v1's convs
+  through XLA) on its input channels, the fp32 partial sums all-reduced
+  and the bias added once;
 - an attention branch: ``q/k/v_proj`` column-parallel (a rank's heads),
   the core on the rank's heads, ``out_proj`` row-parallel; both branches'
   partial sums (or, folded for serving, the rank's out·fuse product) in one
@@ -37,9 +42,11 @@ Those weights are never whole on a rank. The other sharded leaves (GroupNorm
 upsampling convs, ``out_gn``, the condition projection) are all-gathered
 into a working copy within the step (one flat all-gather) and feed
 replicated compute; a block whose width, or an attention site whose heads,
-do not divide over the model axis runs replicated on gathered weights. The
-v1 UNet keeps replicated compute on gathered weights throughout.
-``split_leaves`` lists each rank's split and gathered leaves.
+do not divide over the model axis runs replicated on gathered weights, as
+GSPMD replicates a leaf that does not divide. ``split_leaves`` lists each
+rank's split and gathered leaves. Both architectures run through one walk
+(``Denoiser.run``), each block type's split forms from one table
+(``_BLOCKS``).
 
 ``make_tp_train_step``'s gradients come from the split backward: the split
 leaves' gradients are their shards, the gathered leaves' the whole
@@ -55,7 +62,7 @@ from __future__ import annotations
 
 import copy
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Sequence, Set, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Set, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -67,7 +74,7 @@ from lm2a_tpu_torch.core.mesh import DATA_AXIS, MODEL_AXIS, Mesh
 from lm2a_tpu_torch.models.attention import CrossAttentionFusion
 from lm2a_tpu_torch.models.embedding import dense
 from lm2a_tpu_torch.models.unet1d import (
-    ResBlockUltimate, UNet1DUltimate, attend_uncond, conv_cl, conv_train, dropout,
+    ResBlockUltimate, ResBlockV1, attend_uncond, conv_cl, conv_train, dropout,
 )
 from lm2a_tpu_torch.ops.adan import N_SCALARS
 from lm2a_tpu_torch.ops.resblock import conv3_fused, gn_stats, gn_stats_plain, gn_sums_plain
@@ -154,26 +161,38 @@ def _piece(t: torch.Tensor, dim: Optional[int], index: int, parts: int) -> torch
 _BLOCK_SPLIT = ("conv1.weight", "conv1.bias", "gn2.weight", "gn2.bias", "conv2.weight",
                 "skip.weight", "skip.bias", "film.to_scale_shift.weight",
                 "film.to_scale_shift.bias")
+_V1_SPLIT = ("conv1.weight", "conv1.bias", "time_proj.weight", "time_proj.bias",
+             "norm2.weight", "norm2.bias", "conv2.weight")
 _ATTN_SPLIT = tuple(f"{br}.{m}.{leaf}" for br in ("attn_motion", "attn_text")
                     for m in ("q_proj", "k_proj", "v_proj") for leaf in ("weight", "bias")) + (
     "attn_motion.out_proj.weight", "attn_text.out_proj.weight")
 
 
+def _ultimate_leaves(blk: ResBlockUltimate, parts: int) -> Tuple[str, ...]:
+    if blk.out_channels % parts:
+        return ()
+    return tuple(k for k in _BLOCK_SPLIT if k.split(".")[0] != "skip" or hasattr(blk, "skip"))
+
+
+def _v1_leaves(blk: ResBlockV1, parts: int) -> Tuple[str, ...]:
+    return () if blk.channels % parts else _V1_SPLIT
+
+
 def split_modules(unet, parts: int) -> Dict[str, Tuple[str, ...]]:
     """The modules of ``unet`` whose compute splits over ``parts`` ranks of
-    the model axis, by name, each with its split leaves: every resblock of
-    ``UNet1DUltimate`` whose width divides (conv 1/2, GroupNorm 2, the
-    skip, FiLM), every attention site whose width and heads divide
-    (q/k/v_proj, out_proj), and the final ``out_proj`` where its input
-    channels divide. None for one rank or the v1 UNet (replicated compute
-    on gathered weights)."""
-    if parts == 1 or not isinstance(unet, UNet1DUltimate):
+    the model axis, by name, each with its split leaves: every residual
+    block whose width divides (``ResBlockUltimate``: conv 1/2, GroupNorm 2,
+    the skip, FiLM; ``ResBlockV1``: conv 1/2, ``time_proj``, GroupNorm 2),
+    every attention site whose width and heads divide (q/k/v_proj,
+    out_proj), and the final ``out_proj`` where its input channels divide.
+    None for one rank."""
+    if parts == 1:
         return {}
     out = {}
     for name, m in unet.named_modules():
-        if isinstance(m, ResBlockUltimate) and m.out_channels % parts == 0:
-            out[name] = tuple(k for k in _BLOCK_SPLIT if k.split(".")[0] != "skip"
-                              or hasattr(m, "skip"))
+        leaves = _BLOCKS[type(m)].leaves(m, parts) if type(m) in _BLOCKS else ()
+        if leaves:
+            out[name] = leaves
         elif (isinstance(m, CrossAttentionFusion) and m.mel_dim % parts == 0
               and m.num_heads % parts == 0):
             out[name] = _ATTN_SPLIT
@@ -354,11 +373,10 @@ def attend(attn: CrossAttentionFusion, tp: ModelShard, h, motion_f, text_f, dtyp
     return torch.cat([const.expand(bu, t, c), cond], dim=0)
 
 
-def _out_proj(unet, tp: ModelShard, a, dtype=None):
-    """The final 1x1 conv, row-parallel where split: the rank's input
-    channels of ``a`` (their gradient from every rank: f), the partial sum
-    all-reduced, the bias added once."""
-    conv = unet.out_proj
+def _out_proj(conv, tp: ModelShard, a, dtype=None):
+    """The final 1x1 conv ``conv`` (the UNet's ``out_proj``), row-parallel
+    where split: the rank's input channels of ``a`` (their gradient from
+    every rank: f), the partial sum all-reduced, the bias added once."""
     if not tp.is_split(conv):
         return conv_cl(conv, a) if dtype is None else conv_train(conv, a, dtype)
     lo, hi = tp_cols(a.shape[-1], tp)
@@ -402,17 +420,40 @@ def _block(blk, tp: ModelShard, x, t_emb, motion_f, text_f, uncond_rows: int):
     return xs + h
 
 
-def tensor_sharded_forward(unet, tp: ModelShard, x, t, motion_f=None, text_f=None,
-                           uncond_rows: int = 0) -> torch.Tensor:
-    """``UNet1DUltimate.forward`` (the prepared serving form, its parameters
-    this rank's: ``make_tp_sampler``) with its compute split over the model
-    axis. Every rank returns the whole fp32 output."""
-    dt = unet.in_proj.weight.dtype
-    t_emb = unet.time_embedding(t)
-    h = conv_cl(unet.in_proj, x.to(dt))
-    h = unet.walk(h, lambda blk, h: _block(blk, tp, h, t_emb, motion_f, text_f, uncond_rows),
-                  conv_cl)
-    return _out_proj(unet, tp, F.silu(unet.out_gn(h))).float()
+def _conv2_part(conv2, tp: ModelShard, a, dtype):
+    """A split block's row-parallel conv 2 on the rank's input channels of
+    ``a`` (plain PyTorch): the fp32 partial sums all-reduced (g), the bias
+    added once, in ``dtype``."""
+    w = conv2.weight.to(dtype)
+    part = F.conv1d(a.to(dtype).transpose(1, 2), w, padding=1).transpose(1, 2)
+    joined, = _join(tp, [part], torch.float32)
+    return (joined + conv2.bias.to(dtype).float()).to(dtype)
+
+
+def _block_v1(blk, tp: ModelShard, x, t_emb, motion_f, text_f, uncond_rows: int):
+    """``ResBlockV1.forward`` (the prepared serving form) split over the
+    model axis: conv 1 and ``time_proj`` on the rank's shards of the same
+    channels, GroupNorm 2 on them, conv 2 row-parallel, then the site
+    (``attend``: split where it is)."""
+    if not tp.is_split(blk):
+        return blk(x, t_emb, motion_f, text_f, uncond_rows)
+    h = conv_cl(blk.conv1, F.silu(blk.norm1(x)))
+    h = h + blk.time_proj(t_emb.to(blk.time_proj.weight.dtype))[:, None, :]
+    h = _conv2_part(blk.conv2, tp, F.silu(tp.group_norm(blk.norm2, h)), blk.conv2.weight.dtype)
+    return x + attend(blk.cross_attn, tp, h, motion_f, text_f, uncond_rows=uncond_rows)
+
+
+def _block_v1_train(blk, tp: ModelShard, x, t_emb, t_split, motion_f, text_f, dtype,
+                    generator, fused: bool):
+    """``ResBlockV1.forward_train`` split over the model axis: conv 1's input
+    through f, ``time_proj`` reading the time embedding through the
+    forward's one f (``t_split``), conv 2's partial sum through g."""
+    if not tp.is_split(blk):
+        return blk.forward_train(x, t_emb, motion_f, text_f, dtype, generator, fused)
+    h = conv_train(blk.conv1, tp.copy(F.silu(blk.norm1(x))), dtype)
+    h = h + dense(blk.time_proj, t_split, dtype)[:, None, :]
+    h = _conv2_part(blk.conv2, tp, F.silu(tp.group_norm(blk.norm2, h)), dtype)
+    return x.to(dtype) + attend(blk.cross_attn, tp, h, motion_f, text_f, dtype)
 
 
 def _block_train(blk, tp: ModelShard, x, t_emb, t_split, motion_f, text_f, dtype, generator,
@@ -432,10 +473,7 @@ def _block_train(blk, tp: ModelShard, x, t_emb, t_split, motion_f, text_f, dtype
     else:
         h = conv_train(blk.conv1, tp.copy(F.silu(blk.gn1(x))), dtype)
         h = h * (1.0 + scale[:, None, :]) + shift[:, None, :]
-        a = F.silu(tp.group_norm(blk.gn2, h)).to(dtype)
-        part = F.conv1d(a.transpose(1, 2), blk.conv2.weight.to(dtype), padding=1).transpose(1, 2)
-        joined, = _join(tp, [part], torch.float32)
-        h = (joined + blk.conv2.bias.to(dtype).float()).to(dtype)
+        h = _conv2_part(blk.conv2, tp, F.silu(tp.group_norm(blk.gn2, h)), dtype)
         xs = (distributed.tp_gather(conv_train(skip, tp.copy(x), dtype), tp.group)
               if skip is not None else x)
     h = dropout(h, blk.dropout, generator)
@@ -444,20 +482,50 @@ def _block_train(blk, tp: ModelShard, x, t_emb, t_split, motion_f, text_f, dtype
     return xs + h
 
 
+class _SplitForms(NamedTuple):
+    """A block type's split leaves (none where its width does not divide)
+    and its serving and training forms split over the model axis."""
+
+    leaves: Callable
+    serve: Callable
+    train: Callable
+
+
+_BLOCKS = {ResBlockUltimate: _SplitForms(_ultimate_leaves, _block, _block_train),
+           ResBlockV1: _SplitForms(_v1_leaves, _block_v1, _block_v1_train)}
+
+
+def tensor_sharded_forward(unet, tp: ModelShard, x, t, motion_f=None, text_f=None,
+                           uncond_rows: int = 0) -> torch.Tensor:
+    """``Denoiser.forward`` (the prepared serving form, its parameters this
+    rank's: ``make_tp_sampler``) with its compute split over the model
+    axis. Every rank returns the whole fp32 output."""
+    t_emb = unet.time_embedding(t)
+
+    def block(blk, h):
+        return _BLOCKS[type(blk)].serve(blk, tp, h, t_emb, motion_f, text_f, uncond_rows)
+
+    return unet.run(x, block, conv_cl, lambda conv, a: _out_proj(conv, tp, a)).float()
+
+
 def tensor_sharded_forward_train(unet, tp: ModelShard, x, t, motion_f=None, text_f=None, *,
                                  dtype: torch.dtype,
                                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """``UNet1DUltimate.forward_train`` with its compute split over the model
-    axis (the split leaves are this rank's shards, the gathered leaves
-    whole), differentiable through the collectives; every rank computes the
-    same fp32 output. The split FiLMs read the time embedding through f."""
+    """``Denoiser.forward_train`` with its compute split over the model axis
+    (the split leaves are this rank's shards, the gathered leaves whole),
+    differentiable through the collectives; every rank computes the same
+    fp32 output. The split blocks read the time embedding through one f."""
     t_emb = unet.time_embedding.forward_train(t, dtype)
     t_split = tp.copy(t_emb)
-    h = conv_train(unet.in_proj, x, dtype)
-    h = unet.walk(h, lambda blk, h: _block_train(blk, tp, h, t_emb, t_split, motion_f, text_f,
-                                                 dtype, generator, unet.fused_resblock_grad),
-                  lambda conv, h: conv_train(conv, h, dtype))
-    return _out_proj(unet, tp, F.silu(unet.out_gn(h)), dtype).float()
+
+    def block(blk, h):
+        return _BLOCKS[type(blk)].train(blk, tp, h, t_emb, t_split, motion_f, text_f, dtype,
+                                        generator, unet.fused_resblock_grad)
+
+    def conv(module, h):
+        return conv_train(module, h, dtype)
+
+    return unet.run(x, block, conv, lambda m, a: _out_proj(m, tp, a, dtype)).float()
 
 
 # ---------------------------------------------------------------- the state
@@ -657,10 +725,9 @@ def make_tp_sampler(apply_fn, schedule, mesh: Mesh, params_template: Dict[str, t
     the ``"unet/..."`` leaves of a TPState's EMA, prefix dropped): the
     gathered leaves all-gathered and a serving model prepared from the
     rank's leaves once a call, then the chain, eager, its forwards split
-    over the model axis (``tensor_sharded_forward``; the v1 UNet runs
-    replicated on gathered weights). ``kwargs`` go to the sampler
-    (``num_steps``, ``uncond_fast``, ``eta``, ``x0_clip``) but ``dtype``,
-    the serving dtype."""
+    over the model axis (``tensor_sharded_forward``). ``kwargs`` go to the
+    sampler (``num_steps``, ``uncond_fast``, ``eta``, ``x0_clip``) but
+    ``dtype``, the serving dtype."""
     from lm2a_tpu_torch.diffusion.gaussian import SamplerChain, ddim_sample, ddpm_sample
 
     if method not in ("ddpm", "ddim"):

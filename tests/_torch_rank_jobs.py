@@ -202,21 +202,14 @@ def tp_modules(meta, arrays, mesh):
     from lm2a_tpu_torch.models.unet1d import ResBlockUltimate
     from lm2a_tpu_torch.parallel import tensor as T
 
+    if meta.get("arch") == "v1":
+        return _tp_v1_block(meta, arrays, mesh)
     parts, r = mesh.shape[MODEL_AXIS], mesh.axis_index(MODEL_AXIS)
     c, cin, temb, cond, heads = (meta[k] for k in ("c", "cin", "temb", "cond", "heads"))
     t = lambda k: torch.tensor(arrays[k]).requires_grad_(True)  # noqa: E731
 
     def split(module, prefix, names):
-        """Load the whole weights, then make the split leaves this rank's shards."""
-        module.load_state_dict({k[len(prefix):]: torch.tensor(v) for k, v in arrays.items()
-                                if k.startswith(prefix)})
-        dims = T.tp_shardings({f"unet/m.{k}": v for k, v in module.named_parameters()}, mesh)
-        done = set()
-        for k, p in module.named_parameters():
-            if k in names:
-                p.data = T._piece(p.data, dims[f"unet/m.{k}"], r, parts).contiguous()
-                done.add(k)
-        return done
+        return _split_module(module, arrays, prefix, names, mesh)
 
     out, info = {}, {}
     for route in ("fused", "library"):
@@ -259,6 +252,119 @@ def tp_modules(meta, arrays, mesh):
         out["folded|out"] = T.attend(attn, tp, h, m, l).numpy()
         out["folded|uncond"] = T.attend(attn, tp, h, m, l, uncond_rows=1).numpy()
     return out, info
+
+
+def v1_block_payload(rng, c, heads, b=2, t=9, s=7, temb=16, cond=8):
+    """Inputs, a cotangent and the whole weights (under ``v1|``) of a
+    ``ResBlockV1`` of ``c`` channels and ``heads`` heads from ``rng``: the
+    port's block, seeded, its 1-D leaves moved off their init."""
+    from lm2a_tpu_torch.models.factory import random_init_
+    from lm2a_tpu_torch.models.unet1d import ResBlockV1
+
+    def rand(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    blk = random_init_(ResBlockV1(c, temb, cond, heads), int(rng.integers(1 << 30)))
+    with torch.no_grad():
+        for p in blk.parameters():
+            if p.ndim == 1:
+                p.add_(torch.from_numpy(rand(*p.shape)) * 0.3)
+    payload = dict(x=rand(b, t, c), t_emb=rand(b, temb), m=rand(b, s, cond), l=rand(b, s, cond),
+                   cot=rand(b, t, c))
+    payload.update({f"v1|{k}": v.detach().numpy() for k, v in blk.state_dict().items()})
+    return payload
+
+
+def _split_module(module, arrays, prefix, names, mesh, device="cpu"):
+    """Load the whole weights under ``prefix`` into ``module`` (moved to
+    ``device``), then make the leaves ``names`` this rank's shards; returns
+    the names it split."""
+    from lm2a_tpu_torch.core.mesh import MODEL_AXIS
+    from lm2a_tpu_torch.parallel import tensor as T
+
+    parts, r = mesh.shape[MODEL_AXIS], mesh.axis_index(MODEL_AXIS)
+    module.load_state_dict({k[len(prefix):]: torch.tensor(v) for k, v in arrays.items()
+                            if k.startswith(prefix)})
+    module.to(device)
+    dims = T.tp_shardings({f"unet/m.{k}": v for k, v in module.named_parameters()}, mesh)
+    done = set()
+    for k, p in module.named_parameters():
+        if k in names:
+            p.data = T._piece(p.data, dims[f"unet/m.{k}"], r, parts).contiguous()
+            done.add(k)
+    return done
+
+
+def _tp_v1_block(meta, arrays, mesh):
+    """A ``ResBlockV1`` split over the model axis (``parallel/tensor.py``
+    ``_block_v1_train``, ``_block_v1``), from the whole weights under
+    ``v1|``: its training form in fp32 with the gradients of ``sum(out *
+    cot)`` (a split leaf's gradient this rank's shard, the others whole),
+    then its serving form (folded attention, or the attention kernel's
+    route with ``meta["fused"]``; weights in ``meta["dtype"]``), with
+    ``uncond_rows=1`` too. On ``meta["device"]`` (TF32 off); the heads of
+    every call of the attention kernel's wrapper are recorded
+    (``heads``)."""
+    import torch.nn as nn
+
+    from lm2a_tpu_torch.core.mesh import MODEL_AXIS
+    from lm2a_tpu_torch.models import attention as att_mod
+    from lm2a_tpu_torch.models.unet1d import ResBlockV1
+    from lm2a_tpu_torch.ops import _build
+    from lm2a_tpu_torch.parallel import tensor as T
+
+    parts = mesh.shape[MODEL_AXIS]
+    c, temb, cond, heads = (meta[k] for k in ("c", "temb", "cond", "heads"))
+    dev = distributed.rank_device()
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    dtype = getattr(torch, meta.get("dtype", "float32"))
+    fused = meta.get("fused", False)
+    seen_heads = []
+    core = att_mod.attention_core
+
+    def spied(q, k, v):
+        seen_heads.append(q.shape[1])
+        return core(q, k, v)
+
+    att_mod.attention_core = spied
+
+    def t(k):
+        return torch.tensor(arrays[k]).to(dev).requires_grad_(True)
+
+    blk = ResBlockV1(c, temb, cond, heads)
+    names, ids = set(), set()
+    if c % parts == 0:
+        names, ids = set(T._V1_SPLIT), {id(blk)}
+        if heads % parts == 0:
+            names |= {"cross_attn." + k for k in T._ATTN_SPLIT}
+            ids.add(id(blk.cross_attn))
+    split = _split_module(blk, arrays, "v1|", names, mesh, dev)
+    tp = T.ModelShard(mesh, ids)
+    x, t_emb, m, l = t("x"), t("t_emb"), t("m"), t("l")
+    _build.reset_launches()
+    res = T._block_v1_train(blk, tp, x, t_emb, tp.copy(t_emb), m, l, torch.float32, None,
+                            False)
+    (res * torch.tensor(arrays["cot"]).to(dev)).sum().backward()
+    out = {"v1|out": res.detach().cpu().numpy()}
+    for k, v in (("x", x), ("t_emb", t_emb), ("m", m), ("l", l)):
+        out[f"v1|d_{k}"] = v.grad.cpu().numpy()
+    for k, p in blk.named_parameters():
+        out[f"v1|grad|{k}"] = p.grad.cpu().numpy()
+    train_launches = dict(_build.LAUNCHES)
+    with torch.no_grad():  # the serving form
+        blk.cross_attn.set_fused(fused)
+        if not fused:
+            blk.cross_attn.fold(dtype)
+        for mod in blk.modules():
+            if isinstance(mod, (nn.Linear, nn.Conv1d)):
+                mod.to(dtype)
+        x, t_emb, m, l = (v.detach().to(dtype) for v in (x, t_emb, m, l))
+        _build.reset_launches()
+        out["v1|serve"] = T._block_v1(blk, tp, x, t_emb, m, l, 0).float().cpu().numpy()
+        out["v1|uncond"] = T._block_v1(blk, tp, x, t_emb, m, l, 1).float().cpu().numpy()
+    att_mod.attention_core = core
+    return out, {"split_v1": sorted(split), "heads": seen_heads, "train_launches": train_launches,
+                 "serve_launches": dict(_build.LAUNCHES)}
 
 
 def state_arrays_tensors(state):
@@ -343,7 +449,8 @@ def main():
         meta = json.load(f)
     with np.load(os.path.join(d, "in.npz")) as z:
         arrays = {k: z[k] for k in z.files}
-    assert distributed.init_distributed(url, int(world), int(rank), device="cpu")
+    assert distributed.init_distributed(url, int(world), int(rank),
+                                        device=meta.get("device", "cpu"))
     mesh = distributed.make_hybrid_mesh(model=meta.get("model_axis", 1))
     out, info = JOBS[job](meta, arrays, mesh)
     np.savez(os.path.join(d, f"out_{rank}.npz"), **out)

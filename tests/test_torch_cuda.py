@@ -95,6 +95,9 @@ from lm2a_tpu_torch.vocoder import sandwich as sw
 pytestmark = pytest.mark.cuda
 
 TOL = dict(chip_smoke.TOL, snake_sandwich_f32=dict(atol=1e-5, rtol=1e-5))
+# fp32 card against fp32 host, relative L2: the same products summed in
+# another order by cuDNN, cuBLAS and the CPU's kernels (TF32 off)
+FP32_REL = 1e-5
 # the attention kernel's head dims under test: every tile width (16 to 256),
 # window maps (hd off the 8-channel unit: 1-6, 12, 100, 250) and per-head
 # maps, base 48's and 96's 6, 12, 24, 48 and v1's 96 and 192
@@ -2007,3 +2010,44 @@ def test_partial_form_refuses_what_it_cannot_take(dev):
         rb.conv3_fused(*args, out_dtype=torch.bfloat16, part=(0, 32))
     with pytest.raises(ValueError, match="partial form"):
         rb.conv3_fused(*args, out_dtype=torch.float32, part=(32, 96))
+
+
+@pytest.mark.parametrize("parts,c,heads", [(3, 24, 2), (3, 48, 3)],
+                         ids=["straddle-replicated-site", "one-head-a-rank"])
+def test_split_v1_block_on_the_card_matches_the_cpu_ranks(dev, tmp_path, parts, c, heads):
+    """A ``ResBlockV1`` split over 3 gloo ranks on the one card against the
+    same ranks on the CPU: GroupNorm 2's 8 groups straddle the ranks; at 2
+    heads the site runs replicated on its gathered weights, at 3 it splits
+    (one head a rank). The training form in fp32 (TF32 off): the output and
+    the gradients of ``sum(out * cot)`` for the inputs and every parameter
+    (a split leaf's the rank's shard) within relative L2 ``FP32_REL`` (fp32
+    sums of cuDNN and cuBLAS in another order than the CPU's), with a floor
+    of 1e-6 of the whole gradient for the key biases (zero in exact
+    arithmetic). The serving form in bf16 on the attention kernel's route,
+    with and without the CFG constant, against the CPU's plain versions in
+    bf16 within ``chip_smoke.UNET_REL_L2``: every call launches the kernel,
+    on the heads the rank holds."""
+    from _torch_rank_jobs import v1_block_payload
+    from _torch_ranks import spawn
+
+    payload = v1_block_payload(np.random.default_rng(parts * c), c, heads, t=37, s=21)
+    meta = dict(arch="v1", c=c, temb=16, cond=8, heads=heads, model_axis=parts,
+                dtype="bfloat16", fused=True)
+    card = spawn("tp_modules", parts, tmp_path / "card", dict(payload, meta=dict(
+        meta, device="cuda")), timeout=300.0)
+    host = spawn("tp_modules", parts, tmp_path / "host", dict(payload, meta=dict(
+        meta, device="cpu")), timeout=300.0)
+    split_site = heads % parts == 0
+    for r, (g, h) in enumerate(zip(card, host)):
+        assert g["split_v1"] == h["split_v1"] and "conv2.weight" in g["split_v1"]
+        assert ("cross_attn.attn_text.q_proj.weight" in g["split_v1"]) == split_site
+        # serving: both branches, then the CFG constant's and the conditioned row's
+        assert g["train_launches"] == {} and g["serve_launches"] == {"attention": 6}, r
+        assert g["heads"] == [heads // parts if split_site else heads] * 6, r
+        for k in ("v1|serve", "v1|uncond"):
+            assert chip_smoke.rel_l2_np({k: g[k]}, {k: h[k]}, [k]) <= chip_smoke.UNET_REL_L2, k
+        grads = ["v1|out"] + [k for k in h if k.startswith("v1|d_") or k.startswith("v1|grad|")]
+        scale = float(np.sqrt(sum(np.sum(np.square(h[k].astype(np.float64))) for k in grads)))
+        for k in grads:
+            d = np.linalg.norm(g[k].astype(np.float64) - h[k])
+            assert d <= FP32_REL * np.linalg.norm(h[k]) + 1e-6 * scale, (k, d)

@@ -22,6 +22,11 @@ gloo, against the replicated port and the JAX package's
   step on its XLA path, the same math): the same checks. At 2 heads the
   attention sites do not split over four ranks and run replicated on their
   gathered weights.
+- The v1 UNet (base 16, mults (1, 2), 2 heads): its leaf rule, its split
+  plan (``split_modules``) at 2, 3 and 4 ranks, and the same step and
+  sampler checks at 2 ranks and at 4 (the 2-head sites replicated): every
+  ``ResBlockV1``'s conv 1, ``time_proj``, GroupNorm 2 and conv 2, and the
+  final conv, split.
 """
 
 import dataclasses
@@ -43,7 +48,7 @@ from lm2a_tpu_torch.diffusion.gaussian import ddim_sample
 from lm2a_tpu_torch.diffusion.schedule import make_schedule
 from lm2a_tpu_torch.models.factory import build_denoiser
 from lm2a_tpu_torch.ops.adan import global_norm
-from lm2a_tpu_torch.parallel.tensor import _leaf_spec, jax_leaf, tp_shardings
+from lm2a_tpu_torch.parallel.tensor import _leaf_spec, jax_leaf, split_modules, tp_shardings
 from lm2a_tpu_torch.training.checkpoint import flax_path, keystr, state_arrays, to_flax_layout
 from lm2a_tpu_torch.training.train_step import make_train_step
 
@@ -56,23 +61,38 @@ from test_torch_train import MEAN, STD, TOL_LOSS, assert_state_close, jax_draws
 TP = 2
 
 
-@pytest.fixture(scope="module")
-def setup():
+def _setup(cfg):
     from lm2a_tpu.core.config import config_to_dict as jax_config_to_dict
     from lm2a_tpu.models.factory import build_cond_projection as jax_bcp
     from lm2a_tpu.models.factory import build_denoiser as jax_bd
     from lm2a_tpu.training import init_train_state as jax_init_train_state
     from lm2a_tpu_torch.core.config import config_from_dict
 
-    cfg = _cfg(0.0)
     den, cp = jax_bd(cfg.model, "float32"), jax_bcp(cfg.model, "float32")
     state, tx = jax_init_train_state(den, cp, cfg, jax.random.key(0), seq_len=T)
     return dict(cfg=cfg, den=den, cp=cp, state=state, tx=tx,
                 port_cfg=config_from_dict(jax_config_to_dict(cfg)))
 
 
-@pytest.mark.parametrize("tp", [2, 4])
-def test_leaf_rule_is_the_jax_rule(setup, tp):
+def _v1_cfg():
+    cfg = _cfg(0.0)
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, arch="v1", base_dim=16))
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return _setup(_cfg(0.0))
+
+
+@pytest.fixture(scope="module")
+def setup_v1():
+    return _setup(_v1_cfg())
+
+
+@pytest.mark.parametrize("arch,tp", [("ultimate", 2), ("ultimate", 4), ("v1", 2), ("v1", 4)],
+                         ids=["2", "4", "v1-2", "v1-4"])
+def test_leaf_rule_is_the_jax_rule(request, arch, tp):
+    setup = request.getfixturevalue("setup" if arch == "ultimate" else "setup_v1")
     flat, _ = jax.tree_util.tree_flatten_with_path(setup["state"].params)
     want = {tuple(str(e.key) for e in kp): (tuple(jax_leaf_spec(kp, leaf, tp)), np.shape(leaf))
             for kp, leaf in flat}
@@ -93,6 +113,40 @@ def test_tp_step_and_sampler_match_replicated_and_jax(setup, tmp_path):
 
 def test_tp4_fused_step_and_sampler_match_replicated_and_jax(setup, tmp_path):
     check_tp_step(setup, tmp_path, 4, fused=True)
+
+
+V1_BLOCKS = ("down_0_res", "down_1_res", "mid_res", "up_0_res", "up_1_res")
+V1_SITES = tuple(f"{b}.cross_attn" for b in V1_BLOCKS)
+
+
+@pytest.mark.parametrize("parts", [2, 3, 4])
+def test_split_modules_of_v1(parts):
+    """The split plan of a small v1 UNet (widths 16, 16, 32, 48, 32; GroupNorm
+    of 8 groups; 2 heads): every block whose width divides, with conv 1,
+    ``time_proj``, GroupNorm 2 and conv 2; every site whose width and heads
+    divide; the final conv where its 32 input channels divide."""
+    from lm2a_tpu_torch.parallel.tensor import _ATTN_SPLIT, _V1_SPLIT
+
+    unet = build_denoiser(_v1_cfg().model)
+    widths = dict(zip(V1_BLOCKS, (16, 16, 32, 48, 32)))
+    want = {b: _V1_SPLIT for b, c in widths.items() if c % parts == 0}
+    if 2 % parts == 0:
+        want.update({f"{b}.cross_attn": _ATTN_SPLIT for b in want})
+    if 32 % parts == 0:
+        want["out_proj"] = ("weight",)
+    got = split_modules(unet, parts)
+    assert got == want
+    assert {3: {"up_0_res"}, 2: {*V1_BLOCKS, *V1_SITES, "out_proj"},
+            4: {*V1_BLOCKS, "out_proj"}}[parts] == set(got)
+    assert split_modules(unet, 1) == {}
+
+
+def test_v1_tp_step_and_sampler_match_replicated_and_jax(setup_v1, tmp_path):
+    check_tp_step(setup_v1, tmp_path, TP, fused=False)
+
+
+def test_v1_tp4_step_and_sampler_match_replicated_and_jax(setup_v1, tmp_path):
+    check_tp_step(setup_v1, tmp_path, 4, fused=False)
 
 
 def check_tp_step(setup, tmp_path, tp: int, fused: bool):

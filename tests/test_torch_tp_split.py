@@ -24,6 +24,13 @@ CPU, module by module.
   ranks at 24 channels and 2 heads (GroupNorm 2's groups straddle the
   ranks; the heads do not divide, so the site runs replicated on its
   gathered weights).
+- A ``ResBlockV1`` of the v1 UNet split on gloo ranks against the JAX
+  package's ``ResBlockV1`` (XLA, fp32): the training form (output and the
+  gradients of ``sum(out * cot)`` for the input, the time embedding, both
+  conditions and every parameter, the split leaves' shards put together),
+  the folded serving form, and ``uncond_rows=1``: 2 ranks, and 3 ranks at 24
+  channels and 2 heads (GroupNorm 2's 8 groups straddle the ranks, the site
+  runs replicated on its gathered weights).
 """
 
 import threading
@@ -42,6 +49,7 @@ from lm2a_tpu_torch.ops import resblock_grad as rg
 from lm2a_tpu_torch.parallel.tensor import tp_shardings
 
 from _torch_port_util import one_torch_thread, rand, rel_l2  # noqa: F401
+from _torch_rank_jobs import v1_block_payload
 from _torch_ranks import spawn
 from test_torch_sp_fused import _chain_inputs
 
@@ -234,3 +242,64 @@ def test_split_modules_match_jax(tmp_path, parts, c, heads):
     attn_split = {k[len("cross_attn."):] for k in outs[0]["split_fused"]
                   if k.startswith("cross_attn.")}
     whole_grads("attn", _torch_tree(attn_grads[0]), attn_split)
+
+
+@pytest.mark.parametrize("parts,c,heads", [(2, 32, 2), (3, 24, 2)], ids=["2-ranks", "3-ranks"])
+def test_split_v1_block_matches_jax(tmp_path, parts, c, heads):
+    """A ``ResBlockV1`` split over gloo ranks against the JAX package's
+    ``ResBlockV1`` (XLA, fp32): its training form's output and the gradients
+    of ``sum(out * cot)`` for the input, the time embedding, both
+    conditions and every parameter (the split leaves' shards put together),
+    and its folded serving form, with ``uncond_rows=1`` against the JAX
+    block on conditions whose first row is zero. At 3 ranks GroupNorm 2's
+    8 groups straddle the ranks and the 2-head site runs replicated."""
+    from lm2a_tpu_torch.convert import torch_params_to_jax
+
+    rng = np.random.default_rng(10 + parts)
+    payload = v1_block_payload(rng, c, heads)
+    x, t_emb, m, l, cot = (payload[k] for k in ("x", "t_emb", "m", "l", "cot"))
+    params = {}
+    for key, a in torch_params_to_jax({k[len("v1|"):]: torch.tensor(v) for k, v in
+                                       payload.items() if k.startswith("v1|")}).items():
+        *mods, leaf = key.split("/")
+        node = params
+        for mod in mods:
+            node = node.setdefault(mod, {})
+        node[leaf] = jnp.asarray(a)
+    cond = m.shape[-1]
+    jblk = junet.ResBlockV1(c, cond_dim=cond, num_heads=heads)
+    fblk = junet.ResBlockV1(c, cond_dim=cond, num_heads=heads, folded_attention=True)
+
+    def loss(p, *a):
+        return jnp.sum(jblk.apply({"params": p}, *a) * cot)
+
+    want = jax.jit(lambda p, *a: jblk.apply({"params": p}, *a))(params, x, t_emb, m, l)
+    grads = jax.jit(jax.grad(loss, argnums=(0, 1, 2, 3, 4)))(params, x, t_emb, m, l)
+    zero = lambda v: jnp.asarray(v).at[0].set(0.0)  # noqa: E731 - the CFG-unconditional row
+    folded = fblk.apply({"params": params}, x, t_emb, m, l)
+    uncond = fblk.apply({"params": params}, x, t_emb, zero(m), zero(l))
+
+    payload["meta"] = dict(arch="v1", c=c, temb=t_emb.shape[-1], cond=cond, heads=heads,
+                           model_axis=parts)
+    outs = spawn("tp_modules", parts, tmp_path, payload)
+    split = set(outs[0]["split_v1"])
+    assert all(set(o["split_v1"]) == split for o in outs)
+    assert "conv2.weight" in split and "time_proj.weight" in split
+    assert ("cross_attn.attn_motion.q_proj.weight" in split) == (heads % parts == 0)
+    for o in outs:
+        assert _close(o["v1|out"], want)
+        for i, k in enumerate(("x", "t_emb", "m", "l")):
+            assert _close(o[f"v1|d_{k}"], grads[i + 1]), k
+        assert _close(o["v1|serve"], folded)
+        assert _close(o["v1|uncond"], uncond)
+    mesh = Mesh(np.arange(parts).reshape(1, parts))
+    wgrads = _torch_tree(grads[0])
+    dims = tp_shardings({f"unet/m.{k}": torch.tensor(v) for k, v in wgrads.items()}, mesh)
+    scale = float(np.sqrt(sum(np.sum(np.square(v)) for v in wgrads.values())))
+    for k, v in wgrads.items():
+        if k in split:  # the shards put together along the dimension the rule shards
+            got = np.concatenate([o[f"v1|grad|{k}"] for o in outs], axis=dims[f"unet/m.{k}"])
+            assert _close(got, v, scale), k
+        else:
+            for o in outs:
+                assert _close(o[f"v1|grad|{k}"], v, scale), k
