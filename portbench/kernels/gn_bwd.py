@@ -1,0 +1,14 @@
+"""``gn_bwd``: a gated block's GroupNorm backward (``csrc/resblock_bwd.cu``), training only."""
+
+from .geometry import bwd_costs, gated_blocks, per_unit
+
+LAUNCH = "gn_bwd"
+PATTERNS = ("gn_bwd_kernel",)
+PEAK = "fp32"
+
+
+def launches(cell):
+    b, step = int(cell.traffic["batch"]), []
+    for _, tl, cin, cout, skip, _ in gated_blocks(cell.model, int(cell.traffic["mel_t"])):
+        step += bwd_costs(b, tl, cin, cout, skip)[LAUNCH]
+    return per_unit(cell, step)

@@ -1,0 +1,3 @@
+from portbench.metrics._read import span_ms
+
+read = span_ms("vocode")
