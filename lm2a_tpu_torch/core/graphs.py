@@ -18,6 +18,9 @@ host-side effects: a replay runs none of its Python.
   the graph (``ops._build.recording``) and added to ``ops._build.LAUNCHES``
   at each replay; the first call's eager launches count themselves. The
   counts equal those of running every call eagerly.
+- Tracing: while the spans of ``utils.profiling`` are on, each replay runs
+  in the span ``graph.replay``, with timing events on the current stream
+  just before and after it; a warm-up or capture records nothing.
 - A failed capture or replay raises, and a step whose capture failed keeps
   raising: nothing falls back to the eager loop on the card.
 - ``CAPTURE_LOCK`` is held from the first call's warm-up to the end of its
@@ -44,6 +47,7 @@ import numpy as np
 import torch
 
 from lm2a_tpu_torch.ops import _build
+from lm2a_tpu_torch.utils import profiling
 
 CAPTURE_LOCK = threading.RLock()
 captures = 0  # CUDA graphs captured in this process (a cached geometry adds none)
@@ -116,7 +120,8 @@ class GraphedStep:
         if self.graph is None:
             self._warm_up_and_capture()
             return
-        self.graph.replay()
+        with profiling.span("graph.replay", device=self.device):
+            self.graph.replay()
         _build.count(self.launches)
         self.replays += 1
 

@@ -23,6 +23,10 @@ weight above 1 shares one entry. The entries' captures share one memory
 pool: all replay on one stream, one at a time, and each keeps its static
 buffers referenced, so one graph's dead intermediates are all another may
 reuse. The ``--debug`` telemetry chain runs eagerly, outside the cache.
+
+Spans (``utils.profiling``): a ``generate_mel`` or ``generate_mel_batch``
+call is the unit ``sample.request``; ``sample.finish`` runs from the mel's
+readback to the return. Each upload and readback counts one ``host.sync``.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from lm2a_tpu_torch.diffusion.gaussian import SamplerChain, ddim_sample, ddpm_sa
 from lm2a_tpu_torch.diffusion.schedule import make_schedule
 from lm2a_tpu_torch.models.factory import build_cond_projection, build_denoiser
 from lm2a_tpu_torch.ops.resample import match_len
+from lm2a_tpu_torch.utils.profiling import count, span
 from lm2a_tpu_torch.utils.torch_convert import load_torch_checkpoint
 
 # Documented fallback stats (reference sample.py:47-48), used only when the
@@ -245,10 +250,24 @@ def _run_chain(models: LoadedModels, motion_f, text_f, mel_t: int, steps: int,
                        num_steps=num_ddim, generator=chain.generator, chain=chain, **kw)
 
 
+def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host array on ``dev``; on the card a pageable copy, which waits for
+    the stream."""
+    count("host.sync")
+    return torch.as_tensor(a, device=dev)
+
+
+def _readback(t: torch.Tensor) -> np.ndarray:
+    count("host.sync")
+    return t.cpu().numpy()
+
+
 def _finish(models: LoadedModels, out: torch.Tensor) -> np.ndarray:
-    out = _apply_std_calibration(out.float().cpu().numpy(), models)
-    out = out * models.dataset_std + models.dataset_mean
-    return out.transpose(0, 2, 1)  # (B, 80, T) npz layout
+    z = _readback(out.float())
+    with span("sample.finish"):
+        z = _apply_std_calibration(z, models)
+        z = z * models.dataset_std + models.dataset_mean
+        return z.transpose(0, 2, 1)  # (B, 80, T) npz layout
 
 
 @torch.no_grad()
@@ -259,22 +278,25 @@ def generate_mel(models: LoadedModels, motion: np.ndarray, lyrics: np.ndarray, m
     """Run the sampler; returns (mel (B, 80, mel_T) de-normalised, motion_f,
     text_f, motion_rs, lyrics_rs). ``method`` None resolves via
     ``resolve_method``; ``debug`` (DDPM) prints per-decile telemetry."""
-    steps, guidance_weight = _resolve_run_params(models, steps, guidance_weight)
-    method, ddim_steps = resolve_method(models, method, ddim_steps)
-    debug = debug and method == "ddpm"
-    motion_rs = match_len(np.asarray(motion, np.float32), mel_t, mode="interp")
-    lyrics_rs = match_len(np.asarray(lyrics, np.float32), mel_t, mode="interp")
-    dev = models.device
-    motion_b = torch.as_tensor(motion_rs, device=dev).expand(batch, *motion_rs.shape)
-    lyrics_b = torch.as_tensor(lyrics_rs, device=dev).expand(batch, *lyrics_rs.shape)
-    motion_f, text_f = models.cond_proj(motion_b, lyrics_b)
-    out = _run_chain(models, motion_f, text_f, mel_t, steps, guidance_weight, method,
-                     ddim_steps, seed, debug)
-    if debug:
-        out, stats = out
-        _print_sampling_telemetry(stats.cpu().numpy(), steps, models.cfg)
-    return (_finish(models, out), motion_f.float().cpu().numpy(),
-            text_f.float().cpu().numpy(), motion_rs, lyrics_rs)
+    with span("sample.request"):
+        steps, guidance_weight = _resolve_run_params(models, steps, guidance_weight)
+        method, ddim_steps = resolve_method(models, method, ddim_steps)
+        debug = debug and method == "ddpm"
+        motion_rs = match_len(np.asarray(motion, np.float32), mel_t, mode="interp")
+        lyrics_rs = match_len(np.asarray(lyrics, np.float32), mel_t, mode="interp")
+        dev = models.device
+        motion_b = _upload(motion_rs, dev).expand(batch, *motion_rs.shape)
+        lyrics_b = _upload(lyrics_rs, dev).expand(batch, *lyrics_rs.shape)
+        motion_f, text_f = models.cond_proj(motion_b, lyrics_b)
+        out = _run_chain(models, motion_f, text_f, mel_t, steps, guidance_weight, method,
+                         ddim_steps, seed, debug)
+        if debug:
+            out, stats = out
+            _print_sampling_telemetry(_readback(stats), steps, models.cfg)
+        mel = _finish(models, out)
+        with span("sample.finish"):
+            return (mel, _readback(motion_f.float()), _readback(text_f.float()), motion_rs,
+                    lyrics_rs)
 
 
 def _print_sampling_telemetry(stats: np.ndarray, steps: int, cfg) -> None:
@@ -302,16 +324,17 @@ def generate_mel_batch(models: LoadedModels, motions, lyrics_list, mel_t: int,
                        ddim_steps: Optional[int] = None):
     """Multi-clip batched generation, different conditions per row, one chain.
     Returns (mel (B, 80, mel_t), motion_rs list, lyrics_rs list)."""
-    steps, guidance_weight = _resolve_run_params(models, steps, guidance_weight)
-    method, ddim_steps = resolve_method(models, method, ddim_steps)
-    motion_rs = [match_len(np.asarray(m, np.float32), mel_t, "interp") for m in motions]
-    lyrics_rs = [match_len(np.asarray(l, np.float32), mel_t, "interp") for l in lyrics_list]
-    dev = models.device
-    motion_f, text_f = models.cond_proj(torch.as_tensor(np.stack(motion_rs), device=dev),
-                                        torch.as_tensor(np.stack(lyrics_rs), device=dev))
-    out = _run_chain(models, motion_f, text_f, mel_t, steps, guidance_weight, method,
-                     ddim_steps, seed)
-    return _finish(models, out), motion_rs, lyrics_rs
+    with span("sample.request"):
+        steps, guidance_weight = _resolve_run_params(models, steps, guidance_weight)
+        method, ddim_steps = resolve_method(models, method, ddim_steps)
+        motion_rs = [match_len(np.asarray(m, np.float32), mel_t, "interp") for m in motions]
+        lyrics_rs = [match_len(np.asarray(l, np.float32), mel_t, "interp") for l in lyrics_list]
+        dev = models.device
+        motion_f, text_f = models.cond_proj(_upload(np.stack(motion_rs), dev),
+                                            _upload(np.stack(lyrics_rs), dev))
+        out = _run_chain(models, motion_f, text_f, mel_t, steps, guidance_weight, method,
+                         ddim_steps, seed)
+        return _finish(models, out), motion_rs, lyrics_rs
 
 
 def compute_batch_from_npz(models: LoadedModels, npz_paths, steps: Optional[int] = None,

@@ -44,7 +44,6 @@ _recording: Optional[Counter] = None
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _argtypes: Dict[tuple, list] = {}
-build_seconds: float = 0.0
 build_log: Dict[str, str] = {}
 
 
@@ -94,7 +93,6 @@ def _lib_path(name: str, src: Path) -> Path:
 
 def build_all() -> float:
     """Compile every source that has no up-to-date library; returns seconds."""
-    global build_seconds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = {}
@@ -117,8 +115,7 @@ def build_all() -> float:
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    build_seconds = time.perf_counter() - t0
-    return build_seconds
+    return time.perf_counter() - t0
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -233,7 +233,6 @@ def train(cfg: LM2AConfig, npz_dir: str, save_dir: str, val_npz_dir: Optional[st
             last_loss = float(losses[-1])
             logger.log_step(epoch, step + k_fuse - 1, last_loss, lr_at(step))
         step += k_fuse
-        timer.tick()
         if tc.save_interval and step % tc.save_interval < k_fuse and step >= tc.save_interval:
             ckpt(epoch)
 

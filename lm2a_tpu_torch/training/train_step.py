@@ -60,6 +60,7 @@ from lm2a_tpu_torch.models.factory import build_cond_projection, build_denoiser,
 from lm2a_tpu_torch.models.unet1d import Denoiser
 from lm2a_tpu_torch.ops.adan import N_SCALARS
 from lm2a_tpu_torch.training.adan import Adan, AdanState, make_lr_schedule
+from lm2a_tpu_torch.utils.profiling import span
 
 TREES = ("unet", "cond_proj")
 
@@ -251,7 +252,8 @@ class StepRunner:
     for a buffer of ``k_max * batch_size`` rows made at the first ``load``.
     ``shard`` (this rank's rows, the global rows) makes the step draw at the
     global batch shape (a data-parallel step); a run of several processes
-    steps eagerly.
+    steps eagerly. Spans (``utils.profiling``): a call is the unit
+    ``train.call``, its host work before the first step ``train.stage``.
     """
 
     def __init__(self, step: Callable, state: TrainState, data: Optional[Dict[str, torch.Tensor]],
@@ -310,17 +312,20 @@ class StepRunner:
         if not 0 < k <= self.k_max or tuple(np.shape(idx)) != (k, self.batch_size):
             raise ValueError(f"StepRunner.run: rows {tuple(np.shape(idx))} for {k} steps "
                              f"(at most {self.k_max} of {self.batch_size})")
-        stage(self.idx[:k], idx if isinstance(idx, torch.Tensor) else np.asarray(idx, np.int64))
-        if self.train:
-            self.step.optimizer.stage_scalars(self.state.opt.step, self.scal[:k])
-        self.k.zero_()
-        for off in offsets:
-            self.generator.manual_seed(step_seed(seed, int(off)))
-            self.graphed()
-        if self.train:
-            self.state.step += k
-            self.state.opt.step += k
-        return self.losses[:k].clone()
+        with span("train.call"):
+            with span("train.stage"):
+                stage(self.idx[:k],
+                      idx if isinstance(idx, torch.Tensor) else np.asarray(idx, np.int64))
+                if self.train:
+                    self.step.optimizer.stage_scalars(self.state.opt.step, self.scal[:k])
+                self.k.zero_()
+            for off in offsets:
+                self.generator.manual_seed(step_seed(seed, int(off)))
+                self.graphed()
+            if self.train:
+                self.state.step += k
+                self.state.opt.step += k
+            return self.losses[:k].clone()
 
 
 def _runner_for(cache: dict, key, make: Callable[[], StepRunner], k: int) -> StepRunner:

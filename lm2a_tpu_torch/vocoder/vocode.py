@@ -20,6 +20,7 @@ from lm2a_tpu_torch.core.device import DeviceLike, dtype_from_str, resolve_devic
 from lm2a_tpu_torch.data.schema import normalize_mel_layout
 from lm2a_tpu_torch.models.factory import random_init_
 from lm2a_tpu_torch.utils.audio import write_wav
+from lm2a_tpu_torch.utils.profiling import count, span
 from lm2a_tpu_torch.vocoder.bigvgan import BIGVGAN_22KHZ_80BAND, BigVGANGenerator, VocoderConfig
 from lm2a_tpu_torch.vocoder.convert import load_bigvgan_torch
 
@@ -56,12 +57,19 @@ class Vocoder:
 
     @torch.no_grad()
     def mel_to_wav(self, mel: np.ndarray) -> np.ndarray:
-        """mel (80, T) or (B, 80, T) npz layout -> waveform (B, hop*T)."""
-        mel = np.asarray(mel, dtype=np.float32)
-        if mel.ndim == 2:
-            mel = mel[None]
-        x = torch.as_tensor(mel.transpose(0, 2, 1).copy(), device=self.device)
-        return self.model(x).cpu().numpy()
+        """mel (80, T) or (B, 80, T) npz layout -> waveform (B, hop*T). The
+        call is the span unit ``vocode.request``; ``vocode.readback`` is the
+        host's wait for the waveform (``utils.profiling``)."""
+        with span("vocode.request"):
+            mel = np.asarray(mel, dtype=np.float32)
+            if mel.ndim == 2:
+                mel = mel[None]
+            count("host.sync")  # on the card a pageable upload waits for the stream
+            x = torch.as_tensor(mel.transpose(0, 2, 1).copy(), device=self.device)
+            wav = self.model(x)
+            count("host.sync")
+            with span("vocode.readback"):
+                return wav.cpu().numpy()
 
 
 def npz_to_wav(npz_path: str, out_path: str, vocoder: Vocoder) -> Tuple[str, int]:

@@ -1,0 +1,3 @@
+from portbench.metrics._program import span_ms
+
+read = span_ms("sample.request", "sample.finish")

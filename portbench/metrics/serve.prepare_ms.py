@@ -1,0 +1,3 @@
+from portbench.metrics._program import prepare_ms
+
+read = prepare_ms("sample.request")
