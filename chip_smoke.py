@@ -41,6 +41,11 @@ skipped:
    sums in rank order); timed against its plain version, its bound (with the
    MUFU's exp2 floor beside it) and ``F.scaled_dot_product_attention``; and
    the chunked form (head dims 320 and 512, 8 heads) at 2 rows of 6 s;
+   3f. the folded cross-attention core (``fold_core``, one launch over
+   both branches) at the 9 sites with 1 and 8 conditioned rows and the CFG
+   constant, against its plain version and twice for the same bits, timed
+   beside its bound, the exp2 floor, its plain version, the einsum route it
+   replaced and SDPA over the 2H heads;
    3e. ``conv3_fused``'s partial form (tensor parallelism's row-parallel
    conv 2) at the 15 blocks' shards of two ranks, 16 and 2 rows: each
    rank's launch against its plain version and twice for the same bits,
@@ -890,6 +895,99 @@ def phase_attention(timer, device, gen):
     return sums, rows_out
 
 
+def folded_einsum_core(q, k_m, v_m, k_t, v_t, heads: int):
+    """The folded core as PyTorch ops, the route the bf16 serving form took
+    on the card before ``fold_core``: the stacks of K and V, bf16 scores, the
+    divide by a 0-d tensor, an fp32 softmax, the cast back, the P.V einsum."""
+    b, t, c2 = q.shape
+    hd = c2 // (2 * heads)
+    s = k_m.shape[1]
+    q = q.reshape(b, t, 2, heads, hd)
+    k = torch.stack([k_m, k_t], dim=2).reshape(b, s, 2, heads, hd)
+    v = torch.stack([v_m, v_t], dim=2).reshape(b, s, 2, heads, hd)
+    scores = torch.einsum("bqnhd,bknhd->bnhqk", q, k) / model_attention._inv_scale(hd, q)
+    probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    return torch.einsum("bnhqk,bknhd->bqnhd", probs, v).reshape(b, t, c2)
+
+
+def phase_fold_core(timer, device, gen):
+    """3f: the folded cross-attention core (``ops/fold_core.py``, one launch
+    over both branches' 2H heads) at the flagship's 9 sites with 1 and 8
+    conditioned rows (serve's and gen's guided steps) and each site's CFG
+    constant at T = S = 1: against ``fold_core_plain``, two launches for
+    the same bits, timed beside its bound (bytes or tensor operations) and
+    the MUFU's exp2 floor, its plain version, the einsum route it replaced
+    (``folded_einsum_core``) and SDPA over the 2H heads with K and V stacked
+    beforehand (``library_ms``, a yardstick). Returns per-forward sums by
+    rows and per-geometry rows."""
+    from lm2a_tpu_torch.ops import fold_core as fc
+
+    mc = ModelConfig()
+    heads = mc.attn_heads
+    clock = sm_clock_hz()
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    cache, rows_out = {}, []
+
+    def one(b, t, s, c):
+        key = (b, t, s, c)
+        if key in cache:
+            return cache[key]
+        hd = c // heads
+        q = torch.randn((b, t, 2 * c), generator=gen).to(device, torch.bfloat16)
+        kvs = [torch.randn((b, s, c), generator=gen).to(device, torch.bfloat16)
+               for _ in range(4)]
+        name = f"fold_core B={b} T={t} S={s} hd={hd}"
+        got = fc.fold_core(q, *kvs, heads)
+        err = check_close(name, got, fc.fold_core_plain(q, *kvs, heads), TOL["attention"])
+        check_same_bits(name, lambda: fc.fold_core(q, *kvs, heads), got)
+        qh = q.view(b, t, 2 * heads, hd).transpose(1, 2)
+        kh, vh = (torch.cat([x.view(b, s, heads, hd).transpose(1, 2) for x in pair], 1)
+                  for pair in ((kvs[0], kvs[2]), (kvs[1], kvs[3])))
+        plan = fc.fold_core_plan(b, heads, t, s, hd)
+        g = dict(B=b, T=t, S=s, hd=hd, err=err, bn=plan.bn, stages=plan.stages,
+                 split=plan.split,
+                 ms=timer.ms(lambda: fc.fold_core(q, *kvs, heads)),
+                 plain_ms=timer.ms(lambda: fc.fold_core_plain(q, *kvs, heads)),
+                 einsum_ms=timer.ms(lambda: folded_einsum_core(q, *kvs, heads)),
+                 library_ms=timer.ms(lambda: F.scaled_dot_product_attention(qh, kh, vh)))
+        # q read and the output written once, each branch's k and v once, bf16
+        g["nbytes"] = 2.0 * (2 * b * t * 2 * c + 4 * b * s * c)
+        g["ops"] = 4.0 * b * 2 * heads * t * s * hd
+        g["bound_ms"], g["bound_by"] = bound_ms(g["nbytes"], g["ops"], PEAK_BF16)
+        g["exp_floor_ms"] = b * 2 * heads * t * s / (sms * MUFU_PER_CLOCK * clock) * 1e3
+        log(f"[fold_core] B={b:2d} T={t:4d} S={s:4d} hd={hd:3d} (bn {plan.bn}, {plan.stages} "
+            f"stages, split {plan.split}) | err {err:.2e}, same bits twice | ms {g['ms']:.4f} "
+            f"(plain {g['plain_ms']:.4f}, einsum route {g['einsum_ms']:.4f}, SDPA "
+            f"{g['library_ms']:.4f}, bound {g['bound_ms']:.4f} {g['bound_by']}, exp2 floor "
+            f"{g['exp_floor_ms']:.4f})")
+        rows_out.append(g)
+        cache[key] = g
+        return g
+
+    sums = {}
+    sites = attention_sites(mc, MEL_T)
+    for rows in (1, 8):
+        k = dict.fromkeys(("ms", "plain_ms", "einsum_ms", "library_ms", "bound_ms", "ops",
+                           "nbytes", "exp_floor_ms", "err"), 0.0)
+        k["launches"] = 0
+        for _, t, c in sites:  # the conditioned rows, then the CFG constant
+            for g in (one(rows, t, MEL_T, c), one(1, 1, 1, c)):
+                for f in ("ms", "plain_ms", "einsum_ms", "library_ms", "bound_ms", "ops",
+                          "nbytes", "exp_floor_ms"):
+                    k[f] += g[f]
+                k["err"] = max(k["err"], g["err"])
+                k["launches"] += 1
+        k["bound_by"] = ("operations" if k["ops"] / PEAK_BF16 > k["nbytes"] / PEAK_BYTES
+                         else "bytes")
+        sums[f"6s_rows{rows}"] = k
+        log(f"[fold_core] one guided 6 s forward at {rows} conditioned rows ({k['launches']} "
+            f"launches): ms {k['ms']:.4f} (plain {k['plain_ms']:.4f}, einsum route "
+            f"{k['einsum_ms']:.4f}, SDPA {k['library_ms']:.4f}, bound {k['bound_ms']:.4f} "
+            f"{k['bound_by']}, exp2 floor {k['exp_floor_ms']:.4f}); "
+            f"{k['ops'] / k['ms'] / 1e9:.1f} TFLOP/s, {k['bound_ms'] / k['ms']:.1%} of its bound")
+    return sums, rows_out
+
+
 def activation1d(x, alpha, beta):
     """BigVGAN's own PyTorch form of the anti-aliased SnakeBeta
     (``alias_free_torch`` ``Activation1d``: ``UpSample1d(2, 12)``, snake,
@@ -1638,6 +1736,19 @@ def sp_train_launches_per_step(mc: ModelConfig, mel_t: int = MEL_T):
     return {k: v for k, v in out.items() if v}, n
 
 
+def fold_core_launches(mc: ModelConfig, forwards: int = 1, guided: bool = True,
+                       mel_t: int = MEL_T):
+    """``fold_core`` launches of ``forwards`` bf16 serving forwards on the
+    card off the fused route, as a dict to add to their other launches: one
+    a cross-attention site (both branches of the folded core), and one more
+    a site where a guided forward's CFG-unconditional rows take the
+    constant at T = S = 1; none on the fused route."""
+    if mc.fused_attention:
+        return {}
+    sites = v1_attention_sites(mc, mel_t) if mc.arch == "v1" else attention_sites(mc, mel_t)
+    return {"fold_core": len(sites) * (2 if guided else 1) * forwards}
+
+
 def distill_launches_per_step(mc: ModelConfig, mel_t: int = MEL_T):
     """Kernel launches of one ``cli distill`` step: the student's, a train
     step's on the kernel route without the condition drop and dropout (the
@@ -1647,13 +1758,15 @@ def distill_launches_per_step(mc: ModelConfig, mel_t: int = MEL_T):
     student alike), every attention core of the teacher's two forwards
     (guided ones take the doubled batch whole: no CFG constant) and of the
     student's forward launches the attention kernel: both branches of every
-    site, three forwards a step."""
+    site, three forwards a step. Without it the teacher's forwards take the
+    folded core, one ``fold_core`` a site (no CFG constant)."""
     per, _ = train_launches_per_step(mc, mel_t)
     n_blocks = len(resblock_geometries(mc, mel_t))
     per["gn_stats"] += 2 * (2 * n_blocks + 1)
     per["conv3_fused"] += 2 * 2 * n_blocks
     if mc.fused_attention:
         per["attention"] = 3 * 2 * len(attention_sites(mc, mel_t))
+    per.update(fold_core_launches(mc, 2, guided=False, mel_t=mel_t))
     return per
 
 
@@ -2129,6 +2242,7 @@ def run_parallel_sp(work: str, ckpt: str, n_blocks: int, smi: str, device, t: in
 
     os.makedirs(work, exist_ok=True)
     models = load_models(ckpt, device=device)
+    fold = fold_core_launches(models.cfg.model, mel_t=t)
     x0, mf, tf = sp_inputs(models, device, t)
     schedule = make_schedule(models.cfg.diffusion, device=device)
     rec = {"x": [], "t": [], "eps": []}
@@ -2156,7 +2270,7 @@ def run_parallel_sp(work: str, ckpt: str, n_blocks: int, smi: str, device, t: in
              t=t, steps=steps, reference=reference) for r in range(SP_RANKS)])
     got = torch.from_numpy(np.load(os.path.join(work, "sp_0.json.out.npy")))
     err = rel_l2(got, want)
-    per_fwd = {"gn_stats": 2 * n_blocks + 1, "conv3_fused": 2 * n_blocks}
+    per_fwd = {"gn_stats": 2 * n_blocks + 1, "conv3_fused": 2 * n_blocks, **fold}
     expected = {k: v * steps for k, v in per_fwd.items()}
     for r, rr in enumerate(res):
         c = rr["census"]["collectives"]
@@ -2473,13 +2587,15 @@ def tp_rank_arch(cfg: LM2AConfig, mesh, dev, batch) -> dict:
 def tp_chain_launches(mc: ModelConfig):
     """Kernel launches of 4k's TP DDIM chain (``TP_STEPS`` guided forwards
     with the CFG constant), a rank: the flagship's resblock kernels (conv 2
-    in the partial form), or v1's attention cores (both branches of every
-    site, at the constant's (1, 1) and on the conditioned row)."""
+    in the partial form) and folded cores (the rank's heads at a split
+    site), or v1's attention cores (both branches of every site, at the
+    constant's (1, 1) and on the conditioned row)."""
     if mc.arch == "v1":
         return {"attention": 4 * len(v1_attention_sites(mc, MEL_T)) * TP_STEPS}
     n_blocks = len(resblock_geometries(mc, MEL_T))
     return {"gn_stats": (2 * n_blocks + 1) * TP_STEPS, "conv3_fused": n_blocks * TP_STEPS,
-            "conv3_fused_part": n_blocks * TP_STEPS}
+            "conv3_fused_part": n_blocks * TP_STEPS,
+            **fold_core_launches(mc, TP_STEPS)}
 
 
 def run_parallel_tp(work: str, pack: str, smi: str):
@@ -3091,7 +3207,8 @@ def sample_student(ckpt: str, clip_dir: str, out_dir: str, n_blocks: int):
     gens = sorted(os.path.join(out_dir, f) for f in os.listdir(out_dir) if f.endswith("_gen.npz"))
     need(len(gens) == N_CLIPS, f"student sample wrote {gens}")
     check_mels(gens, MEL_T)
-    expected = {"gn_stats": (2 * n_blocks + 1) * 50, "conv3_fused": 2 * n_blocks * 50}
+    expected = {"gn_stats": (2 * n_blocks + 1) * 50, "conv3_fused": 2 * n_blocks * 50,
+                **fold_core_launches(ModelConfig(), 50, guided=False)}
     captures = graphs.captures - captures
     log(f"[distill] cli sample of the student, no flags, {N_CLIPS} clips: {secs:.2f} s; "
         f"{len(rows)} forwards of {sorted(set(rows))} rows run by Python and {captures} CUDA "
@@ -3290,7 +3407,8 @@ def run_val(ckpt: str, clip_dir: str, out_dir: str, n_blocks: int):
     launches = dict(_build.LAUNCHES)
     clips = sorted(f for f in os.listdir(clip_dir) if f.endswith(".npz"))
     expected = {"gn_stats": (2 * n_blocks + 1) * VAL_STEPS * len(clips),
-                "conv3_fused": 2 * n_blocks * VAL_STEPS * len(clips)}
+                "conv3_fused": 2 * n_blocks * VAL_STEPS * len(clips),
+                **fold_core_launches(ModelConfig(), VAL_STEPS * len(clips))}
     need(launches == expected, f"cli val: launches {launches} != expected {expected}")
     avg_txt = open(os.path.join(out_dir, "average_metrics.txt")).read()
     need(f"samples: {len(clips)}" in avg_txt and "seed: 100" in avg_txt,
@@ -3359,7 +3477,8 @@ def run_quality(work: str, pack: str, n_blocks: int):
     need(all(np.isfinite(v).all() for v in vals), f"quality rows not finite: {rows}")
     need(vals[0] != vals[1], f"the second epoch's quality row equals the first's: {rows}")
     per_run = {"gn_stats": (2 * n_blocks + 1) * QUALITY_STEPS,
-               "conv3_fused": 2 * n_blocks * QUALITY_STEPS}
+               "conv3_fused": 2 * n_blocks * QUALITY_STEPS,
+               **fold_core_launches(ModelConfig(), QUALITY_STEPS)}
     for r in runs:
         need(r["launches"] == per_run, f"quality monitor launches {r['launches']} != {per_run}")
     need(len(runs) == QUALITY_EPOCHS, f"quality monitor ran {len(runs)} times")
@@ -4512,7 +4631,8 @@ def run_long_form(models, rng, ddim_steps: int, n_blocks: int):
             models, win_motion, win_lyrics, 60.0, batch_size=8, ddim_steps=n, **kw), 5168,
             # two chains: 8 windows, then 4
             {"gn_stats": 2 * (2 * n_blocks + 1) * ddim_steps,
-             "conv3_fused": 4 * n_blocks * ddim_steps}),
+             "conv3_fused": 4 * n_blocks * ddim_steps,
+             **fold_core_launches(models.cfg.model, 2 * ddim_steps)}),
     }
     out = {}
     for label, (fn, mel_t, expected) in runs.items():
@@ -4710,6 +4830,8 @@ def main(argv=None) -> int:
     # 3c
     attn_sums, report["attention"] = phase_attention(timer, dev, gen)
     report["attention_sums"] = attn_sums
+    # 3f
+    report["fold_core_sums"], report["fold_core"] = phase_fold_core(timer, dev, gen)
     # 3e: conv3_fused's partial form at 4k's shards: the TP step's rows (the
     # kernels line) and the TP sampler's
     per["conv3_fused_part"], report["partial"] = phase_partial(timer, dev, gen, TRAIN_B)
@@ -4757,6 +4879,7 @@ def main(argv=None) -> int:
     n_gn = 2 * n_blocks + 1
     expected = {"gn_stats": n_gn * ddim_steps,
                 "conv3_fused": 2 * n_blocks * ddim_steps,
+                **fold_core_launches(cfg.model, ddim_steps),
                 "snake_sandwich": n_sandwich * len(clips)}
     log(f"[slice] cli sample (DDIM-{ddim_steps}, CFG 2.1, {len(clips)} clips, bf16) "
         f"{sample_s:.2f} s; cli towav ({len(clips)} clips, BIGVGAN_22KHZ_80BAND) "
@@ -4771,6 +4894,7 @@ def main(argv=None) -> int:
     check_serve(replies, MEL_T, BIGVGAN_22KHZ_80BAND.hop)
     serve_expected = {"gn_stats": 3 * n_gn * ddim_steps,
                       "conv3_fused": 3 * 2 * n_blocks * ddim_steps,
+                      **fold_core_launches(cfg.model, 3 * ddim_steps),
                       "snake_sandwich": n_sandwich}
     log(f"[serve] cli serve (DDIM-{ddim_steps}, CFG 2.1, warm-up T={MEL_T}) {serve_s:.2f} s "
         "in all; seconds per request: " + ", ".join(

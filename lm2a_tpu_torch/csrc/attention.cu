@@ -61,6 +61,17 @@
 //    the rank that owns the row, and the owner combines them in rank order
 //    (the same bits on every run, no atomics). The launch plan
 //    (ops/attention.py attention_plan) picks BN, stages and split.
+//
+// The folded cross-attention core (lm2a_fold_core, counted as `fold_core`)
+// runs the same bodies over both branches of a folded CrossAttentionFusion
+// in one launch: 2H heads, where heads [0, H) read the motion branch's K and
+// V and heads [H, 2H) the text branch's, each branch's projections read in
+// place through a pair of maps of its own; Q is the merged projection's
+// (B, T, 2H*hd) rows and O is written into such rows. It replaces no Pallas
+// kernel: the JAX package leaves the folded core to XLA's fusion of einsum,
+// softmax and einsum. Its own kernels (fold_core_kernel,
+// fold_core_chunked_kernel) keep the fused route's SASS and kernel names as
+// they were.
 
 #include <cooperative_groups.h>
 #include <cuda.h>  // CUtensorMap and the driver's enums; the entry point comes at run time
@@ -89,6 +100,25 @@ struct AttnArgs {
   int split;                   // cluster blocks along x that split the key tiles
   int stages;                  // ring depth
   int qperm[3], kperm[3], vperm[3];  // the tensor maps' order of (t, h, b)
+};
+
+// The folded form's heads: 2H in the grid, `heads` (H) a branch; a window
+// map's Q channels of branch 1 start `q_branch` channels into the row (a
+// multiple of 8), its output `o_branch` elements after branch 0's
+struct FoldArgs {
+  int heads;
+  int q_branch;
+  long long o_branch;
+};
+
+// Where a block's head lies: the maps it reads, its index in the Q map and
+// in the K/V maps (0 for a window map), the first channel of its tiles in
+// each, its offset into its tiles (a window's, else 0), its batch and its
+// output at row 0
+struct HeadAt {
+  const CUtensorMap *q, *k, *v;
+  int qh, kh, qc, kc, hoff, b;
+  bf16* o;
 };
 
 // HDQ: the channels of a Q and a K tile row (16, 32, 64, 128, 192 or 256);
@@ -155,12 +185,10 @@ __device__ __forceinline__ float mask_key(float s, int key, int S) {
 
 // EXACT: a per-head map and hd == HDQ (the flagship's 32, 64 and 128, and
 // 16): hd, the scale and the stores are compile-time and Q needs no mask,
-// the code of the kernel before it took other head dims
+// the code of the kernel before it took other head dims. The body of
+// attention_kernel and fold_core_kernel, which differ in where a head lies.
 template <int HDQ, int BN, bool EXACT>
-__global__ void __launch_bounds__(NTHREADS, 1)
-    attention_kernel(const __grid_constant__ CUtensorMap qmap,
-                     const __grid_constant__ CUtensorMap kmap,
-                     const __grid_constant__ CUtensorMap vmap, const AttnArgs p) {
+__device__ __forceinline__ void attention_body(const HeadAt& at, const AttnArgs& p) {
   using G = Geo<HDQ, BN>;
   constexpr int HDV = G::HDV, ROWB = G::ROWB;
   extern __shared__ uint8_t smem_raw[];
@@ -177,14 +205,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   // the warpgroup, warp-uniform as ptxas can see (else it serializes wgmma)
   const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
   const int split = p.split, stages = p.stages, hd = EXACT ? HDQ : p.hd;
-  const bool window = !EXACT && p.window;
   const int rank = (int)(blockIdx.x % split), mtile = (int)(blockIdx.x / split);
-  const int h = (int)blockIdx.y / G::VPARTS, vpart = (int)blockIdx.y % G::VPARTS, b = blockIdx.z;
-  // the maps' head and first channel of this head's tiles: per-head maps
-  // start at the head; a window starts at the 8-channel unit that holds the
-  // head's first channel, the head hoff channels into the tile
-  const int hmap = window ? 0 : h;
-  const int cbase = window ? (h * hd) & ~7 : 0, hoff = window ? (h * hd) & 7 : 0;
+  const int vpart = (int)blockIdx.y % G::VPARTS, b = at.b, hoff = at.hoff;
   const int t0 = mtile * BM;
   const int j_beg = p.tiles * rank / split, n = p.tiles * (rank + 1) / split - j_beg;
 
@@ -206,9 +228,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       sm90::mbar_expect_tx(qbar, G::Q_BYTES);
 #pragma unroll
       for (int hh = 0; hh < G::QBOXES; ++hh)
-        tma_box(sm90::smem_u32(qs) + hh * BM * 128, &qmap, qbar, p.qperm, cbase + hh * G::BOX,
-                t0, hmap, b);
-      const int vc = cbase + vpart * HDV;  // this block's part of V's columns
+        tma_box(sm90::smem_u32(qs) + hh * BM * 128, at.q, qbar, p.qperm, at.qc + hh * G::BOX, t0,
+                at.qh, b);
+      const int vc = at.kc + vpart * HDV;  // this block's part of V's columns
       for (int i = 0; i < n; ++i) {
         const int s = i % stages;
         if (i >= stages) sm90::mbar_wait(empty + s, ((i / stages) & 1) ^ 1);
@@ -217,13 +239,13 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         sm90::mbar_expect_tx(kfull + s, G::K_BYTES);
 #pragma unroll
         for (int hh = 0; hh < G::QBOXES; ++hh)
-          tma_box(kt + hh * BN * 128, &kmap, kfull + s, p.kperm, cbase + hh * G::BOX, key0, hmap,
+          tma_box(kt + hh * BN * 128, at.k, kfull + s, p.kperm, at.kc + hh * G::BOX, key0, at.kh,
                   b);
         sm90::mbar_expect_tx(vfull + s, G::V_BYTES);
 #pragma unroll
         for (int hh = 0; hh < G::VBOXES; ++hh)
-          tma_box(kt + G::K_BYTES + hh * BN * 128, &vmap, vfull + s, p.vperm, vc + hh * G::BOX,
-                  key0, hmap, b);
+          tma_box(kt + G::K_BYTES + hh * BN * 128, at.v, vfull + s, p.vperm, vc + hh * G::BOX,
+                  key0, at.kh, b);
       }
     }
     if (split > 1) {  // the consumers' two cluster barriers of the combine
@@ -389,7 +411,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   // one bf16 at a time
   const int jc = vpart * HDV - hoff;
   const bool whole = EXACT || (hoff == 0 && hd % 8 == 0);
-  bf16* ob = p.o + b * p.o_sb + h * p.o_sh;
+  bf16* ob = at.o;
   if (split == 1) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -482,6 +504,49 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   }
 }
 
+// The maps' head and first channel of a head's tiles: per-head maps start
+// at the head; a window starts at the 8-channel unit that holds the head's
+// first channel, the head hoff channels into the tile
+template <int HDQ, int BN, bool EXACT>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    attention_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap, const AttnArgs p) {
+  const int h = (int)blockIdx.y / Geo<HDQ, BN>::VPARTS, b = blockIdx.z;
+  const int hd = EXACT ? HDQ : p.hd;
+  const bool window = !EXACT && p.window;
+  const int hm = window ? 0 : h, c = window ? (h * hd) & ~7 : 0;
+  attention_body<HDQ, BN, EXACT>(HeadAt{&qmap, &kmap, &vmap, hm, hm, c, c,
+                                        window ? (h * hd) & 7 : 0, b,
+                                        p.o + b * p.o_sb + h * p.o_sh},
+                                 p);
+}
+
+// The folded core: head h of the grid's 2H is head hb of branch br, its K
+// and V in that branch's maps; in a window its Q channels lie q_branch
+// channels further along the row for branch 1, where the head's offset
+// into its tiles is the same as in the branch's K and V (q_branch a
+// multiple of 8)
+template <int HDQ, int BN, bool EXACT>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    fold_core_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap0,
+                     const __grid_constant__ CUtensorMap vmap0,
+                     const __grid_constant__ CUtensorMap kmap1,
+                     const __grid_constant__ CUtensorMap vmap1, const AttnArgs p,
+                     const FoldArgs f) {
+  const int h = (int)blockIdx.y / Geo<HDQ, BN>::VPARTS, b = blockIdx.z;
+  const int br = h >= f.heads ? 1 : 0, hb = h - br * f.heads;
+  const int hd = EXACT ? HDQ : p.hd;
+  const bool window = !EXACT && p.window;
+  const int c = window ? (hb * hd) & ~7 : 0;
+  attention_body<HDQ, BN, EXACT>(
+      HeadAt{&qmap, br ? &kmap1 : &kmap0, br ? &vmap1 : &vmap0, window ? 0 : h,
+             window ? 0 : hb, window ? br * f.q_branch + c : 0, c, window ? (hb * hd) & 7 : 0, b,
+             p.o + b * p.o_sb + br * f.o_branch + hb * p.o_sh},
+      p);
+}
+
 // CHUNKED: a head whose tile passes 256 channels (hd above 256, or hd
 // 249-255 at a window offset). Q and K of 64 or more rows by such a head fit
 // neither the consumers' registers nor a ring of useful depth, so the scores
@@ -502,11 +567,7 @@ struct ChunkGeo {
 };
 
 template <int BN>
-__global__ void __launch_bounds__(NTHREADS, 1)
-    attention_chunked_kernel(const __grid_constant__ CUtensorMap qmap,
-                             const __grid_constant__ CUtensorMap kmap,
-                             const __grid_constant__ CUtensorMap vmap, const AttnArgs p,
-                             const int nc) {
+__device__ __forceinline__ void chunked_body(const HeadAt& at, const AttnArgs& p, const int nc) {
   using G = ChunkGeo<BN>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
@@ -518,9 +579,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
   const int stages = p.stages, hd = p.hd;
   const bool window = p.window;
-  const int h = (int)blockIdx.y / nc, vpart = (int)blockIdx.y % nc, b = blockIdx.z;
-  const int hmap = window ? 0 : h;
-  const int cbase = window ? (h * hd) & ~7 : 0, hoff = window ? (h * hd) & 7 : 0;
+  const int vpart = (int)blockIdx.y % nc, b = at.b, hoff = at.hoff;
   const int t0 = blockIdx.x * BM;
   const int n = p.tiles, items = n * (nc + 1);  // per key tile: nc chunks, then V
 
@@ -545,17 +604,17 @@ __global__ void __launch_bounds__(NTHREADS, 1)
           sm90::mbar_expect_tx(full + s, G::Q_BYTES + G::K_BYTES);
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh) {
-            const int ch = cbase + c * CHUNK + hh * G::BOX;
-            tma_box(st + hh * BM * 128, &qmap, full + s, p.qperm, ch, t0, hmap, b);
-            tma_box(st + G::Q_BYTES + hh * BN * 128, &kmap, full + s, p.kperm, ch, key0, hmap,
-                    b);
+            const int ch = c * CHUNK + hh * G::BOX;
+            tma_box(st + hh * BM * 128, at.q, full + s, p.qperm, at.qc + ch, t0, at.qh, b);
+            tma_box(st + G::Q_BYTES + hh * BN * 128, at.k, full + s, p.kperm, at.kc + ch, key0,
+                    at.kh, b);
           }
         } else {
           sm90::mbar_expect_tx(full + s, G::K_BYTES);
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh)
-            tma_box(st + G::Q_BYTES + hh * BN * 128, &vmap, full + s, p.vperm,
-                    cbase + vpart * CHUNK + hh * G::BOX, key0, hmap, b);
+            tma_box(st + G::Q_BYTES + hh * BN * 128, at.v, full + s, p.vperm,
+                    at.kc + vpart * CHUNK + hh * G::BOX, key0, at.kh, b);
         }
       }
     }
@@ -667,7 +726,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   // column c of this block's O is column c + jc of the head
   const int jc = vpart * CHUNK - hoff;
   const bool whole = hoff == 0 && hd % 8 == 0;
-  bf16* ob = p.o + b * p.o_sb + h * p.o_sh;
+  bf16* ob = at.o;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = t0 + cw * 64 + wrow + 8 * r;
@@ -685,6 +744,38 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       }
     }
   }
+}
+
+template <int BN>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    attention_chunked_kernel(const __grid_constant__ CUtensorMap qmap,
+                             const __grid_constant__ CUtensorMap kmap,
+                             const __grid_constant__ CUtensorMap vmap, const AttnArgs p,
+                             const int nc) {
+  const int h = (int)blockIdx.y / nc, b = blockIdx.z;
+  const int hm = p.window ? 0 : h, c = p.window ? (h * p.hd) & ~7 : 0;
+  chunked_body<BN>(HeadAt{&qmap, &kmap, &vmap, hm, hm, c, c, p.window ? (h * p.hd) & 7 : 0, b,
+                          p.o + b * p.o_sb + h * p.o_sh},
+                   p, nc);
+}
+
+// the folded core's chunked form, its heads as fold_core_kernel's
+template <int BN>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    fold_core_chunked_kernel(const __grid_constant__ CUtensorMap qmap,
+                             const __grid_constant__ CUtensorMap kmap0,
+                             const __grid_constant__ CUtensorMap vmap0,
+                             const __grid_constant__ CUtensorMap kmap1,
+                             const __grid_constant__ CUtensorMap vmap1, const AttnArgs p,
+                             const FoldArgs f, const int nc) {
+  const int h = (int)blockIdx.y / nc, b = blockIdx.z;
+  const int br = h >= f.heads ? 1 : 0, hb = h - br * f.heads;
+  const int c = p.window ? (hb * p.hd) & ~7 : 0;
+  chunked_body<BN>(HeadAt{&qmap, br ? &kmap1 : &kmap0, br ? &vmap1 : &vmap0, p.window ? 0 : h,
+                          p.window ? 0 : hb, p.window ? br * f.q_branch + c : 0, c,
+                          p.window ? (hb * p.hd) & 7 : 0, b,
+                          p.o + b * p.o_sb + br * f.o_branch + hb * p.o_sh},
+                   p, nc);
 }
 
 // ------------------------------------------------------------------ host
@@ -761,14 +852,21 @@ constexpr int ERR_TENSOR_MAP = -1;  // cuTensorMapEncodeTiled refused a view
 constexpr int ERR_REGISTERS = -2;   // the kernel's register budget cannot fund setmaxnreg
 constexpr int ERR_PLAN = -3;        // a launch plan the kernel does not take
 
-template <int HDQ, int BN, bool EXACT>
-int launch(const void* q, const void* k, const void* v, AttnArgs& p, int B, int H,
-           const long long (&st)[9], int smem, cudaStream_t s) {
-  using G = Geo<HDQ, BN>;
-  // less shared memory than the ring (or the combine) takes would overrun it
-  if (smem != G::smem(p.stages)) return ERR_PLAN;
-  auto kern = attention_kernel<HDQ, BN, EXACT>;
-  static int ready = 0;  // 1: attributes set; < 0: the refusal
+// What a launch reads: q as (B, H * branches, T, hd), each branch's k and v
+// as (B, H, S, hd), through element strides (b, h, row) of q, k and v (the
+// branches share k's and v's); the folded form has two branches
+struct Views {
+  const void* q;
+  const void* k[2];
+  const void* v[2];
+  long long st[9];
+  int B, H, branches;
+};
+
+// 1 once the kernel's attributes are set, else the refusal or cudaError_t;
+// `ready` is the kernel's own (0: not yet)
+template <typename Kern>
+int set_up(Kern kern, int& ready) {
   if (ready == 0) {
     cudaFuncAttributes fa;
     cudaError_t e = cudaFuncGetAttributes(&fa, kern);
@@ -784,85 +882,107 @@ int launch(const void* q, const void* k, const void* v, AttnArgs& p, int B, int 
       ready = 1;
     }
   }
-  if (ready < 0) return ready;
-  CUtensorMap qm, km, vm;
-  const int mtiles = (p.T + BM - 1) / BM;
-  // a window: each row's H*hd channels as one head of H*hd (the heads lie
-  // side by side, checked by the entry)
-  const int mhd = p.window ? H * p.hd : p.hd, mh = p.window ? 1 : H;
-  if (!encode(&qm, p.qperm, q, mhd, p.T, mh, B, st[2], st[1], st[0], G::BOX, BM, G::ROWB) ||
-      !encode(&km, p.kperm, k, mhd, p.S, mh, B, st[5], st[4], st[3], G::BOX, BN, G::ROWB) ||
-      !encode(&vm, p.vperm, v, mhd, p.S, mh, B, st[8], st[7], st[6], G::BOX, BN, G::ROWB))
-    return ERR_TENSOR_MAP;
+  return ready;
+}
+
+// the maps of a launch with boxes of `box` channels by BM query rows or bn
+// keys; a window: each row's channels as one head (the heads lie side by
+// side, checked by the entry), Q's row `qwin` channels wide
+bool encode_views(const Views& w, AttnArgs& p, int qwin, int box, int bn, int rowb,
+                  CUtensorMap& qm, CUtensorMap (&km)[2], CUtensorMap (&vm)[2]) {
+  const long long* st = w.st;
+  const int qhd = p.window ? qwin : p.hd, qh = p.window ? 1 : w.H * w.branches;
+  const int khd = p.window ? w.H * p.hd : p.hd, kh = p.window ? 1 : w.H;
+  if (!encode(&qm, p.qperm, w.q, qhd, p.T, qh, w.B, st[2], st[1], st[0], box, BM, rowb))
+    return false;
+  for (int i = 0; i < w.branches; ++i)
+    if (!encode(&km[i], p.kperm, w.k[i], khd, p.S, kh, w.B, st[5], st[4], st[3], box, bn, rowb) ||
+        !encode(&vm[i], p.vperm, w.v[i], khd, p.S, kh, w.B, st[8], st[7], st[6], box, bn, rowb))
+      return false;
+  return true;
+}
+
+// one launch over a cluster of `split` blocks along x
+template <typename... Params, typename... Args>
+int launch_cluster(void (*kern)(Params...), dim3 grid, int split, int smem, cudaStream_t s,
+                   Args... args) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p.split * mtiles, H * G::VPARTS, B);
+  cfg.gridDim = grid;
   cfg.blockDim = dim3(NTHREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = p.split;
+  attr[0].val.clusterDim.x = split;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, kern, qm, km, vm, p);
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kern, args...);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-// the chunked form: BN = 64, no split, grid (mtiles, H * nc, B)
-int launch_chunked(const void* q, const void* k, const void* v, AttnArgs& p, int B, int H,
-                   const long long (&st)[9], int nc, int bn, int smem, cudaStream_t s) {
+template <int HDQ, int BN, bool EXACT>
+int launch(const Views& w, AttnArgs& p, const FoldArgs& f, int smem, cudaStream_t s) {
+  using G = Geo<HDQ, BN>;
+  // less shared memory than the ring (or the combine) takes would overrun it
+  if (smem != G::smem(p.stages)) return ERR_PLAN;
+  static int ready = 0, ready_fold = 0;
+  auto kern = attention_kernel<HDQ, BN, EXACT>;
+  auto fold = fold_core_kernel<HDQ, BN, EXACT>;
+  const int r = w.branches == 1 ? set_up(kern, ready) : set_up(fold, ready_fold);
+  if (r != 1) return r;
+  CUtensorMap qm, km[2], vm[2];
+  if (!encode_views(w, p, (w.branches - 1) * f.q_branch + w.H * p.hd, G::BOX, BN, G::ROWB, qm,
+                    km, vm))
+    return ERR_TENSOR_MAP;
+  const dim3 grid(p.split * ((p.T + BM - 1) / BM), w.H * w.branches * G::VPARTS, w.B);
+  if (w.branches == 1) return launch_cluster(kern, grid, p.split, smem, s, qm, km[0], vm[0], p);
+  return launch_cluster(fold, grid, p.split, smem, s, qm, km[0], vm[0], km[1], vm[1], p, f);
+}
+
+// the chunked form: BN = 64, no split, grid (mtiles, H * branches * nc, B)
+int launch_chunked(const Views& w, AttnArgs& p, const FoldArgs& f, int nc, int bn, int smem,
+                   cudaStream_t s) {
   using G = ChunkGeo<64>;
   if (bn != 64 || p.split != 1 || smem != G::smem(p.stages)) return ERR_PLAN;
+  static int ready = 0, ready_fold = 0;
   auto kern = attention_chunked_kernel<64>;
-  static int ready = 0;  // 1: attributes set; < 0: the refusal
-  if (ready == 0) {
-    cudaFuncAttributes fa;
-    cudaError_t e = cudaFuncGetAttributes(&fa, kern);
-    if (e != cudaSuccess) return (int)e;
-    if (fa.numRegs * NTHREADS < 128 * (REGS_PRODUCER + 2 * REGS_CONSUMER)) {
-      ready = ERR_REGISTERS;
-    } else {
-      e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               232448 - (int)fa.sharedSizeBytes);
-      if (e != cudaSuccess) return (int)e;
-      ready = 1;
-    }
-  }
-  if (ready < 0) return ready;
-  CUtensorMap qm, km, vm;
-  const int mhd = p.window ? H * p.hd : p.hd, mh = p.window ? 1 : H;
-  if (!encode(&qm, p.qperm, q, mhd, p.T, mh, B, st[2], st[1], st[0], G::BOX, BM, G::ROWB) ||
-      !encode(&km, p.kperm, k, mhd, p.S, mh, B, st[5], st[4], st[3], G::BOX, 64, G::ROWB) ||
-      !encode(&vm, p.vperm, v, mhd, p.S, mh, B, st[8], st[7], st[6], G::BOX, 64, G::ROWB))
+  auto fold = fold_core_chunked_kernel<64>;
+  const int r = w.branches == 1 ? set_up(kern, ready) : set_up(fold, ready_fold);
+  if (r != 1) return r;
+  CUtensorMap qm, km[2], vm[2];
+  if (!encode_views(w, p, (w.branches - 1) * f.q_branch + w.H * p.hd, G::BOX, 64, G::ROWB, qm,
+                    km, vm))
     return ERR_TENSOR_MAP;
-  const dim3 grid((p.T + BM - 1) / BM, H * nc, B);
-  kern<<<grid, NTHREADS, smem, s>>>(qm, km, vm, p, nc);
+  const dim3 grid((p.T + BM - 1) / BM, w.H * w.branches * nc, w.B);
+  if (w.branches == 1) {
+    kern<<<grid, NTHREADS, smem, s>>>(qm, km[0], vm[0], p, nc);
+  } else {
+    fold<<<grid, NTHREADS, smem, s>>>(qm, km[0], vm[0], km[1], vm[1], p, f, nc);
+  }
   return (int)cudaGetLastError();
 }
 
 template <int HDQ, bool EXACT>
-int launch_exact(const void* q, const void* k, const void* v, AttnArgs& p, int B, int H,
-                 const long long (&st)[9], int bn, int smem, cudaStream_t s) {
-  if (bn == 64) return launch<HDQ, 64, EXACT>(q, k, v, p, B, H, st, smem, s);
+int launch_exact(const Views& w, AttnArgs& p, const FoldArgs& f, int bn, int smem,
+                 cudaStream_t s) {
+  if (bn == 64) return launch<HDQ, 64, EXACT>(w, p, f, smem, s);
   // above 128 channels only 64-key tiles: S, P, Q and O together fit the
   // consumers' registers there
   if constexpr (HDQ <= 128) {
-    if (bn == 128) return launch<HDQ, 128, EXACT>(q, k, v, p, B, H, st, smem, s);
+    if (bn == 128) return launch<HDQ, 128, EXACT>(w, p, f, smem, s);
   }
   return ERR_PLAN;
 }
 
 template <int HDQ>
-int launch_bn(const void* q, const void* k, const void* v, AttnArgs& p, int B, int H,
-              const long long (&st)[9], int bn, int smem, cudaStream_t s) {
+int launch_bn(const Views& w, AttnArgs& p, const FoldArgs& f, int bn, int smem, cudaStream_t s) {
   if constexpr (HDQ <= 128) {
-    if (!p.window && p.hd == HDQ)
-      return launch_exact<HDQ, true>(q, k, v, p, B, H, st, bn, smem, s);
+    if (!p.window && p.hd == HDQ) return launch_exact<HDQ, true>(w, p, f, bn, smem, s);
   }
-  return launch_exact<HDQ, false>(q, k, v, p, B, H, st, bn, smem, s);
+  return launch_exact<HDQ, false>(w, p, f, bn, smem, s);
 }
 
 // the channels of a Q or K tile row for head dim hd whose heads start
@@ -876,6 +996,50 @@ int tile_channels(int hd, int hoff_max) {
   return (need + CHUNK - 1) / CHUNK * CHUNK;
 }
 
+// both entries: the arguments every launch checks, then the form by hdq.
+// The head stride of q, k, v is hd wherever a window reads them (heads side
+// by side), and `heads` (H a branch) sets the window's offsets.
+int run(const Views& w, AttnArgs& p, const FoldArgs& f, int hdq, int bn, int stages, int split,
+        int smem, cudaStream_t s) {
+  if (p.T < 1 || p.S < 1 || p.hd < 1) return (int)cudaErrorInvalidValue;
+  if (stages < 3 || stages > MAX_STAGES || split < 1 || split > MAX_SPLIT) return ERR_PLAN;
+  // hd off the 8-channel unit: a head's offset h*hd*2 bytes is off the tensor
+  // map's 16-byte unit, so the maps read windows of each row's channels
+  p.window = p.hd % 8 != 0;
+  p.tiles = (p.S + bn - 1) / bn;
+  p.split = split;
+  p.stages = stages;
+  if (split > p.tiles) return ERR_PLAN;
+  int hoff_max = 0;
+  if (p.window) {  // the heads side by side (head stride hd)
+    if (w.st[1] != p.hd || w.st[4] != p.hd || w.st[7] != p.hd) return (int)cudaErrorInvalidValue;
+    for (int hh = 0; hh < w.H && hoff_max < 7; ++hh) hoff_max = max(hoff_max, (hh * p.hd) & 7);
+  }
+  if (hdq != tile_channels(p.hd, hoff_max)) return ERR_PLAN;
+  switch (hdq) {
+    case 16: return launch_bn<16>(w, p, f, bn, smem, s);
+    case 32: return launch_bn<32>(w, p, f, bn, smem, s);
+    case 64: return launch_bn<64>(w, p, f, bn, smem, s);
+    case 128: return launch_bn<128>(w, p, f, bn, smem, s);
+    case 192: return launch_bn<192>(w, p, f, bn, smem, s);
+    case 256: return launch_bn<256>(w, p, f, bn, smem, s);
+    default:  // hd plus its offset in the window above 256
+      return launch_chunked(w, p, f, hdq / CHUNK, bn, smem, s);
+  }
+}
+
+AttnArgs args(void* o, int T, int S, int hd, long long o_sb, long long o_sh, long long o_st) {
+  AttnArgs p;
+  p.o = static_cast<bf16*>(o);
+  p.T = T;
+  p.S = S;
+  p.hd = hd;
+  p.o_sb = o_sb;
+  p.o_sh = o_sh;
+  p.o_st = o_st;
+  return p;
+}
+
 }  // namespace
 
 extern "C" int lm2a_attention(const void* q, const void* k, const void* v, void* o, int B,
@@ -884,39 +1048,31 @@ extern "C" int lm2a_attention(const void* q, const void* k, const void* v, void*
                               long long v_sb, long long v_sh, long long v_st, long long o_sb,
                               long long o_sh, long long o_st, int hdq, int bn, int stages,
                               int split, int smem, void* stream) {
-  if (T < 1 || S < 1 || hd < 1) return (int)cudaErrorInvalidValue;
-  if (stages < 3 || stages > MAX_STAGES || split < 1 || split > MAX_SPLIT) return ERR_PLAN;
-  AttnArgs p;
-  p.o = static_cast<bf16*>(o);
-  p.T = T;
-  p.S = S;
-  p.hd = hd;
-  // hd off the 8-channel unit: a head's offset h*hd*2 bytes is off the tensor
-  // map's 16-byte unit, so the maps read windows of each row's channels
-  p.window = hd % 8 != 0;
-  p.o_sb = o_sb;
-  p.o_sh = o_sh;
-  p.o_st = o_st;
-  p.tiles = (S + bn - 1) / bn;
-  p.split = split;
-  p.stages = stages;
-  if (split > p.tiles) return ERR_PLAN;
-  const long long st[9] = {q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int hoff_max = 0;
-  if (p.window) {  // the heads side by side (head stride hd)
-    if (q_sh != hd || k_sh != hd || v_sh != hd) return (int)cudaErrorInvalidValue;
-    for (int hh = 0; hh < H && hoff_max < 7; ++hh) hoff_max = max(hoff_max, (hh * hd) & 7);
-  }
-  if (hdq != tile_channels(hd, hoff_max)) return ERR_PLAN;
-  switch (hdq) {
-    case 16: return launch_bn<16>(q, k, v, p, B, H, st, bn, smem, s);
-    case 32: return launch_bn<32>(q, k, v, p, B, H, st, bn, smem, s);
-    case 64: return launch_bn<64>(q, k, v, p, B, H, st, bn, smem, s);
-    case 128: return launch_bn<128>(q, k, v, p, B, H, st, bn, smem, s);
-    case 192: return launch_bn<192>(q, k, v, p, B, H, st, bn, smem, s);
-    case 256: return launch_bn<256>(q, k, v, p, B, H, st, bn, smem, s);
-    default:  // hd plus its offset in the window above 256
-      return launch_chunked(q, k, v, p, B, H, st, hdq / CHUNK, bn, smem, s);
-  }
+  const Views w = {q, {k, nullptr}, {v, nullptr},
+                   {q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st}, B, H, 1};
+  AttnArgs p = args(o, T, S, hd, o_sb, o_sh, o_st);
+  return run(w, p, FoldArgs{H, 0, 0}, hdq, bn, stages, split, smem,
+             static_cast<cudaStream_t>(stream));
+}
+
+// The folded core: q (B, T, 2C) rows, branch 1's channels q_branch into the
+// row (C unless the wrapper padded the rows); k0, v0 (motion) and k1, v1
+// (text) (B, S, C) rows of H heads of hd side by side; o (B, T, 2C) rows,
+// branch 1 o_branch elements into the row. Row and batch strides in
+// elements; every head stride is hd.
+extern "C" int lm2a_fold_core(const void* q, const void* k0, const void* v0, const void* k1,
+                              const void* v1, void* o, int B, int H, int T, int S, int hd,
+                              long long q_sb, long long q_st, long long k_sb, long long k_st,
+                              long long v_sb, long long v_st, long long o_sb, long long o_st,
+                              int q_branch, int o_branch, int hdq, int bn, int stages, int split,
+                              int smem, void* stream) {
+  // per-head maps read Q's 2H heads at a stride of hd, so branch 1 follows
+  // branch 0; a window's branch base is on the 8-channel unit
+  if (H < 1 || (hd % 8 == 0 ? q_branch != H * hd : q_branch % 8 != 0 || q_branch < H * hd))
+    return (int)cudaErrorInvalidValue;
+  const Views w = {q, {k0, k1}, {v0, v1},
+                   {q_sb, hd, q_st, k_sb, hd, k_st, v_sb, hd, v_st}, B, H, 2};
+  AttnArgs p = args(o, T, S, hd, o_sb, hd, o_st);
+  return run(w, p, FoldArgs{H, q_branch, o_branch}, hdq, bn, stages, split, smem,
+             static_cast<cudaStream_t>(stream));
 }

@@ -9,7 +9,12 @@ semantics with explicit q/k/v/out Linear layers (flax names).
 path (same parameters, same math up to float reassociation): one merged
 ``C -> 2C`` Q projection, both branches' cores in one batched product, and
 the per-branch out_proj + concat + fuse_proj collapsed into one matmul whose
-weight products are computed once, in fp32, when the models are loaded.
+weight products are computed once, in fp32, when the models are loaded. On
+the card, for bf16 (the serving form's compute dtype), the core of both
+branches is one launch of ``ops.fold_core.fold_core``, a CUDA kernel that
+reads each branch's K and V projections in place and keeps the scores in
+fp32 registers; on the CPU, and for an fp32 serving form on the card, it is
+the plain einsum + fp32 softmax core.
 
 ``fused=True`` (``ModelConfig.fused_attention``) routes every attention core
 through ``ops.attention.attention_core``, the CUDA kernel on the card (the
@@ -37,12 +42,19 @@ import torch.nn.functional as F
 
 from lm2a_tpu_torch.models.embedding import dense
 from lm2a_tpu_torch.ops.attention import attention_core
+from lm2a_tpu_torch.ops.fold_core import fold_core
 
 
 def _inv_scale(hd: int, like: torch.Tensor) -> torch.Tensor:
     # sqrt(hd) in the activation dtype, as jnp.sqrt(asarray(hd, q.dtype)); made
     # on the device (no host copy, so a CUDA graph can capture it)
     return torch.full((), float(hd), dtype=like.dtype, device=like.device).sqrt()
+
+
+def fold_kernel_route(x: torch.Tensor) -> bool:
+    """Whether the folded core runs the ``fold_core`` kernel: bf16 on the
+    card; the einsum core elsewhere."""
+    return x.device.type == "cuda" and x.dtype == torch.bfloat16
 
 
 class MultiheadAttention(nn.Module):
@@ -145,19 +157,23 @@ class CrossAttentionFusion(nn.Module):
         hd = self.mel_dim // self.num_heads
         h = f["wq"].shape[0] // (2 * hd)
         b, t = mel_hidden.shape[:2]
-        q = F.linear(mel_hidden.to(dt), f["wq"], f["bq"]).reshape(b, t, 2, h, hd)
+        q = F.linear(mel_hidden.to(dt), f["wq"], f["bq"])
         ks, vs = [], []
         for kv_proj, attn, cond in ((self.motion_kv_proj, self.attn_motion, motion_f),
                                     (self.text_kv_proj, self.attn_text, text_f)):
             kv = kv_proj(cond.to(dt))
             ks.append(attn.k_proj(kv))
             vs.append(attn.v_proj(kv))
-        s = ks[0].shape[1]
-        k = torch.stack(ks, dim=2).reshape(b, s, 2, h, hd)
-        v = torch.stack(vs, dim=2).reshape(b, s, 2, h, hd)
-        scores = torch.einsum("bqnhd,bknhd->bnhqk", q, k) / _inv_scale(hd, q)
-        probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
-        core = torch.einsum("bnhqk,bknhd->bqnhd", probs, v).reshape(b, t, 2 * h * hd)
+        if fold_kernel_route(q):
+            core = fold_core(q, ks[0], vs[0], ks[1], vs[1], h)
+        else:
+            q = q.reshape(b, t, 2, h, hd)
+            s = ks[0].shape[1]
+            k = torch.stack(ks, dim=2).reshape(b, s, 2, h, hd)
+            v = torch.stack(vs, dim=2).reshape(b, s, 2, h, hd)
+            scores = torch.einsum("bqnhd,bknhd->bnhqk", q, k) / _inv_scale(hd, q)
+            probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+            core = torch.einsum("bnhqk,bknhd->bqnhd", probs, v).reshape(b, t, 2 * h * hd)
         return F.linear(core, f["w_out"], None if partial else f["b_out"])
 
     def forward(self, mel_hidden, motion_f, text_f, dtype=None):

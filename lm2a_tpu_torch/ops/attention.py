@@ -155,9 +155,11 @@ def attention_smem(hdq: int, bn: int, stages: int) -> int:
     return _ALIGN + BM * hdq * 2 + max(ring, combine)
 
 
-def attention_candidates(b: int, h: int, t: int, s: int, hd: int):
+def attention_candidates(b: int, h: int, t: int, s: int, hd: int, branches: int = 1):
     """Every launch of the kernel for this call that fits the card, as
-    (modeled microseconds, AttentionPlan), in a fixed order."""
+    (modeled microseconds, AttentionPlan), in a fixed order. ``branches``:
+    the folded core's launch (``ops/fold_core.py``), ``h`` heads a branch
+    (they set the tiles) and the grid over ``branches * h`` heads."""
     hdq, _ = head_tile(hd, h)
     vparts = -(-hdq // v_channels(hdq))
     mtiles = -(-t // BM)
@@ -183,7 +185,7 @@ def attention_candidates(b: int, h: int, t: int, s: int, hd: int):
                 per_block *= hdq / key
             if split > 1:
                 per_block += COMBINE_US + COMBINE_US_PER_HD * v_channels(hdq)
-            waves = -(-plan.blocks(b, h) // WAVE_BLOCKS[split])
+            waves = -(-plan.blocks(b, h * branches) // WAVE_BLOCKS[split])
             out.append((waves * per_block, plan))
     return out
 

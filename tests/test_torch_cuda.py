@@ -43,7 +43,14 @@ warps a block, a view one frame off the 16-byte grid, a steep snake (large
 plan's resident blocks against the occupancy calculator, ``SnakeAlias``
 launching no ``exp``, the same bits twice; and every C entry's refusal of
 a launch plan that is not its own (``conv3_fused``, ``conv3_wgrad``,
-``gn_stats``, ``gn_bwd``, the sandwich), with nothing launched. For the
+``gn_stats``, ``gn_bwd``, the sandwich), with nothing launched. The folded
+cross-attention core (``ops/fold_core.py``, one launch over both branches'
+2H heads) against ``fold_core_plain`` at the flagship's sites at 1 and 8
+rows, T = S = 1, S past 1024, a tensor-parallel rank's 1 and 3 heads, v1's
+hd 96 and 192, windows, padded rows and the chunked form, the same bits as
+the attention kernel over stacked K and V where the plans agree; the whole
+bf16 folded ``CrossAttentionFusion`` on the card against the CPU's; a
+captured flagship step's 18 ``fold_core`` launches. For the
 compiled steps (CUDA graph replays): a cached DDIM chain (the default
 attention route) and a cached DDPM chain (the fused route) at base width 64,
 and two calls of K = 2 device-resident train steps at base width 128,
@@ -962,6 +969,147 @@ def test_attention_refuses_a_plan_it_does_not_take(dev, monkeypatch):
     assert not _build.LAUNCHES
 
 
+# ---------------------------------------------------------------- the folded core
+
+# the fused route's bf16 tolerance against the JAX package's bf16 route
+# (``BF16_TOL`` of tests/test_torch_attention.py: two bf16 ulps, and 2^-8
+# absolute for the rounding of p before the normalisation)
+FOLD_TOL = dict(atol=2.0 ** -8, rtol=2.0 ** -7)
+
+
+def _fold_inputs(dev, b, h, t, s, hd, seed):
+    """bf16 q (B, T, 2C) and k_m, v_m, k_t, v_t (B, S, C), C = h * hd."""
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn((b, t, 2 * h * hd), generator=gen).to(dev, torch.bfloat16)
+    return q, [torch.randn((b, s, h * hd), generator=gen).to(dev, torch.bfloat16)
+               for _ in range(4)]
+
+
+def _flagship_fold_sites():
+    mc = chip_smoke.ModelConfig()
+    return sorted({(t, c // mc.attn_heads)
+                   for _, t, c in chip_smoke.attention_sites(mc, chip_smoke.MEL_T)})
+
+
+# the flagship's site geometries at serve's 1 and gen's 8 conditioned rows,
+# the CFG constant, keys past 1024, the partial form's 1 and 3 heads of one
+# rank, v1's hd 96 and 192, window maps (hd 4 at rows on the 16-byte unit,
+# hd 3 at rows padded to it) and the chunked form
+FOLD_CASES = ([(b, 8, t, chip_smoke.MEL_T, hd) for t, hd in _flagship_fold_sites()
+               for b in (1, 8)]
+              + [(1, 8, 1, 1, hd) for hd in (32, 64, 128)] + [(1, 8, 200, 2000, 32)]
+              + [(b, h, t, chip_smoke.MEL_T, hd) for h in (1, 3) for b in (1, 8)
+                 for t, hd in ((258, 64), (129, 128))]
+              + [(2, 8, 258, chip_smoke.MEL_T, 96), (2, 8, 129, chip_smoke.MEL_T, 192)]
+              + [(2, 8, 37, 129, 4), (2, 4, 37, 129, 3), (2, 2, 65, 129, 320)])
+
+
+@pytest.mark.parametrize("b,h,t,s,hd", FOLD_CASES,
+                         ids=[f"B{c[0]}-H{c[1]}-T{c[2]}-S{c[3]}-hd{c[4]}" for c in FOLD_CASES])
+def test_fold_core_matches_plain(dev, b, h, t, s, hd):
+    """One launch over both branches against ``fold_core_plain`` (the same
+    arithmetic over the same 2H heads), the same bits from two launches,
+    and, where the plans agree, the same bits as the attention kernel over
+    the branches' K and V stacked."""
+    from lm2a_tpu_torch.ops import fold_core as fc
+
+    q, kvs = _fold_inputs(dev, b, h, t, s, hd, seed=7 * b + h + t + hd)
+    _build.reset_launches()
+    got = fc.fold_core(q, *kvs, h)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {"fold_core": 1}
+    assert got.shape == q.shape and got.is_contiguous()
+    _close(got, fc.fold_core_plain(q, *kvs, h), TOL["attention"])
+    assert torch.equal(got, fc.fold_core(q, *kvs, h))
+    if hd % 8 == 0 and fc.fold_core_plan(b, h, t, s, hd) == att.attention_plan(b, 2 * h, t, s, hd):
+        heads = [x.view(b, x.shape[1], -1, hd).transpose(1, 2) for x in (q, *kvs)]
+        k, v = torch.cat([heads[1], heads[3]], 1), torch.cat([heads[2], heads[4]], 1)
+        same = att.attention_core(heads[0], k, v).transpose(1, 2).reshape(q.shape)
+        assert torch.equal(got, same)
+
+
+def test_fold_core_refuses_what_it_cannot_take(dev, monkeypatch):
+    from lm2a_tpu_torch.ops import fold_core as fc
+
+    q, kvs = _fold_inputs(dev, 1, 2, 16, 100, 32, seed=1)
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="bf16"):
+        fc.fold_core(q.float(), *kvs, 2)
+    with pytest.raises(ValueError, match="two branches"):
+        fc.fold_core(q, *kvs, 3)
+    plan = fc.fold_core_plan(1, 2, 16, 100, 32)
+    for bad in (dataclasses.replace(plan, split=plan.tiles + 1),
+                dataclasses.replace(plan, smem=plan.smem - 1024)):
+        monkeypatch.setattr(fc, "fold_core_plan", lambda *a, bad=bad: bad)
+        with pytest.raises(RuntimeError, match="launch plan"):
+            fc.fold_core(q, *kvs, 2)
+    assert not _build.LAUNCHES
+
+
+@pytest.mark.parametrize("rows,t,s,mel_dim", [(8, 516, 516, 256), (1, 258, 516, 512),
+                                              (8, 64, 516, 1024), (1, 1, 1, 1024)])
+def test_folded_fusion_on_the_card_matches_the_cpu(dev, rows, t, s, mel_dim):
+    """The whole bf16 folded ``CrossAttentionFusion`` forward on the card
+    (merged Q projection, both branches' K/V projections, the kernel, the
+    folded out·fuse product) against the CPU's plain folded form on the same
+    bf16 weights and inputs."""
+    import copy
+
+    from lm2a_tpu_torch.models.attention import CrossAttentionFusion
+
+    torch.manual_seed(mel_dim + t)
+    cpu = CrossAttentionFusion(mel_dim, cond_dim=128, num_heads=8)
+    cpu.fold(torch.bfloat16)
+    cpu = cpu.to(torch.bfloat16).eval()
+    card = copy.deepcopy(cpu).to(dev)
+    card.folded = {k: v.to(dev) for k, v in cpu.folded.items()}
+    gen = torch.Generator().manual_seed(t + s)
+    x = torch.randn((rows, t, mel_dim), generator=gen).bfloat16()
+    mot, txt = (torch.randn((rows, s, 128), generator=gen).bfloat16() for _ in range(2))
+    _build.reset_launches()
+    with torch.no_grad():
+        got = card(x.to(dev), mot.to(dev), txt.to(dev)).cpu()
+        want = cpu(x, mot, txt)
+    assert _build.LAUNCHES == {"fold_core": 1}
+    _close(got, want, FOLD_TOL)
+
+
+def test_graphed_flagship_step_runs_the_folded_core(dev):
+    """One guided flagship forward (2 rows, the first CFG-unconditional)
+    captured in a CUDA graph: the capture's record holds 18 ``fold_core``
+    launches (9 sites, each with its CFG constant) and no ``attention``, a
+    replay counts them, and its output is the eager warm-up's, bit for bit."""
+    from lm2a_tpu_torch.core import graphs
+    from lm2a_tpu_torch.core.config import ModelConfig
+    from lm2a_tpu_torch.models.factory import build_denoiser, random_init_
+
+    mc = ModelConfig()
+    unet = random_init_(build_denoiser(mc), 3).to(dev).eval()
+    unet = unet.requires_grad_(False).prepare(torch.bfloat16)
+    gen = torch.Generator().manual_seed(2)
+    t = chip_smoke.MEL_T
+    x = torch.randn((2, t, 80), generator=gen).to(dev)
+    m, l = (torch.randn((2, t, 128), generator=gen).to(dev, torch.bfloat16) for _ in range(2))
+    tt = torch.tensor([500, 500], device=dev)
+    outs = []
+
+    def fwd():
+        with torch.no_grad():
+            outs.append(unet(x, tt, m, l, uncond_rows=1))
+
+    step = graphs.GraphedStep(fwd, device=dev)
+    step()  # the warm-up, eager, then the capture
+    eager = outs[0].clone()
+    assert step.graph is not None
+    assert step.launches["fold_core"] == 18 == chip_smoke.fold_core_launches(mc)["fold_core"]
+    assert "attention" not in step.launches
+    _build.reset_launches()
+    step()
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == step.launches and step.replays == 1
+    assert torch.equal(outs[-1], eager)
+
+
 def _dgrad_case(dev, b, t, cin, cout, seed):
     from lm2a_tpu_torch.ops import resblock_grad as rg
 
@@ -1209,7 +1357,8 @@ def test_sequence_sharded_forward_one_shard_is_the_forward(dev, t):
                                        uncond_rows=1)
     torch.cuda.synchronize()
     n_blocks = len(unet.resblocks())
-    assert _build.LAUNCHES == {"gn_stats": 2 * n_blocks + 1, "conv3_fused": 2 * n_blocks}
+    assert _build.LAUNCHES == {"gn_stats": 2 * n_blocks + 1, "conv3_fused": 2 * n_blocks,
+                               **chip_smoke.fold_core_launches(ModelConfig(base_dim=64), mel_t=t)}
     rel = float((got - want).norm() / want.norm())
     assert rel <= chip_smoke.UNET_REL_L2, rel
 
@@ -1474,7 +1623,8 @@ def test_distill_teacher_forward_at_32_rows(dev):
     """The distill teacher's guided serving forward at 2B = 32 rows (B = 16,
     T = 516) at the flagship's depth and a quarter of its width, same bf16
     weights: the card's kernels against the CPU's plain versions within
-    ``chip_smoke.UNET_REL_L2``, with 31 gn_stats and 30 conv3_fused launches."""
+    ``chip_smoke.UNET_REL_L2``, with 31 gn_stats and 30 conv3_fused launches
+    and one folded core a site (the doubled batch whole: no CFG constant)."""
     from lm2a_tpu_torch.diffusion.gaussian import guided_eps
     from lm2a_tpu_torch.training import distill
     from lm2a_tpu_torch.training.train_step import init_train_state
@@ -1500,8 +1650,9 @@ def test_distill_teacher_forward_at_32_rows(dev):
         assert rows == [chip_smoke.DISTILL_ROWS]
         launches = dict(_build.LAUNCHES)
     n_blocks = len(chip_smoke.resblock_geometries(cfg.model, t))
-    assert launches == {"gn_stats": 2 * n_blocks + 1, "conv3_fused": 2 * n_blocks} == {
-        "gn_stats": 31, "conv3_fused": 30}
+    assert launches == {"gn_stats": 2 * n_blocks + 1, "conv3_fused": 2 * n_blocks,
+                        **chip_smoke.fold_core_launches(cfg.model, guided=False, mel_t=t)} == {
+        "gn_stats": 31, "conv3_fused": 30, "fold_core": 9}
     assert eps["cuda"].shape == (b, t, 80) and torch.isfinite(eps["cuda"]).all()
     assert chip_smoke.rel_l2(eps["cuda"], eps["cpu"]) <= chip_smoke.UNET_REL_L2
 
